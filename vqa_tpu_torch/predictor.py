@@ -1,0 +1,139 @@
+"""Inference API, the port of ``vqa_tpu/predictor.py``.
+
+    from vqa_tpu_torch.predictor import Predictor
+    p = Predictor.from_run("logs/vqa2/mutan_att", "options/vqa2/mutan_att.yaml",
+                           params="exported/params.npz", device="cuda")
+    answers = p.answer("What color is the cat?", "COCO_val2014_000000000042")
+    # -> [(answer, prob), ...] top-k
+
+The weights come from a '/'-keyed npz (``python -m vqa_tpu.cli.export
+--params external`` of a trained run, or ``vqa_tpu.importers.save_tree_npz``):
+the port cannot read Orbax checkpoints, which need jax. ``from_run`` reads the
+run's options YAML and its VQA dataset (yaml, h5py); ``Predictor(...)`` builds
+from in-memory parts and needs neither.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import types
+from typing import List, Mapping, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from vqa_tpu_torch.datasets.processed import encode_question_batch
+from vqa_tpu_torch.datasets.tokenizer import get_tokenizer
+from vqa_tpu_torch.models.factory import factory as model_factory
+from vqa_tpu_torch.ops.gather import gather_rows
+from vqa_tpu_torch.utils.decode import topk_answers
+from vqa_tpu_torch.weights import load_params
+
+
+@dataclasses.dataclass
+class Catalog:
+    """The host-side lookups answering needs: the word vocabulary, the
+    answer list and the image-name -> table-row map. ``num_answers`` and
+    ``split.image_names`` are what ``cli.serve.AnswerService`` reads
+    from ``predictor.dataset``."""
+
+    word_to_wid: Mapping[str, int]
+    aid_to_ans: Sequence[str]
+    image_rows: Mapping[str, int]
+
+    @property
+    def num_answers(self) -> int:
+        return len(self.aid_to_ans)
+
+    @property
+    def split(self):
+        return types.SimpleNamespace(image_names=list(self.image_rows))
+
+    def index_of(self, names: Sequence[str]) -> np.ndarray:
+        try:
+            return np.asarray([self.image_rows[n] for n in names], dtype=np.int64)
+        except KeyError as e:
+            raise KeyError(f"image {e.args[0]!r} missing from the feature table") from None
+
+
+class Predictor:
+    """Answers questions about images of ``table`` [N, R, D], which may live
+    on the host (rows are gathered there, then uploaded) or on the model's
+    device (gathered there by the kernel)."""
+
+    def __init__(self, model, catalog: Catalog, table: torch.Tensor, maxlength: int = 26,
+                 pad: str = "right", nlp: str = "mcb"):
+        self.model = model.eval()
+        self.dataset = catalog
+        self.table = table
+        self.maxlength = maxlength
+        self.pad = pad
+        self._tok = get_tokenizer(nlp)
+        self.device = next(model.parameters()).device
+
+    @classmethod
+    def from_run(
+        cls,
+        dir_logs: str,
+        path_opt: Optional[str] = None,
+        params: Optional[str] = None,
+        overrides: Optional[List[str]] = None,
+        device="cpu",
+    ) -> "Predictor":
+        """Load a run's config, val vocabulary and feature table, and the
+        weights from the ``params`` npz (default: the config's
+        ``model.pretrained_params``). With no ``path_opt`` the run's own
+        options.yaml is used. The model computes in bf16 on CUDA (the
+        kernels take bf16) and in the config's ``engine.dtype`` elsewhere."""
+        import json
+        import os
+
+        from vqa_tpu.config import load_options
+        from vqa_tpu.datasets import factory as dataset_factory
+        from vqa_tpu.datasets.features import feature_paths
+
+        if path_opt is None:
+            path_opt = os.path.join(dir_logs, "options.yaml")
+        opt = load_options(path_opt, overrides, default_path=None)
+        params = params or opt.model.pretrained_params
+        if params is None:
+            raise ValueError(
+                "the port loads weights from an npz, not an Orbax checkpoint: pass "
+                "params= (python -m vqa_tpu.cli.export --params external writes one)"
+            )
+        device = torch.device(device)
+        dtype = torch.bfloat16 if device.type == "cuda" else opt.engine.dtype
+        val_set = dataset_factory("val", opt)
+        model = model_factory(
+            dataclasses.asdict(opt.model), val_set.num_words, val_set.num_answers,
+            dtype=dtype, device=device, dim_v=val_set.feature_shape[-1],
+        )
+        with np.load(params) as flat:
+            load_params(model, flat)
+        _, names_path = feature_paths(opt.coco.dir, opt.coco.arch, opt.coco.mode)
+        with open(names_path) as f:
+            names = json.load(f)
+        image_rows = names if isinstance(names, dict) else {n: i for i, n in enumerate(names)}
+        catalog = Catalog(val_set.vocabs.word_to_wid, val_set.vocabs.aid_to_ans, image_rows)
+        table = torch.from_numpy(val_set.features.as_array())
+        return cls(model, catalog, table, opt.vqa.maxlength, opt.vqa.pad, opt.vqa.nlp)
+
+    def encode_questions(self, questions: Sequence[str]):
+        rows, lengths = encode_question_batch(
+            questions, self._tok, self.dataset.word_to_wid, self.maxlength, self.pad
+        )
+        return (torch.from_numpy(rows).to(self.device),
+                torch.from_numpy(lengths).to(self.device))
+
+    def answer_batch(
+        self, questions: Sequence[str], image_names: Sequence[str], topk: int = 5
+    ) -> List[List[Tuple[str, float]]]:
+        rows = self.dataset.index_of(list(image_names))
+        visual = gather_rows(self.table, rows).to(self.device)
+        q, lengths = self.encode_questions(questions)
+        with torch.inference_mode():
+            logits = self.model(visual, q, lengths)
+        return topk_answers(logits, self.dataset.aid_to_ans, topk)
+
+    def answer(self, question: str, image_name: str, topk: int = 5):
+        return self.answer_batch([question], [image_name], topk)[0]
