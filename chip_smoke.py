@@ -5,17 +5,21 @@
 
 Phases, each printing one line of what it found:
   1. device: refuse to run without a card; print the card's name and power
-     limit; build the kernels from csrc/ (nvcc, sm_90a) and time the build;
-  2. kernels: gather_rows, lstm_seq and glimpse_head against their plain
-     PyTorch versions on the card, at the flagship's eval shapes (batch
-     1024), at its serving shapes (batch 64, questions of 26 tokens) and
-     at odd shapes, with each tolerance stated, and timed (median of
-     CUDA-event timings) beside the plain version;
-  3. eval: the flagship MutanAtt at full width, bf16, random seeded weights,
-     through the port's eval step over a feature table resident on the card
-     (bench.py's synthetic data, batch 1024, the {7, 13, 26} ladder);
-     kernel path held against the plain path; all three kernels launched;
-  4. serve: the port's Predictor behind the port's AnswerService,
+     limit; build the kernels from csrc/ (nvcc, sm_90a, one process per
+     source) and time the build;
+  2. kernels: all six (gather_rows, lstm_seq, glimpse_head, glimpse_attend,
+     mfb_pool, relation_attend) against their plain PyTorch versions on the
+     card, at the eval shapes of the archs that run them (batch 1024), at
+     their serving shapes (batch 64, questions of 26 tokens) and at odd
+     shapes, with each tolerance stated, and timed (median of CUDA-event
+     timings) beside the plain version;
+  3. eval: each arch at the full width of its options/vqa2 YAML (MutanAtt,
+     MFBCoAtt, MFHCoAtt, CoR), bf16, random seeded weights, through the
+     port's eval step over a feature table resident on the card (bench.py's
+     synthetic data, batch 1024, the {7, 13, 26} ladder); kernel path held
+     against the plain path; exactly the kernels of that arch's path
+     launched;
+  4. serve: each arch's Predictor behind the port's AnswerService,
      DynamicBatcher and HTTP server (vqa_tpu_torch.cli.serve); /healthz,
      /answer and an oversized /batch, answers held equal to direct
      Predictor calls and to the plain path's on the same inputs.
@@ -51,8 +55,18 @@ sys.path.insert(0, _REPO)
 # - glimpse_head rounds alpha to bf16 before the weighted sum (as the TPU
 #   kernel did) and its outputs to bf16: |attended| <= max|v| ~ 5 and
 #   |logits| ~ 3 give up to ~0.01 of rounding each.
+# - glimpse_attend (glimpse_head's logits-given entry) rounds alpha and its
+#   output the same way: the same bound;
+# - mfb_pool computes in fp32 and rounds its output once; the rows are unit
+#   vectors, so that rounding is at most 2^-9 * 1 ~ 0.002;
+# - relation_attend computes in fp32 (alpha not rounded) and rounds its
+#   output once; the output is a convex combination of rows of r, and with
+#   r = tanh(.) as on the CoR path |out| <= 1, so rounding is <= 2^-9 ~ 0.002;
+#   0.01 leaves room for the fp32 sums taken in another order over D=1024.
 LSTM_ATOL = 0.05
 GLIMPSE_ATOL = 0.05
+MFB_POOL_ATOL = 2e-3
+RELATION_ATOL = 0.01
 # eval logits, kernel path vs plain bf16 path: the plain path rounds every
 # intermediate to bf16 at other places than the kernels (bf16 matmul output,
 # bf16 gate math), through the LSTM, both MUTAN fusions and the classifier;
@@ -71,6 +85,25 @@ SERVE_BATCH = 64  # the serving CLI's default --max_batch
 N_BATCHES = 8
 N_IMAGES = 1024
 SEQ, REGIONS, DIM = 26, 36, 2048
+
+# each arch: its options/vqa2 config (vqa_tpu_torch.flagship.CONFIGS) and
+# the kernels its path runs
+ARCHS = {
+    "MutanAtt": ("mutan_att", ("gather_rows", "lstm_seq", "glimpse_head")),
+    "MFBCoAtt": ("mfb_coatt", ("gather_rows", "lstm_seq", "glimpse_attend", "mfb_pool",
+                               "glimpse_head")),
+    "MFHCoAtt": ("mfh_coatt", ("gather_rows", "lstm_seq", "glimpse_attend", "mfb_pool",
+                               "glimpse_head")),
+    "CoR": ("cor", ("gather_rows", "lstm_seq", "relation_attend")),
+}
+SOURCES = {  # kernel -> (its CUDA source, the TPU kernel it replaces)
+    "gather_rows": ("vqa_tpu_torch/csrc/gather.cu", "vqa_tpu/ops/gather.py:58"),
+    "lstm_seq": ("vqa_tpu_torch/csrc/lstm.cu", "vqa_tpu/ops/lstm.py:93"),
+    "glimpse_head": ("vqa_tpu_torch/csrc/glimpse_head.cu", "vqa_tpu/ops/attention.py:132"),
+    "glimpse_attend": ("vqa_tpu_torch/csrc/glimpse_head.cu", "vqa_tpu/ops/attention.py:43"),
+    "mfb_pool": ("vqa_tpu_torch/csrc/mfb_pool.cu", "vqa_tpu/ops/mfb_pool.py:47"),
+    "relation_attend": ("vqa_tpu_torch/csrc/relation.cu", "vqa_tpu/ops/relation.py:55"),
+}
 
 
 def _phase(tag: str, **fields) -> None:
@@ -140,8 +173,10 @@ def _check_lstm(torch, dev, rng):
     from vqa_tpu_torch.ops.lstm import lstm_seq, lstm_seq_reference
 
     worst, timing = 0.0, {}
+    # H=2400: MutanAtt; H=1024: MFB/MFH and CoR
     for T, B, H in ((7, BATCH, 2400), (13, BATCH, 2400), (26, BATCH, 2400),
-                    (26, SERVE_BATCH, 2400), (5, 37, 40), (4, 37, 42)):
+                    (26, SERVE_BATCH, 2400), (7, BATCH, 1024), (26, SERVE_BATCH, 1024),
+                    (5, 37, 40), (4, 37, 42)):
         xg, mask, wh = _lstm_inputs(torch, dev, rng, T, B, H)
         h_last, seq = lstm_seq(xg, mask, wh)
         ref_h, ref_seq = lstm_seq_reference(xg.float(), mask.float(), wh.float())
@@ -156,10 +191,10 @@ def _check_lstm(torch, dev, rng):
         worst = max(worst, err)
         line = dict(T=T, B=B, H=H, max_abs_err=round(err, 5), plain_bf16_err=round(plain_err, 5),
                     tol=LSTM_ATOL)
-        if H == 2400:
+        if H in (2400, 1024):
             ms = _median_ms(torch, lambda: lstm_seq(xg, mask, wh), iters=10)
             plain = _median_ms(torch, lambda: lstm_seq_reference(xg, mask, wh), iters=10)
-            timing[f"T{T}_B{B}"] = (ms, plain)
+            timing[f"T{T}_B{B}" + ("" if H == 2400 else f"_H{H}")] = (ms, plain)
             line.update(ms=round(ms, 4), plain_ms=round(plain, 4))
         _phase("lstm_seq", **line)
         del xg, mask, wh, h_last, seq, ref_h, ref_seq, bf16_h, bf16_seq
@@ -173,9 +208,10 @@ def _check_lstm(torch, dev, rng):
 def _check_glimpse(torch, dev, rng):
     from vqa_tpu_torch.ops.attention import glimpse_head, glimpse_head_reference
 
-    worst, timing = 0.0, None
+    worst, timing = 0.0, {}
+    # M=510: MutanAtt; M=512: MFB/MFH (the 512-wide hidden layer)
     for B, R, M, G, D in ((BATCH, REGIONS, 510, 2, DIM), (SERVE_BATCH, REGIONS, 510, 2, DIM),
-                          (37, 36, 45, 2, 72), (5, 7, 33, 3, 75)):
+                          (BATCH, REGIONS, 512, 2, DIM), (37, 36, 45, 2, 72), (5, 7, 33, 3, 75)):
         joint = torch.tanh(torch.randn(B, R, M, device=dev)).to(torch.bfloat16)
         w = (torch.randn(M, G, device=dev) / M ** 0.5).to(torch.bfloat16)
         b = (0.1 * torch.randn(G, device=dev)).to(torch.bfloat16)
@@ -191,22 +227,136 @@ def _check_glimpse(torch, dev, rng):
         if B == BATCH:
             ms = _median_ms(torch, lambda: glimpse_head(joint, w, b, v))
             plain = _median_ms(torch, lambda: glimpse_head_reference(joint, w, b, v))
-            timing = (ms, plain)
+            timing[f"B{B}_M{M}"] = (ms, plain)
             line.update(ms=round(ms, 4), plain_ms=round(plain, 4))
         _phase("glimpse_head", **line)
-    return {"max_abs_err": worst, "ms": timing[0], "plain_ms": timing[1],
-            "shape": "B=1024 R=36 M=510 G=2 D=2048 bf16"}
+    ms, plain = timing[f"B{BATCH}_M510"]
+    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain,
+            "shape": "B=1024 R=36 M=510 G=2 D=2048 bf16",
+            "ms_by_shape": {k: round(v[0], 4) for k, v in timing.items()},
+            "plain_ms_by_shape": {k: round(v[1], 4) for k, v in timing.items()}}
+
+
+def _masked_logits(torch, dev, rng, B, T, G):
+    """Self-attention logits as MFBCoAtt masks them: finfo(bf16).min past
+    each row's length (mixed lengths, a quarter of the rows left-padded),
+    and row 0 fully masked (the empty question)."""
+    logits = torch.randn(B, T, G, device=dev).to(torch.bfloat16)
+    lengths = rng.integers(1, T + 1, B)
+    left = rng.random(B) < 0.25
+    t = np.arange(T)[None, :]
+    valid = np.where(left[:, None], t >= T - lengths[:, None], t < lengths[:, None])
+    valid[0] = False
+    mask = torch.from_numpy(valid[..., None]).to(dev)
+    return logits.masked_fill(~mask, torch.finfo(torch.bfloat16).min)
+
+
+def _check_glimpse_attend(torch, dev, rng):
+    from vqa_tpu_torch.ops.attention import glimpse_attend, glimpse_attend_reference
+
+    worst, timing = 0.0, {}
+    # MFB's question self-attention: B=1024 at each bucket, the serving B=64
+    # at 26 tokens, H=1024, 2 glimpses; then an odd shape
+    for B, T, G, D in ((BATCH, 7, 2, 1024), (BATCH, 13, 2, 1024), (BATCH, 26, 2, 1024),
+                       (SERVE_BATCH, 26, 2, 1024), (5, 9, 3, 75)):
+        logits = _masked_logits(torch, dev, rng, B, T, G)
+        v = torch.randn(B, T, D, device=dev).to(torch.bfloat16)
+        out = glimpse_attend(logits, v)
+        ref = glimpse_attend_reference(logits.float(), v.float())
+        torch.cuda.synchronize()
+        _require(bool(torch.isfinite(out).all()), f"glimpse_attend {(B, T, G, D)} finite")
+        _require(bool(torch.allclose(out[0].float(), v[0].float().mean(0).expand(G, D),
+                                     atol=GLIMPSE_ATOL)),
+                 "a fully masked row gives uniform weights")
+        err = (out.float() - ref).abs().max().item()
+        _require(err <= GLIMPSE_ATOL, f"glimpse_attend {(B, T, G, D)}: err {err} <= {GLIMPSE_ATOL}")
+        worst = max(worst, err)
+        line = dict(B=B, T=T, G=G, D=D, max_abs_err=round(err, 5), tol=GLIMPSE_ATOL)
+        if D == 1024:
+            ms = _median_ms(torch, lambda: glimpse_attend(logits, v))
+            plain = _median_ms(torch, lambda: glimpse_attend_reference(logits, v))
+            timing[f"T{T}_B{B}"] = (ms, plain)
+            line.update(ms=round(ms, 4), plain_ms=round(plain, 4))
+        _phase("glimpse_attend", **line)
+    ms, plain = timing[f"T7_B{BATCH}"]
+    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain,
+            "shape": "B=1024 T=7 G=2 D=1024 bf16, masked rows",
+            "ms_by_shape": {k: round(v[0], 4) for k, v in timing.items()},
+            "plain_ms_by_shape": {k: round(v[1], 4) for k, v in timing.items()}}
+
+
+def _check_mfb_pool(torch, dev, rng):
+    from vqa_tpu_torch.ops.mfb_pool import mfb_pool, mfb_pool_reference
+
+    worst, timing = 0.0, {}
+    # rows: the eval attention call (1024 x 36 regions), serving (64 x 36),
+    # the final fusion (1024); then k=3, m % 8 != 0 and ragged row counts
+    for n, k, m in ((BATCH * REGIONS, 5, 1000), (SERVE_BATCH * REGIONS, 5, 1000),
+                    (BATCH, 5, 1000), (131, 3, 33), (37, 5, 1001), (9, 3, 8)):
+        z = torch.randn(n, k * m, device=dev).to(torch.bfloat16)
+        out = mfb_pool(z, k)
+        ref = mfb_pool_reference(z.float(), k)
+        torch.cuda.synchronize()
+        err = (out.float() - ref).abs().max().item()
+        _require(err <= MFB_POOL_ATOL, f"mfb_pool {(n, k, m)}: err {err} <= {MFB_POOL_ATOL}")
+        worst = max(worst, err)
+        line = dict(n=n, k=k, m=m, max_abs_err=round(err, 6), tol=MFB_POOL_ATOL)
+        if m == 1000:
+            ms = _median_ms(torch, lambda: mfb_pool(z, k))
+            plain = _median_ms(torch, lambda: mfb_pool_reference(z, k))
+            timing[f"n{n}"] = (ms, plain)
+            line.update(ms=round(ms, 4), plain_ms=round(plain, 4))
+        _phase("mfb_pool", **line)
+        del z, out, ref
+    ms, plain = timing[f"n{BATCH * REGIONS}"]
+    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain,
+            "shape": "z 36864x5000 -> 36864x1000 bf16, k=5",
+            "ms_by_shape": {k: round(v[0], 4) for k, v in timing.items()},
+            "plain_ms_by_shape": {k: round(v[1], 4) for k, v in timing.items()}}
+
+
+def _check_relation(torch, dev, rng):
+    from vqa_tpu_torch.ops.relation import relation_attend, relation_attend_reference
+
+    worst, timing = 0.0, {}
+    # CoR at the eval and the serving batch; then odd shapes
+    for B, N, D in ((BATCH, REGIONS, 1024), (SERVE_BATCH, REGIONS, 1024), (5, 7, 33),
+                    (3, 36, 40)):
+        pg = torch.tanh(torch.randn(B, N, D, device=dev)).to(torch.bfloat16)
+        r = torch.tanh(torch.randn(B, N, D, device=dev)).to(torch.bfloat16)
+        out = relation_attend(pg, r)
+        ref = relation_attend_reference(pg.float(), r.float())
+        torch.cuda.synchronize()
+        err = (out.float() - ref).abs().max().item()
+        _require(err <= RELATION_ATOL, f"relation_attend {(B, N, D)}: err {err} <= {RELATION_ATOL}")
+        worst = max(worst, err)
+        line = dict(B=B, N=N, D=D, max_abs_err=round(err, 6), tol=RELATION_ATOL)
+        if D == 1024:
+            ms = _median_ms(torch, lambda: relation_attend(pg, r))
+            plain = _median_ms(torch, lambda: relation_attend_reference(pg, r))
+            timing[f"B{B}"] = (ms, plain)
+            line.update(ms=round(ms, 4), plain_ms=round(plain, 4))
+        _phase("relation_attend", **line)
+    ms, plain = timing[f"B{BATCH}"]
+    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain,
+            "shape": "B=1024 N=36 D=1024 bf16",
+            "ms_by_shape": {k: round(v[0], 4) for k, v in timing.items()},
+            "plain_ms_by_shape": {k: round(v[1], 4) for k, v in timing.items()}}
 
 
 # --------------------------------------------------------------- main path
 
 
 def _counters():
-    from vqa_tpu_torch.ops.attention import glimpse_head
+    from vqa_tpu_torch.ops.attention import glimpse_attend, glimpse_head
     from vqa_tpu_torch.ops.gather import gather_rows
     from vqa_tpu_torch.ops.lstm import lstm_seq
+    from vqa_tpu_torch.ops.mfb_pool import mfb_pool
+    from vqa_tpu_torch.ops.relation import relation_attend
 
-    return {"gather_rows": gather_rows, "lstm_seq": lstm_seq, "glimpse_head": glimpse_head}
+    return {"gather_rows": gather_rows, "lstm_seq": lstm_seq, "glimpse_head": glimpse_head,
+            "glimpse_attend": glimpse_attend, "mfb_pool": mfb_pool,
+            "relation_attend": relation_attend}
 
 
 def _reset_counts() -> None:
@@ -224,23 +374,34 @@ def _plain_ops(torch):
     comparison run only (the port itself always takes the kernel there)."""
     from vqa_tpu_torch import predictor
     from vqa_tpu_torch.engine import steps
-    from vqa_tpu_torch.models import att, seq2vec
-    from vqa_tpu_torch.ops.attention import glimpse_head_reference
+    from vqa_tpu_torch.models import att, cor, fusion, mfb, seq2vec
+    from vqa_tpu_torch.ops.attention import glimpse_attend_reference, glimpse_head_reference
     from vqa_tpu_torch.ops.gather import gather_rows_reference
     from vqa_tpu_torch.ops.lstm import lstm_seq_reference
+    from vqa_tpu_torch.ops.mfb_pool import mfb_pool_reference
+    from vqa_tpu_torch.ops.relation import relation_attend_reference
 
     def plain_gather(table, idx):
         return gather_rows_reference(
             table, torch.as_tensor(np.asarray(idx), dtype=torch.long).to(table.device))
 
-    saved = (seq2vec.lstm_seq, att.glimpse_head, steps.gather_rows, predictor.gather_rows)
-    seq2vec.lstm_seq = lambda xg, mask, wh, train=False: lstm_seq_reference(xg, mask, wh)
-    att.glimpse_head = glimpse_head_reference
-    steps.gather_rows = predictor.gather_rows = plain_gather
+    plain = [  # (module, name of the kernel wrapper it calls, plain version)
+        (seq2vec, "lstm_seq", lambda xg, mask, wh, train=False: lstm_seq_reference(xg, mask, wh)),
+        (att, "glimpse_head", glimpse_head_reference),
+        (steps, "gather_rows", plain_gather),
+        (predictor, "gather_rows", plain_gather),
+        (fusion, "mfb_pool", mfb_pool_reference),
+        (mfb, "glimpse_attend", glimpse_attend_reference),
+        (cor, "relation_attend", relation_attend_reference),
+    ]
+    saved = [getattr(module, name) for module, name, _ in plain]
+    for module, name, fn in plain:
+        setattr(module, name, fn)
     try:
         yield
     finally:
-        seq2vec.lstm_seq, att.glimpse_head, steps.gather_rows, predictor.gather_rows = saved
+        for (module, name, _), fn in zip(plain, saved):
+            setattr(module, name, fn)
 
 
 def _synthetic_eval_arrays(rng: np.random.Generator, n_questions: int):
@@ -256,12 +417,12 @@ def _synthetic_eval_arrays(rng: np.random.Generator, n_questions: int):
     return questions, lengths, image_index, table
 
 
-def _eval_phase(torch, dev, model, features, questions, lengths, image_index):
+def _eval_phase(torch, dev, arch, model, num_answers, kernels, features, questions, lengths,
+                image_index):
     from vqa_tpu_torch.engine import steps
-    from vqa_tpu_torch.flagship import NUM_ANSWERS
 
     n = BATCH * N_BATCHES
-    answers = np.random.default_rng(2).integers(0, NUM_ANSWERS, n).astype(np.int64)
+    answers = np.random.default_rng(2).integers(0, num_answers, n).astype(np.int64)
     answers[::10] = -1  # unlabeled rows
     order = np.argsort(lengths, kind="stable")
     questions, lengths, image_index, answers = (
@@ -292,10 +453,11 @@ def _eval_phase(torch, dev, model, features, questions, lengths, image_index):
     outs = run_pass()
     first_s = time.perf_counter() - t0
     counts = _read_counts()
-    _require(all(c > 0 for c in counts.values()), f"every kernel launched in the eval run: {counts}")
+    _require({k for k, c in counts.items() if c} == set(kernels),
+             f"{arch} eval launched exactly its path's kernels {kernels}: {counts}")
 
     preds = torch.cat([o["pred"] for o in outs]).cpu().numpy()
-    _require(preds.shape == (n,) and ((preds >= 0) & (preds < NUM_ANSWERS)).all(),
+    _require(preds.shape == (n,) and ((preds >= 0) & (preds < num_answers)).all(),
              "pred shape and range")
     tot = {k: sum(int(o[k]) for o in outs) for k in ("n", "n_labeled", "correct1", "correct5")}
     _require(tot["n"] == int(valid.sum()), f"n {tot['n']} == valid rows {int(valid.sum())}")
@@ -313,7 +475,7 @@ def _eval_phase(torch, dev, model, features, questions, lengths, image_index):
     plain_preds = torch.cat([o["pred"] for o in plain_outs]).cpu().numpy()
 
     # logits of both paths, batch by batch
-    worst, sure_rows, sure_agree = 0.0, 0, 0
+    worst, scale, sure_rows, sure_agree = 0.0, 0.0, 0, 0
 
     def logits_of(b):
         return model(steps._resolve_visual(b, features), b["question"]).float()
@@ -323,8 +485,10 @@ def _eval_phase(torch, dev, model, features, questions, lengths, image_index):
             lk = logits_of(b)
             with _plain_ops(torch):
                 lp = logits_of(b)
-            _require(bool(torch.isfinite(lk).all()), "finite logits")
+            _require(bool(torch.isfinite(lk).all()) and lk.shape == (BATCH, num_answers),
+                     f"finite logits of shape ({BATCH}, {num_answers})")
             worst = max(worst, (lk - lp).abs().max().item())
+            scale = max(scale, lp.std().item())
             top2 = torch.topk(lp, 2, dim=-1).values
             sure = ((top2[:, 0] - top2[:, 1]) > 2 * LOGITS_ATOL).cpu().numpy()
             sure_rows += int(sure.sum())
@@ -334,9 +498,11 @@ def _eval_phase(torch, dev, model, features, questions, lengths, image_index):
     _require(sure_agree == sure_rows, f"pred equal wherever the top-2 margin exceeds "
              f"2*{LOGITS_ATOL}: {sure_agree}/{sure_rows}")
     _require(agree >= PRED_AGREE_FLOOR, f"pred agreement {agree} >= {PRED_AGREE_FLOOR}")
-    _phase("eval", batches=N_BATCHES, batch=BATCH, buckets=[b["question"].shape[1] for b in batches],
+    _phase("eval", arch=arch, batches=N_BATCHES, batch=BATCH,
+           buckets=[b["question"].shape[1] for b in batches],
            launches=counts, n=tot["n"], n_labeled=tot["n_labeled"], correct1=tot["correct1"],
            correct5=tot["correct5"], logits_max_abs_err=round(worst, 5), tol=LOGITS_ATOL,
+           logits_std=round(scale, 5),
            pred_agree=round(agree, 5), floor=PRED_AGREE_FLOOR,
            first_pass_s=round(first_s, 4), kernel_pass_s=round(kernel_s, 4),
            plain_pass_s=round(plain_s, 4),
@@ -370,16 +536,16 @@ def _same_answers(got, want) -> bool:
         for g, w in zip(got, want))
 
 
-def _serve_phase(torch, model, features):
+def _serve_phase(torch, arch, model, num_answers, kernels, features):
     from vqa_tpu_torch.cli.serve import AnswerService, DynamicBatcher, build_server
-    from vqa_tpu_torch.flagship import NUM_ANSWERS, NUM_WORDS
+    from vqa_tpu_torch.flagship import NUM_WORDS
     from vqa_tpu_torch.predictor import Catalog, Predictor
 
     max_batch, n_images = SERVE_BATCH, 48
     words = ["<pad>", "<unk>"] + [f"w{i}" for i in range(2, NUM_WORDS)]
     names = [f"COCO_val2014_{i:012d}" for i in range(n_images)]
     catalog = Catalog({w: i for i, w in enumerate(words)},
-                      [f"answer{i}" for i in range(NUM_ANSWERS)],
+                      [f"answer{i}" for i in range(num_answers)],
                       {name: i for i, name in enumerate(names)})
     predictor = Predictor(model, catalog, features[:n_images])
     service = DynamicBatcher(AnswerService(predictor, max_batch=max_batch), max_wait_ms=5)
@@ -420,15 +586,15 @@ def _serve_phase(torch, model, features):
         # the same requests through the plain path, every answer ranked
         with _plain_ops(torch):
             plain = _direct(predictor, [q for q, _, _ in singles] + qs,
-                            [im for _, im, _ in singles] + ims, max_batch, NUM_ANSWERS)
+                            [im for _, im, _ in singles] + ims, max_batch, num_answers)
     finally:
         server.shutdown()
         server.server_close()
         service.shutdown()
         thread.join(timeout=30)
     _require(not thread.is_alive(), "server thread stopped")
-    _require(counts["lstm_seq"] > 0 and counts["glimpse_head"] > 0,
-             f"lstm_seq and glimpse_head launched while serving: {counts}")
+    _require({k for k, c in counts.items() if c} == set(kernels),
+             f"{arch} serving launched exactly its path's kernels {kernels}: {counts}")
     served = [answers for _, _, answers in singles] + got
     worst, sure_rows, sure_agree = 0.0, 0, 0
     for row, ranked in zip(served, plain):
@@ -442,22 +608,38 @@ def _serve_phase(torch, model, features):
              f"plain path's: {worst}")
     _require(sure_agree == sure_rows, f"served top answer equals the plain path's wherever "
              f"its top-2 logits differ by more than 2*{LOGITS_ATOL}: {sure_agree}/{sure_rows}")
-    _phase("serve", requests=5, rows=103, max_batch=max_batch, launches=counts,
+    _phase("serve", arch=arch, requests=5, rows=103, max_batch=max_batch, launches=counts,
            answers_equal_direct=True, prob_max_rel_err_vs_plain=round(worst, 6),
            tol=round(PROB_RTOL, 6), top1_equal_plain=f"{sure_agree}/{sure_rows}")
     return counts
 
 
+def _arch_phases(torch, dev, arch, features, eval_data) -> dict:
+    """Build one arch at full width (bf16, random seeded weights), run its
+    eval and serve phases; return the launch counts of both."""
+    from vqa_tpu_torch.flagship import CONFIGS, build_config
+    from vqa_tpu_torch.weights import random_params
+
+    name, kernels = ARCHS[arch]
+    num_answers = CONFIGS[name][1]
+    model = build_config(name, dtype=torch.bfloat16, device=dev)
+    random_params(model, seed=0)
+    counts = _eval_phase(torch, dev, arch, model, num_answers, kernels, features, *eval_data)
+    serve = _serve_phase(torch, arch, model, num_answers, kernels, features)
+    del model
+    torch.cuda.empty_cache()
+    return {k: counts[k] + serve[k] for k in counts}
+
+
 def main() -> int:
     import torch
 
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke run needs a CUDA "
               "card and has no CPU path", file=sys.stderr)
         return 1
-    from vqa_tpu_torch import flagship
     from vqa_tpu_torch.ops import _build
-    from vqa_tpu_torch.weights import random_params
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -484,29 +666,29 @@ def main() -> int:
         "gather_rows": _check_gather(torch, dev, rng),
         "lstm_seq": _check_lstm(torch, dev, rng),
         "glimpse_head": _check_glimpse(torch, dev, rng),
+        "glimpse_attend": _check_glimpse_attend(torch, dev, rng),
+        "mfb_pool": _check_mfb_pool(torch, dev, rng),
+        "relation_attend": _check_relation(torch, dev, rng),
     }
 
-    # 3. eval step and 4. serve, flagship at full width
-    model = flagship.build(dtype=torch.bfloat16, device=dev)
-    random_params(model, seed=0)
-    questions, lengths, image_index, table = _synthetic_eval_arrays(
-        np.random.default_rng(0), BATCH * N_BATCHES)
-    features = torch.from_numpy(table).to(dev, torch.bfloat16)
-    del table
-    eval_counts = _eval_phase(torch, dev, model, features, questions, lengths, image_index)
-    serve_counts = _serve_phase(torch, model, features)
+    # 3. eval step and 4. serve, each arch at full width, one after another
+    eval_data = _synthetic_eval_arrays(np.random.default_rng(0), BATCH * N_BATCHES)
+    features = torch.from_numpy(eval_data[-1]).to(dev, torch.bfloat16)
+    eval_data = eval_data[:-1]
+    launches = dict.fromkeys(kernels, 0)
+    for arch in ARCHS:
+        for name, c in _arch_phases(torch, dev, arch, features, eval_data).items():
+            launches[name] += c
+    _require(all(c > 0 for c in launches.values()), f"every kernel launched: {launches}")
 
-    sources = {"gather_rows": ("vqa_tpu_torch/csrc/gather.cu", "vqa_tpu/ops/gather.py:58"),
-               "lstm_seq": ("vqa_tpu_torch/csrc/lstm.cu", "vqa_tpu/ops/lstm.py:93"),
-               "glimpse_head": ("vqa_tpu_torch/csrc/glimpse_head.cu",
-                                "vqa_tpu/ops/attention.py:132")}
     record = []
     for name, k in kernels.items():
-        source, replaces = sources[name]
+        source, replaces = SOURCES[name]
         record.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                       "launches": eval_counts[name] + serve_counts[name],
+                       "launches": launches[name],
                        "max_abs_err": k.pop("max_abs_err"), "ms": k.pop("ms"),
                        "plain_ms": k.pop("plain_ms"), **k})
+    _phase("total", wall_s=round(time.perf_counter() - t_start, 2))
     print(json.dumps({"kernels": record}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

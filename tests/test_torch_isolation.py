@@ -3,11 +3,15 @@ interpreter (subprocess, so sys.modules starts clean) with nothing of jax,
 flax or optax, and nothing of the JAX package vqa_tpu, in sys.modules.
 chip_smoke.py refuses to run without a CUDA card."""
 
+import importlib
 import os
 import pkgutil
 import subprocess
 import sys
 
+import torch
+
+import chip_smoke
 import vqa_tpu_torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -61,3 +65,23 @@ def test_chip_smoke_refuses_to_run_without_a_card():
     assert proc.returncode != 0
     assert proc.stdout == ""  # no result line, no partial output
     assert "torch.cuda.is_available() is false" in proc.stderr
+
+
+def test_chip_smoke_plain_path_swaps_every_kernel_call_site():
+    """chip_smoke.py compares the kernel path with a plain path built by
+    swapping, module by module, each kernel wrapper a model or step calls:
+    none may be left out, or the 'plain' path would launch kernels."""
+    wrappers = list(chip_smoke._counters().values())
+    mods = [importlib.import_module(m) for m in _port_modules()
+            if not m.startswith("vqa_tpu_torch.ops.")]
+
+    def call_sites():
+        return {(m.__name__, name) for m in mods for name, v in vars(m).items()
+                if any(v is w for w in wrappers)}
+
+    before = call_sites()
+    assert {m for m, _ in before} >= {"vqa_tpu_torch.models.mfb", "vqa_tpu_torch.models.cor",
+                                      "vqa_tpu_torch.models.fusion"}
+    with chip_smoke._plain_ops(torch):
+        assert call_sites() == set()
+    assert call_sites() == before

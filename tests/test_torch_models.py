@@ -23,17 +23,31 @@ from vqa_tpu.models import fusion as jax_fusion
 from vqa_tpu.models import seq2vec as jax_seq2vec
 from vqa_tpu.models.att import GlimpseAttention as JaxGlimpseAttention
 from vqa_tpu.models.classifier import Classifier as JaxClassifier
+from vqa_tpu.models.cor import CoRStep as JaxCoRStep
+from vqa_tpu.models.mfb import QuestionSelfAttention as JaxQuestionSelfAttention
 from vqa_tpu_torch import flagship
 from vqa_tpu_torch.models import factory as port_factory
 from vqa_tpu_torch.models.att import GlimpseAttention
 from vqa_tpu_torch.models.classifier import Classifier
-from vqa_tpu_torch.models.fusion import MutanFusion
+from vqa_tpu_torch.models.cor import CoRStep
+from vqa_tpu_torch.models.fusion import MFBFusion, MFHFusion, MutanFusion
+from vqa_tpu_torch.models.mfb import QuestionSelfAttention
 from vqa_tpu_torch.models.seq2vec import SeqEncoder
 from vqa_tpu_torch.weights import load_params
 
 torch.set_num_threads(1)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOL = dict(rtol=1e-4, atol=1e-4)
+TINY_ARCHS = {  # tiny widths of the other graded configs the port runs
+    "mfb_coatt": ["model.seq2vec.emb_size=8", "model.seq2vec.hidden_size=12",
+                  "model.attention.dim_h=6", "model.fusion.dim_mm=4",
+                  "model.fusion.pool_factor=3"],
+    "mfh_coatt": ["model.seq2vec.emb_size=8", "model.seq2vec.hidden_size=12",
+                  "model.attention.dim_h=6", "model.fusion.dim_mm=4",
+                  "model.fusion.pool_factor=3", "model.fusion.mfh_order=3"],
+    "cor": ["model.seq2vec.emb_size=8", "model.seq2vec.hidden_size=12",
+            "model.fusion.dim_h=10", "model.classif.dim_h=7"],
+}
 TINY = [  # __graft_entry__._flagship_model(tiny=True) dims
     "model.seq2vec.emb_size=16", "model.seq2vec.hidden_size=32",
     "model.attention.dim_hv=12", "model.attention.dim_hq=12",
@@ -81,6 +95,95 @@ def test_mutan_fusion_matches_flax(core_bias, per_region):
     want = jax_mod.apply({"params": params}, jnp.asarray(q), jnp.asarray(v))
     got = port(torch.from_numpy(q), torch.from_numpy(v))
     np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), **TOL)
+
+
+def _plus(params, delta=0.1):
+    """flax inits biases at zero; make them count."""
+    return jax.tree.map(lambda p: p + delta, params)
+
+
+def _pair(rng, per_region, dq=10, dv=14):
+    q = rng.standard_normal((3, 1, dq) if per_region else (3, dq)).astype(np.float32)
+    v = rng.standard_normal((3, 5, dv) if per_region else (3, dv)).astype(np.float32)
+    return q, v
+
+
+@pytest.mark.parametrize("per_region", [False, True])
+def test_mfb_fusion_matches_flax(per_region):
+    """(pooled, pre-pool z), per region (q broadcast over 5 regions) and per row."""
+    q, v = _pair(np.random.default_rng(11), per_region)
+    jax_mod = jax_fusion.MFBFusion(pool_factor=3, dim_mm=4)
+    params = _plus(_init(jax_mod, q, v))
+    port = _load(MFBFusion(10, 14, pool_factor=3, dim_mm=4), params)
+    want = jax_mod.apply({"params": params}, jnp.asarray(q), jnp.asarray(v))
+    got = port(torch.from_numpy(q), torch.from_numpy(v))
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.detach().numpy(), np.asarray(w), **TOL)
+
+
+@pytest.mark.parametrize("per_region", [False, True])
+def test_mfh_fusion_matches_flax(per_region):
+    """Three cascaded blocks: block i multiplies by block i-1's pre-pool z."""
+    q, v = _pair(np.random.default_rng(12), per_region)
+    jax_mod = jax_fusion.MFHFusion(pool_factor=3, dim_mm=4, mfh_order=3)
+    params = _plus(_init(jax_mod, q, v))
+    port = _load(MFHFusion(10, 14, pool_factor=3, dim_mm=4, mfh_order=3), params)
+    want = jax_mod.apply({"params": params}, jnp.asarray(q), jnp.asarray(v))
+    got = port(torch.from_numpy(q), torch.from_numpy(v))
+    assert got.shape[-1] == port.out_dim == 12
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), **TOL)
+
+
+def test_question_self_attention_matches_flax():
+    """Mixed lengths, left-padded rows and an all-padding row (uniform
+    weights over its zeroed steps, as jax.nn.softmax gives)."""
+    rng = np.random.default_rng(13)
+    tokens = _tokens(rng, 6, 7, 30)
+    tokens[3] = 0                                   # all padding
+    mask = tokens != 0
+    seq = rng.standard_normal((6, 7, 12)).astype(np.float32) * mask[..., None]
+    jax_mod = JaxQuestionSelfAttention(glimpses=2, dim_h=6)
+    params = _plus(_init(jax_mod, seq, mask))
+    port = _load(QuestionSelfAttention(12, glimpses=2, dim_h=6), params)
+    want = jax_mod.apply({"params": params}, jnp.asarray(seq), jnp.asarray(mask))
+    got = port(torch.from_numpy(seq), torch.from_numpy(mask))
+    assert got.shape == (6, 24)
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), **TOL)
+    np.testing.assert_array_equal(got[3].numpy(), 0.0)
+
+
+def test_glimpse_attention_with_hidden_and_mfb_fusion_matches_flax():
+    """MFB co-attention's region attention: a tuple-returning fusion, then
+    the 'hidden' Dense + relu before the glimpse logits."""
+    rng = np.random.default_rng(14)
+    q = rng.standard_normal((3, 10)).astype(np.float32)
+    v = rng.standard_normal((3, 6, 14)).astype(np.float32)
+    jax_mod = JaxGlimpseAttention(fusion=jax_fusion.MFBFusion(pool_factor=3, dim_mm=4),
+                                  nb_glimpses=2, dim_h=6, activation="relu")
+    params = _plus(_init(jax_mod, q, v))
+    port = _load(GlimpseAttention(MFBFusion(10, 14, pool_factor=3, dim_mm=4), 2, torch.float32,
+                                  "cpu", dim_h=6, activation="relu"), params)
+    want_att, want_alpha = jax_mod.apply({"params": params}, jnp.asarray(q), jnp.asarray(v))
+    got_att, got_alpha = port(torch.from_numpy(q), torch.from_numpy(v))
+    np.testing.assert_allclose(got_att.detach().numpy(), np.asarray(want_att), **TOL)
+    np.testing.assert_allclose(got_alpha.detach().numpy(), np.asarray(want_alpha), **TOL)
+
+
+def test_cor_step_matches_flax():
+    """One chain step: refreshed objects, the decision and beta; object
+    width 7, working width 8, question width 10."""
+    rng = np.random.default_rng(15)
+    objects = np.tanh(rng.standard_normal((4, 6, 7))).astype(np.float32)
+    q = rng.standard_normal((4, 10)).astype(np.float32)
+    jax_mod = JaxCoRStep(dim_h=8)
+    params = _plus(jax_mod.init(jax.random.key(0), (jnp.asarray(objects), jnp.asarray(q)),
+                                None)["params"], 0.05)
+    port = _load(CoRStep(10, 7, 8), params)
+    (want_obj, _), (want_dec, want_beta) = jax_mod.apply(
+        {"params": params}, (jnp.asarray(objects), jnp.asarray(q)), None)
+    got_obj, got_dec, got_beta = port(torch.from_numpy(objects), torch.from_numpy(q))
+    for got, want in ((got_obj, want_obj), (got_dec, want_dec), (got_beta, want_beta)):
+        np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), **TOL)
 
 
 @pytest.mark.parametrize("num_layers,return_sequence", [(1, False), (2, False), (1, True)])
@@ -152,6 +255,51 @@ def test_mutan_att_logits_match_flax(overrides):
     np.testing.assert_allclose(got_alpha.numpy(), np.asarray(want_alpha), **TOL)
 
 
+def _arch(name, overrides, num_words=30, num_answers=11, dim_v=14, seed=0):
+    opt = load_options(os.path.join(REPO, f"options/vqa2/{name}.yaml"),
+                       TINY_ARCHS[name] + overrides)
+    jax_model = jax_factory(opt.model, num_words, num_answers)
+    rng = np.random.default_rng(seed)
+    visual = rng.standard_normal((6, 5, dim_v)).astype(np.float32)
+    tokens = _tokens(rng, 6, 8, num_words)
+    tokens[4] = 0  # the empty question
+    params = _init(jax_model, visual[:2], tokens[:2], seed=seed)
+    params = jax.tree.map(lambda p: p + 0.05, params)  # non-zero biases throughout
+    port = _load(port_factory(dataclasses.asdict(opt.model), num_words, num_answers,
+                              dim_v=dim_v), params)
+    return jax_model, params, port, visual, tokens
+
+
+@pytest.mark.parametrize("name,overrides", [
+    ("mfb_coatt", []),
+    ("mfb_coatt", ["model.l2norm_visual=false"]),
+    ("mfh_coatt", []),
+    ("cor", []),
+    ("cor", ["model.l2norm_visual=false"]),
+])
+def test_coatt_and_cor_logits_match_flax(name, overrides):
+    """Logits, and the attention maps: MFB's region alpha [B, R, G], CoR's
+    per-step betas [B, N, steps]."""
+    jax_model, params, port, visual, tokens = _arch(name, overrides)
+    want, want_att = jax_model.apply({"params": params}, jnp.asarray(visual),
+                                     jnp.asarray(tokens), return_attention=True)
+    with torch.inference_mode():
+        got, got_att = port(torch.from_numpy(visual), torch.from_numpy(tokens),
+                            return_attention=True)
+    assert got_att.shape == (6, 5, 3 if name == "cor" else 2)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    np.testing.assert_allclose(got_att.numpy(), np.asarray(want_att), **TOL)
+
+
+@pytest.mark.parametrize("name", sorted(TINY_ARCHS))
+def test_port_params_are_the_flax_tree(name):
+    """Leaf for leaf: CoR's shared chain step has no step index."""
+    _, params, port, _, _ = _arch(name, [])
+    want = {k: v.shape for k, v in flatten_tree(params).items()}
+    got = {n.replace(".", "/"): tuple(p.shape) for n, p in port.named_parameters()}
+    assert got == want
+
+
 def test_tiny_flagship_builds_the_flax_tree():
     """flagship.build(tiny=True) is __graft_entry__'s tiny model, leaf for leaf."""
     jax_model, params, _, _, _ = _mutan_att([])
@@ -162,17 +310,40 @@ def test_tiny_flagship_builds_the_flax_tree():
 
 
 @pytest.mark.parametrize("section,value,match", [
-    ("arch", "MFBCoAtt", "queue 1 item 7"),
-    ("arch", "CoR", "queue 1 item 8"),
+    ("arch", "MutanNoAtt", "queue 1 item 6"),
+    ("arch", "ConcatAtt", "queue 1 item 6"),
     ("arch", "MLBAtt", "queue 1 item 6"),
     ("seq2vec", {"arch": "gru"}, "queue 1 item 6"),
-    ("fusion", {"arch": "mfb"}, "queue 1 item 7"),
+    ("fusion", {"arch": "mlb"}, "queue 1 item 6"),
 ])
 def test_unported_archs_name_their_roadmap_item(section, value, match):
     opt = flagship.model_options(tiny=True)
     opt[section] = value
     with pytest.raises(NotImplementedError, match=match):
         port_factory(opt, 40, 11)
+
+
+@pytest.mark.parametrize("fusion", [
+    {"arch": "mfb", "mfh_order": 2},          # an MFH knob on MFB
+    {"arch": "mutan", "pool_factor": 5},      # an MFB knob on MUTAN
+])
+def test_fusion_options_are_checked_per_arch(fusion):
+    """The exact per-arch key check of vqa_tpu/models/fusion.py:198-217."""
+    opt = flagship.model_options(tiny=True)
+    opt["fusion"] = fusion
+    with pytest.raises(KeyError, match="unknown option"):
+        port_factory(opt, 40, 11)
+
+
+@pytest.mark.parametrize("arch", ["mfb", "mfh"])
+def test_mutan_att_with_an_mfb_final_fusion_matches_flax(arch):
+    """The attention family's final fusion may be MFB (tuple output) or MFH."""
+    jax_model, params, port, visual, tokens = _mutan_att(
+        [f"model.fusion={{arch: {arch}, pool_factor: 3, dim_mm: 4}}"])
+    want = jax_model.apply({"params": params}, jnp.asarray(visual), jnp.asarray(tokens))
+    with torch.inference_mode():
+        got = port(torch.from_numpy(visual), torch.from_numpy(tokens))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
 def test_misspelled_option_fails_loudly():

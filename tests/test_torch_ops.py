@@ -7,6 +7,8 @@ themselves run only on a card: those tests carry the ``cuda`` marker and
 skip here (chip_smoke.py runs the same comparisons at the flagship shapes).
 """
 
+import os
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -16,10 +18,15 @@ from jax.experimental.pallas import tpu as pltpu
 from vqa_tpu.ops import attention as jax_attention
 from vqa_tpu.ops import gather as jax_gather
 from vqa_tpu.ops import lstm as jax_lstm
+from vqa_tpu.ops import mfb_pool as jax_mfb_pool
+from vqa_tpu.ops import relation as jax_relation
 from vqa_tpu_torch.ops import _build
-from vqa_tpu_torch.ops.attention import glimpse_head, glimpse_head_reference
+from vqa_tpu_torch.ops.attention import (glimpse_attend, glimpse_attend_reference, glimpse_head,
+                                         glimpse_head_reference)
 from vqa_tpu_torch.ops.gather import gather_rows, gather_rows_reference
 from vqa_tpu_torch.ops.lstm import lstm_seq, lstm_seq_reference
+from vqa_tpu_torch.ops.mfb_pool import mfb_pool, mfb_pool_reference
+from vqa_tpu_torch.ops.relation import relation_attend, relation_attend_reference
 
 torch.set_num_threads(1)
 TOL = dict(rtol=1e-5, atol=1e-5)  # float32 on both sides; sums in another order
@@ -97,6 +104,100 @@ def test_glimpse_head_plain_matches_jax(B, R, M, G, D, block_b):
         np.testing.assert_allclose(logits.numpy(), np.asarray(want_logits), **TOL)
 
 
+def _masked_logits(rng, B, R, G):
+    """Logits masked as MFB's question self-attention masks them: mixed
+    lengths, a left-padded row and one fully masked row."""
+    logits = rng.standard_normal((B, R, G)).astype(np.float32)
+    valid = np.arange(R)[None, :] < rng.integers(1, R + 1, B)[:, None]
+    valid[1] = valid[1][::-1]          # left-padded
+    valid[2] = False                   # all padding
+    return np.where(valid[..., None], logits, np.finfo(np.float32).min).astype(np.float32)
+
+
+@pytest.mark.parametrize("B,R,G,D,masked", [(8, 7, 2, 16, False), (16, 13, 2, 24, True),
+                                            (8, 36, 3, 10, False)])
+def test_glimpse_attend_plain_matches_jax(B, R, G, D, masked):
+    """B a multiple of the Pallas kernel's 8-row block; masked rows use
+    finfo.min, and a fully masked row gives uniform weights, as in JAX."""
+    rng = np.random.default_rng(B * R + G)
+    logits = (_masked_logits(rng, B, R, G) if masked
+              else rng.standard_normal((B, R, G)).astype(np.float32))
+    v = rng.standard_normal((B, R, D)).astype(np.float32)
+    got = glimpse_attend(torch.from_numpy(logits), torch.from_numpy(v))
+    args = (jnp.asarray(logits), jnp.asarray(v))
+    for want in (jax_attention.glimpse_attend_reference(*args),
+                 jax_attention._pallas_fwd(*args)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    if masked:
+        np.testing.assert_allclose(got[2].numpy(), np.broadcast_to(v[2].mean(0), (G, D)), **TOL)
+
+
+def test_glimpse_attend_odd_shape_matches_the_jnp_reference():
+    rng = np.random.default_rng(5)
+    logits = _masked_logits(rng, 5, 9, 3)
+    v = rng.standard_normal((5, 9, 11)).astype(np.float32)
+    got = glimpse_attend(torch.from_numpy(logits), torch.from_numpy(v))
+    want = jax_attention.glimpse_attend_reference(jnp.asarray(logits), jnp.asarray(v))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("lead,k,m", [((2, 3), 3, 7), ((256,), 5, 16), ((2, 64), 5, 12),
+                                      ((100,), 2, 9)])
+def test_mfb_pool_plain_matches_jax(lead, k, m):
+    """Row counts up to 128 or a multiple of it (the Pallas grid drops a
+    ragged tail); odd m; leading batch and region axes."""
+    z = np.random.default_rng(m * k).standard_normal(lead + (k * m,)).astype(np.float32)
+    got = mfb_pool(torch.from_numpy(z), k)
+    for want in (jax_mfb_pool.mfb_pool_reference(jnp.asarray(z), k),
+                 jax_mfb_pool._pallas_fwd(jnp.asarray(z), k)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+def test_mfb_pool_odd_row_count_matches_the_jnp_reference():
+    z = np.random.default_rng(3).standard_normal((131, 3 * 5)).astype(np.float32)
+    got = mfb_pool(torch.from_numpy(z), 3)
+    want = jax_mfb_pool.mfb_pool_reference(jnp.asarray(z), 3)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+def test_mfb_pool_groups_are_strided_not_contiguous():
+    """pooled[d] = sum_j z[j*m + d]: on a row where the two groupings differ,
+    the port gives the strided one."""
+    k, m = 2, 3
+    z = np.array([[1.0, 2.0, 3.0, 10.0, 20.0, 30.0]], np.float32)
+    strided = z.reshape(1, k, m).sum(1)       # [11, 22, 33]
+    contiguous = z.reshape(1, m, k).sum(2)    # [3, 13, 50]
+    assert not np.allclose(strided / np.linalg.norm(strided),
+                           contiguous / np.linalg.norm(contiguous))
+
+    def finish(pooled):
+        ss = np.sign(pooled) * np.sqrt(np.abs(pooled) + 1e-12)
+        return ss / np.sqrt((ss * ss).sum(-1, keepdims=True) + 1e-12)
+
+    got = mfb_pool(torch.from_numpy(z), k).numpy()
+    np.testing.assert_allclose(got, finish(strided), **TOL)
+    assert not np.allclose(got, finish(contiguous), atol=1e-2)
+
+
+@pytest.mark.parametrize("B,N,D", [(8, 36, 16), (16, 5, 33)])
+def test_relation_attend_plain_matches_jax(B, N, D):
+    rng = np.random.default_rng(B + N + D)
+    pg = np.tanh(rng.standard_normal((B, N, D))).astype(np.float32)
+    r = np.tanh(rng.standard_normal((B, N, D))).astype(np.float32)
+    got = relation_attend(torch.from_numpy(pg), torch.from_numpy(r))
+    args = (jnp.asarray(pg), jnp.asarray(r))
+    for want in (jax_relation.relation_attend_reference(*args), jax_relation._pallas_fwd(*args)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+def test_relation_attend_odd_shape_matches_the_jnp_reference():
+    rng = np.random.default_rng(7)
+    pg, r = (rng.standard_normal((5, 7, 33)).astype(np.float32) for _ in range(2))
+    got = relation_attend(torch.from_numpy(pg), torch.from_numpy(r))
+    want = jax_relation.relation_attend_reference(jnp.asarray(pg), jnp.asarray(r))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
 @pytest.mark.parametrize("n,tail,b", [(10, (4, 16), 16), (7, (3,), 5)])
 def test_gather_rows_plain_matches_jax(n, tail, b):
     rng = np.random.default_rng(n)
@@ -126,7 +227,8 @@ def test_cpu_tensors_take_the_plain_versions(monkeypatch):
 
     monkeypatch.setattr(_build, "library", no_library)
     monkeypatch.setattr(_build, "build", no_library)
-    counts = (gather_rows.launches, lstm_seq.launches, glimpse_head.launches)
+    wrappers = (gather_rows, lstm_seq, glimpse_head, glimpse_attend, mfb_pool, relation_attend)
+    counts = [fn.launches for fn in wrappers]
     xg, mask, wh = (torch.from_numpy(a) for a in _lstm_inputs(1, 3, 4, 8))
     h, seq = lstm_seq(xg, mask, wh)
     ref_h, ref_seq = lstm_seq_reference(xg, mask, wh)
@@ -137,7 +239,63 @@ def test_cpu_tensors_take_the_plain_versions(monkeypatch):
     table = torch.randn(5, 3)
     assert torch.equal(gather_rows(table, [4, 0]),
                        gather_rows_reference(table, torch.tensor([4, 0])))
-    assert (gather_rows.launches, lstm_seq.launches, glimpse_head.launches) == counts
+    logits = torch.randn(2, 5, 2)
+    assert torch.equal(glimpse_attend(logits, v), glimpse_attend_reference(logits, v))
+    z = torch.randn(3, 4, 10)
+    assert torch.equal(mfb_pool(z, 5), mfb_pool_reference(z, 5))
+    pg, r = torch.randn(2, 5, 6), torch.randn(2, 5, 6)
+    assert torch.equal(relation_attend(pg, r), relation_attend_reference(pg, r))
+    assert [fn.launches for fn in wrappers] == counts
+
+
+_FAKE_NVCC = """#!/bin/sh
+# stands in for nvcc: logs its call, fails on a source named in FAIL_ON,
+# and writes the file named after -o
+echo "$@" >> "$NVCC_LOG"
+out=""; prev=""
+for a in "$@"; do
+  case "$a" in *"$FAIL_ON"*) if [ -n "$FAIL_ON" ]; then echo "error in $a"; exit 2; fi;; esac
+  if [ "$prev" = "-o" ]; then out="$a"; fi
+  prev="$a"
+done
+echo "ptxas info    : Used 1 registers"
+echo built > "$out"
+"""
+
+
+def test_build_compiles_each_source_then_links_one_library(tmp_path, monkeypatch):
+    """One nvcc per csrc/*.cu (compile only, sm_90a), one link of all the
+    objects into the library, which lands in place only when everything
+    built; a failed source is named in the error and leaves no library."""
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text(_FAKE_NVCC)
+    nvcc.chmod(0o755)
+    log = tmp_path / "calls.log"
+    monkeypatch.setenv("NVCC_LOG", str(log))
+    monkeypatch.setattr(_build, "_nvcc", lambda: str(nvcc))
+    monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path / "build"))
+    monkeypatch.setattr(_build, "_SO", str(tmp_path / "build" / "lib.so"))
+
+    monkeypatch.setenv("FAIL_ON", "relation.cu")
+    with pytest.raises(RuntimeError, match="relation.cu"):
+        _build.build()
+    assert not (tmp_path / "build" / "lib.so").exists()
+
+    monkeypatch.setenv("FAIL_ON", "")
+    log.unlink()
+    out = _build.build()
+    calls = log.read_text().splitlines()
+    sources = _build._sources()
+    assert {os.path.basename(s) for s in sources} >= {
+        "gather.cu", "lstm.cu", "glimpse_head.cu", "mfb_pool.cu", "relation.cu"}
+    compiles = [c for c in calls if " -c " in f" {c} "]
+    assert sorted(c.split(" -c ")[1].split()[0] for c in compiles) == sources
+    assert all("arch=compute_90a,code=sm_90a" in c for c in calls)
+    links = [c for c in calls if "-shared" in c.split()]
+    assert len(links) == 1 and len(calls) == len(sources) + 1
+    assert "Used 1 registers" in out
+    assert (tmp_path / "build" / "lib.so").read_text() == "built\n"
+    assert _build.build() == ""  # up to date: nothing rebuilt
 
 
 # ------------------------------------------------------- on the card only
@@ -183,3 +341,50 @@ def test_glimpse_head_kernel_matches_plain(cuda_device, B, R, M, G, D):
     torch.cuda.synchronize()
     assert (att.float() - ref_att).abs().max().item() <= 0.05
     assert (logits.float() - ref_logits).abs().max().item() <= 0.05
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,R,G,D", [(37, 26, 2, 72), (5, 7, 3, 75), (64, 13, 2, 1024)])
+def test_glimpse_attend_kernel_matches_plain(cuda_device, B, R, G, D):
+    """bf16 kernel vs the plain version in float32 on the same bf16 inputs,
+    with masked rows (finfo(bf16).min) and a fully masked row: alpha and the
+    output are rounded to bf16 (0.05, as chip_smoke.py)."""
+    logits = torch.from_numpy(_masked_logits(np.random.default_rng(B), B, R, G))
+    logits = logits.clamp(min=torch.finfo(torch.bfloat16).min).to(cuda_device).bfloat16()
+    v = torch.randn(B, R, D, device=cuda_device).bfloat16()
+    before = glimpse_attend.launches
+    got = glimpse_attend(logits, v)
+    want = glimpse_attend_reference(logits.float(), v.float())
+    torch.cuda.synchronize()
+    assert glimpse_attend.launches == before + 1
+    assert bool(torch.isfinite(got).all())
+    assert (got.float() - want).abs().max().item() <= 0.05
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,k,m", [(131, 3, 33), (37, 5, 1000), (2304, 5, 1000), (9, 4, 6)])
+def test_mfb_pool_kernel_matches_plain(cuda_device, n, k, m):
+    """Row counts no multiple of 8, m % 8 != 0 (scalar loads): outputs are
+    unit rows rounded to bf16 (2e-3, as chip_smoke.py)."""
+    z = torch.randn(n, k * m, device=cuda_device).bfloat16()
+    before = mfb_pool.launches
+    got = mfb_pool(z, k)
+    want = mfb_pool_reference(z.float(), k)
+    torch.cuda.synchronize()
+    assert mfb_pool.launches == before + 1
+    assert (got.float() - want).abs().max().item() <= 2e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,N,D", [(5, 7, 33), (37, 36, 1024), (3, 36, 40), (2, 64, 24),
+                                   (4, 1, 8)])
+def test_relation_attend_kernel_matches_plain(cuda_device, B, N, D):
+    """fp32 math in the kernel, output rounded to bf16 (0.02, as chip_smoke.py)."""
+    pg = torch.tanh(torch.randn(B, N, D, device=cuda_device)).bfloat16()
+    r = torch.tanh(torch.randn(B, N, D, device=cuda_device)).bfloat16()
+    before = relation_attend.launches
+    got = relation_attend(pg, r)
+    want = relation_attend_reference(pg.float(), r.float())
+    torch.cuda.synchronize()
+    assert relation_attend.launches == before + 1
+    assert (got.float() - want).abs().max().item() <= 0.02

@@ -102,6 +102,32 @@ def test_flagship_dict_equals_the_yaml():
     assert flagship.model_options() == dataclasses.asdict(opt.model)
 
 
+@pytest.mark.parametrize("name", ["mfb_coatt", "mfh_coatt", "cor"])
+def test_config_dict_equals_the_yaml(name):
+    """The model sections the GPU path builds from, and each family's answer
+    count (vqa.nans: 3000 for CoR)."""
+    opt = load_options(os.path.join(REPO, f"options/vqa2/{name}.yaml"))
+    model, num_answers = flagship.CONFIGS[name]
+    assert flagship.model_options(name=name) == model == dataclasses.asdict(opt.model)
+    assert num_answers == opt.vqa.nans
+
+
+@pytest.mark.parametrize("name", ["mutan_att", "mfb_coatt", "mfh_coatt", "cor"])
+def test_full_width_tree_equals_flax(name):
+    """At the YAML's full widths (12,000 words, 36x2048 regions), the port's
+    parameters are flax's tree leaf for leaf (shapes from jax.eval_shape;
+    the port built on the meta device, so nothing is allocated)."""
+    opt = load_options(os.path.join(REPO, f"options/vqa2/{name}.yaml"))
+    jax_model = jax_factory(opt.model, flagship.NUM_WORDS, opt.vqa.nans)
+    shapes = jax.eval_shape(jax_model.init, jax.random.key(0), jnp.zeros((1, 36, 2048)),
+                            jnp.ones((1, 26), jnp.int32))["params"]
+    want = {"/".join(k.key for k in path): tuple(leaf.shape)
+            for path, leaf in jax.tree_util.tree_flatten_with_path(shapes)[0]}
+    port = flagship.build_config(name, device="meta")
+    got = {n.replace(".", "/"): tuple(p.shape) for n, p in port.named_parameters()}
+    assert got == want
+
+
 def test_tiny_flagship_dict_equals_the_yaml_with_tiny_overrides():
     overrides = [f"model.{section}.{k}={v}" for section, values in flagship._TINY.items()
                  for k, v in values.items()]

@@ -5,6 +5,7 @@ of ``vqa_tpu/ops/lstm.py``, and so on). Every Pallas kernel on the ported
 path is a hand-written CUDA kernel under ``csrc/``, built with nvcc at first
 use (``ops/_build.py``), with its plain PyTorch version beside it in
 ``ops/``. The package imports torch and never jax; ``vqa_tpu`` stays the
-reference it is tested against. Ported so far: MutanAtt inference (eval
-step and the HTTP answer service); see ROADMAP.md for the rest.
+reference it is tested against. Ported so far: inference of MutanAtt,
+MFBCoAtt, MFHCoAtt and CoR (eval step and the HTTP answer service), with
+all six Pallas kernels; see ROADMAP.md for the rest.
 """

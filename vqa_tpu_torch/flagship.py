@@ -1,9 +1,12 @@
 """The flagship model: MutanAtt at ``options/vqa2/mutan_att.yaml`` dims, the
-port's counterpart of ``__graft_entry__._flagship_model`` and ``entry``.
+port's counterpart of ``__graft_entry__._flagship_model`` and ``entry``;
+beside it the model sections of the other graded configs the port runs
+(``CONFIGS``: MFB and MFH co-attention, CoR), each with its answer count.
 
-The model section is kept here as a dict so the GPU path builds the model
-without a YAML parser; tests/test_torch_weights.py holds it equal to
-``load_options("options/vqa2/mutan_att.yaml").model``.
+The model sections are kept here as dicts so the GPU path builds the
+models without a YAML parser; tests/test_torch_weights.py holds each equal
+to ``load_options("options/vqa2/<name>.yaml").model`` (and the answer
+count to its ``vqa.nans``).
 """
 
 from __future__ import annotations
@@ -37,6 +40,44 @@ MODEL = {
     "extra": {},
 }
 
+_MFB_SEQ2VEC = {"arch": "lstm", "emb_size": 300, "hidden_size": 1024, "num_layers": 1,
+                "dropout": 0.3, "return_sequence": True}
+_MFB_ATTENTION = {"nb_glimpses": 2, "dim_h": 512, "dropout": 0.1, "question_glimpses": 2}
+
+# name -> (model section, num_answers), for options/vqa2/<name>.yaml
+CONFIGS = {
+    "mutan_att": (MODEL, NUM_ANSWERS),
+    "mfb_coatt": ({
+        "arch": "MFBCoAtt",
+        "seq2vec": _MFB_SEQ2VEC,
+        "attention": _MFB_ATTENTION,
+        "fusion": {"arch": "mfb", "pool_factor": 5, "dim_mm": 1000, "dropout_pre": 0.1},
+        "classif": {"dropout": 0.1},
+        "pretrained_params": None,
+        "extra": {},
+    }, 2_000),
+    "mfh_coatt": ({
+        "arch": "MFHCoAtt",
+        "seq2vec": _MFB_SEQ2VEC,
+        "attention": _MFB_ATTENTION,
+        "fusion": {"arch": "mfh", "pool_factor": 5, "dim_mm": 1000, "mfh_order": 2,
+                   "dropout_pre": 0.1},
+        "classif": {"dropout": 0.1},
+        "pretrained_params": None,
+        "extra": {},
+    }, 2_000),
+    "cor": ({
+        "arch": "CoR",
+        "seq2vec": {"arch": "lstm", "emb_size": 620, "hidden_size": 1024, "num_layers": 1,
+                    "dropout": 0.0},
+        "attention": {"dim_h": 512, "dropout": 0.2},
+        "fusion": {"arch": "cor", "dim_h": 1024, "dropout": 0.2},
+        "classif": {"dim_h": 1024, "dropout": 0.5},
+        "pretrained_params": None,
+        "extra": {"chain": {"steps": 3}},
+    }, 3_000),
+}
+
 # the tiny variant of __graft_entry__._flagship_model(tiny=True)
 _TINY = {
     "seq2vec": {"emb_size": 16, "hidden_size": 32},
@@ -45,8 +86,10 @@ _TINY = {
 }
 
 
-def model_options(tiny: bool = False) -> dict:
-    opt = copy.deepcopy(MODEL)
+def model_options(tiny: bool = False, name: str = "mutan_att") -> dict:
+    """A fresh copy of a config's model section (``tiny`` only for the
+    flagship)."""
+    opt = copy.deepcopy(CONFIGS[name][0])
     if tiny:
         for section, values in _TINY.items():
             opt[section].update(values)
@@ -57,6 +100,14 @@ def build(num_words: int = NUM_WORDS, num_answers: int = NUM_ANSWERS, tiny: bool
           dtype=torch.float32, device="cpu", dim_v: int = 2048):
     return factory(model_options(tiny), num_words, num_answers, dtype=dtype, device=device,
                    dim_v=dim_v)
+
+
+def build_config(name: str, num_words: int = NUM_WORDS, dtype=torch.float32, device="cpu",
+                 dim_v: int = 2048):
+    """The model of ``options/vqa2/<name>.yaml`` at full width, with its
+    own answer count."""
+    return factory(model_options(name=name), num_words, CONFIGS[name][1], dtype=dtype,
+                   device=device, dim_v=dim_v)
 
 
 def example_batch(batch: int = 64, seq: int = 26, regions: int = 36, dim: int = 2048,

@@ -1,5 +1,6 @@
 """Question-conditioned glimpse attention and the attention-family model, the
-port of ``vqa_tpu/models/att.py`` (the MutanAtt path).
+port of ``vqa_tpu/models/att.py`` (the MutanAtt path; MFB co-attention's
+region attention is the same GlimpseAttention over an MFB fusion).
 
 Model contract: model(visual [B, R, Dv], question int[B, T]) -> logits
 [B, num_answers].
@@ -13,8 +14,8 @@ import torch
 from torch import nn
 
 from vqa_tpu_torch.models.classifier import Classifier
-from vqa_tpu_torch.models.fusion import MutanFusion, l2_normalize
-from vqa_tpu_torch.models.layers import param
+from vqa_tpu_torch.models.fusion import _ACT, l2_normalize
+from vqa_tpu_torch.models.layers import Dense, param
 from vqa_tpu_torch.models.seq2vec import SeqEncoder
 from vqa_tpu_torch.ops.attention import glimpse_head
 
@@ -34,15 +35,28 @@ class _GlimpseTail(nn.Module):
 
 
 class GlimpseAttention(nn.Module):
-    """q [B, Dq], v [B, R, Dv] -> (attended [B, G*Dv], alpha [B, R, G])."""
+    """q [B, Dq], v [B, R, Dv] -> (attended [B, G*Dv], alpha [B, R, G]).
 
-    def __init__(self, fusion: MutanFusion, nb_glimpses: int, dtype: torch.dtype, device):
+    ``dim_h`` adds a ``hidden`` Dense + activation between the fusion and the
+    glimpse logits (MFB co-attention: 512, relu; MutanAtt: none)."""
+
+    def __init__(self, fusion: nn.Module, nb_glimpses: int, dtype: torch.dtype, device,
+                 dim_h: Optional[int] = None, activation: str = "tanh"):
         super().__init__()
         self.fusion = fusion
-        self.glimpse_logits = _GlimpseTail(fusion.dim_mm, nb_glimpses, dtype, device)
+        self.act = _ACT[activation]
+        d_joint = fusion.out_dim
+        if dim_h is not None:
+            self.hidden = Dense(d_joint, dim_h, dtype, device)
+            d_joint = dim_h
+        self.glimpse_logits = _GlimpseTail(d_joint, nb_glimpses, dtype, device)
 
     def forward(self, q: torch.Tensor, v: torch.Tensor):
         joint = self.fusion(q[:, None, :], v)                   # [B, R, M]
+        if isinstance(joint, tuple):  # MFB-style fusions return (pooled, pre_pool)
+            joint = joint[0]
+        if hasattr(self, "hidden"):
+            joint = self.act(self.hidden(joint))
         attended, logits = self.glimpse_logits(joint, v)
         alpha = torch.softmax(logits, dim=1)
         return attended.reshape(attended.shape[0], -1), alpha
@@ -52,7 +66,7 @@ class AttModel(nn.Module):
     """Encoder -> glimpse attention -> final fusion -> classifier."""
 
     def __init__(self, encoder: SeqEncoder, attention: GlimpseAttention,
-                 final_fusion: MutanFusion, classifier: Classifier, l2norm_visual: bool = False):
+                 final_fusion: nn.Module, classifier: Classifier, l2norm_visual: bool = False):
         super().__init__()
         self.encoder = encoder
         self.attention = attention
@@ -68,7 +82,10 @@ class AttModel(nn.Module):
             v = l2_normalize(v)
         q = self.encoder(question, lengths, train=train)  # train=True raises there
         v_att, alpha = self.attention(q, v)
-        logits = self.classifier(self.final_fusion(q, v_att))
+        z = self.final_fusion(q, v_att)
+        if isinstance(z, tuple):
+            z = z[0]
+        logits = self.classifier(z)
         if return_attention:
             return logits, alpha
         return logits

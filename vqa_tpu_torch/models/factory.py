@@ -1,12 +1,13 @@
-"""Model factory, the port of ``vqa_tpu/models/factory.py`` (MutanAtt).
+"""Model factory, the port of ``vqa_tpu/models/factory.py`` (MutanAtt,
+MFBCoAtt, MFHCoAtt, CoR).
 
 factory(model_opt, num_words, num_answers) -> nn.Module with
 ``forward(visual, question, lengths=None) -> logits``.
 
 ``model_opt`` is the ``model`` section of an options YAML as a plain dict
 (``dataclasses.asdict(load_options(path).model)``, or ``flagship.py``'s
-copy), so building a model needs no YAML parser. Only MutanAtt is ported;
-every other arch raises NotImplementedError naming its ROADMAP.md item.
+copies), so building a model needs no YAML parser. Every arch not ported
+yet raises NotImplementedError naming its ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -14,11 +15,14 @@ from __future__ import annotations
 from typing import Any, Mapping
 
 import torch
+from torch import nn
 
 from vqa_tpu_torch.models import fusion as fusion_lib
 from vqa_tpu_torch.models import seq2vec as seq2vec_lib
 from vqa_tpu_torch.models.att import AttModel, GlimpseAttention
 from vqa_tpu_torch.models.classifier import Classifier
+from vqa_tpu_torch.models.cor import CoRModel
+from vqa_tpu_torch.models.mfb import MFBCoAttModel
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -51,10 +55,8 @@ _NOT_PORTED = {
     "MLBNoAtt": "queue 1 item 6",
     "MutanNoAtt": "queue 1 item 6",
     "ConcatNoAtt": "queue 1 item 6",
-    "MFBCoAtt": "queue 1 item 7",
-    "MFHCoAtt": "queue 1 item 7",
-    "CoR": "queue 1 item 8",
 }
+_PORTED = ("MutanAtt", "MFBCoAtt", "MFHCoAtt", "CoR")
 
 
 def _check_keys(section: str, opt: Mapping) -> None:
@@ -77,7 +79,7 @@ def factory(
     dtype: Any = torch.float32,
     device="cpu",
     dim_v: int = 2048,
-) -> AttModel:
+) -> nn.Module:
     """``dim_v`` is the region feature width (flax infers it at init)."""
     dtype = _dtype(dtype)
     arch = model_opt["arch"]
@@ -91,8 +93,13 @@ def factory(
         raise NotImplementedError(
             f"model arch {arch!r} is not ported yet: ROADMAP.md {_NOT_PORTED[arch]}"
         )
-    if arch != "MutanAtt":
-        raise KeyError(f"unknown model arch {arch!r}; known: MutanAtt, {', '.join(_NOT_PORTED)}")
+    if arch not in _PORTED:
+        known = ", ".join(_PORTED + tuple(_NOT_PORTED))
+        raise KeyError(f"unknown model arch {arch!r}; known: {known}")
+    if arch in ("MFBCoAtt", "MFHCoAtt"):
+        return MFBCoAttModel.build(model_opt, num_words, num_answers, dtype, device, dim_v)
+    if arch == "CoR":
+        return CoRModel.build(model_opt, num_words, num_answers, dtype, device, dim_v)
 
     encoder = seq2vec_lib.factory(num_words, sections["seq2vec"], dtype=dtype, device=device)
     att = sections["attention"]
@@ -116,7 +123,7 @@ def factory(
     )
     classif = sections["classif"]
     classifier = Classifier(
-        final.dim_mm, num_answers, dim_h=classif.get("dim_h"),
+        final.out_dim, num_answers, dim_h=classif.get("dim_h"),
         activation=classif.get("activation", "tanh"), dtype=dtype, device=device,
     )
     return AttModel(encoder, attention, final, classifier,

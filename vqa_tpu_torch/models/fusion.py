@@ -1,21 +1,29 @@
-"""MUTAN fusion, the port of ``vqa_tpu/models/fusion.py`` (MutanFusion).
+"""Fusions, the port of ``vqa_tpu/models/fusion.py`` (MutanFusion,
+MFBFusion, MFHFusion).
 
-z = tanh(sum_r act_hq(q~ W_q + b_q)_r * act_hv(v~ W_v + b_v)_r), with
-q~ = act_q(q_proj(q)) and v~ = act_v(v_proj(v)). The ``[*, R*M]`` core
-columns reshape to ``(R, M)`` rank-major, as in flax. Leading dimensions of
-q and v broadcast (the attention applies the fusion per region). Dropout is
-a training-time knob and this slice is inference only, so it is accepted by
-the factory and not applied.
+MUTAN: z = tanh(sum_r act_hq(q~ W_q + b_q)_r * act_hv(v~ W_v + b_v)_r),
+with q~ = act_q(q_proj(q)) and v~ = act_v(v_proj(v)). The ``[*, R*M]``
+core columns reshape to ``(R, M)`` rank-major, as in flax.
+
+MFB: z = q_proj(q) * v_proj(v) (times the previous block's z in MFH), then
+``ops.mfb_pool.mfb_pool`` (strided k-sum-pool, signed sqrt, L2). MFH
+cascades ``mfh_order`` MFB blocks and concatenates their pooled outputs.
+
+Leading dimensions of q and v broadcast (the attention applies the fusion
+per region). Each fusion's ``out_dim`` is the width of what it returns.
+Dropout is a training-time knob and the port is inference only so far, so
+it is accepted by the factory and not applied.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional, Union
 
 import torch
 from torch import nn
 
 from vqa_tpu_torch.models.layers import Dense, param
+from vqa_tpu_torch.ops.mfb_pool import mfb_pool
 
 _ACT = {
     "tanh": torch.tanh,
@@ -52,6 +60,7 @@ class MutanFusion(nn.Module):
     ):
         super().__init__()
         self.R, self.dim_mm = R, dim_mm
+        self.out_dim = dim_mm
         self.act_q, self.act_v = _ACT[activation_q], _ACT[activation_v]
         self.act_hq, self.act_hv = _ACT[activation_hq], _ACT[activation_hv]
         self.project_inputs = project_inputs
@@ -80,33 +89,85 @@ class MutanFusion(nn.Module):
         return torch.tanh((qr * vr).sum(dim=-2))
 
 
-# the knobs flax's MutanFusion takes (vqa_tpu/models/fusion.py:87-105)
-MUTAN_KEYS = {
-    "dim_hq", "dim_hv", "dim_mm", "R", "dropout_q", "dropout_v", "dropout_hq",
-    "dropout_hv", "activation_q", "activation_v", "activation_hq", "activation_hv",
-    "project_inputs", "core_bias",
+class MFBFusion(nn.Module):
+    """Multi-modal factorized bilinear pooling: returns ``(pooled [..., dim_mm],
+    z [..., pool_factor*dim_mm])``, z being the pre-pool product MFH
+    cascades."""
+
+    def __init__(self, dim_q: int, dim_v: int, pool_factor: int = 5, dim_mm: int = 1000,
+                 dtype: torch.dtype = torch.float32, device="cpu"):
+        super().__init__()
+        self.pool_factor, self.dim_mm = pool_factor, dim_mm
+        self.out_dim = dim_mm
+        self.q_proj = Dense(dim_q, pool_factor * dim_mm, dtype, device)
+        self.v_proj = Dense(dim_v, pool_factor * dim_mm, dtype, device)
+
+    def pre_pool(self, q: torch.Tensor, v: torch.Tensor,
+                 prev: Optional[torch.Tensor] = None) -> torch.Tensor:
+        z = self.q_proj(q) * self.v_proj(v)
+        return z if prev is None else z * prev
+
+    def pool(self, z: torch.Tensor) -> torch.Tensor:
+        return mfb_pool(z.contiguous(), self.pool_factor)
+
+    def forward(self, q: torch.Tensor, v: torch.Tensor, prev: Optional[torch.Tensor] = None):
+        z = self.pre_pool(q, v, prev)
+        return self.pool(z), z
+
+
+class MFHFusion(nn.Module):
+    """``mfh_order`` cascaded MFB blocks ``mfb_0..``; block i multiplies its
+    product by block i-1's pre-pool z (not its pooled output); the pooled
+    outputs are concatenated: ``[..., mfh_order*dim_mm]``."""
+
+    def __init__(self, dim_q: int, dim_v: int, pool_factor: int = 5, dim_mm: int = 1000,
+                 mfh_order: int = 2, dtype: torch.dtype = torch.float32, device="cpu"):
+        super().__init__()
+        self.mfh_order, self.dim_mm = mfh_order, dim_mm
+        self.out_dim = mfh_order * dim_mm
+        for i in range(mfh_order):
+            setattr(self, f"mfb_{i}", MFBFusion(dim_q, dim_v, pool_factor, dim_mm, dtype, device))
+
+    def forward(self, q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+        outs, prev = [], None
+        for i in range(self.mfh_order):
+            out, prev = getattr(self, f"mfb_{i}")(q, v, prev=prev)
+            outs.append(out)
+        return torch.cat(outs, dim=-1)
+
+
+# the knobs each flax fusion takes (vqa_tpu/models/fusion.py:87-186), checked
+# exactly per arch as vqa_tpu/models/fusion.py:198-217 does
+_FUSIONS = {
+    "mutan": (MutanFusion, {
+        "dim_hq", "dim_hv", "dim_mm", "R", "dropout_q", "dropout_v", "dropout_hq",
+        "dropout_hv", "activation_q", "activation_v", "activation_hq", "activation_hv",
+        "project_inputs", "core_bias",
+    }),
+    "mfb": (MFBFusion, {"pool_factor", "dim_mm", "dropout_pre"}),
+    "mfh": (MFHFusion, {"pool_factor", "dim_mm", "mfh_order", "dropout_pre"}),
 }
-_DROPOUT_KEYS = {"dropout_q", "dropout_v", "dropout_hq", "dropout_hv"}
-_NOT_PORTED = {"concat": "queue 1 item 6", "mlb": "queue 1 item 6", "mfb": "queue 1 item 7",
-               "mfh": "queue 1 item 7"}
+_DROPOUT_KEYS = {"dropout_q", "dropout_v", "dropout_hq", "dropout_hv", "dropout_pre"}
+_NOT_PORTED = {"concat": "queue 1 item 6", "mlb": "queue 1 item 6"}
 
 
 def factory(opt: Dict[str, Any], dim_q: int, dim_v: int, dtype=torch.float32,
-            device="cpu") -> MutanFusion:
-    """Build the final fusion from the model.fusion config dict."""
+            device="cpu") -> Union[MutanFusion, MFBFusion, MFHFusion]:
+    """Build a fusion from the model.fusion config dict."""
     arch = opt.get("arch", "mutan")
     if arch in _NOT_PORTED:
         raise NotImplementedError(
             f"fusion arch {arch!r} is not ported yet: ROADMAP.md {_NOT_PORTED[arch]}"
         )
-    if arch != "mutan":
+    if arch not in _FUSIONS:
         raise KeyError(f"unknown fusion arch {arch!r}")
+    cls, valid = _FUSIONS[arch]
     kwargs = {k: v for k, v in opt.items() if k != "arch"}
-    unknown = set(kwargs) - MUTAN_KEYS
+    unknown = set(kwargs) - valid
     if unknown:
         raise KeyError(
-            f"fusion arch 'mutan' got unknown option(s) {sorted(unknown)}; "
-            f"valid: {sorted(MUTAN_KEYS)}"
+            f"fusion arch {arch!r} got unknown option(s) {sorted(unknown)}; "
+            f"valid: {sorted(valid)}"
         )
     kwargs = {k: v for k, v in kwargs.items() if k not in _DROPOUT_KEYS}
-    return MutanFusion(dim_q, dim_v, dtype=dtype, device=device, **kwargs)
+    return cls(dim_q, dim_v, dtype=dtype, device=device, **kwargs)

@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels.
 
-``vqa_tpu_torch/csrc/*.cu`` are compiled by nvcc for Hopper (``sm_90a``)
-into ONE shared library with a plain C interface, loaded with ctypes. The
-library is built at the first kernel call, under a file lock, into
+``vqa_tpu_torch/csrc/*.cu`` are compiled by nvcc for Hopper (``sm_90a``),
+one nvcc process per source, all started together, and linked into ONE
+shared library with a plain C interface, loaded with ctypes. The library
+is built at the first kernel call, under a file lock, into
 ``vqa_tpu_torch/_build/`` (git-ignored), written to a temporary file and
 renamed into place so a concurrent process never loads a half-written
 library, and rebuilt whenever a source is newer than it.
@@ -26,9 +27,9 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 _SO = os.path.join(BUILD_DIR, "libvqa_kernels.so")
+_ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    *_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",  # registers, shared memory and spills of each kernel
 ]
 
@@ -41,6 +42,9 @@ _SIGNATURES = {
     "vqa_gather_rows": [_PTR, _PTR, _PTR, _I64, _I64, _PTR],
     "vqa_lstm_seq": [_PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT, _PTR],
     "vqa_glimpse_head": [_PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT, _INT, _INT, _PTR],
+    "vqa_glimpse_attend": [_PTR, _PTR, _PTR, _INT, _INT, _INT, _INT, _PTR],
+    "vqa_mfb_pool": [_PTR, _PTR, _I64, _INT, _INT, _PTR],
+    "vqa_relation_attend": [_PTR, _PTR, _PTR, _INT, _INT, _INT, _PTR],
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -66,6 +70,31 @@ def _nvcc() -> str:
     return found
 
 
+def _compile_and_link(tmp: str) -> str:
+    """One nvcc per source, all running at once, then one link into
+    ``tmp/lib.so``; returns the compilers' output."""
+    nvcc = _nvcc()
+    jobs = []
+    for src in _sources():
+        obj = os.path.join(tmp, os.path.basename(src) + ".o")
+        proc = subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", src, "-o", obj],
+                                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        jobs.append((src, obj, proc))
+    log, failed = [], []
+    for src, _, proc in jobs:
+        out, _ = proc.communicate()
+        log.append(out)
+        if proc.returncode != 0:
+            failed.append(f"{os.path.basename(src)} ({proc.returncode}):\n{out}")
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
+    proc = subprocess.run([nvcc, *_ARCH, "-shared", "-o", os.path.join(tmp, "lib.so"),
+                           *(obj for _, obj, _ in jobs)], capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}")
+    return "".join(log) + proc.stdout + proc.stderr
+
+
 def build() -> str:
     """Compile the kernels if the library is missing or stale; return the
     compiler's output (empty when nothing was rebuilt)."""
@@ -77,20 +106,10 @@ def build() -> str:
         try:
             if not _stale():
                 return ""
-            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-            os.close(fd)
-            try:
-                cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *_sources()]
-                proc = subprocess.run(cmd, capture_output=True, text=True)
-                if proc.returncode != 0:
-                    raise RuntimeError(
-                        f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}"
-                    )
-                os.replace(tmp, _SO)
-                return proc.stdout + proc.stderr
-            finally:
-                if os.path.exists(tmp):
-                    os.unlink(tmp)
+            with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+                log = _compile_and_link(tmp)
+                os.replace(os.path.join(tmp, "lib.so"), _SO)
+            return log
         finally:
             fcntl.flock(lock, fcntl.LOCK_UN)
 

@@ -1,0 +1,53 @@
+"""MFB pooling, the port of ``vqa_tpu/ops/mfb_pool.py`` (forward).
+
+mfb_pool(z [..., k*m], k) -> [..., m]
+
+Sum-pool over k strided groups, signed square root, row L2 normalisation.
+The groups are STRIDED: ``pooled[d] = sum_j z[..., j*m + d]``, i.e.
+``z.unflatten(-1, (k, m)).sum(-2)``. A contiguous ``(m, k)`` grouping would
+be a silent parity break: the layout is the checkpoint contract of the
+projection that feeds it (``vqa_tpu/ops/mfb_pool.py:24-29``).
+
+On CUDA tensors this launches the hand-written kernel in
+``csrc/mfb_pool.cu`` (bf16, one block per row, any row count); on CPU
+tensors it takes the plain version.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from vqa_tpu_torch.ops import _build
+
+_SMEM_LIMIT = 48 * 1024  # m fp32 roots per block, default dynamic shared memory
+
+
+def mfb_pool_reference(z: torch.Tensor, k: int) -> torch.Tensor:
+    pooled = z.unflatten(-1, (k, z.shape[-1] // k)).sum(-2)
+    ss = torch.sign(pooled) * torch.sqrt(pooled.abs() + 1e-12)
+    return ss * torch.rsqrt((ss * ss).sum(-1, keepdim=True) + 1e-12)
+
+
+def mfb_pool(z: torch.Tensor, k: int) -> torch.Tensor:
+    if z.ndim < 1 or k < 1 or z.shape[-1] % k:
+        raise ValueError(f"the last axis of z {tuple(z.shape)} is not k={k} groups")
+    if z.device.type == "cpu":
+        return mfb_pool_reference(z, k)
+    m = z.shape[-1] // k
+    if m * 4 > _SMEM_LIMIT:
+        raise ValueError(f"m={m} exceeds the kernel's shared memory")
+    lead = tuple(z.shape[:-1])
+    _build.require("z", z, z.device, torch.bfloat16, lead + (k * m,))
+    out = torch.empty(lead + (m,), dtype=z.dtype, device=z.device)
+    if out.numel() == 0:
+        return out
+    err = _build.library().vqa_mfb_pool(
+        z.data_ptr(), out.data_ptr(), out.numel() // m, k, m,
+        torch.cuda.current_stream(z.device).cuda_stream,
+    )
+    _build.check(err, "mfb_pool")
+    mfb_pool.launches += 1
+    return out
+
+
+mfb_pool.launches = 0
