@@ -7,18 +7,22 @@ Phases, each printing one line of what it found:
   1. device: refuse to run without a card; print the card's name and power
      limit; build the kernels from csrc/ (nvcc, sm_90a, one process per
      source) and time the build;
-  2. kernels: all six (gather_rows, lstm_seq, glimpse_head, glimpse_attend,
-     mfb_pool, relation_attend) against their plain PyTorch versions on the
-     card, at the eval shapes of the archs that run them (batch 1024), at
-     their serving shapes (batch 64, questions of 26 tokens) and at odd
-     shapes, with each tolerance stated, and timed (median of CUDA-event
-     timings) beside the plain version;
+  2. kernels: all seven (gather_rows, gather_rows_dequant, lstm_seq,
+     glimpse_head, glimpse_attend, mfb_pool, relation_attend) against their
+     plain PyTorch versions on the card, at the eval shapes of the archs that
+     run them (batch 1024), at their serving shapes (batch 64, questions of
+     26 tokens) and at odd shapes, with each tolerance stated, and timed
+     (median of CUDA-event timings) beside the plain version; the two
+     gathers also by device time alone (back-to-back launches, indices
+     already where each version reads them) beside their call time;
   3. eval: each arch at the full width of its options/vqa2 YAML (MutanAtt,
      MFBCoAtt, MFHCoAtt, CoR), bf16, random seeded weights, through the
      port's eval step over a feature table resident on the card (bench.py's
-     synthetic data, batch 1024, the {7, 13, 26} ladder); kernel path held
-     against the plain path; exactly the kernels of that arch's path
-     launched;
+     synthetic data, batch 1024, the {7, 13, 26} ladder), once over the bf16
+     table and once over its int8 quantization (quantize_features, bf16
+     scales); kernel path held against the plain path; exactly the kernels
+     of that arch's path launched (gather_rows_dequant in place of
+     gather_rows over the int8 table);
   4. serve: each arch's Predictor behind the port's AnswerService,
      DynamicBatcher and HTTP server (vqa_tpu_torch.cli.serve); /healthz,
      /answer and an oversized /batch, answers held equal to direct
@@ -98,6 +102,9 @@ ARCHS = {
 }
 SOURCES = {  # kernel -> (its CUDA source, the TPU kernel it replaces)
     "gather_rows": ("vqa_tpu_torch/csrc/gather.cu", "vqa_tpu/ops/gather.py:58"),
+    # the same TPU kernel on the int8 rows, with the dequant after it
+    # (vqa_tpu/engine/steps.py:69-73) fused in
+    "gather_rows_dequant": ("vqa_tpu_torch/csrc/gather.cu", "vqa_tpu/ops/gather.py:58"),
     "lstm_seq": ("vqa_tpu_torch/csrc/lstm.cu", "vqa_tpu/ops/lstm.py:93"),
     "glimpse_head": ("vqa_tpu_torch/csrc/glimpse_head.cu", "vqa_tpu/ops/attention.py:132"),
     "glimpse_attend": ("vqa_tpu_torch/csrc/glimpse_head.cu", "vqa_tpu/ops/attention.py:43"),
@@ -126,6 +133,37 @@ def _median_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def _device_ms(torch, fn, reps: int = 20, trials: int = 9, warmup: int = 3) -> float:
+    """Device time of one call: the median over trials of the mean of
+    ``reps`` back-to-back calls between two CUDA events. Where a launch runs
+    longer than the host takes to enqueue the next (the batch-1024 gathers),
+    host work between launches hides; a launch of a few microseconds (the
+    serving shapes) reads the host's launch rate instead."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(trials):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    return statistics.median(times)
+
+
+def _in_turns(torch, timer, kernel, plain):
+    """(kernel, plain) medians of timer over the order plain, kernel,
+    kernel, plain, so a drift in the card's state favours neither."""
+    ks, ps = [], []
+    for fn, out in ((plain, ps), (kernel, ks), (kernel, ks), (plain, ps)):
+        out.append(timer(torch, fn))
+    return statistics.median(ks), statistics.median(ps)
+
+
 def _require(ok: bool, what: str) -> None:
     if not ok:
         raise RuntimeError(f"check failed: {what}")
@@ -135,26 +173,93 @@ def _require(ok: bool, what: str) -> None:
 
 
 def _check_gather(torch, dev, rng):
-    from vqa_tpu_torch.ops.gather import gather_rows, gather_rows_reference
+    from vqa_tpu_torch.ops.gather import (ROWS_PER_LAUNCH, _host_indices, gather_rows,
+                                          gather_rows_reference, launch_gather_rows)
 
-    # the flagship shape last, so its table and indices are the ones timed
-    for n, tail, b in ((37, (36, 72), 53), (11, (3, 5), 29), (48, (REGIONS, DIM), SERVE_BATCH),
-                       (N_IMAGES, (REGIONS, DIM), BATCH)):
+    for n, tail, b in ((37, (36, 72), 53), (11, (3, 5), 29), (50, (6,), 5000),
+                       (48, (REGIONS, DIM), SERVE_BATCH), (N_IMAGES, (REGIONS, DIM), BATCH)):
         table = torch.randn((n,) + tail, device=dev).to(torch.bfloat16)
         idx = rng.integers(0, n, b)
         idx[: b // 4] = idx[0]  # repeated rows
+        before = gather_rows.launches
         out = gather_rows(table, idx)
         ref = gather_rows_reference(table, torch.from_numpy(idx).to(dev))
         torch.cuda.synchronize()
         _require(torch.equal(out, ref), f"gather_rows {tuple(table.shape)} x {b} is bit-exact")
-    ms = _median_ms(torch, lambda: gather_rows(table, idx))
-    plain = _median_ms(
-        torch, lambda: gather_rows_reference(table, torch.from_numpy(idx).to(dev))
-    )
-    _phase("gather_rows", shapes="1024x36x2048[1024],48x36x2048[64],37x36x72[53],11x3x5[29]",
-           max_abs_err=0.0, tol="exact", ms=round(ms, 4), plain_ms=round(plain, 4))
-    return {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain,
-            "shape": "table 1024x36x2048 bf16, B=1024"}
+        _require(gather_rows.launches - before == math.ceil(b / ROWS_PER_LAUNCH),
+                 f"one launch per {ROWS_PER_LAUNCH} rows")
+    # timed at the eval's index distribution (uniform over the table, so
+    # rows repeat: 63% distinct at B=1024) and at distinct rows
+    timing = {}
+    for label, n, b in (("", N_IMAGES, BATCH), ("distinct_", N_IMAGES, BATCH),
+                        ("serve_", 48, SERVE_BATCH)):
+        table = torch.randn((n, REGIONS, DIM), device=dev).to(torch.bfloat16)
+        idx = rng.permutation(n)[:b] if label == "distinct_" else rng.integers(0, n, b)
+        idx_dev, idx32 = torch.from_numpy(idx).to(dev), _host_indices(idx, n)
+        out = torch.empty((b, REGIONS, DIM), dtype=torch.bfloat16, device=dev)
+        timing[label + "ms"], timing[label + "plain_ms"] = _in_turns(
+            torch, _device_ms, lambda: launch_gather_rows(table, idx32, out),
+            lambda: torch.index_select(table, 0, idx_dev, out=out))
+        if not label:
+            timing["call_ms"], timing["plain_call_ms"] = _in_turns(
+                torch, _median_ms, lambda: gather_rows(table, idx),
+                lambda: gather_rows_reference(table, torch.from_numpy(idx).to(dev)))
+    _phase("gather_rows",
+           shapes="1024x36x2048[1024],48x36x2048[64],37x36x72[53],11x3x5[29],50x6[5000]",
+           max_abs_err=0.0, tol="exact", **{k: round(v, 4) for k, v in timing.items()})
+    return {"max_abs_err": 0.0, **timing,
+            "shape": "table 1024x36x2048 bf16, B=1024; ms/plain_ms: device time (index_select "
+                     "on indices already on the card); call_ms/plain_call_ms: the whole call "
+                     "from host indices"}
+
+
+def _check_gather_dequant(torch, dev, rng, flagship):
+    """int8 rows gathered and dequantized, bit-exact against the plain chain
+    (index_select, cast, multiply) at bf16 and f32 scales; ``flagship`` is
+    the eval's quantized table (values, scales)."""
+    from vqa_tpu_torch.engine.steps import quantize_features
+    from vqa_tpu_torch.ops.gather import (_host_indices, gather_rows_dequant,
+                                          gather_rows_dequant_reference,
+                                          launch_gather_rows_dequant)
+
+    tables = [quantize_features(3 * rng.standard_normal(shape, dtype=np.float32))
+              for shape in ((11, 3, 40), (37, 36, 7), (7, 3, 16), (48, REGIONS, DIM))]
+    timing = {}
+    for (values, scales), b in zip(tables + [flagship], (29, 53, 2100, SERVE_BATCH, BATCH)):
+        n = values.shape[0]
+        values = torch.from_numpy(values).to(dev)
+        idx = rng.integers(0, n, b)
+        idx[: b // 4] = idx[0]  # repeated rows
+        idx_dev = torch.from_numpy(idx).to(dev)
+        for sdt in (torch.bfloat16, torch.float32):
+            sc = torch.from_numpy(scales).to(dev, sdt)
+            out = gather_rows_dequant(values, sc, idx)
+            ref = gather_rows_dequant_reference(values, sc, idx_dev)
+            torch.cuda.synchronize()
+            _require(out.dtype == sdt and torch.equal(out, ref),
+                     f"gather_rows_dequant {tuple(values.shape)} x {b}, {sdt} scales, bit-exact")
+            if b in (BATCH, SERVE_BATCH) and (b == BATCH or sdt == torch.bfloat16):
+                tidx = rng.integers(0, n, b)  # the eval's index distribution
+                tidx_dev, tidx32 = torch.from_numpy(tidx).to(dev), _host_indices(tidx, n)
+                buf = torch.empty_like(ref)
+                key = ("" if b == BATCH else "serve_") + ("" if sdt == torch.bfloat16 else "f32_")
+                timing[key + "ms"], timing[key + "plain_ms"] = _in_turns(
+                    torch, _device_ms,
+                    lambda: launch_gather_rows_dequant(values, sc, tidx32, buf),
+                    lambda: gather_rows_dequant_reference(values, sc, tidx_dev))
+                if not key:
+                    timing["call_ms"], timing["plain_call_ms"] = _in_turns(
+                        torch, _median_ms, lambda: gather_rows_dequant(values, sc, tidx),
+                        lambda: gather_rows_dequant_reference(
+                            values, sc, torch.from_numpy(tidx).to(dev)))
+        del values, idx_dev, out, ref
+    _phase("gather_rows_dequant",
+           shapes="1024x36x2048[1024],48x36x2048[64],11x3x40[29],37x36x7[53],7x3x16[2100]",
+           scales="bf16,f32", max_abs_err=0.0, tol="exact",
+           **{k: round(v, 4) for k, v in timing.items()})
+    return {"max_abs_err": 0.0, **timing,
+            "shape": "int8 table 1024x36x2048 + bf16 scales, B=1024; ms/plain_ms: device time; "
+                     "f32_: float32 scales; call_ms/plain_call_ms: the whole call"}
 
 
 def _lstm_inputs(torch, dev, rng, T, B, H):
@@ -349,12 +454,13 @@ def _check_relation(torch, dev, rng):
 
 def _counters():
     from vqa_tpu_torch.ops.attention import glimpse_attend, glimpse_head
-    from vqa_tpu_torch.ops.gather import gather_rows
+    from vqa_tpu_torch.ops.gather import gather_rows, gather_rows_dequant
     from vqa_tpu_torch.ops.lstm import lstm_seq
     from vqa_tpu_torch.ops.mfb_pool import mfb_pool
     from vqa_tpu_torch.ops.relation import relation_attend
 
-    return {"gather_rows": gather_rows, "lstm_seq": lstm_seq, "glimpse_head": glimpse_head,
+    return {"gather_rows": gather_rows, "gather_rows_dequant": gather_rows_dequant,
+            "lstm_seq": lstm_seq, "glimpse_head": glimpse_head,
             "glimpse_attend": glimpse_attend, "mfb_pool": mfb_pool,
             "relation_attend": relation_attend}
 
@@ -376,19 +482,25 @@ def _plain_ops(torch):
     from vqa_tpu_torch.engine import steps
     from vqa_tpu_torch.models import att, cor, fusion, mfb, seq2vec
     from vqa_tpu_torch.ops.attention import glimpse_attend_reference, glimpse_head_reference
-    from vqa_tpu_torch.ops.gather import gather_rows_reference
+    from vqa_tpu_torch.ops.gather import gather_rows_dequant_reference, gather_rows_reference
     from vqa_tpu_torch.ops.lstm import lstm_seq_reference
     from vqa_tpu_torch.ops.mfb_pool import mfb_pool_reference
     from vqa_tpu_torch.ops.relation import relation_attend_reference
 
+    def on_card(idx, device):
+        return torch.as_tensor(np.asarray(idx), dtype=torch.long).to(device)
+
     def plain_gather(table, idx):
-        return gather_rows_reference(
-            table, torch.as_tensor(np.asarray(idx), dtype=torch.long).to(table.device))
+        return gather_rows_reference(table, on_card(idx, table.device))
+
+    def plain_gather_dequant(values, scales, idx):
+        return gather_rows_dequant_reference(values, scales, on_card(idx, values.device))
 
     plain = [  # (module, name of the kernel wrapper it calls, plain version)
         (seq2vec, "lstm_seq", lambda xg, mask, wh, train=False: lstm_seq_reference(xg, mask, wh)),
         (att, "glimpse_head", glimpse_head_reference),
         (steps, "gather_rows", plain_gather),
+        (steps, "gather_rows_dequant", plain_gather_dequant),
         (predictor, "gather_rows", plain_gather),
         (fusion, "mfb_pool", mfb_pool_reference),
         (mfb, "glimpse_attend", glimpse_attend_reference),
@@ -418,7 +530,11 @@ def _synthetic_eval_arrays(rng: np.random.Generator, n_questions: int):
 
 
 def _eval_phase(torch, dev, arch, model, num_answers, kernels, features, questions, lengths,
-                image_index):
+                image_index, table="bf16", bf16_preds=None):
+    """One arch's eval over ``features`` (a bf16 table, or an int8
+    (values, scales) pair); returns (launch counts, preds). With
+    ``bf16_preds`` the pred agreement with the bf16 table's run is printed,
+    not held: quantization moves the logits by design."""
     from vqa_tpu_torch.engine import steps
 
     n = BATCH * N_BATCHES
@@ -498,16 +614,19 @@ def _eval_phase(torch, dev, arch, model, num_answers, kernels, features, questio
     _require(sure_agree == sure_rows, f"pred equal wherever the top-2 margin exceeds "
              f"2*{LOGITS_ATOL}: {sure_agree}/{sure_rows}")
     _require(agree >= PRED_AGREE_FLOOR, f"pred agreement {agree} >= {PRED_AGREE_FLOOR}")
-    _phase("eval", arch=arch, batches=N_BATCHES, batch=BATCH,
+    extra = {}
+    if bf16_preds is not None:
+        extra["pred_agree_with_bf16_table"] = round(float((preds == bf16_preds).mean()), 5)
+    _phase("eval", arch=arch, table=table, batches=N_BATCHES, batch=BATCH,
            buckets=[b["question"].shape[1] for b in batches],
            launches=counts, n=tot["n"], n_labeled=tot["n_labeled"], correct1=tot["correct1"],
            correct5=tot["correct5"], logits_max_abs_err=round(worst, 5), tol=LOGITS_ATOL,
            logits_std=round(scale, 5),
-           pred_agree=round(agree, 5), floor=PRED_AGREE_FLOOR,
+           pred_agree=round(agree, 5), floor=PRED_AGREE_FLOOR, **extra,
            first_pass_s=round(first_s, 4), kernel_pass_s=round(kernel_s, 4),
            plain_pass_s=round(plain_s, 4),
            kernel_qa_per_s=round(n / kernel_s, 1), plain_qa_per_s=round(n / plain_s, 1))
-    return counts
+    return counts, preds
 
 
 def _post(url: str, payload: dict):
@@ -614,9 +733,10 @@ def _serve_phase(torch, arch, model, num_answers, kernels, features):
     return counts
 
 
-def _arch_phases(torch, dev, arch, features, eval_data) -> dict:
+def _arch_phases(torch, dev, arch, features, int8_features, eval_data) -> dict:
     """Build one arch at full width (bf16, random seeded weights), run its
-    eval and serve phases; return the launch counts of both."""
+    eval over the bf16 table and over the int8 one, and its serve phase;
+    return the launch counts of all three."""
     from vqa_tpu_torch.flagship import CONFIGS, build_config
     from vqa_tpu_torch.weights import random_params
 
@@ -624,11 +744,16 @@ def _arch_phases(torch, dev, arch, features, eval_data) -> dict:
     num_answers = CONFIGS[name][1]
     model = build_config(name, dtype=torch.bfloat16, device=dev)
     random_params(model, seed=0)
-    counts = _eval_phase(torch, dev, arch, model, num_answers, kernels, features, *eval_data)
+    counts, preds = _eval_phase(torch, dev, arch, model, num_answers, kernels, features,
+                                *eval_data)
+    int8_kernels = tuple("gather_rows_dequant" if k == "gather_rows" else k for k in kernels)
+    int8_counts, _ = _eval_phase(torch, dev, arch, model, num_answers, int8_kernels,
+                                 int8_features, *eval_data, table="int8+bf16_scales",
+                                 bf16_preds=preds)
     serve = _serve_phase(torch, arch, model, num_answers, kernels, features)
     del model
     torch.cuda.empty_cache()
-    return {k: counts[k] + serve[k] for k in counts}
+    return {k: counts[k] + int8_counts[k] + serve[k] for k in counts}
 
 
 def main() -> int:
@@ -660,10 +785,22 @@ def main() -> int:
     _phase("device", name=torch.cuda.get_device_name(0), count=torch.cuda.device_count(),
            torch=torch.__version__, cuda=torch.version.cuda, build_s=round(build_s, 2))
 
+    # the eval's table, and its int8 quantization with the scales placed in
+    # bf16 on the card, as the JAX package's features_dtype=int8 places them
+    from vqa_tpu_torch.engine.steps import quantize_features
+
+    eval_data = _synthetic_eval_arrays(np.random.default_rng(0), BATCH * N_BATCHES)
+    int8_table = quantize_features(eval_data[-1])
+    features = torch.from_numpy(eval_data[-1]).to(dev, torch.bfloat16)
+    int8_features = (torch.from_numpy(int8_table[0]).to(dev),
+                     torch.from_numpy(int8_table[1]).to(dev, torch.bfloat16))
+    eval_data = eval_data[:-1]
+
     # 2. kernels against their plain versions
     rng = np.random.default_rng(0)
     kernels = {
         "gather_rows": _check_gather(torch, dev, rng),
+        "gather_rows_dequant": _check_gather_dequant(torch, dev, rng, int8_table),
         "lstm_seq": _check_lstm(torch, dev, rng),
         "glimpse_head": _check_glimpse(torch, dev, rng),
         "glimpse_attend": _check_glimpse_attend(torch, dev, rng),
@@ -671,13 +808,12 @@ def main() -> int:
         "relation_attend": _check_relation(torch, dev, rng),
     }
 
-    # 3. eval step and 4. serve, each arch at full width, one after another
-    eval_data = _synthetic_eval_arrays(np.random.default_rng(0), BATCH * N_BATCHES)
-    features = torch.from_numpy(eval_data[-1]).to(dev, torch.bfloat16)
-    eval_data = eval_data[:-1]
+    # 3. eval step (bf16 and int8 tables) and 4. serve, each arch at full
+    # width, one after another
     launches = dict.fromkeys(kernels, 0)
     for arch in ARCHS:
-        for name, c in _arch_phases(torch, dev, arch, features, eval_data).items():
+        for name, c in _arch_phases(torch, dev, arch, features, int8_features,
+                                    eval_data).items():
             launches[name] += c
     _require(all(c > 0 for c in launches.values()), f"every kernel launched: {launches}")
 

@@ -20,10 +20,12 @@ from vqa_tpu.ops import gather as jax_gather
 from vqa_tpu.ops import lstm as jax_lstm
 from vqa_tpu.ops import mfb_pool as jax_mfb_pool
 from vqa_tpu.ops import relation as jax_relation
+from vqa_tpu_torch.engine.steps import quantize_features
 from vqa_tpu_torch.ops import _build
 from vqa_tpu_torch.ops.attention import (glimpse_attend, glimpse_attend_reference, glimpse_head,
                                          glimpse_head_reference)
-from vqa_tpu_torch.ops.gather import gather_rows, gather_rows_reference
+from vqa_tpu_torch.ops.gather import (gather_rows, gather_rows_dequant,
+                                      gather_rows_dequant_reference, gather_rows_reference)
 from vqa_tpu_torch.ops.lstm import lstm_seq, lstm_seq_reference
 from vqa_tpu_torch.ops.mfb_pool import mfb_pool, mfb_pool_reference
 from vqa_tpu_torch.ops.relation import relation_attend, relation_attend_reference
@@ -220,6 +222,69 @@ def test_gather_rows_checks_indices_on_the_host():
     assert gather_rows(table, torch.tensor([3, 3, 0])).shape == (3, 3)
 
 
+def _jax_steps():
+    """vqa_tpu.engine.steps, imported where it is used: it needs flax and
+    optax, which the cuda-marked tests of this file do not."""
+    from vqa_tpu.engine import steps
+
+    return steps
+
+
+@pytest.mark.parametrize("shape", [(6, 4, 16), (5, 33)])
+def test_quantize_features_matches_jax(shape):
+    """The port's copy of the int8 quantizer is byte-equal to the original,
+    an all-zero row included."""
+    jax_steps = _jax_steps()
+    table = 3 * np.random.default_rng(len(shape)).standard_normal(shape).astype(np.float32)
+    table[0] = 0
+    for got, want in zip(quantize_features(table), jax_steps.quantize_features(table)):
+        assert got.dtype == want.dtype and got.shape == want.shape
+        assert got.tobytes() == want.tobytes()
+
+
+@pytest.mark.parametrize("scale_dtype", ["bfloat16", "float32"])
+def test_gather_rows_dequant_plain_matches_jax(scale_dtype):
+    """int8 rows gathered, then dequantized in the scales' dtype, as JAX's
+    _resolve_visual does with a (values, scales) table: through its jnp path
+    and through the Pallas gather (interpret mode) on the int8 rows followed
+    by its dequant. Exact (tolerance 0): int8 -> bf16 is exact (|v| <= 127)
+    and each product is rounded once, on both sides."""
+    jax_steps = _jax_steps()
+    rng = np.random.default_rng(11)
+    values, scales = quantize_features(rng.standard_normal((10, 4, 16)).astype(np.float32))
+    idx = rng.integers(0, 10, 16).astype(np.int32)
+    idx[:5] = idx[0]  # repeated rows
+    got = gather_rows_dequant(torch.from_numpy(values),
+                              torch.from_numpy(scales).to(getattr(torch, scale_dtype)), idx)
+    jv, js, ji = jnp.asarray(values), jnp.asarray(scales, getattr(jnp, scale_dtype)), jnp.asarray(idx)
+    via_jnp = jax_steps._resolve_visual({"image_index": ji}, (jv, js), allow_kernel=False)
+    via_pallas = jax_gather._pallas_fwd(jv, ji).astype(js.dtype) * jnp.take(js, ji, axis=0)
+    assert got.dtype == getattr(torch, scale_dtype) and got.shape == (16, 4, 16)
+    for want in (via_jnp, via_pallas):
+        assert want.dtype == js.dtype
+        np.testing.assert_array_equal(got.float().numpy(), np.asarray(want, np.float32))
+
+
+def test_gather_rows_dequant_checks_its_inputs():
+    """The host checks of the int8 path: index range and rank, an int8
+    table, bf16 or f32 scales of shape values.shape[:-1] + (1,)."""
+    values, scales = torch.zeros(4, 3, 8, dtype=torch.int8), torch.ones(4, 3, 1)
+    for bad in ([0, 4], [-1], torch.tensor([9])):
+        with pytest.raises(IndexError, match="out of range"):
+            gather_rows_dequant(values, scales, bad)
+    with pytest.raises(TypeError, match="1-D integer"):
+        gather_rows_dequant(values, scales, np.zeros((2, 2), np.int64))
+    for bad_scales in (torch.ones(4, 3), torch.ones(4, 1, 1), torch.ones(3, 3, 1)):
+        with pytest.raises(ValueError, match="one per row segment"):
+            gather_rows_dequant(values, bad_scales, [0])
+    with pytest.raises(TypeError, match="int8 table"):
+        gather_rows_dequant(values.float(), scales, [0])
+    with pytest.raises(TypeError, match="bfloat16 or float32"):
+        gather_rows_dequant(values, scales.half(), [0])
+    out = gather_rows_dequant(values, scales.bfloat16(), np.array([3, 3, 0], np.uint8))
+    assert out.shape == (3, 3, 8) and out.dtype == torch.bfloat16
+
+
 def test_cpu_tensors_take_the_plain_versions(monkeypatch):
     """A CPU tensor never reaches the kernel library, and counts no launch."""
     def no_library():
@@ -227,7 +292,8 @@ def test_cpu_tensors_take_the_plain_versions(monkeypatch):
 
     monkeypatch.setattr(_build, "library", no_library)
     monkeypatch.setattr(_build, "build", no_library)
-    wrappers = (gather_rows, lstm_seq, glimpse_head, glimpse_attend, mfb_pool, relation_attend)
+    wrappers = (gather_rows, gather_rows_dequant, lstm_seq, glimpse_head, glimpse_attend,
+                mfb_pool, relation_attend)
     counts = [fn.launches for fn in wrappers]
     xg, mask, wh = (torch.from_numpy(a) for a in _lstm_inputs(1, 3, 4, 8))
     h, seq = lstm_seq(xg, mask, wh)
@@ -239,6 +305,9 @@ def test_cpu_tensors_take_the_plain_versions(monkeypatch):
     table = torch.randn(5, 3)
     assert torch.equal(gather_rows(table, [4, 0]),
                        gather_rows_reference(table, torch.tensor([4, 0])))
+    values, scales = torch.randint(-127, 128, (5, 2, 3), dtype=torch.int8), torch.rand(5, 2, 1)
+    assert torch.equal(gather_rows_dequant(values, scales, [4, 0]),
+                       gather_rows_dequant_reference(values, scales, torch.tensor([4, 0])))
     logits = torch.randn(2, 5, 2)
     assert torch.equal(glimpse_attend(logits, v), glimpse_attend_reference(logits, v))
     z = torch.randn(3, 4, 10)
@@ -310,6 +379,29 @@ def test_gather_rows_kernel_is_bit_exact(cuda_device):
     torch.cuda.synchronize()
     assert gather_rows.launches == before + 1
     assert torch.equal(out, gather_rows_reference(table, torch.from_numpy(idx).to(cuda_device)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scale_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("n,segs,d,b", [(37, 36, 72, 53), (11, 3, 40, 29), (9, 5, 7, 17),
+                                        (7, 3, 16, 2100)])
+def test_gather_rows_dequant_kernel_is_bit_exact(cuda_device, scale_dtype, n, segs, d, b):
+    """Widths on the kernel's vector path (d = 72, 40, 16: d % 8 == 0) and
+    on its one-value-per-thread path (d = 7; a row of 7 bytes is not a
+    multiple of 16), repeated rows, and a batch over ROWS_PER_LAUNCH (two
+    launches): bit-equal to the plain chain."""
+    x = torch.randn(n, segs, d, device=cuda_device) * 3
+    values, scales = (torch.from_numpy(a).to(cuda_device)
+                      for a in quantize_features(x.cpu().numpy()))
+    scales = scales.to(scale_dtype)
+    idx = np.random.default_rng(b).integers(0, n, b)
+    idx[: b // 4] = idx[0]
+    before = gather_rows_dequant.launches
+    out = gather_rows_dequant(values, scales, idx)
+    want = gather_rows_dequant_reference(values, scales, torch.from_numpy(idx).to(cuda_device))
+    torch.cuda.synchronize()
+    assert gather_rows_dequant.launches == before + (2 if b > 2048 else 1)
+    assert out.dtype == scale_dtype and torch.equal(out, want)
 
 
 @pytest.mark.cuda

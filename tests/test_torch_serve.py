@@ -4,9 +4,9 @@ A tiny MutanAtt's flax params are saved with save_tree_npz; the port's
 Predictor.from_run(params=npz) must answer as the JAX Predictor.from_run
 (resume=None, model.pretrained_params=npz) does: same answers, probabilities
 within 1e-5 (float32 on both sides). The port's eval step must give the
-JAX eval step's outputs on a batch that gathers from a feature table. The
-port's copy of the HTTP layer must answer every request as the original
-(vqa_tpu.cli.serve) does.
+JAX eval step's outputs on a batch that gathers from a feature table (float32,
+or int8 with per-row scales). The port's copy of the HTTP layer must answer
+every request as the original (vqa_tpu.cli.serve) does.
 """
 
 import http.client
@@ -39,7 +39,7 @@ from vqa_tpu_torch.cli.serve import AnswerService, DynamicBatcher, build_server
 from vqa_tpu_torch.cli.serve import main as serve_main
 from vqa_tpu_torch.datasets.processed import encode_question_batch
 from vqa_tpu_torch.datasets.tokenizer import get_tokenizer
-from vqa_tpu_torch.engine.steps import make_eval_step
+from vqa_tpu_torch.engine.steps import make_eval_step, quantize_features
 from vqa_tpu_torch.predictor import Predictor
 
 torch.set_num_threads(1)
@@ -164,9 +164,11 @@ def test_port_server_answers(run):
         thread.join(timeout=10)
 
 
-def test_eval_step_matches_jax(run):
+def _eval_both(run, jax_features, port_features):
+    """One batch that gathers from a feature table, through the JAX eval
+    step and the port's; returns (port outputs, JAX outputs)."""
     jax_pred, port_pred, _, _, _ = run
-    table = port_pred.table.numpy()
+    n_rows = port_pred.table.shape[0]
     rng = np.random.default_rng(9)
     B = 10
     question, length = port_pred.encode_questions(
@@ -174,26 +176,41 @@ def test_eval_step_matches_jax(run):
     batch = {
         "question": question.numpy(),
         "length": length.numpy(),
-        "image_index": rng.integers(0, table.shape[0], B).astype(np.int32),
+        "image_index": rng.integers(0, n_rows, B).astype(np.int32),
         "answer": np.where(np.arange(B) % 4 == 0, -1,
                            rng.integers(0, port_pred.dataset.num_answers, B)).astype(np.int32),
         "valid": np.arange(B) < B - 2,
     }
     state = create_state(jax_pred.model, jax_pred.params, optax.sgd(0.1))
     want = jax_make_eval_step()(state, {k: jnp.asarray(v) for k, v in batch.items()},
-                                jnp.asarray(table))
+                                jax_features)
     port_batch = {k: (v if k == "image_index" else torch.from_numpy(v)) for k, v in batch.items()}
-    got = make_eval_step()(port_pred.model, port_batch, port_pred.table)
+    got = make_eval_step()(port_pred.model, port_batch, port_features)
     assert set(got) == set(want) == {"pred", "n", "n_labeled", "correct1", "correct5"}
+    return got, want
+
+
+def test_eval_step_matches_jax(run):
+    _, port_pred, _, _, _ = run
+    got, want = _eval_both(run, jnp.asarray(port_pred.table.numpy()), port_pred.table)
     for key in want:
         np.testing.assert_array_equal(got[key].numpy(), np.asarray(want[key]), err_msg=key)
 
 
-def test_eval_step_refuses_int8_tables(run):
+@pytest.mark.parametrize("scale_dtype", ["bfloat16", "float32"])
+def test_eval_step_int8_table_matches_jax(run, scale_dtype):
+    """An int8 (values, scales) table (engine.features_dtype=int8): rows
+    gathered as int8 and dequantized in the scales' dtype, bf16 as
+    vqa_tpu/cli/train.py places them under a bf16 compute dtype, or float32.
+    The outputs equal the JAX eval step's exactly."""
     _, port_pred, _, _, _ = run
-    batch = {"question": torch.ones(1, 3, dtype=torch.int32), "image_index": np.zeros(1, np.int64)}
-    with pytest.raises(NotImplementedError, match="int8"):
-        make_eval_step()(port_pred.model, batch, (torch.zeros(2, 3), torch.ones(2, 1)))
+    values, scales = quantize_features(port_pred.table.numpy())
+    jax_features = (jnp.asarray(values), jnp.asarray(scales, getattr(jnp, scale_dtype)))
+    port_features = (torch.from_numpy(values),
+                     torch.from_numpy(scales).to(getattr(torch, scale_dtype)))
+    got, want = _eval_both(run, jax_features, port_features)
+    for key in want:
+        np.testing.assert_array_equal(got[key].numpy(), np.asarray(want[key]), err_msg=key)
 
 
 @pytest.mark.parametrize("flag", [["--resume", "best"], ["--exported", "x"]])

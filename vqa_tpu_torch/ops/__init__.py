@@ -4,7 +4,12 @@ Every wrapper takes its kernel on a CUDA tensor and its plain PyTorch
 version on a CPU tensor, and counts its kernel launches in
 ``<wrapper>.launches`` (``lstm_seq`` launches one kernel per time step):
 
-  gather.gather_rows        csrc/gather.cu        <- vqa_tpu/ops/gather.py
-  lstm.lstm_seq             csrc/lstm.cu          <- vqa_tpu/ops/lstm.py
-  attention.glimpse_head    csrc/glimpse_head.cu  <- vqa_tpu/ops/attention.py
+  gather.gather_rows          csrc/gather.cu        <- vqa_tpu/ops/gather.py
+  gather.gather_rows_dequant  csrc/gather.cu        <- the same on int8 rows, with the
+                                                       dequant of vqa_tpu/engine/steps.py
+  lstm.lstm_seq               csrc/lstm.cu          <- vqa_tpu/ops/lstm.py
+  attention.glimpse_head      csrc/glimpse_head.cu  <- vqa_tpu/ops/attention.py
+  attention.glimpse_attend    csrc/glimpse_head.cu  <- vqa_tpu/ops/attention.py
+  mfb_pool.mfb_pool           csrc/mfb_pool.cu      <- vqa_tpu/ops/mfb_pool.py
+  relation.relation_attend    csrc/relation.cu      <- vqa_tpu/ops/relation.py
 """

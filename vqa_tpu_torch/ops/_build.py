@@ -40,6 +40,7 @@ _I64 = ctypes.c_int64
 # c_void_p (a bare Python int would be passed as a 32-bit int and cut)
 _SIGNATURES = {
     "vqa_gather_rows": [_PTR, _PTR, _PTR, _I64, _I64, _PTR],
+    "vqa_gather_rows_dequant": [_PTR, _PTR, _PTR, _PTR, _I64, _I64, _I64, _INT, _PTR],
     "vqa_lstm_seq": [_PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT, _PTR],
     "vqa_glimpse_head": [_PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT, _INT, _INT, _PTR],
     "vqa_glimpse_attend": [_PTR, _PTR, _PTR, _INT, _INT, _INT, _INT, _PTR],
@@ -128,6 +129,15 @@ def library() -> ctypes.CDLL:
         lib.vqa_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
+
+
+def current_stream(device) -> int:
+    """The raw handle of PyTorch's current stream on ``device``, the stream
+    every kernel launches on (without building a ``torch.cuda.Stream``,
+    which costs microseconds a call)."""
+    import torch
+
+    return torch._C._cuda_getCurrentRawStream(device.index)
 
 
 def check(err: int, kernel: str) -> None:

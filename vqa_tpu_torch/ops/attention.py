@@ -46,7 +46,7 @@ def glimpse_attend(logits: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
         return attended
     err = _build.library().vqa_glimpse_attend(
         logits.data_ptr(), v.data_ptr(), attended.data_ptr(), B, R, G, D,
-        torch.cuda.current_stream(dev).cuda_stream,
+        _build.current_stream(dev),
     )
     _build.check(err, "glimpse_attend")
     glimpse_attend.launches += 1
@@ -86,7 +86,7 @@ def glimpse_head(joint: torch.Tensor, w: torch.Tensor, b: torch.Tensor, v: torch
         return attended, logits
     err = _build.library().vqa_glimpse_head(
         joint.data_ptr(), w.data_ptr(), b.data_ptr(), v.data_ptr(), attended.data_ptr(),
-        logits.data_ptr(), B, R, M, G, D, torch.cuda.current_stream(dev).cuda_stream,
+        logits.data_ptr(), B, R, M, G, D, _build.current_stream(dev),
     )
     _build.check(err, "glimpse_head")
     glimpse_head.launches += 1

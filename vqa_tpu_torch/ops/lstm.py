@@ -67,7 +67,7 @@ def lstm_seq(xg: torch.Tensor, mask: torch.Tensor, wh: torch.Tensor, train: bool
     c = torch.empty(B, H, dtype=dt, device=dev)
     err = _build.library().vqa_lstm_seq(
         xg.data_ptr(), mask.data_ptr(), wh.data_ptr(), h_last.data_ptr(), seq.data_ptr(),
-        h_tmp.data_ptr(), c.data_ptr(), T, B, H, torch.cuda.current_stream(dev).cuda_stream,
+        h_tmp.data_ptr(), c.data_ptr(), T, B, H, _build.current_stream(dev),
     )
     _build.check(err, "lstm_seq")
     lstm_seq.launches += T  # one kernel launch per step

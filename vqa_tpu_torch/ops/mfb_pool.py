@@ -43,7 +43,7 @@ def mfb_pool(z: torch.Tensor, k: int) -> torch.Tensor:
         return out
     err = _build.library().vqa_mfb_pool(
         z.data_ptr(), out.data_ptr(), out.numel() // m, k, m,
-        torch.cuda.current_stream(z.device).cuda_stream,
+        _build.current_stream(z.device),
     )
     _build.check(err, "mfb_pool")
     mfb_pool.launches += 1

@@ -54,7 +54,7 @@ def relation_attend(pg: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
         return out
     err = _build.library().vqa_relation_attend(
         pg.data_ptr(), r.data_ptr(), out.data_ptr(), B, N, D,
-        torch.cuda.current_stream(dev).cuda_stream,
+        _build.current_stream(dev),
     )
     _build.check(err, "relation_attend")
     relation_attend.launches += 1
