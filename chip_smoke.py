@@ -12,9 +12,13 @@ Phases, each printing one line of what it found:
      plain PyTorch versions on the card, at the eval shapes of the archs that
      run them (batch 1024), at their serving shapes (batch 64, questions of
      26 tokens) and at odd shapes, with each tolerance stated, and timed
-     (median of CUDA-event timings) beside the plain version; the two
-     gathers also by device time alone (back-to-back launches, indices
-     already where each version reads them) beside their call time;
+     (median of CUDA-event timings) beside the plain version, the bound
+     (the larger of the bytes over HBM's rate and the operations over the
+     peak rate for their type) and, where one PyTorch call computes the
+     same function, that call; the two gathers also by device time alone
+     (back-to-back launches, indices already where each version reads them)
+     beside their call time; lstm_seq also bit-equal across two calls, with
+     its tile plan and a cuBLAS yardstick of its products alone;
   3. eval: each arch at the full width of its options/vqa2 YAML (MutanAtt,
      MFBCoAtt, MFHCoAtt, CoR), bf16, random seeded weights, through the
      port's eval step over a feature table resident on the card (bench.py's
@@ -82,6 +86,11 @@ PROB_RTOL = math.expm1(2 * LOGITS_ATOL)
 # argmax can differ only where the top-2 margin is within the logits error;
 # with random weights and 2000 answers a small share of rows is that close
 PRED_AGREE_FLOOR = 0.9
+
+# published peaks of one H100 SXM (NVIDIA's data sheet, dense, at 700 W)
+PEAK_BF16 = 989e12   # FLOP/s on the tensor cores
+PEAK_FP32 = 67e12    # FLOP/s outside them
+HBM = 3.35e12        # bytes/s
 
 BUCKETS = (7, 13, 26)
 BATCH = 1024
@@ -164,6 +173,14 @@ def _in_turns(torch, timer, kernel, plain):
     return statistics.median(ks), statistics.median(ps)
 
 
+def _bound(nbytes: float, flops: float = 0.0, peak: float = PEAK_BF16):
+    """(bound_ms, bound_by): the least time the card could take, the larger
+    of ``nbytes`` (each input read once, each output written once) over
+    HBM's rate and ``flops`` over ``peak``."""
+    t_bytes, t_ops = nbytes / HBM * 1e3, flops / peak * 1e3
+    return (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
+
+
 def _require(ok: bool, what: str) -> None:
     if not ok:
         raise RuntimeError(f"check failed: {what}")
@@ -191,10 +208,13 @@ def _check_gather(torch, dev, rng):
     # timed at the eval's index distribution (uniform over the table, so
     # rows repeat: 63% distinct at B=1024) and at distinct rows
     timing = {}
+    row_bytes = REGIONS * DIM * 2
     for label, n, b in (("", N_IMAGES, BATCH), ("distinct_", N_IMAGES, BATCH),
                         ("serve_", 48, SERVE_BATCH)):
         table = torch.randn((n, REGIONS, DIM), device=dev).to(torch.bfloat16)
         idx = rng.permutation(n)[:b] if label == "distinct_" else rng.integers(0, n, b)
+        if not label:  # the rows these indices read, once each; the output; the indices
+            bound = _bound(len(np.unique(idx)) * row_bytes + b * row_bytes + 4 * b)
         idx_dev, idx32 = torch.from_numpy(idx).to(dev), _host_indices(idx, n)
         out = torch.empty((b, REGIONS, DIM), dtype=torch.bfloat16, device=dev)
         timing[label + "ms"], timing[label + "plain_ms"] = _in_turns(
@@ -207,10 +227,11 @@ def _check_gather(torch, dev, rng):
     _phase("gather_rows",
            shapes="1024x36x2048[1024],48x36x2048[64],37x36x72[53],11x3x5[29],50x6[5000]",
            max_abs_err=0.0, tol="exact", **{k: round(v, 4) for k, v in timing.items()})
-    return {"max_abs_err": 0.0, **timing,
+    return {"max_abs_err": 0.0, **timing, "bound_ms": bound[0], "bound_by": bound[1],
+            "library_ms": timing["plain_ms"],
             "shape": "table 1024x36x2048 bf16, B=1024; ms/plain_ms: device time (index_select "
                      "on indices already on the card); call_ms/plain_call_ms: the whole call "
-                     "from host indices"}
+                     "from host indices; library_ms: index_select, the plain version itself"}
 
 
 def _check_gather_dequant(torch, dev, rng, flagship):
@@ -243,6 +264,10 @@ def _check_gather_dequant(torch, dev, rng, flagship):
                 tidx_dev, tidx32 = torch.from_numpy(tidx).to(dev), _host_indices(tidx, n)
                 buf = torch.empty_like(ref)
                 key = ("" if b == BATCH else "serve_") + ("" if sdt == torch.bfloat16 else "f32_")
+                if not key:  # distinct int8 rows and their scales, once; the bf16 output
+                    rows = len(np.unique(tidx))
+                    bound = _bound(rows * (REGIONS * DIM + REGIONS * 2)
+                                   + b * REGIONS * DIM * 2 + 4 * b)
                 timing[key + "ms"], timing[key + "plain_ms"] = _in_turns(
                     torch, _device_ms,
                     lambda: launch_gather_rows_dequant(values, sc, tidx32, buf),
@@ -257,9 +282,11 @@ def _check_gather_dequant(torch, dev, rng, flagship):
            shapes="1024x36x2048[1024],48x36x2048[64],11x3x40[29],37x36x7[53],7x3x16[2100]",
            scales="bf16,f32", max_abs_err=0.0, tol="exact",
            **{k: round(v, 4) for k, v in timing.items()})
-    return {"max_abs_err": 0.0, **timing,
+    return {"max_abs_err": 0.0, **timing, "bound_ms": bound[0], "bound_by": bound[1],
+            "library_ms": None,
             "shape": "int8 table 1024x36x2048 + bf16 scales, B=1024; ms/plain_ms: device time; "
-                     "f32_: float32 scales; call_ms/plain_call_ms: the whole call"}
+                     "f32_: float32 scales; call_ms/plain_call_ms: the whole call; no one PyTorch "
+                     "call gathers and dequantizes"}
 
 
 def _lstm_inputs(torch, dev, rng, T, B, H):
@@ -274,8 +301,15 @@ def _lstm_inputs(torch, dev, rng, T, B, H):
     return xg, mask, wh
 
 
+def _lstm_bound(T, B, H):
+    """xg, mask and wh read once, h_last and seq written once; the T-1
+    products h[B,H] x wh[H,4H] (step 0 has none)."""
+    return _bound(2 * (T * B * 4 * H + T * B + 4 * H * H + B * H + T * B * H),
+                  2.0 * (T - 1) * B * H * 4 * H)
+
+
 def _check_lstm(torch, dev, rng):
-    from vqa_tpu_torch.ops.lstm import lstm_seq, lstm_seq_reference
+    from vqa_tpu_torch.ops.lstm import launch_geometry, lstm_plan, lstm_seq, lstm_seq_reference
 
     worst, timing = 0.0, {}
     # H=2400: MutanAtt; H=1024: MFB/MFH and CoR
@@ -284,6 +318,7 @@ def _check_lstm(torch, dev, rng):
                     (5, 37, 40), (4, 37, 42)):
         xg, mask, wh = _lstm_inputs(torch, dev, rng, T, B, H)
         h_last, seq = lstm_seq(xg, mask, wh)
+        again = lstm_seq(xg, mask, wh)
         ref_h, ref_seq = lstm_seq_reference(xg.float(), mask.float(), wh.float())
         torch.cuda.synchronize()
         err = max((h_last.float() - ref_h).abs().max().item(),
@@ -293,21 +328,37 @@ def _check_lstm(torch, dev, rng):
                         (bf16_seq.float() - ref_seq).abs().max().item())
         _require(bool(torch.isfinite(seq).all()), f"lstm_seq T={T} B={B} H={H} finite")
         _require(err <= LSTM_ATOL, f"lstm_seq T={T} B={B} H={H}: err {err} <= {LSTM_ATOL}")
+        _require(torch.equal(h_last, again[0]) and torch.equal(seq, again[1]),
+                 f"lstm_seq T={T} B={B} H={H}: two calls bit-equal")
         worst = max(worst, err)
+        plan = lstm_plan(B, H)
+        ctas, tail_split, _ = launch_geometry(B, H, plan["wg"], dev.index or 0)
         line = dict(T=T, B=B, H=H, max_abs_err=round(err, 5), plain_bf16_err=round(plain_err, 5),
-                    tol=LSTM_ATOL)
+                    tol=LSTM_ATOL, bit_equal=True,
+                    plan=f"wg{plan['wg']}_cluster{plan['cluster']}_ctas{ctas}_tail{tail_split}",
+                    waves=round(plan["tiles"] / ctas, 3))
         if H in (2400, 1024):
-            ms = _median_ms(torch, lambda: lstm_seq(xg, mask, wh), iters=10)
-            plain = _median_ms(torch, lambda: lstm_seq_reference(xg, mask, wh), iters=10)
-            timing[f"T{T}_B{B}" + ("" if H == 2400 else f"_H{H}")] = (ms, plain)
-            line.update(ms=round(ms, 4), plain_ms=round(plain, 4))
+            ms, plain = _in_turns(torch, _median_ms, lambda: lstm_seq(xg, mask, wh),
+                                  lambda: lstm_seq_reference(xg, mask, wh))
+            bound, by = _lstm_bound(T, B, H)
+            h = torch.randn(B, H, device=dev).to(torch.bfloat16)
+            product = _median_ms(torch, lambda: torch.addmm(xg[0], h, wh))
+            shape = dict(ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by,
+                         pct_of_bound=100 * bound / ms, cublas_ms=(T - 1) * product)
+            timing[f"T{T}_B{B}" + ("" if H == 2400 else f"_H{H}")] = shape
+            line.update({k: (round(v, 4) if isinstance(v, float) else v) for k, v in shape.items()})
         _phase("lstm_seq", **line)
-        del xg, mask, wh, h_last, seq, ref_h, ref_seq, bf16_h, bf16_seq
-    ms, plain = timing[f"T7_B{BATCH}"]
-    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain,
-            "shape": "T=7 B=1024 H=2400 bf16",
-            "ms_by_shape": {k: round(v[0], 4) for k, v in timing.items()},
-            "plain_ms_by_shape": {k: round(v[1], 4) for k, v in timing.items()}}
+        del xg, mask, wh, h_last, seq, again, ref_h, ref_seq, bf16_h, bf16_seq
+    flagship = timing[f"T7_B{BATCH}"]
+    return {"max_abs_err": worst, "ms": flagship["ms"], "plain_ms": flagship["plain_ms"],
+            "bound_ms": flagship["bound_ms"], "bound_by": flagship["bound_by"], "library_ms": None,
+            "shape": "T=7 B=1024 H=2400 bf16; no one PyTorch call computes it (cuDNN's LSTM "
+                     "has no mask freezing and no xg input); cublas_ms: (T-1) x torch.addmm(xg_t, "
+                     "h, wh) at the shape, the products alone and not the same function, never "
+                     "called by the port",
+            "design": lstm_plan(BATCH, 2400)["design"],
+            "by_shape": {k: {n: (round(v, 4) if isinstance(v, float) else v)
+                             for n, v in s.items()} for k, s in timing.items()}}
 
 
 def _check_glimpse(torch, dev, rng):
@@ -336,8 +387,13 @@ def _check_glimpse(torch, dev, rng):
             line.update(ms=round(ms, 4), plain_ms=round(plain, 4))
         _phase("glimpse_head", **line)
     ms, plain = timing[f"B{BATCH}_M510"]
-    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain,
-            "shape": "B=1024 R=36 M=510 G=2 D=2048 bf16",
+    B, R, M, G, D = BATCH, REGIONS, 510, 2, DIM  # joint, w, b, v in; attended, logits out
+    bound = _bound(2 * (B * R * M + M * G + G + B * R * D + B * G * D + B * R * G),
+                   2.0 * B * R * G * (M + D))
+    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain, "bound_ms": bound[0],
+            "bound_by": bound[1], "library_ms": None,
+            "shape": "B=1024 R=36 M=510 G=2 D=2048 bf16; no one PyTorch call computes the "
+                     "logits, their softmax over regions and the weighted sum",
             "ms_by_shape": {k: round(v[0], 4) for k, v in timing.items()},
             "plain_ms_by_shape": {k: round(v[1], 4) for k, v in timing.items()}}
 
@@ -384,8 +440,12 @@ def _check_glimpse_attend(torch, dev, rng):
             line.update(ms=round(ms, 4), plain_ms=round(plain, 4))
         _phase("glimpse_attend", **line)
     ms, plain = timing[f"T7_B{BATCH}"]
-    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain,
-            "shape": "B=1024 T=7 G=2 D=1024 bf16, masked rows",
+    B, T, G, D = BATCH, 7, 2, 1024  # logits, v in; attended out
+    bound = _bound(2 * (B * T * G + B * T * D + B * G * D), 2.0 * B * T * G * D)
+    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain, "bound_ms": bound[0],
+            "bound_by": bound[1], "library_ms": None,
+            "shape": "B=1024 T=7 G=2 D=1024 bf16, masked rows; no one PyTorch call takes the "
+                     "softmax over T of given logits and the weighted sum",
             "ms_by_shape": {k: round(v[0], 4) for k, v in timing.items()},
             "plain_ms_by_shape": {k: round(v[1], 4) for k, v in timing.items()}}
 
@@ -414,16 +474,22 @@ def _check_mfb_pool(torch, dev, rng):
         _phase("mfb_pool", **line)
         del z, out, ref
     ms, plain = timing[f"n{BATCH * REGIONS}"]
-    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain,
-            "shape": "z 36864x5000 -> 36864x1000 bf16, k=5",
+    n, k, m = BATCH * REGIONS, 5, 1000  # z in, the pooled unit rows out
+    bound = _bound(2 * (n * k * m + n * m), n * (k * m + 4 * m), PEAK_FP32)
+    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain, "bound_ms": bound[0],
+            "bound_by": bound[1], "library_ms": None,
+            "shape": "z 36864x5000 -> 36864x1000 bf16, k=5; no one PyTorch call pools, takes the "
+                     "signed square root and normalizes",
             "ms_by_shape": {k: round(v[0], 4) for k, v in timing.items()},
             "plain_ms_by_shape": {k: round(v[1], 4) for k, v in timing.items()}}
 
 
 def _check_relation(torch, dev, rng):
+    import torch.nn.functional as F
+
     from vqa_tpu_torch.ops.relation import relation_attend, relation_attend_reference
 
-    worst, timing = 0.0, {}
+    worst, timing, library = 0.0, {}, {}
     # CoR at the eval and the serving batch; then odd shapes
     for B, N, D in ((BATCH, REGIONS, 1024), (SERVE_BATCH, REGIONS, 1024), (5, 7, 33),
                     (3, 36, 40)):
@@ -440,11 +506,20 @@ def _check_relation(torch, dev, rng):
             ms = _median_ms(torch, lambda: relation_attend(pg, r))
             plain = _median_ms(torch, lambda: relation_attend_reference(pg, r))
             timing[f"B{B}"] = (ms, plain)
-            line.update(ms=round(ms, 4), plain_ms=round(plain, 4))
+            # the same function in one PyTorch call (scale 1/sqrt(D), the
+            # default); timed here only, never called by the port
+            library[f"B{B}"] = _median_ms(torch, lambda: F.scaled_dot_product_attention(pg, r, r))
+            line.update(ms=round(ms, 4), plain_ms=round(plain, 4),
+                        library_ms=round(library[f"B{B}"], 4))
         _phase("relation_attend", **line)
     ms, plain = timing[f"B{BATCH}"]
-    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain,
-            "shape": "B=1024 N=36 D=1024 bf16",
+    B, N, D = BATCH, REGIONS, 1024  # pg, r in; out
+    bound = _bound(2 * 3 * B * N * D, 2.0 * 2 * B * N * N * D)
+    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain, "bound_ms": bound[0],
+            "bound_by": bound[1], "library_ms": library[f"B{BATCH}"],
+            "library_ms_by_shape": {k: round(v, 4) for k, v in library.items()},
+            "shape": "B=1024 N=36 D=1024 bf16; library_ms: F.scaled_dot_product_attention(pg, r, "
+                     "r)",
             "ms_by_shape": {k: round(v[0], 4) for k, v in timing.items()},
             "plain_ms_by_shape": {k: round(v[1], 4) for k, v in timing.items()}}
 
@@ -822,8 +897,8 @@ def main() -> int:
         source, replaces = SOURCES[name]
         record.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                        "launches": launches[name],
-                       "max_abs_err": k.pop("max_abs_err"), "ms": k.pop("ms"),
-                       "plain_ms": k.pop("plain_ms"), **k})
+                       **{key: k.pop(key) for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                                      "bound_by", "library_ms")}, **k})
     _phase("total", wall_s=round(time.perf_counter() - t_start, 2))
     print(json.dumps({"kernels": record}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

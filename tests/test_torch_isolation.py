@@ -1,6 +1,7 @@
 """The port stands alone: every vqa_tpu_torch module loads in a fresh
 interpreter (subprocess, so sys.modules starts clean) with nothing of jax,
-flax or optax, and nothing of the JAX package vqa_tpu, in sys.modules.
+flax or optax, and nothing of the JAX package vqa_tpu, in sys.modules, and
+Predictor.from_run answers from a fixture run in such an interpreter.
 chip_smoke.py refuses to run without a CUDA card."""
 
 import importlib
@@ -9,6 +10,7 @@ import pkgutil
 import subprocess
 import sys
 
+import pytest
 import torch
 
 import chip_smoke
@@ -58,6 +60,74 @@ def test_port_imports_no_jax():
     proc = _run(code)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.startswith("ok")
+
+
+@pytest.fixture(scope="module")
+def fixture_run(tmp_path_factory):
+    """A fixture VQA run prepared by the JAX package (the port does not run
+    data prep) and a tiny MutanAtt's weights as a '/'-keyed npz. The JAX
+    package is imported here, not at module level: the card's machine runs
+    this file's collection without h5py or flax."""
+    import jax
+    import jax.numpy as jnp
+
+    from vqa_tpu.config import load_options
+    from vqa_tpu.datasets import factory as dataset_factory
+    from vqa_tpu.datasets.fixtures import generate
+    from vqa_tpu.importers import save_tree_npz
+    from vqa_tpu.models import factory as jax_factory
+
+    d = str(tmp_path_factory.mktemp("isolated_run"))
+    generate(d, n_images=6, n_questions=24, seed=3)
+    overrides = [f"vqa.dir={d}/vqa2", f"coco.dir={d}/coco", "vqa.nans=10",
+                 "model.seq2vec.emb_size=8", "model.seq2vec.hidden_size=16",
+                 "model.attention.dim_hv=8", "model.attention.dim_hq=8",
+                 "model.attention.dim_mm=8", "model.attention.R=2", "model.fusion.dim_hv=8",
+                 "model.fusion.dim_hq=8", "model.fusion.dim_mm=8", "model.fusion.R=2"]
+    path_opt = os.path.join(REPO, "options", "vqa2", "mutan_att.yaml")
+    opt = load_options(path_opt, overrides)
+    val_set = dataset_factory("val", opt)  # writes the processed split
+    model = jax_factory(opt.model, val_set.num_words, val_set.num_answers)
+    params = model.init(jax.random.key(0), jnp.zeros((1,) + val_set.feature_shape),
+                        jnp.zeros((1, opt.vqa.maxlength), jnp.int32),
+                        jnp.ones((1,), jnp.int32))["params"]
+    npz = os.path.join(d, "params.npz")
+    save_tree_npz(npz, params)
+    return d, path_opt, npz, overrides
+
+
+def test_from_run_imports_nothing_of_jax(fixture_run):
+    """Predictor.from_run reads the options YAML, the processed val
+    vocabulary and the feature table with the port's own readers: after it
+    has answered, nothing of vqa_tpu, jax or flax is in sys.modules."""
+    d, path_opt, npz, overrides = fixture_run
+    code = (
+        "import sys\n"
+        "from vqa_tpu_torch.predictor import Predictor\n"
+        f"p = Predictor.from_run({d!r}, {path_opt!r}, params={npz!r}, overrides={overrides!r}, "
+        "device='cpu')\n"
+        "name = p.dataset.split.image_names[0]\n"
+        "rows = p.answer_batch(['what color is the cat?', ''], [name, name], 3)\n"
+        "assert len(rows) == 2 and all(len(r) == 3 for r in rows), rows\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'optax', "
+        "'vqa_tpu'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    proc = _run(code)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+
+
+def test_from_run_names_the_missing_prep(fixture_run, tmp_path):
+    """Without the processed split the port raises FileNotFoundError naming
+    the JAX package's prep, which it does not run itself."""
+    from vqa_tpu_torch.predictor import Predictor
+
+    _, path_opt, npz, overrides = fixture_run
+    moved = [o for o in overrides if not o.startswith("vqa.dir=")] + [f"vqa.dir={tmp_path}"]
+    with pytest.raises(FileNotFoundError, match="run_prep"):
+        Predictor.from_run(str(tmp_path), path_opt, params=npz, overrides=moved, device="cpu")
 
 
 def test_chip_smoke_refuses_to_run_without_a_card():

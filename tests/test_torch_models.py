@@ -303,7 +303,7 @@ def test_port_params_are_the_flax_tree(name):
 def test_tiny_flagship_builds_the_flax_tree():
     """flagship.build(tiny=True) is __graft_entry__'s tiny model, leaf for leaf."""
     jax_model, params, _, _, _ = _mutan_att([])
-    port = flagship.build(40, 11, tiny=True, dim_v=24)
+    port = flagship.build(40, 11, tiny=True, dim_v=24, device="cpu")
     want = {k: v.shape for k, v in flatten_tree(params).items()}
     got = {name.replace(".", "/"): tuple(p.shape) for name, p in port.named_parameters()}
     assert got == want
@@ -359,13 +359,13 @@ def test_example_batch_is_seeded_and_runs_the_tiny_flagship():
     for key in ("visual", "question", "length"):
         np.testing.assert_array_equal(a[key], b[key])
     assert a["question"].min() >= 1 and a["question"].max() < 40
-    port = flagship.build(40, 11, tiny=True, dim_v=24)
+    port = flagship.build(40, 11, tiny=True, dim_v=24, device="cpu")
     with torch.inference_mode():
         logits = port(*(torch.from_numpy(a[k]) for k in ("visual", "question", "length")))
     assert logits.shape == (3, 11) and bool(torch.isfinite(logits).all())
 
 
 def test_train_is_not_ported():
-    port = flagship.build(40, 11, tiny=True, dim_v=24)
+    port = flagship.build(40, 11, tiny=True, dim_v=24, device="cpu")
     with pytest.raises(NotImplementedError, match="queue 1, item 5"):
         port(torch.zeros(2, 5, 24), torch.ones(2, 3, dtype=torch.int32), train=True)

@@ -26,7 +26,8 @@ from vqa_tpu_torch.ops.attention import (glimpse_attend, glimpse_attend_referenc
                                          glimpse_head_reference)
 from vqa_tpu_torch.ops.gather import (gather_rows, gather_rows_dequant,
                                       gather_rows_dequant_reference, gather_rows_reference)
-from vqa_tpu_torch.ops.lstm import lstm_seq, lstm_seq_reference
+from vqa_tpu_torch.ops.lstm import (SMEM_LIMIT, SMS, gate_strips, lstm_plan, lstm_seq,
+                                    lstm_seq_reference)
 from vqa_tpu_torch.ops.mfb_pool import mfb_pool, mfb_pool_reference
 from vqa_tpu_torch.ops.relation import relation_attend, relation_attend_reference
 
@@ -83,6 +84,56 @@ def test_lstm_seq_left_padding_ends_on_last_token():
     mask[2:, 1] = 1                             # row 1: left-padded, length 3
     h, _ = lstm_seq(*(torch.from_numpy(a) for a in (xg, mask, wh)))
     np.testing.assert_allclose(h[0].numpy(), h[1].numpy(), rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("B,H", [(1024, 2400), (1024, 1024), (64, 2400), (64, 1024)])
+def test_lstm_plan_fills_the_card_within_its_limits(B, H):
+    """The tile class csrc/lstm.cu runs at the archs' eval (B=1024) and
+    serving (B=64) shapes: at the eval batch at least 132 CTAs and 1.8
+    waves; at the serving batch one CTA per tile, all in one wave; always
+    shared memory within a Hopper block's 232,448 bytes and a wgmma N that is
+    a multiple of 8 and at most 256."""
+    plan = lstm_plan(B, H)
+    if B >= 512:
+        assert plan["ctas"] >= SMS and plan["waves"] >= 1.8
+    else:
+        assert plan["ctas"] == plan["tiles"] and plan["waves"] <= 1
+    assert plan["smem_bytes"] <= SMEM_LIMIT
+    assert plan["n"] % 8 == 0 and plan["n"] <= 256
+    assert plan["hp"] % 8 == 0 and plan["hp"] >= H
+
+
+def test_lstm_plan_pairs_the_large_batch_in_clusters():
+    big, small = lstm_plan(1024, 2400), lstm_plan(1024, 1024)
+    assert (big["wg"], big["cluster"], big["bm"], big["tiles"]) == (2, 2, 128, 304)
+    # 152 pair-tiles on 66 pairs: two full rounds, then 20 tiles x 3 K ranges
+    assert (big["full_rounds"], big["tail_tiles"], big["tail_split"]) == (2, 20, 3)
+    assert (small["wg"], small["cluster"], small["bm"], small["tiles"]) == (1, 1, 64, 256)
+    # wh crosses L2 once per 256 rows, h once per 64 units
+    assert big["l2_bytes_per_step"] == 2 * 2400 * 1024 * 9600 * (1 / 256 + 1 / 256)
+    # an odd number of 128-row tiles is paired with an empty one
+    assert lstm_plan(1100, 2400)["tiles"] == 10 * 38
+
+
+@pytest.mark.parametrize("B,H", [(64, 41), (1024, 2399), (0, 64), (8, 0)])
+def test_lstm_plan_refuses_shapes_it_cannot_describe(B, H):
+    with pytest.raises(ValueError, match="lstm_seq"):
+        lstm_plan(B, H)
+
+
+@pytest.mark.parametrize("H", [40, 42, 96])
+def test_gate_strips_start_on_16_bytes(H):
+    """wh as the kernel's tensor map reads it: the four gate strips gs
+    elements apart, gs a multiple of 8; a padded copy keeps every strip in
+    order (no permutation) with zeros after it."""
+    wh = torch.randn(H, 4 * H)
+    padded, gs = gate_strips(wh)
+    assert gs % 8 == 0 and H <= gs < H + 8
+    if gs == H:
+        assert padded is wh
+    strips = padded.view(H, 4, gs)
+    torch.testing.assert_close(strips[:, :, :H], wh.view(H, 4, H), rtol=0, atol=0)
+    assert bool((strips[:, :, H:] == 0).all())
 
 
 def test_lstm_seq_train_is_not_ported():
@@ -405,18 +456,32 @@ def test_gather_rows_dequant_kernel_is_bit_exact(cuda_device, scale_dtype, n, se
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("T,B,H", [(5, 37, 40), (4, 37, 42), (7, 130, 96)])
+@pytest.mark.parametrize("T,B,H", [(5, 37, 40), (4, 37, 42), (7, 130, 96), (3, 256, 128),
+                                   (4, 64, 1024), (3, 1100, 2400), (3, 1024, 2400)])
 def test_lstm_seq_kernel_matches_plain(cuda_device, T, B, H):
     """bf16 kernel vs the plain version in float32 on the same inputs: the
-    kernel stores h and c in bf16 between steps (0.05, as chip_smoke.py)."""
+    kernel stores h and c in bf16 between steps (0.05, as chip_smoke.py).
+    H=42 takes the padded gate strips; B=1100, H=2400 the paired 128-row
+    tiles with an odd last one; B=1024, H=2400 the tail tiles shared over K."""
     xg, mask, wh = (torch.from_numpy(a).to(cuda_device) for a in _lstm_inputs(T, T, B, H))
     before = lstm_seq.launches
     h, seq = lstm_seq(xg.bfloat16(), mask.bfloat16(), wh.bfloat16())
     ref_h, ref_seq = lstm_seq_reference(xg.bfloat16().float(), mask, wh.bfloat16().float())
     torch.cuda.synchronize()
-    assert lstm_seq.launches == before + T  # one launch per step
+    assert lstm_seq.launches == before + 1  # one persistent launch runs all T steps
     assert (h.float() - ref_h).abs().max().item() <= 0.05
     assert (seq.float() - ref_seq).abs().max().item() <= 0.05
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,B,H", [(6, 1024, 2400), (6, 64, 1024)])
+def test_lstm_seq_kernel_is_bit_equal_across_runs(cuda_device, T, B, H):
+    """No split-K, no atomics on the data: two calls give the same bits."""
+    xg, mask, wh = (torch.from_numpy(a).to(cuda_device).bfloat16()
+                    for a in _lstm_inputs(T, T, B, H))
+    first, second = lstm_seq(xg, mask, wh), lstm_seq(xg, mask, wh)
+    torch.cuda.synchronize()
+    assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
 
 
 @pytest.mark.cuda

@@ -81,7 +81,7 @@ def run(tmp_path_factory):
     jax_pred = JaxPredictor.from_run(
         d, PATH_OPT, resume=None, overrides=overrides + [f"model.pretrained_params={npz}"]
     )
-    port_pred = Predictor.from_run(d, PATH_OPT, params=npz, overrides=overrides)
+    port_pred = Predictor.from_run(d, PATH_OPT, params=npz, overrides=overrides, device="cpu")
     return jax_pred, port_pred, npz, d, overrides
 
 
@@ -121,7 +121,7 @@ def test_predictor_left_padding_matches_jax(run):
     left = overrides + ["vqa.pad=left"]
     jax_left = JaxPredictor.from_run(d, PATH_OPT, resume=None,
                                      overrides=left + [f"model.pretrained_params={npz}"])
-    port_left = Predictor.from_run(d, PATH_OPT, params=npz, overrides=left)
+    port_left = Predictor.from_run(d, PATH_OPT, params=npz, overrides=left, device="cpu")
     names = [str(n) for n in jax_pred.dataset.split.image_names[: len(QUESTIONS)]]
     _same(port_left.answer_batch(QUESTIONS, names), jax_left.answer_batch(QUESTIONS, names))
 

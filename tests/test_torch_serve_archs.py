@@ -77,7 +77,8 @@ def run(request, data_dir):
         data_dir, path_opt, resume=None,
         overrides=overrides + [f"model.pretrained_params={npz}"],
     )
-    port_pred = Predictor.from_run(data_dir, path_opt, params=npz, overrides=overrides)
+    port_pred = Predictor.from_run(data_dir, path_opt, params=npz, overrides=overrides,
+                                   device="cpu")
     return jax_pred, port_pred
 
 

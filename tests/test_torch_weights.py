@@ -37,7 +37,7 @@ def jax_tiny_params():
 
 
 def _port():
-    return flagship.build(40, 11, tiny=True, dim_v=24)
+    return flagship.build(40, 11, tiny=True, dim_v=24, device="cpu")
 
 
 def test_npz_roundtrip_is_byte_identical(jax_tiny_params, tmp_path):
@@ -59,7 +59,7 @@ def test_key_set_equals_the_flax_tree(jax_tiny_params):
 
 
 def test_full_flagship_matches_the_published_size():
-    model = flagship.build()
+    model = flagship.build(device="cpu")
     assert len(list(model.parameters())) == 24
     assert sum(p.numel() for p in model.parameters()) == 46_091_272
     assert tuple(model.encoder.lstm_0.wh.shape) == (2400, 9600)
@@ -80,7 +80,7 @@ def test_missing_extra_and_misshaped_keys_raise(jax_tiny_params):
 
 
 def test_values_land_in_the_model_dtype(jax_tiny_params):
-    model = flagship.build(40, 11, tiny=True, dtype=torch.bfloat16, dim_v=24)
+    model = flagship.build(40, 11, tiny=True, dtype=torch.bfloat16, dim_v=24, device="cpu")
     load_params(model, flatten_tree(jax_tiny_params))
     assert all(p.dtype == torch.bfloat16 for p in model.parameters())
     wh = flatten_tree(jax_tiny_params)["encoder/lstm_0/wh"]

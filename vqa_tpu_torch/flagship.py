@@ -97,12 +97,12 @@ def model_options(tiny: bool = False, name: str = "mutan_att") -> dict:
 
 
 def build(num_words: int = NUM_WORDS, num_answers: int = NUM_ANSWERS, tiny: bool = False,
-          dtype=torch.float32, device="cpu", dim_v: int = 2048):
+          dtype=torch.float32, device="cuda", dim_v: int = 2048):
     return factory(model_options(tiny), num_words, num_answers, dtype=dtype, device=device,
                    dim_v=dim_v)
 
 
-def build_config(name: str, num_words: int = NUM_WORDS, dtype=torch.float32, device="cpu",
+def build_config(name: str, num_words: int = NUM_WORDS, dtype=torch.float32, device="cuda",
                  dim_v: int = 2048):
     """The model of ``options/vqa2/<name>.yaml`` at full width, with its
     own answer count."""

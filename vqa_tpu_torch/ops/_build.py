@@ -41,7 +41,8 @@ _I64 = ctypes.c_int64
 _SIGNATURES = {
     "vqa_gather_rows": [_PTR, _PTR, _PTR, _I64, _I64, _PTR],
     "vqa_gather_rows_dequant": [_PTR, _PTR, _PTR, _PTR, _I64, _I64, _I64, _INT, _PTR],
-    "vqa_lstm_seq": [_PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT, _PTR],
+    "vqa_lstm_seq": [*[_PTR] * 9, _I64, *[_INT] * 5, _PTR],
+    "vqa_lstm_seq_geometry": [_INT, _INT, _INT, _PTR],
     "vqa_glimpse_head": [_PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT, _INT, _INT, _PTR],
     "vqa_glimpse_attend": [_PTR, _PTR, _PTR, _INT, _INT, _INT, _INT, _PTR],
     "vqa_mfb_pool": [_PTR, _PTR, _I64, _INT, _INT, _PTR],

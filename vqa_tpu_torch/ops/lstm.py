@@ -9,12 +9,17 @@ is 0, h and c stay frozen and ``seq`` is 0, so ``h_last`` is each row's last
 real step whichever side the padding is on.
 
 On CUDA tensors this launches the hand-written kernel in ``csrc/lstm.cu``
-(bf16, one launch per step); on CPU tensors it takes the plain version. The
-training path (the hand-written big-matmul backward,
+(bf16, one persistent launch for all T steps, tiles chosen by
+``lstm_plan``); on CPU tensors it takes the plain version. The training
+path (the hand-written big-matmul backward,
 ``vqa_tpu/ops/lstm.py::_lstm_seq_bigmatmul``) is not ported yet.
 """
 
 from __future__ import annotations
+
+import ctypes
+import functools
+import math
 
 import torch
 
@@ -24,6 +29,90 @@ TRAIN_NOT_PORTED = (
     "training is not ported yet: the LSTM backward and the train step are "
     "ROADMAP.md queue 1, item 5"
 )
+
+
+SMS = 132  # streaming multiprocessors of an H100 SXM
+SMEM_LIMIT = 232_448  # shared memory one block may use on Hopper
+_STAGES = {2: 4, 1: 5}  # by warpgroups, as csrc/lstm.cu instantiates them
+_BK = 64     # K tile
+_UNITS = 64  # hidden units a tile (x 4 gates = 256 columns)
+_MAX_SPLIT = 3  # clusters sharing a tail tile
+
+
+def lstm_plan(B: int, H: int) -> dict:
+    """The class ``csrc/lstm.cu`` runs at batch B and hidden size H, chosen
+    by shape alone, with the numbers it was chosen by: the CTAs and waves
+    on 132 SMs (one CTA an SM: its shared memory is over half of it), the
+    operand bytes a step pulls through L2 (h re-read once per column tile,
+    wh once per row tile) and the shared memory a stage. Every tile is
+    64 units x 4 gates (N = 256, one 128-byte swizzle row a gate strip);
+
+    - wg=2: 128-row tiles, when they make at least 1.8 waves (B=1024,
+      H=2400: 304 tiles, 2.3 waves), in clusters of two CTAs on
+      neighbouring row tiles that share each wh stage (TMA multicast);
+    - wg=1: 64-row tiles otherwise (B=1024, H=1024: 256 tiles; the serving
+      batch B=64: one row of 38 tiles at H=2400, 16 at H=1024).
+
+    Each step runs full rounds of tiles over the clusters (CTA pairs for
+    wg=2), then the tiles left over: each of those is shared by
+    ``tail_split`` clusters over K (B=1024, H=2400: 152 pair-tiles on 66
+    pairs, two rounds, then 20 tiles x 3), the partial products summed in a
+    fixed order. The card's occupancy settles the grid and the split
+    (``launch_geometry``); the figures here assume 132 SMs.
+
+    Raises ValueError for a shape the kernel cannot describe."""
+    if B < 1 or H < 2:
+        raise ValueError(f"lstm_seq needs B >= 1 and H >= 2, got B={B}, H={H}")
+    if H % 2:
+        raise ValueError(f"lstm_seq reads xg and writes h, c and seq two units (4 bytes) at a "
+                         f"time, so xg's gate strips must start on 4 bytes: H must be even, "
+                         f"got H={H}")
+    n_u = math.ceil(H / _UNITS)
+    wg = 2 if math.ceil(B / 128) * n_u >= 1.8 * SMS else 1
+    bm, n = 64 * wg, 4 * _UNITS
+    stages = _STAGES[wg]
+    stage_bytes = bm * _BK * 2 + _BK * n * 2
+    cluster = wg  # wg=2 pairs its row tiles; an odd last one with an empty one
+    tiles = math.ceil(math.ceil(B / bm) / cluster) * cluster * n_u
+    clusters = min(tiles, SMS) // cluster
+    rounds, rem = divmod(tiles // cluster, clusters)
+    split = min(clusters // rem, _MAX_SPLIT, n_u) if rounds and rem else 1
+    return {
+        "wg": wg, "cluster": cluster, "bm": bm, "n": n, "stages": stages, "tiles": tiles,
+        "full_rounds": rounds, "tail_tiles": rem, "tail_split": split,
+        "ctas": min(tiles, SMS), "waves": tiles / SMS,
+        "l2_bytes_per_step": 2 * H * B * 4 * H * (1 / (bm * cluster) + 1 / n),
+        "smem_per_stage": stage_bytes,
+        # + the stages' barriers, and 4 KB of epilogue staging a consumer warp
+        "smem_bytes": 1024 + stages * stage_bytes + 128 + 4 * wg * 4096,
+        "hp": math.ceil(H / 8) * 8, "design": "persistent, grid barrier between steps",
+    }
+
+
+@functools.lru_cache(maxsize=None)
+def launch_geometry(B: int, H: int, wg: int, device_index: int) -> tuple:
+    """(CTAs, tail split, partial-product scratch bytes) that csrc/lstm.cu
+    launches at this shape and class on this card, from its occupancy."""
+    geometry = (ctypes.c_longlong * 3)()
+    with torch.cuda.device(device_index):
+        _build.check(_build.library().vqa_lstm_seq_geometry(B, H, wg, geometry),
+                     "lstm_seq geometry")
+    return tuple(geometry)
+
+
+def gate_strips(wh: torch.Tensor):
+    """(wh, gs): the kernel reads gate g's strip at column g*gs + j of each
+    wh row, and a TMA box must start on 16 bytes, so gs must be a multiple
+    of 8. H % 8 == 0 (the archs' 1024 and 2400) takes wh as it is; otherwise
+    a copy with each gate strip zero-padded to a multiple of 8 (same order,
+    no permutation)."""
+    H = wh.shape[0]
+    if H % 8 == 0:
+        return wh, H
+    gs = math.ceil(H / 8) * 8
+    padded = wh.new_zeros(H, 4, gs)
+    padded[:, :, :H] = wh.view(H, 4, H)
+    return padded, gs
 
 
 def lstm_seq_reference(xg: torch.Tensor, mask: torch.Tensor, wh: torch.Tensor):
@@ -61,16 +150,28 @@ def lstm_seq(xg: torch.Tensor, mask: torch.Tensor, wh: torch.Tensor, train: bool
     _build.require("xg", xg, dev, dt, (T, B, 4 * H))
     _build.require("mask", mask, dev, dt, (T, B, 1))
     _build.require("wh", wh, dev, dt, (H, 4 * H))
+    if xg.data_ptr() % 16:
+        raise ValueError("lstm_seq reads xg in 16-byte chunks: its storage must start on 16 "
+                         "bytes")
+    plan = lstm_plan(B, H)
+    wh, gs = gate_strips(wh)
     h_last = torch.empty(B, H, dtype=dt, device=dev)
     seq = torch.empty(T, B, H, dtype=dt, device=dev)
-    h_tmp = torch.empty(B, H, dtype=dt, device=dev)
-    c = torch.empty(B, H, dtype=dt, device=dev)
+    # scratch: the ping-pong h of steps 0..T-2 and c, with rows padded to 16
+    # bytes (TMA's global strides), the grid barrier's and the tail tiles'
+    # counters, and the tail tiles' partial products
+    hbuf = torch.empty(2, B, plan["hp"], dtype=dt, device=dev)
+    c = torch.empty(B, plan["hp"], dtype=dt, device=dev)
+    count = torch.empty(1 + plan["tiles"], dtype=torch.int32, device=dev)
+    part_bytes = launch_geometry(B, H, plan["wg"], dev.index or 0)[2]
+    part = torch.empty(max(part_bytes, 16), dtype=torch.uint8, device=dev)
     err = _build.library().vqa_lstm_seq(
         xg.data_ptr(), mask.data_ptr(), wh.data_ptr(), h_last.data_ptr(), seq.data_ptr(),
-        h_tmp.data_ptr(), c.data_ptr(), T, B, H, _build.current_stream(dev),
+        hbuf.data_ptr(), c.data_ptr(), count.data_ptr(), part.data_ptr(), part.numel(), T, B, H,
+        gs, plan["wg"], _build.current_stream(dev),
     )
     _build.check(err, "lstm_seq")
-    lstm_seq.launches += T  # one kernel launch per step
+    lstm_seq.launches += 1  # one persistent launch runs all T steps
     return h_last, seq
 
 

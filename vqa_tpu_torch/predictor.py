@@ -9,8 +9,10 @@
 The weights come from a '/'-keyed npz (``python -m vqa_tpu.cli.export
 --params external`` of a trained run, or ``vqa_tpu.importers.save_tree_npz``):
 the port cannot read Orbax checkpoints, which need jax. ``from_run`` reads the
-run's options YAML and its VQA dataset (yaml, h5py); ``Predictor(...)`` builds
-from in-memory parts and needs neither.
+run's options YAML, the processed val vocabulary and the feature table with
+the port's own readers (it needs yaml and h5py, nothing of the JAX package);
+``Predictor(...)`` builds from in-memory parts and needs neither. Both run on
+the card unless the caller asks for the CPU (``device="cpu"``).
 """
 
 from __future__ import annotations
@@ -78,19 +80,20 @@ class Predictor:
         path_opt: Optional[str] = None,
         params: Optional[str] = None,
         overrides: Optional[List[str]] = None,
-        device="cpu",
+        device="cuda",
     ) -> "Predictor":
         """Load a run's config, val vocabulary and feature table, and the
         weights from the ``params`` npz (default: the config's
         ``model.pretrained_params``). With no ``path_opt`` the run's own
         options.yaml is used. The model computes in bf16 on CUDA (the
-        kernels take bf16) and in the config's ``engine.dtype`` elsewhere."""
-        import json
+        kernels take bf16) and in the config's ``engine.dtype`` elsewhere.
+        Raises FileNotFoundError when the processed val split is missing:
+        the port does not run data prep."""
         import os
 
-        from vqa_tpu.config import load_options
-        from vqa_tpu.datasets import factory as dataset_factory
-        from vqa_tpu.datasets.features import feature_paths
+        from vqa_tpu_torch.config import load_options
+        from vqa_tpu_torch.datasets.features import FeatureTable
+        from vqa_tpu_torch.datasets.processed import load_vocabs, processed_split
 
         if path_opt is None:
             path_opt = os.path.join(dir_logs, "options.yaml")
@@ -103,19 +106,16 @@ class Predictor:
             )
         device = torch.device(device)
         dtype = torch.bfloat16 if device.type == "cuda" else opt.engine.dtype
-        val_set = dataset_factory("val", opt)
+        vocabs = load_vocabs(processed_split(opt, "val"))
+        features = FeatureTable(opt.coco.dir, opt.coco.arch, opt.coco.mode)
         model = model_factory(
-            dataclasses.asdict(opt.model), val_set.num_words, val_set.num_answers,
-            dtype=dtype, device=device, dim_v=val_set.feature_shape[-1],
+            dataclasses.asdict(opt.model), vocabs.num_words, vocabs.num_answers,
+            dtype=dtype, device=device, dim_v=features.feature_shape[-1],
         )
         with np.load(params) as flat:
             load_params(model, flat)
-        _, names_path = feature_paths(opt.coco.dir, opt.coco.arch, opt.coco.mode)
-        with open(names_path) as f:
-            names = json.load(f)
-        image_rows = names if isinstance(names, dict) else {n: i for i, n in enumerate(names)}
-        catalog = Catalog(val_set.vocabs.word_to_wid, val_set.vocabs.aid_to_ans, image_rows)
-        table = torch.from_numpy(val_set.features.as_array())
+        catalog = Catalog(vocabs.word_to_wid, vocabs.aid_to_ans, features.image_rows)
+        table = torch.from_numpy(features.array)
         return cls(model, catalog, table, opt.vqa.maxlength, opt.vqa.pad, opt.vqa.nlp)
 
     def encode_questions(self, questions: Sequence[str]):

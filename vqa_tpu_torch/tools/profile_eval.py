@@ -1,0 +1,165 @@
+"""Where one eval pass's device time goes, by ``torch.profiler`` (CUPTI).
+
+    python -m vqa_tpu_torch.tools.profile_eval [ARCH[:int8] ...]
+
+For each arch (default: MutanAtt MFBCoAtt CoR) at the full width of its
+``options/vqa2`` config, bf16, random weights (seed 0): 8 eval batches of
+1024 over a 1024-image table resident on the card, with VQA v2 question
+lengths (mean ~6.2, sd ~2.2, clipped to [3, 26]) sorted into the {7, 13, 26}
+buckets, as ``chip_smoke.py`` runs them; ``:int8`` runs the same over the
+table's int8 quantization (bf16 scales). Two warm-up passes, one pass
+timed on the host clock, then one profiled pass. Prints one JSON line per
+arch: the device span (first kernel's start to last kernel's end), busy time
+(union of kernel intervals), idle share, kernel count, and device time by
+class (each hand-written kernel by name, GEMMs, elementwise, reductions,
+other), largest first. The profiler's own overhead is inside the span.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import re
+import subprocess
+import sys
+import tempfile
+import time
+
+import numpy as np
+import torch
+
+ARCHS = {"MutanAtt": "mutan_att", "MFBCoAtt": "mfb_coatt", "MFHCoAtt": "mfh_coatt", "CoR": "cor"}
+BUCKETS = (7, 13, 26)
+BATCH, N_BATCHES, N_IMAGES, SEQ, REGIONS, DIM = 1024, 8, 1024, 26, 36, 2048
+# kernel name -> class; the first pattern that matches wins
+CLASSES = (
+    ("lstm_seq", r"lstm_seq_kernel|lstm_step_kernel"),
+    ("gather_rows_dequant", r"gather_rows_dequant"),
+    ("gather_rows", r"gather_rows"),
+    ("glimpse_head", r"glimpse_head"),
+    ("glimpse_attend", r"glimpse_attend"),
+    ("mfb_pool", r"mfb_pool"),
+    ("relation_attend", r"relation"),
+    ("gemm", r"gemm|nvjet|cutlass|sm80_|sm90_|cublas|xmma"),
+    ("reduction", r"reduce|Reduce|softmax|norm"),
+    ("elementwise", r"elementwise|vectorized|unrolled|Elementwise"),
+)
+
+
+def _classify(name: str) -> str:
+    for cls, pattern in CLASSES:
+        if re.search(pattern, name):
+            return cls
+    return "other"
+
+
+def _batches(dev, rng):
+    from vqa_tpu_torch.flagship import NUM_WORDS
+
+    n = BATCH * N_BATCHES
+    questions = rng.integers(1, NUM_WORDS, (n, SEQ), dtype=np.int32)
+    lengths = np.clip(np.round(rng.normal(6.2, 2.2, n)), 3, SEQ).astype(np.int32)
+    questions *= (np.arange(SEQ)[None, :] < lengths[:, None]).astype(np.int32)
+    image_index = rng.integers(0, N_IMAGES, n).astype(np.int32)
+    order = np.argsort(lengths, kind="stable")
+    questions, lengths, image_index = questions[order], lengths[order], image_index[order]
+    out = []
+    for i in range(N_BATCHES):
+        sl = slice(i * BATCH, (i + 1) * BATCH)
+        t_b = next(b for b in BUCKETS if b >= lengths[sl].max())
+        out.append({"question": torch.from_numpy(questions[sl, :t_b]).to(dev),
+                    "length": torch.from_numpy(lengths[sl]).to(dev),
+                    "image_index": image_index[sl],
+                    "answer": torch.zeros(BATCH, dtype=torch.long, device=dev),
+                    "valid": torch.ones(BATCH, dtype=torch.bool, device=dev)})
+    return out
+
+
+def _kernel_events(trace_path: str):
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    return [e for e in events if e.get("cat") == "kernel" and "dur" in e]
+
+
+def profile(arch: str, int8: bool, dev) -> dict:
+    from vqa_tpu_torch.engine.steps import make_eval_step, quantize_features
+    from vqa_tpu_torch.flagship import build_config
+    from vqa_tpu_torch.weights import random_params
+
+    rng = np.random.default_rng(0)
+    table = rng.standard_normal((N_IMAGES, REGIONS, DIM), dtype=np.float32)
+    if int8:
+        values, scales = quantize_features(table)
+        features = (torch.from_numpy(values).to(dev), torch.from_numpy(scales).to(dev,
+                                                                                torch.bfloat16))
+    else:
+        features = torch.from_numpy(table).to(dev, torch.bfloat16)
+    batches = _batches(dev, rng)
+    model = build_config(ARCHS[arch], dtype=torch.bfloat16, device=dev)
+    random_params(model, seed=0)
+    eval_step = make_eval_step()
+
+    def run_pass():
+        for b in batches:
+            eval_step(model, b, features)
+        torch.cuda.synchronize()
+
+    run_pass()
+    run_pass()
+    t0 = time.perf_counter()
+    run_pass()
+    host_s = time.perf_counter() - t0
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        run_pass()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        kernels = _kernel_events(path)
+    if not kernels:
+        raise RuntimeError("the profiler recorded no kernel on the card")
+    spans = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"])) for e in kernels)
+    busy, end = 0.0, spans[0][0]
+    for s, e in spans:  # union of the intervals, in us
+        if e > end:
+            busy += e - max(s, end)
+            end = e
+    span = spans[-1][1] - spans[0][0]
+    by_class = {}
+    for e in kernels:
+        cls = _classify(e["name"])
+        t, n = by_class.get(cls, (0.0, 0))
+        by_class[cls] = (t + float(e["dur"]), n + 1)
+    del model, features
+    torch.cuda.empty_cache()
+    return {
+        "arch": arch, "table": "int8+bf16_scales" if int8 else "bf16",
+        "span_ms": span / 1e3, "busy_ms": busy / 1e3, "idle_share": 1 - busy / span,
+        "kernels": len(kernels), "host_pass_s": host_s,
+        "by_class": {cls: {"ms": t / 1e3, "share_of_busy": t / busy, "launches": n}
+                     for cls, (t, n) in sorted(by_class.items(), key=lambda kv: -kv[1][0])},
+    }
+
+
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    if not torch.cuda.is_available():
+        print("profile_eval needs a CUDA card", file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda:0")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip()
+    print(smi, flush=True)
+    for spec in argv or ["MutanAtt", "MFBCoAtt", "CoR"]:
+        arch, _, table = spec.partition(":")
+        if arch not in ARCHS or table not in ("", "int8"):
+            raise SystemExit(f"unknown arch {spec!r}: one of {sorted(ARCHS)}, optionally :int8")
+        rec = profile(arch, table == "int8", dev)
+        rec["device"] = smi
+        print(json.dumps(rec), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
