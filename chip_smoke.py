@@ -332,11 +332,12 @@ def _check_lstm(torch, dev, rng):
                  f"lstm_seq T={T} B={B} H={H}: two calls bit-equal")
         worst = max(worst, err)
         plan = lstm_plan(B, H)
-        ctas, tail_split, _ = launch_geometry(B, H, plan["wg"], dev.index or 0)
+        geo = launch_geometry(B, H, plan["wg"], dev.index or 0)
         line = dict(T=T, B=B, H=H, max_abs_err=round(err, 5), plain_bf16_err=round(plain_err, 5),
                     tol=LSTM_ATOL, bit_equal=True,
-                    plan=f"wg{plan['wg']}_cluster{plan['cluster']}_ctas{ctas}_tail{tail_split}",
-                    waves=round(plan["tiles"] / ctas, 3))
+                    plan=f"wg{plan['wg']}_cluster{plan['cluster']}_ctas{geo['ctas']}"
+                         f"_tail{geo['tail_split']}",
+                    waves=round(geo["tiles"] / geo["ctas"], 3))
         if H in (2400, 1024):
             ms, plain = _in_turns(torch, _median_ms, lambda: lstm_seq(xg, mask, wh),
                                   lambda: lstm_seq_reference(xg, mask, wh))

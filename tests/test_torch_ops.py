@@ -26,8 +26,8 @@ from vqa_tpu_torch.ops.attention import (glimpse_attend, glimpse_attend_referenc
                                          glimpse_head_reference)
 from vqa_tpu_torch.ops.gather import (gather_rows, gather_rows_dequant,
                                       gather_rows_dequant_reference, gather_rows_reference)
-from vqa_tpu_torch.ops.lstm import (SMEM_LIMIT, SMS, gate_strips, lstm_plan, lstm_seq,
-                                    lstm_seq_reference)
+from vqa_tpu_torch.ops.lstm import (SMEM_LIMIT, SMS, gate_strips, launch_geometry, lstm_plan,
+                                    lstm_seq, lstm_seq_reference)
 from vqa_tpu_torch.ops.mfb_pool import mfb_pool, mfb_pool_reference
 from vqa_tpu_torch.ops.relation import relation_attend, relation_attend_reference
 
@@ -92,7 +92,12 @@ def test_lstm_plan_fills_the_card_within_its_limits(B, H):
     serving (B=64) shapes: at the eval batch at least 132 CTAs and 1.8
     waves; at the serving batch one CTA per tile, all in one wave; always
     shared memory within a Hopper block's 232,448 bytes and a wgmma N that is
-    a multiple of 8 and at most 256."""
+    a multiple of 8 and at most 256.
+
+    The serving batch misses the target the design set out with (at least
+    132 CTAs or 1.8 waves at every one of these shapes): it runs 38 CTAs at
+    H=2400 and 16 at H=1024, because split-K and narrower tiles measured no
+    faster there (PERF.md, Findings, PR 4, the serving-batch paragraph)."""
     plan = lstm_plan(B, H)
     if B >= 512:
         assert plan["ctas"] >= SMS and plan["waves"] >= 1.8
@@ -113,6 +118,21 @@ def test_lstm_plan_pairs_the_large_batch_in_clusters():
     assert big["l2_bytes_per_step"] == 2 * 2400 * 1024 * 9600 * (1 / 256 + 1 / 256)
     # an odd number of 128-row tiles is paired with an empty one
     assert lstm_plan(1100, 2400)["tiles"] == 10 * 38
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H", [(1024, 2400), (1024, 1024), (64, 2400), (64, 1024),
+                                 (1100, 2400), (37, 42)])
+def test_lstm_plan_matches_the_card(cuda_device, B, H):
+    """lstm_plan reckons the schedule in Python; the kernel reckons it in
+    C++ from the card's occupancy. On a card with 132 SMs they agree on the
+    CTAs, the tiles, the tail and the shared memory."""
+    if torch.cuda.get_device_properties(cuda_device).multi_processor_count != SMS:
+        pytest.skip(f"lstm_plan reckons with the {SMS} SMs of an H100 SXM")
+    plan = lstm_plan(B, H)
+    geometry = launch_geometry(B, H, plan["wg"], cuda_device.index or 0)
+    assert {k: plan[k] for k in geometry if k != "part_bytes"} == \
+        {k: v for k, v in geometry.items() if k != "part_bytes"}
 
 
 @pytest.mark.parametrize("B,H", [(64, 41), (1024, 2399), (0, 64), (8, 0)])

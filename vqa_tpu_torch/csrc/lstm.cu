@@ -45,7 +45,7 @@
 //     its (row, unit) pairs. Each warp takes its 8 rows of a half at a time:
 //     it issues every load at once (xg_t through a shared-memory slot in
 //     16-byte chunks; c and h_{t-1} as fragments), runs the gate math in
-//     fp32 (+xg_t, sigmoid and tanh on the SFU, the c update, the mask
+//     fp32 (+xg_t, sigmoid and tanh to a few ulp, the c update, the mask
 //     blend), and writes h, c and seq_t through its slots back to global
 //     memory in 16-byte chunks. h and c are rounded to bf16 between steps, as
 //     the Pallas kernel's h_scr/c_scr were; c is updated in place by the
@@ -208,15 +208,12 @@ __device__ __forceinline__ void wgmma_256(float (&d)[128], uint64_t da, uint64_t
       : "l"(da), "l"(db));
 }
 
-// the gate nonlinearities on the SFU: tanh.approx.f32 (max relative error
-// 2^-10.99, below the bf16 rounding of h and c), sigmoid(x) = (1 + tanh(x/2)) / 2
-__device__ __forceinline__ float tanh_fast(float x) {
-  float y;
-  asm("tanh.approx.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ float sigmoid(float x) { return fmaf(0.5f, tanh_fast(0.5f * x), 0.5f); }
+// the gate nonlinearities in fp32, as the plain version's torch.sigmoid and
+// torch.tanh: expf and tanhf (2 ulp each) and the reciprocal by __fdividef
+// (2 ulp for a divisor below 2^126; past it the sigmoid is below 2^-126 and
+// comes out 0). An IEEE division here made the kernel a fifth slower on the
+// H100 (tools/lstm_cuda_probe.py --variants).
+__device__ __forceinline__ float sigmoid(float x) { return __fdividef(1.f, 1.f + expf(-x)); }
 
 // ------------------------------------------------------ epilogue staging
 
@@ -317,8 +314,6 @@ struct Args {
   int T, B, H, Hp;
   int Gs;        // elements between wh's gate strips (H, or Hp in a padded copy)
   int split;     // clusters sharing a tail tile, each over its own K range
-  int t0, t1;    // the steps this launch runs
-  int per_step;  // 1: one launch a step, ordered by programmatic dependent launch
 };
 
 template <int kWG, int kStages, int kC>
@@ -369,7 +364,6 @@ lstm_seq_kernel(const __grid_constant__ CUtensorMap h_map,  // [2][B][H] of hbuf
   }
   __syncthreads();
   if constexpr (kC > 1) cluster_sync();
-  if (a.per_step) asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
 
   if (threadIdx.x >= P::kConsumers) {
     // ------------------------------------------------------- producer
@@ -398,7 +392,7 @@ lstm_seq_kernel(const __grid_constant__ CUtensorMap h_map,  // [2][B][H] of hbuf
           tma_2d(dst + g * (P::kBBytes / 4), &w_map, &full[s], g * a.Gs + u0, k0);
       }
     };
-    for (int t = a.t0 > 1 ? a.t0 : 1; t < a.t1; ++t) {
+    for (int t = 1; t < a.T; ++t) {
       const int src = (t - 1) & 1;  // h_{t-1}
       bool first = true;
       for (int it = 0; it < n_items; ++it) {
@@ -418,11 +412,7 @@ lstm_seq_kernel(const __grid_constant__ CUtensorMap h_map,  // [2][B][H] of hbuf
             load_b(stage, u0, (k_lo + i) * kBK);
             advance();
           }
-          if (a.per_step) {
-            asm volatile("griddepcontrol.wait;\n" ::: "memory");
-          } else {
-            acquire_wait(a.count, static_cast<unsigned>(t) * n_ctas);
-          }
+          acquire_wait(a.count, static_cast<unsigned>(t) * n_ctas);
           asm volatile("fence.proxy.async.global;\n" ::: "memory");
           for (int i = 0; i < pre; ++i) {
             tma_3d(smem + s0 * P::kStageBytes, &h_map, &full[s0], (k_lo + i) * kBK, m0, src);
@@ -455,7 +445,6 @@ lstm_seq_kernel(const __grid_constant__ CUtensorMap h_map,  // [2][B][H] of hbuf
   const int warp = (tid % 128) / 32;
   const int64_t G4 = 4 * static_cast<int64_t>(a.H);
   const int64_t BH = static_cast<int64_t>(a.B) * a.H;
-  if (a.per_step) asm volatile("griddepcontrol.wait;\n" ::: "memory");
   // a stage is free once every consumer warpgroup of the cluster has read it
   auto release = [&](int s) {
     if (tid % 128 != 0) return;
@@ -468,7 +457,7 @@ lstm_seq_kernel(const __grid_constant__ CUtensorMap h_map,  // [2][B][H] of hbuf
   };
   int stage = 0;
   unsigned phase = 0;
-  for (int t = a.t0; t < a.t1; ++t) {
+  for (int t = 0; t < a.T; ++t) {
     const bf16* h_prev = a.hbuf + static_cast<int64_t>((t - 1) & 1) * a.B * a.Hp;
     bf16* h_next = a.hbuf + static_cast<int64_t>(t & 1) * a.B * a.Hp;
     const bool last = t == a.T - 1;
@@ -608,8 +597,8 @@ lstm_seq_kernel(const __grid_constant__ CUtensorMap h_map,  // [2][B][H] of hbuf
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
             const float co = e ? c_old.y : c_old.x, ho = e ? h_old.y : h_old.x;
-            const float new_c = sigmoid(gate[1][e]) * co + sigmoid(gate[0][e]) * tanh_fast(gate[2][e]);
-            const float new_h = sigmoid(gate[3][e]) * tanh_fast(new_c);
+            const float new_c = sigmoid(gate[1][e]) * co + sigmoid(gate[0][e]) * tanhf(gate[2][e]);
+            const float new_h = sigmoid(gate[3][e]) * tanhf(new_c);
             hn[e] = m * new_h + (1.f - m) * ho;
             cn[e] = m * new_c + (1.f - m) * co;
             sn[e] = m * new_h;
@@ -630,7 +619,7 @@ lstm_seq_kernel(const __grid_constant__ CUtensorMap h_map,  // [2][B][H] of hbuf
                      a.H, vec, lane);
       }
     }
-    if (!last && !a.per_step) {
+    if (!last) {
       // publish this step's h: generic stores, read next by TMA (the async
       // proxy) on other SMs
       asm volatile("fence.proxy.async.global;\n" ::: "memory");
@@ -707,6 +696,9 @@ cudaError_t run(const bf16* wh, const Args& a, cudaStream_t s, long long* geomet
     geometry[0] = grid;
     geometry[1] = b.split;
     geometry[2] = part_bytes;
+    geometry[3] = n_tiles * kC;
+    geometry[4] = rem;
+    geometry[5] = P::kSmemBytes;
     return cudaSuccess;
   }
   if (part_bytes > a.part_bytes) return cudaErrorInvalidValue;
@@ -738,36 +730,23 @@ cudaError_t run(const bf16* wh, const Args& a, cudaStream_t s, long long* geomet
   err = cudaMemsetAsync(a.count, 0, sizeof(unsigned) * (1 + rem), s);
   if (err != cudaSuccess) return err;
   cfg.numAttrs = 2;
-  if (!a.per_step) {
-    attr[1].id = cudaLaunchAttributeCooperative;  // co-resident, or refused
-    attr[1].val.cooperative = 1;
-    err = cudaLaunchKernelEx(&cfg, kernel, h_map, w_map, b);
-    if (err != cudaSuccess) return err;
-    return cudaGetLastError();
-  }
-  attr[1].id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  attr[1].val.programmaticStreamSerializationAllowed = 1;
-  for (int t = 0; t < a.T; ++t) {
-    Args at = b;
-    at.t0 = t;
-    at.t1 = t + 1;
-    err = cudaLaunchKernelEx(&cfg, kernel, h_map, w_map, at);
-    if (err != cudaSuccess) return err;
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  }
-  return cudaSuccess;
+  attr[1].id = cudaLaunchAttributeCooperative;  // co-resident, or refused
+  attr[1].val.cooperative = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, h_map, w_map, b);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
 }
 
 int launch(const void* xg, const void* mask, const void* wh, void* h_last, void* seq, void* hbuf,
            void* c, void* count, void* part, long long part_bytes, int T, int B, int H, int gs,
-           int wg, int per_step, void* stream, long long* geometry = nullptr) {
+           int wg, void* stream, long long* geometry = nullptr) {
   if (T <= 0 || B <= 0 || H <= 0) return 0;
   // the epilogue moves two units at a time; a box starts on 16 bytes
   if (H % 2 != 0 || gs % 8 != 0 || gs < H) return static_cast<int>(cudaErrorInvalidValue);
   Args a{static_cast<const bf16*>(xg), static_cast<const bf16*>(mask), static_cast<bf16*>(hbuf),
          static_cast<bf16*>(h_last), static_cast<bf16*>(c), static_cast<bf16*>(seq),
          static_cast<unsigned*>(count), static_cast<float4*>(part), part_bytes, T, B, H,
-         (H + 7) / 8 * 8, gs, 1, 0, T, per_step};
+         (H + 7) / 8 * 8, gs, 1};
   auto* w = static_cast<const bf16*>(wh);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
@@ -783,33 +762,24 @@ int launch(const void* xg, const void* mask, const void* wh, void* h_last, void*
 // strips `gs` elements apart (gs = H, or H rounded up to 8 in a zero-padded
 // copy: a TMA box starts on 16 bytes). `wg` (1 or 2) is the class that
 // ops/lstm.py::lstm_plan chose. hbuf is [2, B, Hp] and c [B, Hp] scratch
-// (Hp = H rounded up to 8), count 1 + tiles uint32 of scratch, part
-// part_bytes of scratch for the tail tiles' partial products (at least what
-// vqa_lstm_seq_geometry gives). Returns the first non-zero cudaError_t, or 0.
+// (Hp = H rounded up to 8), count 1 + (tail tiles) uint32 of scratch, part
+// part_bytes of scratch for the tail tiles' partial products (both as
+// vqa_lstm_seq_geometry gives them). Returns the first non-zero cudaError_t, or 0.
 extern "C" int vqa_lstm_seq(const void* xg, const void* mask, const void* wh, void* h_last,
                             void* seq, void* hbuf, void* c, void* count, void* part,
                             long long part_bytes, int T, int B, int H, int gs, int wg,
                             void* stream) {
-  return launch(xg, mask, wh, h_last, seq, hbuf, c, count, part, part_bytes, T, B, H, gs, wg, 0,
-                stream);
-}
-
-// The same recurrence as T launches, one a step, each ordered after the one
-// before by programmatic dependent launch (the design the probe compares).
-extern "C" int vqa_lstm_seq_per_step(const void* xg, const void* mask, const void* wh,
-                                     void* h_last, void* seq, void* hbuf, void* c, void* count,
-                                     void* part, long long part_bytes, int T, int B, int H,
-                                     int gs, int wg, void* stream) {
-  return launch(xg, mask, wh, h_last, seq, hbuf, c, count, part, part_bytes, T, B, H, gs, wg, 1,
+  return launch(xg, mask, wh, h_last, seq, hbuf, c, count, part, part_bytes, T, B, H, gs, wg,
                 stream);
 }
 
 // What vqa_lstm_seq launches at this shape and class on this card (its
 // occupancy decides): geometry[0] the CTAs, [1] the clusters sharing each
-// tail tile, [2] the bytes of partial-product scratch it needs. Returns a
-// cudaError_t.
+// tail tile, [2] the bytes of partial-product scratch it needs, [3] the CTA
+// tiles a step, [4] the tail tiles, [5] the shared memory of a CTA. Returns
+// a cudaError_t.
 extern "C" int vqa_lstm_seq_geometry(int B, int H, int wg, long long* geometry) {
   const int gs = (H + 7) / 8 * 8;
   return launch(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, 0,
-                1, B, H, gs, wg, 0, nullptr, geometry);
+                1, B, H, gs, wg, nullptr, geometry);
 }

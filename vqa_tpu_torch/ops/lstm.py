@@ -33,6 +33,8 @@ TRAIN_NOT_PORTED = (
 
 SMS = 132  # streaming multiprocessors of an H100 SXM
 SMEM_LIMIT = 232_448  # shared memory one block may use on Hopper
+# csrc/lstm.cu's constants, for lstm_plan's reckoning; the cuda test
+# test_lstm_plan_matches_the_card holds the plan to what the kernel launches
 _STAGES = {2: 4, 1: 5}  # by warpgroups, as csrc/lstm.cu instantiates them
 _BK = 64     # K tile
 _UNITS = 64  # hidden units a tile (x 4 gates = 256 columns)
@@ -57,8 +59,10 @@ def lstm_plan(B: int, H: int) -> dict:
     wg=2), then the tiles left over: each of those is shared by
     ``tail_split`` clusters over K (B=1024, H=2400: 152 pair-tiles on 66
     pairs, two rounds, then 20 tiles x 3), the partial products summed in a
-    fixed order. The card's occupancy settles the grid and the split
-    (``launch_geometry``); the figures here assume 132 SMs.
+    fixed order. The wrapper takes only ``wg`` and ``hp`` from here: the
+    grid, the split and the scratch it launches with come from the kernel's
+    own reckoning on the card (``launch_geometry``); the figures here assume
+    132 SMs.
 
     Raises ValueError for a shape the kernel cannot describe."""
     if B < 1 or H < 2:
@@ -89,15 +93,20 @@ def lstm_plan(B: int, H: int) -> dict:
     }
 
 
+_GEOMETRY = ("ctas", "tail_split", "part_bytes", "tiles", "tail_tiles", "smem_bytes")
+
+
 @functools.lru_cache(maxsize=None)
-def launch_geometry(B: int, H: int, wg: int, device_index: int) -> tuple:
-    """(CTAs, tail split, partial-product scratch bytes) that csrc/lstm.cu
-    launches at this shape and class on this card, from its occupancy."""
-    geometry = (ctypes.c_longlong * 3)()
+def launch_geometry(B: int, H: int, wg: int, device_index: int) -> dict:
+    """What csrc/lstm.cu launches at this shape and class on this card, from
+    its occupancy: the CTAs, the clusters sharing each tail tile, the bytes
+    of partial-product scratch, the CTA tiles a step, the tail tiles and the
+    shared memory of a CTA (the last five keys as ``lstm_plan`` names them)."""
+    geometry = (ctypes.c_longlong * len(_GEOMETRY))()
     with torch.cuda.device(device_index):
         _build.check(_build.library().vqa_lstm_seq_geometry(B, H, wg, geometry),
                      "lstm_seq geometry")
-    return tuple(geometry)
+    return dict(zip(_GEOMETRY, geometry))
 
 
 def gate_strips(wh: torch.Tensor):
@@ -160,11 +169,11 @@ def lstm_seq(xg: torch.Tensor, mask: torch.Tensor, wh: torch.Tensor, train: bool
     # scratch: the ping-pong h of steps 0..T-2 and c, with rows padded to 16
     # bytes (TMA's global strides), the grid barrier's and the tail tiles'
     # counters, and the tail tiles' partial products
+    geometry = launch_geometry(B, H, plan["wg"], dev.index or 0)
     hbuf = torch.empty(2, B, plan["hp"], dtype=dt, device=dev)
     c = torch.empty(B, plan["hp"], dtype=dt, device=dev)
-    count = torch.empty(1 + plan["tiles"], dtype=torch.int32, device=dev)
-    part_bytes = launch_geometry(B, H, plan["wg"], dev.index or 0)[2]
-    part = torch.empty(max(part_bytes, 16), dtype=torch.uint8, device=dev)
+    count = torch.empty(1 + geometry["tail_tiles"], dtype=torch.int32, device=dev)
+    part = torch.empty(max(geometry["part_bytes"], 16), dtype=torch.uint8, device=dev)
     err = _build.library().vqa_lstm_seq(
         xg.data_ptr(), mask.data_ptr(), wh.data_ptr(), h_last.data_ptr(), seq.data_ptr(),
         hbuf.data_ptr(), c.data_ptr(), count.data_ptr(), part.data_ptr(), part.numel(), T, B, H,
