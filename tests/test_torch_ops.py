@@ -22,17 +22,21 @@ from vqa_tpu.ops import mfb_pool as jax_mfb_pool
 from vqa_tpu.ops import relation as jax_relation
 from vqa_tpu_torch.engine.steps import quantize_features
 from vqa_tpu_torch.ops import _build
-from vqa_tpu_torch.ops.attention import (glimpse_attend, glimpse_attend_reference, glimpse_head,
-                                         glimpse_head_reference)
+from vqa_tpu_torch.ops.attention import (SMEM_LIMIT as GLIMPSE_SMEM_LIMIT, glimpse_attend,
+                                         glimpse_attend_reference, glimpse_head,
+                                         glimpse_head_reference, glimpse_plan)
 from vqa_tpu_torch.ops.gather import (gather_rows, gather_rows_dequant,
                                       gather_rows_dequant_reference, gather_rows_reference)
 from vqa_tpu_torch.ops.lstm import (SMEM_LIMIT, SMS, gate_strips, launch_geometry, lstm_plan,
-                                    lstm_seq, lstm_seq_reference)
+                                    lstm_seq, lstm_seq_reference, pad_odd_hidden)
 from vqa_tpu_torch.ops.mfb_pool import mfb_pool, mfb_pool_reference
-from vqa_tpu_torch.ops.relation import relation_attend, relation_attend_reference
+from vqa_tpu_torch.ops.relation import relation_attend, relation_attend_reference, relation_entry
 
 torch.set_num_threads(1)
 TOL = dict(rtol=1e-5, atol=1e-5)  # float32 on both sides; sums in another order
+# lstm_seq on the card against its plain version in float32: twice the worst
+# error chip_smoke.py measured over its shapes (as its LSTM_ATOL)
+LSTM_ATOL = 0.0092
 
 
 @pytest.fixture(autouse=True)
@@ -162,7 +166,85 @@ def test_lstm_seq_train_is_not_ported():
         lstm_seq(xg, mask, wh, train=True)
 
 
-@pytest.mark.parametrize("B,R,M,G,D,block_b", [(8, 36, 48, 2, 64, 8), (6, 9, 13, 3, 10, 3)])
+@pytest.mark.parametrize("H", [41, 43])
+def test_odd_hidden_padding_is_exact(H):
+    """lstm_seq's wrapper runs an odd H as H + 1 units (the kernel takes an
+    even H): the plain version over the padded inputs, sliced back to H,
+    equals the plain version on the originals bit for bit, and the padded
+    unit stays 0 at every step."""
+    xg, mask, wh = (torch.from_numpy(a) for a in _lstm_inputs(H, 6, 9, H))
+    xp, wp = pad_odd_hidden(xg, wh)
+    assert xp.shape == (6, 9, 4 * (H + 1)) and wp.shape == (H + 1, 4 * (H + 1))
+    h, seq = lstm_seq_reference(xg, mask, wh)
+    hp, seqp = lstm_seq_reference(xp, mask, wp)
+    assert torch.equal(hp[:, :H], h) and torch.equal(seqp[..., :H], seq)
+    assert bool((hp[:, H] == 0).all()) and bool((seqp[..., H] == 0).all())
+
+
+@pytest.mark.parametrize("G", [1, 2, 3, 5, 8, 16])
+@pytest.mark.parametrize("R", [7, 36, 196])
+@pytest.mark.parametrize("M", [510, 512, 4096])
+def test_glimpse_plan_takes_every_glimpse_count(G, R, M):
+    """Any G, R up to the 196-region grid and M up to 4096 plan within a
+    Hopper block's shared memory, at the eval and the serving batch and on
+    the generic path (D % 8 != 0): the parent kernel only for G <= 4, else
+    the ring, whose split CTAs keep >= 512 columns on a multiple of 8; the
+    serving batch fills the SMs where D allows."""
+    for B, D, vec in ((1024, 2048, True), (64, 2048, True), (64, 1024, True), (5, 75, False)):
+        plan = glimpse_plan(B, R, M, G, D, vec=vec)
+        dc = D // plan["split"]
+        assert plan["smem_bytes"] <= GLIMPSE_SMEM_LIMIT
+        assert plan["split"] == 1 or (dc % 8 == 0 and dc >= 512 and plan["split"] <= 8)
+        assert plan["ctas"] == B * plan["split"]
+        assert plan["copy"] != "parent" or (G <= 4 and B >= 4 * 132 and M > 0)
+        if not vec:
+            assert (plan["copy"], plan["split"], plan["stages"]) == ("plain", 1, 1)
+        if B == 64 and vec:
+            assert plan["ctas"] >= 128
+
+
+def test_glimpse_plan_at_the_archs_shapes():
+    """The schedules the archs run: the parent kernel where it measured
+    fastest (glimpse_head at batch 1024, MutanAtt and MFB/MFH); the ring
+    elsewhere: the serving batch over clusters of 4 (256 CTAs), all of a
+    CTA's v, w and joint slice in flight at once; glimpse_attend (MFB's
+    question self-attention, D=1024) one CTA a row at batch 1024 and CTA
+    pairs at the serving batch; 8 glimpses and the 196-region grid (a ring
+    refilled as it drains)."""
+    assert [glimpse_plan(1024, 36, m, 2, 2048)["copy"] for m in (510, 512)] == ["parent"] * 2
+    serve = glimpse_plan(64, 36, 510, 2, 2048)
+    assert (serve["copy"], serve["split"], serve["ctas"], serve["staged"], serve["resident"]) == \
+        ("bulk", 4, 256, True, True)
+    assert {glimpse_plan(1024, t, 0, 2, 1024)["copy"] for t in (7, 13, 26)} == {"bulk"}
+    assert glimpse_plan(64, 26, 0, 2, 1024)["split"] == 2
+    assert glimpse_plan(1024, 36, 510, 8, 2048)["copy"] == "bulk"
+    ring = glimpse_plan(64, 196, 510, 2, 2048)
+    assert ring["copy"] == "bulk" and not ring["resident"] and ring["stages"] == 4
+
+
+def test_glimpse_plan_refuses_only_past_shared_memory():
+    with pytest.raises(ValueError, match="shared memory"):
+        glimpse_plan(8, 196, 510, 512, 2048)  # alpha alone: 196 x 512 floats
+    with pytest.raises(ValueError, match="shared memory"):
+        glimpse_plan(8, 36, 510, 2, 2048, smem_limit=1024)
+    with pytest.raises(ValueError, match="B, R, G, D >= 1"):
+        glimpse_plan(8, 36, 510, 0, 2048)
+    assert glimpse_plan(8, 36, 510, 2, 2048, smem_limit=8192)["smem_bytes"] <= 8192
+
+
+@pytest.mark.parametrize("N,D,entry", [(36, 1024, "element"), (64, 1024, "element"),
+                                       (65, 1024, "tiled"), (196, 1024, "tiled"),
+                                       (64, 4000, "tiled")])
+def test_relation_entry_by_shape(N, D, entry):
+    """N <= 64 with r in shared memory takes the one-block-an-element kernel,
+    anything else the tiled entry; only shared memory refuses a shape."""
+    assert relation_entry(N, D, 232_448) == entry
+    with pytest.raises(ValueError, match="shared memory"):
+        relation_entry(N, D, 1024)
+
+
+@pytest.mark.parametrize("B,R,M,G,D,block_b", [(8, 36, 48, 2, 64, 8), (6, 9, 13, 3, 10, 3),
+                                               (8, 36, 24, 8, 16, 8), (8, 196, 20, 2, 16, 8)])
 def test_glimpse_head_plain_matches_jax(B, R, M, G, D, block_b):
     rng = np.random.default_rng(B * R)
     joint = np.tanh(rng.standard_normal((B, R, M))).astype(np.float32)
@@ -188,7 +270,8 @@ def _masked_logits(rng, B, R, G):
 
 
 @pytest.mark.parametrize("B,R,G,D,masked", [(8, 7, 2, 16, False), (16, 13, 2, 24, True),
-                                            (8, 36, 3, 10, False)])
+                                            (8, 36, 3, 10, False), (8, 36, 8, 16, True),
+                                            (8, 196, 2, 16, True)])
 def test_glimpse_attend_plain_matches_jax(B, R, G, D, masked):
     """B a multiple of the Pallas kernel's 8-row block; masked rows use
     finfo.min, and a fully masked row gives uniform weights, as in JAX."""
@@ -252,7 +335,7 @@ def test_mfb_pool_groups_are_strided_not_contiguous():
     assert not np.allclose(got, finish(contiguous), atol=1e-2)
 
 
-@pytest.mark.parametrize("B,N,D", [(8, 36, 16), (16, 5, 33)])
+@pytest.mark.parametrize("B,N,D", [(8, 36, 16), (16, 5, 33), (8, 196, 16)])
 def test_relation_attend_plain_matches_jax(B, N, D):
     rng = np.random.default_rng(B + N + D)
     pg = np.tanh(rng.standard_normal((B, N, D))).astype(np.float32)
@@ -477,20 +560,23 @@ def test_gather_rows_dequant_kernel_is_bit_exact(cuda_device, scale_dtype, n, se
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("T,B,H", [(5, 37, 40), (4, 37, 42), (7, 130, 96), (3, 256, 128),
-                                   (4, 64, 1024), (3, 1100, 2400), (3, 1024, 2400)])
+                                   (4, 64, 1024), (3, 1100, 2400), (3, 1024, 2400),
+                                   (5, 37, 41)])
 def test_lstm_seq_kernel_matches_plain(cuda_device, T, B, H):
     """bf16 kernel vs the plain version in float32 on the same inputs: the
-    kernel stores h and c in bf16 between steps (0.05, as chip_smoke.py).
-    H=42 takes the padded gate strips; B=1100, H=2400 the paired 128-row
-    tiles with an odd last one; B=1024, H=2400 the tail tiles shared over K."""
+    kernel stores h and c in bf16 between steps (LSTM_ATOL, as
+    chip_smoke.py). H=42 takes the padded gate strips; H=41 one zero unit
+    more; B=1100, H=2400 the paired 128-row tiles with an odd last one;
+    B=1024, H=2400 the tail tiles shared over K."""
     xg, mask, wh = (torch.from_numpy(a).to(cuda_device) for a in _lstm_inputs(T, T, B, H))
     before = lstm_seq.launches
     h, seq = lstm_seq(xg.bfloat16(), mask.bfloat16(), wh.bfloat16())
     ref_h, ref_seq = lstm_seq_reference(xg.bfloat16().float(), mask, wh.bfloat16().float())
     torch.cuda.synchronize()
     assert lstm_seq.launches == before + 1  # one persistent launch runs all T steps
-    assert (h.float() - ref_h).abs().max().item() <= 0.05
-    assert (seq.float() - ref_seq).abs().max().item() <= 0.05
+    assert h.shape == (B, H) and seq.shape == (T, B, H)
+    assert (h.float() - ref_h).abs().max().item() <= LSTM_ATOL
+    assert (seq.float() - ref_seq).abs().max().item() <= LSTM_ATOL
 
 
 @pytest.mark.cuda
@@ -505,23 +591,32 @@ def test_lstm_seq_kernel_is_bit_equal_across_runs(cuda_device, T, B, H):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,R,M,G,D", [(37, 36, 45, 2, 72), (5, 7, 33, 3, 75)])
+@pytest.mark.parametrize("B,R,M,G,D", [(37, 36, 45, 2, 72), (5, 7, 33, 3, 75),
+                                       (64, 36, 510, 2, 2048), (16, 36, 510, 8, 2048),
+                                       (8, 196, 510, 2, 2048), (3, 196, 64, 16, 1024),
+                                       (4, 196, 33, 5, 75)])
 def test_glimpse_head_kernel_matches_plain(cuda_device, B, R, M, G, D):
     """bf16 kernel vs the plain version in float32: alpha and the outputs
-    are rounded to bf16 (0.05, as chip_smoke.py)."""
+    are rounded to bf16 (0.05, as chip_smoke.py). G=8 and 16 run as groups
+    of 4; R=196 through the ring refilled as it drains; D=75 the generic
+    path."""
     joint = torch.tanh(torch.randn(B, R, M, device=cuda_device)).bfloat16()
     w = (torch.randn(M, G, device=cuda_device) / M ** 0.5).bfloat16()
     b = torch.randn(G, device=cuda_device).bfloat16()
     v = torch.randn(B, R, D, device=cuda_device).bfloat16()
+    before = glimpse_head.launches
     att, logits = glimpse_head(joint, w, b, v)
     ref_att, ref_logits = glimpse_head_reference(joint.float(), w.float(), b.float(), v.float())
     torch.cuda.synchronize()
+    assert glimpse_head.launches == before + 1
     assert (att.float() - ref_att).abs().max().item() <= 0.05
     assert (logits.float() - ref_logits).abs().max().item() <= 0.05
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,R,G,D", [(37, 26, 2, 72), (5, 7, 3, 75), (64, 13, 2, 1024)])
+@pytest.mark.parametrize("B,R,G,D", [(37, 26, 2, 72), (5, 7, 3, 75), (64, 13, 2, 1024),
+                                     (1024, 7, 2, 1024), (16, 36, 8, 1024), (8, 196, 2, 1024),
+                                     (3, 196, 16, 40)])
 def test_glimpse_attend_kernel_matches_plain(cuda_device, B, R, G, D):
     """bf16 kernel vs the plain version in float32 on the same bf16 inputs,
     with masked rows (finfo(bf16).min) and a fully masked row: alpha and the
@@ -536,6 +631,27 @@ def test_glimpse_attend_kernel_matches_plain(cuda_device, B, R, G, D):
     assert glimpse_attend.launches == before + 1
     assert bool(torch.isfinite(got).all())
     assert (got.float() - want).abs().max().item() <= 0.05
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,R,M,G,D", [(1024, 36, 510, 2, 2048), (64, 36, 510, 2, 2048),
+                                       (16, 36, 510, 8, 2048), (8, 196, 510, 2, 2048)])
+def test_glimpse_kernels_are_bit_equal_across_runs(cuda_device, B, R, M, G, D):
+    """No atomics into the outputs: two calls of each entry give the same
+    bits, and a fully masked row of glimpse_attend gives uniform alpha."""
+    joint = torch.tanh(torch.randn(B, R, M, device=cuda_device)).bfloat16()
+    w = (torch.randn(M, G, device=cuda_device) / M ** 0.5).bfloat16()
+    b = torch.randn(G, device=cuda_device).bfloat16()
+    v = torch.randn(B, R, D, device=cuda_device).bfloat16()
+    first, second = glimpse_head(joint, w, b, v), glimpse_head(joint, w, b, v)
+    logits = first[1].clone()
+    logits[0] = torch.finfo(torch.bfloat16).min
+    a1, a2 = glimpse_attend(logits, v), glimpse_attend(logits, v)
+    torch.cuda.synchronize()
+    assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
+    assert torch.equal(a1, a2)
+    uniform = v[0].float().mean(0).expand(G, D)
+    assert (a1[0].float() - uniform).abs().max().item() <= 0.05
 
 
 @pytest.mark.cuda
@@ -554,9 +670,10 @@ def test_mfb_pool_kernel_matches_plain(cuda_device, n, k, m):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,N,D", [(5, 7, 33), (37, 36, 1024), (3, 36, 40), (2, 64, 24),
-                                   (4, 1, 8)])
+                                   (4, 1, 8), (3, 65, 1024), (4, 196, 1024), (2, 100, 33)])
 def test_relation_attend_kernel_matches_plain(cuda_device, B, N, D):
-    """fp32 math in the kernel, output rounded to bf16 (0.02, as chip_smoke.py)."""
+    """fp32 math in the kernel, output rounded to bf16 (0.02, as chip_smoke.py).
+    N = 65, 100, 196 take the tiled entry (D=33 its scalar path)."""
     pg = torch.tanh(torch.randn(B, N, D, device=cuda_device)).bfloat16()
     r = torch.tanh(torch.randn(B, N, D, device=cuda_device)).bfloat16()
     before = relation_attend.launches

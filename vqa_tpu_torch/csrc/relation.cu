@@ -41,6 +41,18 @@
 // and per j one 16-byte load of r[j] and three 8-byte loads of alpha feed
 // 48 fma with no branch; it writes 16-byte stores. D % 8 != 0 takes scalar
 // loads.
+//
+// N > 64 (CoR over the extract CLI's 196-region grid) takes a second entry,
+// vqa_relation_attend_tiled, with the same numerics: one block per (batch
+// element, 16-row tile of i). The tile's pg rows go to shared memory; one
+// warp per column j computes that column's 16 scores in fp32 (lanes over
+// D, 16-byte loads of r[j] from L2, a shuffle reduction), into shared
+// memory as s^T [N, 16] (16 N floats: 12.5 KB at N=196); the softmax runs
+// one warp per row in fp32 and leaves alpha^T in place; the weighted sum
+// streams r again, each thread owning 4 columns of the 16 output rows (64
+// fp32 accumulators) with alpha read as four float4. It reads r once per
+// tile from L2 twice over: simple and right, not fast (it is the next
+// design's to fix). Its only limit is shared memory: 32 D + 64 N bytes.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -262,6 +274,148 @@ cudaError_t launch(const bf16* pg, const bf16* r, bf16* out, int B, int N, int D
   return cudaGetLastError();
 }
 
+constexpr int kTileRows = 16;  // rows of i a block of the tiled entry owns
+
+// shared memory of one block of the tiled entry: its pg rows, s^T / alpha^T [N, 16]
+size_t tiled_smem_bytes(int N, int D) {
+  return align16(static_cast<size_t>(kTileRows) * D * 2) +
+         static_cast<size_t>(N) * kTileRows * sizeof(float);
+}
+
+template <bool kVec>
+__global__ void __launch_bounds__(kThreads)
+relation_tiled_kernel(const bf16* __restrict__ pg, const bf16* __restrict__ r,
+                      bf16* __restrict__ out, int N, int D) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* pg_s = reinterpret_cast<bf16*>(smem);  // [16, D], zero rows past the tile
+  float* a_s = reinterpret_cast<float*>(smem + align16(static_cast<size_t>(kTileRows) * D * 2));
+  const int n_tiles = (N + kTileRows - 1) / kTileRows;
+  const int64_t b = blockIdx.x / n_tiles;
+  const int i0 = (blockIdx.x % n_tiles) * kTileRows;
+  const int ni = min(kTileRows, N - i0);
+  const int64_t nd = static_cast<int64_t>(N) * D;
+  const bf16* pgb = pg + b * nd + static_cast<int64_t>(i0) * D;
+  const bf16* rb = r + b * nd;
+  bf16* ob = out + b * nd + static_cast<int64_t>(i0) * D;
+  const int tid = threadIdx.x;
+  const int lane = tid % 32;
+  const int warp = tid / 32;
+
+  if (kVec) {
+    const int n_col = D / 8;
+    for (int i = tid; i < kTileRows * n_col; i += kThreads) {
+      const int row = i / n_col, c = (i % n_col) * 8;
+      uint4 x = make_uint4(0u, 0u, 0u, 0u);
+      if (row < ni) x = *reinterpret_cast<const uint4*>(pgb + static_cast<int64_t>(row) * D + c);
+      *reinterpret_cast<uint4*>(pg_s + row * D + c) = x;
+    }
+  } else {
+    for (int i = tid; i < kTileRows * D; i += kThreads) {
+      const int row = i / D;
+      pg_s[i] = row < ni ? pgb[static_cast<int64_t>(row) * D + i % D] : __float2bfloat16(0.f);
+    }
+  }
+  __syncthreads();
+
+  // s^T[j, i] = <pg_i, r_j>, one warp per column j, all 16 rows at once
+  for (int j = warp; j < N; j += kWarps) {
+    const bf16* rj = rb + static_cast<int64_t>(j) * D;
+    float acc[kTileRows] = {};
+    if (kVec) {
+#pragma unroll 2
+      for (int d = lane * 8; d < D; d += 32 * 8) {
+        Pack8 x;
+        x.u = *reinterpret_cast<const uint4*>(rj + d);
+        float xf[8];
+#pragma unroll
+        for (int e = 0; e < 8; ++e) xf[e] = __bfloat162float(x.h[e]);
+#pragma unroll
+        for (int i = 0; i < kTileRows; ++i) {
+          Pack8 q;
+          q.u = *reinterpret_cast<const uint4*>(pg_s + i * D + d);
+#pragma unroll
+          for (int e = 0; e < 8; ++e) acc[i] += __bfloat162float(q.h[e]) * xf[e];
+        }
+      }
+    } else {
+      for (int d = lane; d < D; d += 32) {
+        const float x = __bfloat162float(rj[d]);
+#pragma unroll
+        for (int i = 0; i < kTileRows; ++i) acc[i] += __bfloat162float(pg_s[i * D + d]) * x;
+      }
+    }
+    float mine = 0.f;  // lane i keeps row i's sum (no register array indexed at run time)
+#pragma unroll
+    for (int i = 0; i < kTileRows; ++i) {
+      const float t = warp_sum(acc[i]);
+      if (lane == i) mine = t;
+    }
+    if (lane < kTileRows) a_s[j * kTileRows + lane] = mine;
+  }
+  __syncthreads();
+
+  // alpha = softmax_j(s / sqrt(D)) in fp32, one warp per row, in place
+  const float scale = rsqrtf(static_cast<float>(D));
+  const float neg_inf = __int_as_float(0xff800000);
+  for (int i = warp; i < kTileRows; i += kWarps) {
+    float mx = neg_inf;
+    for (int j = lane; j < N; j += 32) mx = fmaxf(mx, a_s[j * kTileRows + i] * scale);
+    mx = warp_max(mx);
+    float sum = 0.f;
+    for (int j = lane; j < N; j += 32) sum += expf(a_s[j * kTileRows + i] * scale - mx);
+    const float inv = 1.f / warp_sum(sum);
+    for (int j = lane; j < N; j += 32) {
+      a_s[j * kTileRows + i] = expf(a_s[j * kTileRows + i] * scale - mx) * inv;
+    }
+  }
+  __syncthreads();
+
+  // out[i, d..d+W) = sum_j alpha[i, j] * r[j, d..d+W) for the 16 rows
+  constexpr int W = kVec ? 4 : 1;
+  for (int d = tid * W; d < D; d += kThreads * W) {
+    float acc[kTileRows][W] = {};
+#pragma unroll 4
+    for (int j = 0; j < N; ++j) {
+      float x[W];
+      if constexpr (kVec) {
+        union {
+          uint2 u;
+          __nv_bfloat162 h[2];
+        } p;
+        p.u = *reinterpret_cast<const uint2*>(rb + static_cast<int64_t>(j) * D + d);
+        const float2 lo = __bfloat1622float2(p.h[0]), hi = __bfloat1622float2(p.h[1]);
+        x[0] = lo.x;
+        x[1] = lo.y;
+        x[2] = hi.x;
+        x[3] = hi.y;
+      } else {
+        x[0] = __bfloat162float(rb[static_cast<int64_t>(j) * D + d]);
+      }
+      const float4* al = reinterpret_cast<const float4*>(a_s + j * kTileRows);
+#pragma unroll
+      for (int q = 0; q < kTileRows / 4; ++q) {
+        const float4 a = al[q];
+#pragma unroll
+        for (int e = 0; e < W; ++e) {
+          acc[4 * q][e] += a.x * x[e];
+          acc[4 * q + 1][e] += a.y * x[e];
+          acc[4 * q + 2][e] += a.z * x[e];
+          acc[4 * q + 3][e] += a.w * x[e];
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kTileRows; ++i) {
+      if (i < ni) {
+#pragma unroll
+        for (int e = 0; e < W; ++e) {
+          ob[static_cast<int64_t>(i) * D + d + e] = __float2bfloat16(acc[i][e]);
+        }
+      }
+    }
+  }
+}
+
 }  // namespace
 
 // One block per batch element on `stream`. Needs N <= 64 and smem_bytes(N, D)
@@ -281,4 +435,27 @@ extern "C" int vqa_relation_attend(const void* pg, const void* r, void* out, int
   const cudaError_t err = vec ? launch<true>(pp, rp, op, B, N, D, smem, s)
                               : launch<false>(pp, rp, op, B, N, D, smem, s);
   return static_cast<int>(err);
+}
+
+// The N > 64 entry: one block per (batch element, 16-row tile of i) on
+// `stream`. Needs tiled_smem_bytes(N, D) of shared memory (the Python
+// wrapper checks it against the card's opt-in limit). Returns the launch's
+// cudaError_t, or 0.
+extern "C" int vqa_relation_attend_tiled(const void* pg, const void* r, void* out, int B, int N,
+                                         int D, void* stream) {
+  if (B <= 0 || N <= 0 || D <= 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const size_t smem = tiled_smem_bytes(N, D);
+  const bool vec = D % 8 == 0 && (reinterpret_cast<uintptr_t>(pg) | reinterpret_cast<uintptr_t>(r) |
+                                  reinterpret_cast<uintptr_t>(out)) % 16 == 0;
+  auto kernel = vec ? relation_tiled_kernel<true> : relation_tiled_kernel<false>;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const int64_t grid = static_cast<int64_t>(B) * ((N + kTileRows - 1) / kTileRows);
+  kernel<<<static_cast<unsigned>(grid), kThreads, smem, s>>>(
+      static_cast<const bf16*>(pg), static_cast<const bf16*>(r), static_cast<bf16*>(out), N, D);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import ctypes
 import fcntl
+import functools
 import glob
 import os
 import shutil
@@ -43,10 +44,12 @@ _SIGNATURES = {
     "vqa_gather_rows_dequant": [_PTR, _PTR, _PTR, _PTR, _I64, _I64, _I64, _INT, _PTR],
     "vqa_lstm_seq": [*[_PTR] * 9, _I64, *[_INT] * 5, _PTR],
     "vqa_lstm_seq_geometry": [_INT, _INT, _INT, _PTR],
-    "vqa_glimpse_head": [_PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT, _INT, _INT, _PTR],
-    "vqa_glimpse_attend": [_PTR, _PTR, _PTR, _INT, _INT, _INT, _INT, _PTR],
+    "vqa_glimpse_head": [*[_PTR] * 6, *[_INT] * 10, _PTR],
+    "vqa_glimpse_attend": [*[_PTR] * 3, *[_INT] * 8, _PTR],
+    "vqa_smem_optin": [_PTR],
     "vqa_mfb_pool": [_PTR, _PTR, _I64, _INT, _INT, _PTR],
     "vqa_relation_attend": [_PTR, _PTR, _PTR, _INT, _INT, _INT, _PTR],
+    "vqa_relation_attend_tiled": [_PTR, _PTR, _PTR, _INT, _INT, _INT, _PTR],
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -130,6 +133,18 @@ def library() -> ctypes.CDLL:
         lib.vqa_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
+
+
+@functools.lru_cache(maxsize=None)
+def smem_optin(device_index: int) -> int:
+    """The shared memory a block may opt into on this card (bytes), the
+    limit the kernels' plans size themselves to."""
+    import torch
+
+    out = ctypes.c_longlong(0)
+    with torch.cuda.device(device_index):
+        check(library().vqa_smem_optin(ctypes.byref(out)), "smem_optin")
+    return out.value
 
 
 def current_stream(device) -> int:

@@ -124,6 +124,27 @@ def gate_strips(wh: torch.Tensor):
     return padded, gs
 
 
+def pad_odd_hidden(xg: torch.Tensor, wh: torch.Tensor):
+    """(xg, wh) for an odd H, padded to Hp = H + 1 hidden units: each of
+    xg's four gate strips zero-padded to Hp ([T, B, 4 Hp]), and wh with a
+    zero row and a zero column at the end of each gate strip ([Hp, 4 Hp]).
+
+    The kernel moves two units at a time, so it takes an even H; on these
+    inputs it computes exactly the unpadded recurrence in units [0, H). The
+    padded unit's gates are 0 + 0 at every step (its xg columns and wh
+    columns are zero), so c' = sigmoid(0) c + sigmoid(0) tanh(0) = 0 from
+    c = 0, and h' = sigmoid(0) tanh(0) = 0; and its zero row of wh adds
+    nothing to the real units' gates."""
+    T, B, _ = xg.shape
+    H = wh.shape[0]
+    hp = H + 1
+    xp = xg.new_zeros(T, B, 4, hp)
+    xp[..., :H] = xg.view(T, B, 4, H)
+    wp = wh.new_zeros(hp, 4, hp)
+    wp[:H, :, :H] = wh.view(H, 4, H)
+    return xp.view(T, B, 4 * hp), wp.view(hp, 4 * hp)
+
+
 def lstm_seq_reference(xg: torch.Tensor, mask: torch.Tensor, wh: torch.Tensor):
     T, B, _ = xg.shape
     H = wh.shape[0]
@@ -159,6 +180,10 @@ def lstm_seq(xg: torch.Tensor, mask: torch.Tensor, wh: torch.Tensor, train: bool
     _build.require("xg", xg, dev, dt, (T, B, 4 * H))
     _build.require("mask", mask, dev, dt, (T, B, 1))
     _build.require("wh", wh, dev, dt, (H, 4 * H))
+    if H % 2:  # the kernel takes an even H: one zero unit more, sliced off after
+        xp, wp = pad_odd_hidden(xg, wh)
+        h_last, seq = lstm_seq(xp, mask, wp)
+        return h_last[:, :H].contiguous(), seq[..., :H].contiguous()
     if xg.data_ptr() % 16:
         raise ValueError("lstm_seq reads xg in 16-byte chunks: its storage must start on 16 "
                          "bytes")

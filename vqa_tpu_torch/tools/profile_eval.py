@@ -36,8 +36,8 @@ CLASSES = (
     ("lstm_seq", r"lstm_seq_kernel|lstm_step_kernel"),
     ("gather_rows_dequant", r"gather_rows_dequant"),
     ("gather_rows", r"gather_rows"),
-    ("glimpse_head", r"glimpse_head"),
-    ("glimpse_attend", r"glimpse_attend"),
+    # both glimpse entries (csrc/glimpse_head.cu's ring and parent kernels)
+    ("glimpse", r"glimpse"),
     ("mfb_pool", r"mfb_pool"),
     ("relation_attend", r"relation"),
     ("gemm", r"gemm|nvjet|cutlass|sm80_|sm90_|cublas|xmma"),
