@@ -19,8 +19,10 @@ Phases, each printing one line of what it found:
      peak rate for their type) and, where one PyTorch call computes the
      same function, that call; the two gathers also by device time alone
      (back-to-back launches, indices already where each version reads them)
-     beside their call time; lstm_seq and both glimpse kernels also
-     bit-equal across two calls, each with its schedule; lstm_seq with a
+     beside their call time; lstm_seq, both glimpse kernels and
+     relation_attend also bit-equal across two calls, each with its
+     schedule (relation_attend also by device time, its plan's design
+     named); lstm_seq with a
      cuBLAS yardstick of its products alone;
   3. eval: each arch at the full width of its options/vqa2 YAML (MutanAtt,
      MFBCoAtt, MFHCoAtt, CoR), bf16, random seeded weights, through the
@@ -77,10 +79,11 @@ sys.path.insert(0, _REPO)
 #   output the same way: the same bound;
 # - mfb_pool computes in fp32 and rounds its output once; the rows are unit
 #   vectors, so that rounding is at most 2^-9 * 1 ~ 0.002;
-# - relation_attend computes in fp32 (alpha not rounded) and rounds its
-#   output once; the output is a convex combination of rows of r, and with
-#   r = tanh(.) as on the CoR path |out| <= 1, so rounding is <= 2^-9 ~ 0.002;
-#   0.01 leaves room for the fp32 sums taken in another order over D=1024.
+# - relation_attend computes scores and softmax in fp32, keeps alpha as two
+#   bf16 halves (~2^-16 relative) and rounds its output once; the output is
+#   a convex combination of rows of r, and with r = tanh(.) as on the CoR
+#   path |out| <= 1, so rounding is <= 2^-9 ~ 0.002; 0.01 leaves room for
+#   the fp32 sums taken in another order over D=1024.
 LSTM_ATOL = 0.0092
 GLIMPSE_ATOL = 0.05
 MFB_POOL_ATOL = 2e-3
@@ -534,45 +537,63 @@ def _check_relation(torch, dev, rng):
     import torch.nn.functional as F
 
     from vqa_tpu_torch.ops import _build
-    from vqa_tpu_torch.ops.relation import (relation_attend, relation_attend_reference,
-                                            relation_entry)
+    from vqa_tpu_torch.ops.relation import (_vec, relation_attend, relation_attend_reference,
+                                            relation_plan)
 
     worst, timing = 0.0, {}
     # CoR at the eval and the serving batch, over 36 regions and over the
-    # 196-region grid (the tiled entry); then odd shapes
-    for B, N, D in ((BATCH, REGIONS, 1024), (SERVE_BATCH, REGIONS, 1024), (SERVE_BATCH, GRID, 1024),
-                    (BATCH, GRID, 1024), (5, 7, 33), (3, 36, 40), (3, 65, 1024), (2, 100, 33)):
+    # 196-region grid (the tiled design), N=48 (the element design's
+    # largest) and 64 (the tiled design's smallest); then odd shapes: D % 8
+    # != 0 and rows off 16 bytes (plain copies), D=40 (a zero-padded
+    # k-step), N just past 64
+    for B, N, D, offset in ((BATCH, REGIONS, 1024, 0), (SERVE_BATCH, REGIONS, 1024, 0),
+                            (SERVE_BATCH, GRID, 1024, 0), (BATCH, GRID, 1024, 0),
+                            (BATCH, 48, 1024, 0), (BATCH, 64, 1024, 0), (5, 7, 33, 0),
+                            (3, 36, 40, 0), (3, 65, 1024, 0), (2, 100, 33, 0),
+                            (3, 36, 1024, 1)):
+        n = B * N * D
         pg = torch.tanh(torch.randn(B, N, D, device=dev)).to(torch.bfloat16)
-        r = torch.tanh(torch.randn(B, N, D, device=dev)).to(torch.bfloat16)
+        r = torch.empty(n + offset, dtype=torch.bfloat16, device=dev)[offset:].view(B, N, D)
+        r.copy_(torch.tanh(torch.randn(B, N, D, device=dev)))
         out = relation_attend(pg, r)
         ref = relation_attend_reference(pg.float(), r.float())
         torch.cuda.synchronize()
         err = (out.float() - ref).abs().max().item()
         _require(err <= RELATION_ATOL, f"relation_attend {(B, N, D)}: err {err} <= {RELATION_ATOL}")
         worst = max(worst, err)
-        line = dict(B=B, N=N, D=D, entry=relation_entry(N, D, _build.smem_optin(0)),
+        vec = _vec(D, pg, r, out)
+        plan = relation_plan(B, N, D, vec=vec, smem_limit=_build.smem_optin(0))
+        line = dict(B=B, N=N, D=D, design=plan["design"], split=plan["split"], vec=vec,
                     max_abs_err=round(err, 6), tol=RELATION_ATOL)
-        if D == 1024 and N in (REGIONS, GRID):
+        if D == 1024 and N in (REGIONS, GRID, 48, 64) and not offset:
+            again = relation_attend(pg, r)
+            torch.cuda.synchronize()
+            _require(torch.equal(out, again), f"relation_attend {(B, N, D)} is bit-equal "
+                                              f"across two calls")
             iters = 5 if B * N > BATCH * REGIONS else 20  # the big grid: fewer, longer calls
             ms, plain = _in_turns(torch, lambda t, fn: _median_ms(t, fn, iters=iters),
                                   lambda: relation_attend(pg, r),
                                   lambda: relation_attend_reference(pg, r))
+            device = _device_ms(torch, lambda: relation_attend(pg, r), reps=iters)
             # the same function in one PyTorch call (scale 1/sqrt(D), the
             # default); timed here only, never called by the port
             library = _median_ms(torch, lambda: F.scaled_dot_product_attention(pg, r, r),
                                  iters=iters)
             bound, by = _bound(2 * 3 * B * N * D, 2.0 * 2 * B * N * N * D)  # pg, r in; out
-            timing[f"B{B}_N{N}"] = dict(ms=ms, plain_ms=plain, library_ms=library, bound_ms=bound,
-                                        bound_by=by, pct_of_bound=100 * bound / ms)
+            timing[f"B{B}_N{N}"] = dict(ms=ms, device_ms=device, plain_ms=plain,
+                                        library_ms=library, bound_ms=bound, bound_by=by,
+                                        pct_of_bound=100 * bound / device,
+                                        design=plan["design"], bit_equal=True)
             line.update({k: (round(x, 4) if isinstance(x, float) else x)
                          for k, x in timing[f"B{B}_N{N}"].items()})
         _phase("relation_attend", **line)
         del pg, r, out, ref
     flagship = timing[f"B{BATCH}_N{REGIONS}"]
-    return {"max_abs_err": worst, **{k: flagship[k] for k in ("ms", "plain_ms", "bound_ms",
-                                                              "bound_by", "library_ms")},
-            "shape": "B=1024 N=36 D=1024 bf16; library_ms: F.scaled_dot_product_attention(pg, r, "
-                     "r); N=196: the tiled entry",
+    return {"max_abs_err": worst, **{k: flagship[k] for k in ("ms", "device_ms", "plain_ms",
+                                                              "bound_ms", "bound_by",
+                                                              "library_ms")},
+            "shape": "B=1024 N=36 D=1024 bf16 (element design, split 2); library_ms: "
+                     "F.scaled_dot_product_attention(pg, r, r); N=196: the tiled design",
             "by_shape": {k: {n: (round(x, 4) if isinstance(x, float) else x)
                              for n, x in t.items()} for k, t in timing.items()}}
 

@@ -30,7 +30,9 @@ from vqa_tpu_torch.ops.gather import (gather_rows, gather_rows_dequant,
 from vqa_tpu_torch.ops.lstm import (SMEM_LIMIT, SMS, gate_strips, launch_geometry, lstm_plan,
                                     lstm_seq, lstm_seq_reference, pad_odd_hidden)
 from vqa_tpu_torch.ops.mfb_pool import mfb_pool, mfb_pool_reference
-from vqa_tpu_torch.ops.relation import relation_attend, relation_attend_reference, relation_entry
+from vqa_tpu_torch.ops.relation import launch_geometry as relation_geometry
+from vqa_tpu_torch.ops.relation import (relation_attend, relation_attend_reference,
+                                        relation_plan)
 
 torch.set_num_threads(1)
 TOL = dict(rtol=1e-5, atol=1e-5)  # float32 on both sides; sums in another order
@@ -232,15 +234,44 @@ def test_glimpse_plan_refuses_only_past_shared_memory():
     assert glimpse_plan(8, 36, 510, 2, 2048, smem_limit=8192)["smem_bytes"] <= 8192
 
 
-@pytest.mark.parametrize("N,D,entry", [(36, 1024, "element"), (64, 1024, "element"),
-                                       (65, 1024, "tiled"), (196, 1024, "tiled"),
-                                       (64, 4000, "tiled")])
-def test_relation_entry_by_shape(N, D, entry):
-    """N <= 64 with r in shared memory takes the one-block-an-element kernel,
-    anything else the tiled entry; only shared memory refuses a shape."""
-    assert relation_entry(N, D, 232_448) == entry
+@pytest.mark.parametrize("B,N,D,smem_limit,vec,design,split", [
+    (1024, 36, 1024, 232_448, True, "element", 2),   # CoR eval: a CTA pair an element
+    (64, 36, 1024, 232_448, True, "element", 2),     # serving
+    (1024, 48, 1024, 232_448, True, "element", 1),   # a pair would hold an SM alone
+    (1024, 48, 1024, 120_000, True, "element", 4),   # a CTA pair does not fit
+    (1024, 64, 1024, 232_448, True, "tiled", 1),     # measured faster than the element design
+    (1024, 36, 1024, 48_000, True, "element", 8),    # a smaller card: split further
+    (5, 7, 33, 232_448, False, "element", 1),        # plain copies: one CTA an element
+    (1024, 65, 1024, 232_448, True, "tiled", 1),
+    (1024, 196, 1024, 232_448, True, "tiled", 1),    # the extract CLI's grid
+    (8, 64, 4000, 232_448, True, "tiled", 1),        # r past an element CTA even split
+    (8, 784, 1024, 232_448, True, "wide", 1),        # the grid of a 896-pixel image
+])
+def test_relation_entry_by_shape(B, N, D, smem_limit, vec, design, split):
+    """relation_plan: N <= 48 takes the element design, D split over a CTA
+    pair where two fit on an SM (else the fewest CTAs that fit), anything
+    else the tiled design (the wide one past its shared memory); only
+    shared memory refuses a shape."""
+    plan = relation_plan(B, N, D, vec=vec, smem_limit=smem_limit)
+    assert (plan["design"], plan["split"]) == (design, split)
+    assert plan["smem_bytes"] <= smem_limit
+    if design == "element":
+        assert plan["ctas"] == B * split and plan["cluster"] == split
+        assert split == 1 or (D // split) % 16 == 0
+    else:
+        assert plan["ctas"] == B * -(-N // plan["rows"]) and 1 <= plan["stages"] <= 4
     with pytest.raises(ValueError, match="shared memory"):
-        relation_entry(N, D, 1024)
+        relation_plan(B, N, D, vec=vec, smem_limit=1024)
+
+
+def test_relation_plan_takes_the_most_stages_that_fit():
+    """The tiled ring keeps up to 4 stages, fewer where shared memory is
+    short; a forced split that the columns cannot take is refused."""
+    assert relation_plan(1024, 196, 1024)["stages"] == 4
+    assert relation_plan(1024, 196, 1024, smem_limit=150_000)["stages"] == 2
+    assert relation_plan(64, 300, 1024)["stages"] >= 1
+    with pytest.raises(ValueError, match="split=4"):
+        relation_plan(8, 36, 40, design="element", split=4)
 
 
 @pytest.mark.parametrize("B,R,M,G,D,block_b", [(8, 36, 48, 2, 64, 8), (6, 9, 13, 3, 10, 3),
@@ -352,6 +383,31 @@ def test_relation_attend_odd_shape_matches_the_jnp_reference():
     got = relation_attend(torch.from_numpy(pg), torch.from_numpy(r))
     want = jax_relation.relation_attend_reference(jnp.asarray(pg), jnp.asarray(r))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("N", [36, 196])
+def test_relation_alpha_split_keeps_fp32_accuracy(N):
+    """The kernel's weighted sum takes alpha as two bf16 halves, hi =
+    bf16(alpha) and lo = bf16(alpha - hi), each product summed in fp32.
+    Emulated here in plain torch on bf16 inputs: within 1e-3 of the fp32
+    plain version and of the JAX reference, and far closer than alpha
+    rounded to bf16 once."""
+    rng = np.random.default_rng(N)
+    B, D = 4, 64
+    pg, r = (torch.from_numpy(np.tanh(rng.standard_normal((B, N, D))).astype(np.float32))
+             .bfloat16().float() for _ in range(2))
+    alpha = torch.softmax(torch.einsum("bnd,bmd->bnm", pg, r) * D ** -0.5, dim=-1)
+    hi = alpha.bfloat16().float()
+    lo = (alpha - hi).bfloat16().float()
+    split = torch.einsum("bnm,bmd->bnd", hi, r) + torch.einsum("bnm,bmd->bnd", lo, r)
+    want = relation_attend_reference(pg, r)
+    jax_want = np.asarray(jax_relation.relation_attend_reference(jnp.asarray(pg.numpy()),
+                                                                 jnp.asarray(r.numpy())))
+    err = (split - want).abs().max().item()
+    assert err <= 1e-3
+    np.testing.assert_allclose(split.numpy(), jax_want, atol=1e-3, rtol=0)
+    hi_only = (torch.einsum("bnm,bmd->bnd", hi, r) - want).abs().max().item()
+    assert err * 8 < hi_only
 
 
 @pytest.mark.parametrize("n,tail,b", [(10, (4, 16), 16), (7, (3,), 5)])
@@ -670,10 +726,14 @@ def test_mfb_pool_kernel_matches_plain(cuda_device, n, k, m):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,N,D", [(5, 7, 33), (37, 36, 1024), (3, 36, 40), (2, 64, 24),
-                                   (4, 1, 8), (3, 65, 1024), (4, 196, 1024), (2, 100, 33)])
+                                   (4, 1, 8), (3, 65, 1024), (4, 196, 1024), (2, 100, 33),
+                                   (64, 36, 1024), (3, 300, 64), (2, 600, 64)])
 def test_relation_attend_kernel_matches_plain(cuda_device, B, N, D):
-    """fp32 math in the kernel, output rounded to bf16 (0.02, as chip_smoke.py).
-    N = 65, 100, 196 take the tiled entry (D=33 its scalar path)."""
+    """fp32 scores and softmax, alpha as two bf16 halves, output rounded to
+    bf16 (0.01, as chip_smoke.py's RELATION_ATOL). N = 65, 100, 196, 300
+    take the tiled design (N=300: two boxes of r, two passes of the
+    scores), N=600 the wide one, D=33 the plain copies, D=40 a zero-padded
+    k-step."""
     pg = torch.tanh(torch.randn(B, N, D, device=cuda_device)).bfloat16()
     r = torch.tanh(torch.randn(B, N, D, device=cuda_device)).bfloat16()
     before = relation_attend.launches
@@ -681,4 +741,33 @@ def test_relation_attend_kernel_matches_plain(cuda_device, B, N, D):
     want = relation_attend_reference(pg.float(), r.float())
     torch.cuda.synchronize()
     assert relation_attend.launches == before + 1
-    assert (got.float() - want).abs().max().item() <= 0.02
+    assert (got.float() - want).abs().max().item() <= 0.01
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,N,D", [(1024, 36, 1024), (64, 36, 1024), (64, 196, 1024)])
+def test_relation_attend_kernel_is_bit_equal_across_runs(cuda_device, B, N, D):
+    """Every sum in a fixed order (the cluster's partial scores in rank
+    order): two calls give the same bits."""
+    pg = torch.tanh(torch.randn(B, N, D, device=cuda_device)).bfloat16()
+    r = torch.tanh(torch.randn(B, N, D, device=cuda_device)).bfloat16()
+    first = relation_attend(pg, r)
+    second = relation_attend(pg, r)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,N,D,vec", [(1024, 36, 1024, True), (64, 36, 1024, True),
+                                       (1024, 48, 1024, True), (1024, 196, 1024, True),
+                                       (64, 300, 64, True), (5, 7, 33, False),
+                                       (2, 600, 64, True)])
+def test_relation_plan_matches_the_card(cuda_device, B, N, D, vec):
+    """relation_plan reckons the launch in Python; the kernel reckons it in
+    C++: they agree on the CTAs, the cluster, the threads and the shared
+    memory."""
+    plan = relation_plan(B, N, D, vec=vec,
+                         smem_limit=_build.smem_optin(cuda_device.index or 0))
+    geometry = relation_geometry(B, N, D, plan, vec, cuda_device.index or 0)
+    assert geometry == {"ctas": plan["ctas"], "cluster": plan["cluster"],
+                        "threads": plan["threads"], "smem_bytes": plan["smem_bytes"]}

@@ -6,54 +6,60 @@
 //   out[b, i, d]   = sum_j alpha[b, i, j] * r[b, j, d]       -> out [B, N, D] (bf16)
 //
 // Replaces vqa_tpu/ops/relation.py::_relation_attend_pallas (_pallas_fwd,
-// _kernel). It follows the Pallas kernel's numerics: scores, softmax and the
-// weighted sum in fp32; alpha is NOT rounded to bf16 before the second
-// product (unlike glimpse_head); only the output is rounded.
+// _kernel). It follows the Pallas kernel's numerics: scores and softmax in
+// fp32, alpha NOT rounded to bf16 before the second product, only the
+// output rounded. Both products run on the tensor cores (mma.sync
+// m16n8k16, bf16 operands, fp32 accumulation): the scores multiply bf16
+// values exactly; alpha enters the weighted sum as two bf16 halves,
+// hi = bf16(alpha) and lo = bf16(alpha - hi), two products summed in fp32,
+// which keeps it to ~2^-16 relative (a TF32 product, at the same cost,
+// would keep 2^-11). The halves are packed in one word (hi | lo << 16), so
+// one 8-byte load a column pair gives both A fragments.
 //
 // What bounds it on the H100: at the CoR shapes (B=1024, N=36, D=1024) it
-// reads 151 MB and writes 75 MB, 0.068 ms at 3.35 TB/s, and does 2 x 1.36
-// GFMA: the second product on the fp32 CUDA cores (67 TFLOP/s) takes at
-// least 0.041 ms, the first on the tensor cores next to nothing. Predicted
-// before the first run of this design (scores on the tensor cores): ~0.1
-// ms, memory and the fp32 product overlapping across the two blocks an SM
-// holds. Measured on an H100 80GB HBM3 at 700 W: 0.22-0.25 ms, level with
-// the plain cuBLAS chain. The kernel moves its 226 MB at ~1 TB/s: the copy
-// of r alone runs at ~1.6 TB/s, and the phases of a block (copy, scores,
-// weighted sum) run one after another. Prefetching the next element's rows
-// (TMA bulk copies, a persistent grid) is the next step.
+// reads 151 MB and writes 75 MB: 0.068 ms at 3.35 TB/s; the products
+// (3 x 1.36 G multiply-adds with the split) take ~0.008 ms at the bf16
+// peak. At N=196 (the extract CLI's grid) 1.23 GB: 0.368 ms, the products
+// ~0.25 ms. The parent (74dfedf: one block an element, r copied through
+// registers, pg's fragments read from device memory, the weighted sum on the
+// fp32 CUDA cores; at N > 64 both products on them) ran at 32% and 4.9% of
+// those bounds (NVIDIA H100 80GB HBM3, 700 W). Its cuts showed the two
+// products in series, not the bytes, were its time.
 //
-// What the design does about it: one block per batch element, so s never
-// leaves the SM. r[b] is copied into shared memory (opted in above 48 KB),
-// its rows padded by 16 bytes so that eight rows read at one column hit
-// eight different bank groups, with s and alpha^T (fp32) beside it: ~85 KB
-// at the CoR shape, so two blocks fit on an SM and one block's loads
-// overlap the other's math. Scores run on the tensor cores: mma.sync
-// m16n8k16 with bf16 operands and fp32 accumulation, which multiplies bf16
-// values exactly, as the fp32 dot products of the Pallas kernel do. A warp
-// owns one 16-row tile and up to three 8-column tiles of s over all of D,
-// so it stores its sums directly, with no reduction between warps; it reads
-// its pg fragments straight from device memory (32-bit loads; at N=36 each
-// 16-row tile is read by two warps, the second time mostly from L1) and its
-// r fragments from shared memory. N is padded to the tiles (N <= 64). The
-// softmax over j runs one warp per row in fp32 and stores alpha transposed,
-// zero-padded to whole row groups. The weighted sum keeps alpha in fp32 on
-// the CUDA cores: each thread owns kOutRows rows x 8 columns of the output,
-// and per j one 16-byte load of r[j] and three 8-byte loads of alpha feed
-// 48 fma with no branch; it writes 16-byte stores. D % 8 != 0 takes scalar
-// loads.
+// Three designs, picked by ops/relation.py::relation_plan:
 //
-// N > 64 (CoR over the extract CLI's 196-region grid) takes a second entry,
-// vqa_relation_attend_tiled, with the same numerics: one block per (batch
-// element, 16-row tile of i). The tile's pg rows go to shared memory; one
-// warp per column j computes that column's 16 scores in fp32 (lanes over
-// D, 16-byte loads of r[j] from L2, a shuffle reduction), into shared
-// memory as s^T [N, 16] (16 N floats: 12.5 KB at N=196); the softmax runs
-// one warp per row in fp32 and leaves alpha^T in place; the weighted sum
-// streams r again, each thread owning 4 columns of the 16 output rows (64
-// fp32 accumulators) with alpha read as four float4. It reads r once per
-// tile from L2 twice over: simple and right, not fast (it is the next
-// design's to fix). Its only limit is shared memory: 32 D + 64 N bytes.
+// "element" (N <= 64): a cluster of `split` CTAs an element (2 where D
+// allows), CTA c owning columns [c D / split, (c + 1) D / split) of pg, r
+// and out, 16 warps. Its rows of pg and r arrive by 1-D bulk copies (one a
+// row, on one mbarrier) into shared memory, rows padded by 16 bytes so that
+// the eight rows an ldmatrix reads at one column hit eight bank groups. It
+// computes its partial scores (a warp a 16 x 16 tile), sends each peer the
+// rows of them that the peer owns and receives its own rows' partials
+// (bulk copies between the CTAs' shared memory, landing on the receiver's
+// mbarrier), sums them in rank order (bit-equal across CTAs and runs), takes
+// the softmax of its rows, exchanges alpha rows the same way, then computes
+// its columns of the output, staged in pg's rows and bulk-stored. A CTA
+// pair at N=36 holds ~91 KB a CTA, two an SM.
+//
+// "tiled" (N > 64): one CTA an element and 64 rows of i: a producer warp
+// issues TMA boxes (128-byte swizzle) of 64 columns into a ring of up to 4
+// stages: pg's 64 x 64 box and r's N rows for the scores, then r's rows
+// again for the weighted sum. 16 consumer warps keep the scores in
+// registers (a warp a 16-row tile and up to 4 pairs of 8-column tiles: N <=
+// 256 in one pass over D, more in passes), store s [64, N] (fp32) in shared
+// memory, take the softmax a warp a row and write alpha in place as packed
+// words; then four warps a chunk (four chunks in flight) run the weighted
+// sum and TMA-store the chunk's output through the stage's idle pg box (a
+// 3-D map clips at the element's last row). r[b] leaves L2 twice a CTA.
+//
+// "wide": the parent's N > 64 kernel, kept for N past the tiled design's
+// shared memory (below).
+//
+// D % 8 != 0, or a pointer off 16 bytes, takes the same designs with plain
+// copies and plain stores (the element design one CTA an element; the tiled
+// producer warp swizzles by hand).
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -63,17 +69,204 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kMaxN = 64;    // objects: at most 4 x 16-row and 8 x 8-column tiles of s
-constexpr int kNTPerWarp = 3;  // 8-column tiles of s per warp
-constexpr int kOutRows = 6;  // output rows per thread item (even: alpha read as float2)
-constexpr int kPad = 8;      // bf16 elements of padding per shared row of r
+constexpr int kWarps = 8;  // the wide design's warps
+constexpr int kThreads = 32 * kWarps;
+constexpr int kEW = 16;             // element design: warps a CTA (512 beat 256 threads)
+constexpr int kMaxN = 64;           // element design: s at most 4 x 16 rows, 8 x 8 columns
+constexpr int kMaxKt = kMaxN / 16;  // its k-steps over j in the weighted sum
+constexpr int kMaxSplit = 8;        // the portable cluster size
+constexpr int kMinCols = 64;        // columns a split CTA keeps
+constexpr int kDesignElement = 0, kDesignTiled = 1, kDesignWide = 2;
+constexpr int kTileRows = 64;  // tiled design: rows of i a CTA
+constexpr int kChunk = 64;     // columns a stage: one 128-byte swizzled row
+constexpr int kBoxRows = 256;  // rows of a TMA box
+constexpr int kMaxStages = 4;
+constexpr int kTW = 16;            // the tiled design's consumer warps (one more produces)
+constexpr int kTQ = kTW / 4;       // its warps on one 16-row tile of i
+constexpr int kPairsPerPass = 16;  // tiled scores: pairs of 8-column tiles of s a pass over D
+constexpr int kPairsPerWarp = kPairsPerPass / kTQ;
+static_assert(kTW / kTQ == kTileRows / 16, "a quarter's warps cover a tile's rows");
+constexpr int kRowRegs = 8;        // tiled softmax: a row's values a lane keeps, up to N = 256
 
-union Pack8 {
-  uint4 u;
-  bf16 h[8];
+__host__ __device__ constexpr int ceil_div(int a, int b) { return (a + b - 1) / b; }
+__host__ __device__ constexpr int round_up(int x, int m) { return ceil_div(x, m) * m; }
+__host__ __device__ constexpr size_t align16(size_t x) { return (x + 15) / 16 * 16; }
+
+// ------------------------------------------------------------ the layouts
+
+// element design, one CTA: its columns dc (dcp rounded up to 16, zero past
+// dc), the row stride ld (bf16) of pg and r, np = N rounded up to 16, the
+// row stride sa (bytes) of alpha's packed words, np4 = N rounded up to 4
+// (the row stride of the scores, so a row is whole 16-byte pieces), the
+// rows of s each CTA owns (rows_per = ceil(N / split): CTA c owns rows
+// [c rows_per, (c + 1) rows_per)). Byte offsets: three barriers (the copy
+// from device memory, the peers' partial scores, the peers' alpha rows), pg,
+// r, this CTA's partial s [N, np4], the peers' partials of its rows
+// [split - 1][rows_per][np4] (fp32), alpha [np, np]
+struct Shape {
+  int dc, dcp, ld, np, sa, np4, rows_per;
+  size_t pg, r, part, slots, alpha, total;
 };
+
+__host__ __device__ inline Shape shape_of(int N, int D, int split) {
+  Shape s;
+  s.dc = ceil_div(D, split);
+  s.dcp = round_up(s.dc, 16);
+  s.ld = s.dcp + 8;
+  s.np = round_up(N, 16);
+  s.sa = 4 * s.np + 32;  // 32 or 96 mod 128: a quarter warp's 8-byte loads miss each other
+  s.np4 = round_up(N, 4);
+  s.rows_per = ceil_div(N, split);
+  s.pg = 32;
+  s.r = s.pg + align16(static_cast<size_t>(N) * s.ld * 2);
+  s.part = s.r + align16(static_cast<size_t>(N) * s.ld * 2);
+  s.slots = s.part + static_cast<size_t>(N) * s.np4 * 4;
+  s.alpha = s.slots + static_cast<size_t>(split - 1) * s.rows_per * s.np4 * 4;
+  s.total = s.alpha + static_cast<size_t>(s.np) * s.sa;
+  return s;
+}
+
+// tiled design: r's boxes a stage (nbox of rb rows, rb % 8 == 0 so every box
+// starts on 1 KB and row j of the stage's r is at j * 128 with swizzle j & 7),
+// nj = N rounded up to 16, the row stride sr (bytes) of s / alpha; the bytes
+// of pg's box and of a stage. Shared memory: 1 KB of alignment slack, the
+// ring, s [64, sr], the barriers (full, empty)
+struct TiledShape {
+  int nbox, rb, nj, sr;
+  size_t pg_box, stage;
+};
+
+__host__ __device__ inline TiledShape tiled_shape(int N) {
+  TiledShape t;
+  t.nbox = ceil_div(N, kBoxRows);
+  t.rb = round_up(ceil_div(N, t.nbox), 8);
+  t.nj = round_up(N, 16);
+  t.sr = 4 * t.nj + 32;
+  t.pg_box = static_cast<size_t>(kTileRows) * kChunk * 2;
+  t.stage = t.pg_box + static_cast<size_t>(t.nbox) * t.rb * kChunk * 2;
+  return t;
+}
+
+size_t tiled_smem(int N, int stages) {
+  const TiledShape t = tiled_shape(N);
+  return 1024 + stages * t.stage + static_cast<size_t>(kTileRows) * t.sr + 16 * stages;
+}
+
+// ------------------------------------------------------------- primitives
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count));
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
+}
+
+// spin until the barrier's phase differs from `parity`
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  unsigned done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  }
+}
+
+// `bytes` (a multiple of 16, both addresses on 16 bytes) from global to
+// shared memory, completing on `bar`
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, unsigned bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_2d(void* dst, const CUtensorMap* map, uint64_t* bar, int c0,
+                                       int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// shared memory at `src` (a 128-byte-swizzled box) to `map` at (c0, c1, c2),
+// in this thread's bulk group; the map clips what falls outside the tensor
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, const void* src, int c0,
+                                             int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_addr(src)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit_and_wait_read() {
+  asm volatile("cp.async.bulk.commit_group;\ncp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+// `bytes` (a multiple of 16) from this CTA's shared memory at `src` to
+// `dst`'s offset in cluster CTA `rank`, completing on the barrier at `bar`'s
+// offset there
+__device__ __forceinline__ void bulk_to_peer(const void* dst, const void* src, unsigned bytes,
+                                             const uint64_t* bar, unsigned rank) {
+  asm volatile(
+      "{\n.reg .b32 d, b;\n"
+      "mapa.shared::cluster.u32 d, %0, %3;\n"
+      "mapa.shared::cluster.u32 b, %2, %3;\n"
+      "cp.async.bulk.shared::cluster.shared::cta.mbarrier::complete_tx::bytes [d], [%1], %4, [b];\n"
+      "}\n" ::"r"(smem_addr(dst)),
+      "r"(smem_addr(src)), "r"(smem_addr(bar)), "r"(rank), "r"(bytes)
+      : "memory");
+}
+
+// `bytes` (a multiple of 16, both addresses on 16 bytes) from shared to
+// global memory, in this thread's bulk group
+__device__ __forceinline__ void bulk_store(void* dst, const void* src, unsigned bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(
+                   reinterpret_cast<uint64_t>(dst)),
+               "r"(smem_addr(src)), "r"(bytes)
+               : "memory");
+}
+
+// generic-proxy writes to shared memory made visible to the bulk copies
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// the tiled design's kTQ consumer warps 4 q .. 4 q + 3 (named barrier 2 + q)
+__device__ __forceinline__ void group_sync(int q) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(2 + q) : "memory");
+}
+
+// the consumer warps of the tiled design, without the producer
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(32 * kTW) : "memory");
+}
 
 __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
@@ -87,27 +280,22 @@ __device__ __forceinline__ float warp_max(float x) {
   return x;
 }
 
-__host__ __device__ constexpr size_t align16(size_t x) { return (x + 15) / 16 * 16; }
-__host__ __device__ constexpr int round_up(int x, int m) { return (x + m - 1) / m * m; }
-
-// shared memory of one block: r padded, s and alpha^T
-size_t smem_bytes(int N, int D) {
-  return align16(static_cast<size_t>(N) * (D + kPad) * 2) +
-         static_cast<size_t>(round_up(N * N, 4) + N * round_up(N, kOutRows)) * sizeof(float);
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], unsigned addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
 }
 
-// row[k], row[k + 1] packed into one register (k in the low half), zero past D
-template <bool kVec>
-__device__ __forceinline__ uint32_t load_pair(const bf16* row, int k, int D) {
-  if (kVec) {  // D % 8 == 0 and k even: k < D implies k + 1 < D, 4-byte aligned
-    return k < D ? *reinterpret_cast<const uint32_t*>(row + k) : 0u;
-  }
-  const uint32_t lo = k < D ? __bfloat16_as_ushort(row[k]) : 0u;
-  const uint32_t hi = k + 1 < D ? __bfloat16_as_ushort(row[k + 1]) : 0u;
-  return lo | (hi << 16);
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], unsigned addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
 }
 
-// d += a (16x16, row-major) * b (16x8, column-major), bf16 in, fp32 accumulate
+// d += a (16x16, row-major) * b (16x8, column-major), bf16 in, fp32 accumulate.
+// Fragments: lane = 4 g + t holds A rows g, g + 8 at columns 2t, 2t+1 and
+// 2t+8, 2t+9; B column g at rows 2t, 2t+1 and 2t+8, 2t+9; C rows g, g + 8 at
+// columns 2t, 2t+1
 __device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
                                           uint32_t b1) {
   asm volatile(
@@ -117,182 +305,563 @@ __device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-template <bool kVec>
-__global__ void __launch_bounds__(kThreads, 2)
-relation_kernel(const bf16* __restrict__ pg, const bf16* __restrict__ r, bf16* __restrict__ out,
-                int N, int D) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int ld = D + kPad;                     // shared row stride of r
-  const int n_pad = round_up(N, kOutRows);     // rows of alpha, zero past N
-  bf16* r_s = reinterpret_cast<bf16*>(smem);   // [N, ld]
-  float* s_s = reinterpret_cast<float*>(smem + align16(static_cast<size_t>(N) * ld * 2));
-  float* a_s = s_s + round_up(N * N, 4);       // s [N, N], then alpha^T [N, n_pad]
-  const int64_t nd = static_cast<int64_t>(N) * D;
-  const bf16* pgb = pg + blockIdx.x * nd;
-  const bf16* rb = r + blockIdx.x * nd;
-  bf16* ob = out + blockIdx.x * nd;
-  const int tid = threadIdx.x;
-  const int lane = tid % 32;
-  const int warp = tid / 32;
+// alpha as two bf16 halves in one word: hi = bf16(a) low, lo = bf16(a - hi) high
+__device__ __forceinline__ uint32_t pack_alpha(float a) {
+  const bf16 hi = __float2bfloat16(a);
+  const bf16 lo = __float2bfloat16(a - __bfloat162float(hi));
+  return static_cast<uint32_t>(__bfloat16_as_ushort(hi)) |
+         (static_cast<uint32_t>(__bfloat16_as_ushort(lo)) << 16);
+}
 
-  // r[b] into shared memory
-  if (kVec) {
-    const int n_col = D / 8;
-#pragma unroll 4
-    for (int i = tid; i < N * n_col; i += kThreads) {
-      const int j = i / n_col, c = (i % n_col) * 8;
-      *reinterpret_cast<uint4*>(r_s + j * ld + c) =
-          *reinterpret_cast<const uint4*>(rb + static_cast<int64_t>(j) * D + c);
+// the A fragments of alpha's halves for rows row0.., columns k0.. from the
+// packed words at `a` (row stride `stride` bytes): one 8-byte load a pair of
+// columns gives both halves
+__device__ __forceinline__ void alpha_frag(const unsigned char* a, int stride, int row0, int k0,
+                                           int lane, uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+  const int g = lane / 4, t = lane % 4;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const int row = row0 + g + (q % 2) * 8, col = k0 + 2 * t + (q / 2) * 8;
+    const uint2 w = *reinterpret_cast<const uint2*>(a + row * stride + col * 4);
+    hi[q] = __byte_perm(w.x, w.y, 0x5410);
+    lo[q] = __byte_perm(w.x, w.y, 0x7632);
+  }
+}
+
+// out[i, d], out[i, d + 1] from fp32 by plain stores (the paths whose rows
+// are not on 16 bytes), the second where it exists
+__device__ __forceinline__ void store_pair(bf16* p, float x, float y, bool second) {
+  p[0] = __float2bfloat16(x);
+  if (second) p[1] = __float2bfloat16(y);
+}
+
+// ------------------------------------------------------- element design
+
+template <bool kVec>
+__global__ void __launch_bounds__(32 * kEW, 2)
+relation_element_kernel(const bf16* __restrict__ pg, const bf16* __restrict__ r,
+                        bf16* __restrict__ out, int N, int D, int split) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Shape sh = shape_of(N, D, split);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem);  // copy, partials, alpha
+  bf16* pg_s = reinterpret_cast<bf16*>(smem + sh.pg);
+  bf16* r_s = reinterpret_cast<bf16*>(smem + sh.r);
+  float* part = reinterpret_cast<float*>(smem + sh.part);
+  float* slots = reinterpret_cast<float*>(smem + sh.slots);
+  unsigned char* alpha = smem + sh.alpha;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int g = lane / 4, t = lane % 4;
+  const int rank = static_cast<int>(blockIdx.x % split);  // the cluster is (split, 1, 1)
+  const int dc = sh.dc;
+  const int64_t base = static_cast<int64_t>(blockIdx.x / split) * N * D + rank * dc;
+  const bf16* pgb = pg + base;
+  const bf16* rb = r + base;
+  bf16* ob = out + base;
+  auto rows_of = [&](int c) { return max(0, min(N, (c + 1) * sh.rows_per) - c * sh.rows_per); };
+  const int row0 = rank * sh.rows_per, mine = rows_of(rank);  // the rows of s this CTA owns
+
+  if (tid == 0) {
+    for (int k = 0; k < 3; ++k) mbar_init(bar + k, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  // this CTA (and its barriers) has started: its peers may copy into it once they wait
+  if (split > 1) asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+  if (kVec) {  // zero the columns [dc, dcp) of every row (D % 16 == 8)
+    const int pad = sh.dcp - dc;
+    for (int x = tid; x < 2 * N * pad; x += 32 * kEW) {
+      const int row = x / pad;
+      bf16* dst = row < N ? pg_s + row * sh.ld : r_s + (row - N) * sh.ld;
+      dst[dc + x % pad] = __float2bfloat16(0.f);
     }
-  } else {
-    for (int i = tid; i < N * D; i += kThreads) r_s[(i / D) * ld + i % D] = rb[i];
+  } else {  // split == 1: every column by plain copies, zero past D
+    for (int x = tid; x < 2 * N * sh.dcp; x += 32 * kEW) {
+      const int row = x / sh.dcp, col = x % sh.dcp;
+      const bool is_r = row >= N;
+      const int i = is_r ? row - N : row;
+      const bf16* src = (is_r ? rb : pgb) + static_cast<int64_t>(i) * D;
+      (is_r ? r_s : pg_s)[i * sh.ld + col] = col < D ? src[col] : __float2bfloat16(0.f);
+    }
   }
   __syncthreads();
+  if (split > 1 && tid == 0) {  // what the peers will send: their partials of my rows, their alpha
+    int alpha_rows = 0;
+    for (int q = 0; q < split; ++q) alpha_rows += q == rank ? 0 : rows_of(q);
+    mbar_expect_tx(bar + 1, static_cast<unsigned>((split - 1) * mine * sh.np4 * 4));
+    mbar_expect_tx(bar + 2, static_cast<unsigned>(alpha_rows * sh.sa));
+  }
+  if (kVec) {
+    if (warp == 0) {  // one bulk copy a row of pg and of r
+      const unsigned row_bytes = 2u * dc;
+      const unsigned copy_bytes = 2u * N * row_bytes;
+      if (lane == 0) mbar_expect_tx(bar, copy_bytes);
+      __syncwarp();
+      for (int row = lane; row < 2 * N; row += 32) {
+        const bool is_r = row >= N;
+        const int i = is_r ? row - N : row;
+        bulk_load((is_r ? r_s : pg_s) + i * sh.ld, (is_r ? rb : pgb) + static_cast<int64_t>(i) * D,
+                  row_bytes, bar);
+      }
+    }
+    mbar_wait(bar, 0);
+  }
 
-  // s = pg . r^T on the tensor cores. Fragment layout of m16n8k16: lane =
-  // 4 * g + t holds A rows g and g + 8 at columns 2t, 2t+1 and 2t+8, 2t+9;
-  // B column g at rows 2t, 2t+1 and 2t+8, 2t+9; C rows g and g + 8 at
-  // columns 2t, 2t+1. A warp owns one 16-row tile and up to kNTPerWarp
-  // 8-column tiles of s over all of D, so it stores its sums directly.
-  {
-    const int g = lane / 4, t = lane % 4;
-    const int n_mt = (N + 15) / 16, n_nt = (N + 7) / 8, n_ks = (D + 15) / 16;
-    const int n_ntg = (n_nt + kNTPerWarp - 1) / kNTPerWarp;
-    for (int p = warp; p < n_mt * n_ntg; p += kWarps) {
-      const int mt = p % n_mt, nt0 = (p / n_mt) * kNTPerWarp;
-      const int i0 = mt * 16 + g, i1 = i0 + 8;
-      const bf16* pa0 = pgb + static_cast<int64_t>(min(i0, N - 1)) * D;
-      const bf16* pa1 = pgb + static_cast<int64_t>(min(i1, N - 1)) * D;
-      float acc[kNTPerWarp][4] = {};
-#pragma unroll 8  // several k steps' fragment loads in flight at once
-      for (int ks = 0; ks < n_ks; ++ks) {
-        const int k = ks * 16 + 2 * t;
-        uint32_t a[4];
-        a[0] = i0 < N ? load_pair<kVec>(pa0, k, D) : 0u;
-        a[1] = i1 < N ? load_pair<kVec>(pa1, k, D) : 0u;
-        a[2] = i0 < N ? load_pair<kVec>(pa0, k + 8, D) : 0u;
-        a[3] = i1 < N ? load_pair<kVec>(pa1, k + 8, D) : 0u;
+  // partial s = pg . r^T over this CTA's columns, a warp a 16 x 16 tile.
+  // ldmatrix rows (clamped to N - 1; those rows of s are never read): A rows
+  // i0 + lane % 16 at column (lane / 16) * 8; B rows j0 + lane % 8 +
+  // (lane / 16) * 8 at column ((lane / 8) % 2) * 8 (b[0..1] the first
+  // 8-column tile, b[2..3] the second)
+  const int mts = sh.np / 16;
+  const int units = mts * mts;
+  for (int u = warp; u < units; u += kEW) {
+    const int i0 = (u % mts) * 16, j0 = (u / mts) * 16;
+    const unsigned a_addr =
+        smem_addr(pg_s + min(i0 + lane % 16, N - 1) * sh.ld + (lane / 16) * 8);
+    const unsigned b_addr =
+        smem_addr(r_s + min(j0 + lane % 8 + (lane / 16) * 8, N - 1) * sh.ld + ((lane / 8) % 2) * 8);
+    float acc[2][4] = {};
+#pragma unroll 4
+    for (int k = 0; k < sh.dcp; k += 16) {
+      uint32_t a[4], b[4];
+      ldsm_x4(a, a_addr + 2 * k);
+      ldsm_x4(b, b_addr + 2 * k);
+      mma_16816(acc[0], a, b[0], b[1]);
+      mma_16816(acc[1], a, b[2], b[3]);
+    }
 #pragma unroll
-        for (int q = 0; q < kNTPerWarp; ++q) {
-          if (nt0 + q < n_nt) {  // uniform across the warp: mma.sync stays convergent
-            const int j = (nt0 + q) * 8 + g;
-            const bf16* rj = r_s + min(j, N - 1) * ld;
-            const uint32_t b0 = j < N ? load_pair<kVec>(rj, k, D) : 0u;
-            const uint32_t b1 = j < N ? load_pair<kVec>(rj, k + 8, D) : 0u;
-            mma_16816(acc[q], a, b0, b1);
+    for (int q = 0; q < 2; ++q) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = i0 + g + (e / 2) * 8, j = j0 + q * 8 + 2 * t + e % 2;
+        if (i < N && j < N) part[i * sh.np4 + j] = acc[q][e];
+      }
+    }
+  }
+  __syncthreads();
+  if (split > 1) {
+    // each peer's rows of this partial to it, one bulk copy a peer
+    asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");  // every peer started
+    if (tid == 0) {
+      fence_async_smem();
+      for (int q = 0; q < split; ++q) {
+        const int n = rows_of(q), at = q < rank ? rank - 1 : rank;  // my slot at q
+        if (q != rank && n > 0) {
+          bulk_to_peer(slots + static_cast<size_t>(at) * sh.rows_per * sh.np4,
+                       part + q * sh.rows_per * sh.np4, static_cast<unsigned>(n * sh.np4 * 4),
+                       bar + 1, q);
+        }
+      }
+    }
+    mbar_wait(bar + 1, 0);
+  }
+
+  // alpha = softmax_j(s / sqrt(D)) in fp32 for this CTA's rows, a warp a
+  // row (N <= 64), the cluster's partials summed in rank order; packed
+  // words, zero past N; then each peer gets these rows, one bulk copy a peer
+  const float scale = rsqrtf(static_cast<float>(D));
+  const float neg_inf = __int_as_float(0xff800000);
+  for (int li = warp; li < mine; li += kEW) {  // softmax
+    const int i = row0 + li;
+    float v[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int j = lane + 32 * h;
+      v[h] = neg_inf;
+      if (j < N) {
+        float x = 0.f;
+        for (int q = 0; q < split; ++q) {
+          const int at = q < rank ? q : q - 1;
+          x += q == rank ? part[i * sh.np4 + j]
+                         : slots[(static_cast<size_t>(at) * sh.rows_per + li) * sh.np4 + j];
+        }
+        v[h] = x * scale;
+      }
+    }
+    const float mx = warp_max(fmaxf(v[0], v[1]));
+    const float e0 = lane < N ? expf(v[0] - mx) : 0.f;
+    const float e1 = lane + 32 < N ? expf(v[1] - mx) : 0.f;
+    const float inv = 1.f / warp_sum(e0 + e1);
+    uint32_t* row = reinterpret_cast<uint32_t*>(alpha + i * sh.sa);
+    if (lane < sh.np) row[lane] = lane < N ? pack_alpha(e0 * inv) : 0u;
+    if (lane + 32 < sh.np) row[lane + 32] = lane + 32 < N ? pack_alpha(e1 * inv) : 0u;
+  }
+  __syncthreads();
+  if (split > 1) {
+    if (tid == 0 && mine > 0) {
+      fence_async_smem();
+      for (int q = 0; q < split; ++q) {
+        if (q != rank) {
+          bulk_to_peer(alpha + row0 * sh.sa, alpha + row0 * sh.sa,
+                       static_cast<unsigned>(mine * sh.sa), bar + 2, q);
+        }
+      }
+    }
+    mbar_wait(bar + 2, 0);
+    cluster_arrive();  // everything sent to this CTA has landed
+  }
+
+  // out[i, columns] = alpha . r[:, columns], a warp 16 rows x 32 columns:
+  // per 16 rows of j, both halves of alpha against one ldmatrix.trans of r
+  // a 16-column pair (rows j + lane % 8 + ((lane / 8) % 2) * 8, clamped to
+  // N - 1 where alpha is 0, at column d0 + (lane / 16) * 8). The output
+  // goes through pg's rows (free since the scores) to one bulk store a row
+  const int kts = mts;
+  const int dquads = ceil_div(sh.dcp, 32);
+  for (int u = warp; u < mts * dquads; u += kEW) {
+    const int i0 = (u % mts) * 16, d0 = (u / mts) * 32;
+    const bool two = d0 + 16 < sh.dcp;  // uniform across the warp
+    float acc[2][2][4] = {};
+#pragma unroll
+    for (int kt = 0; kt < kMaxKt; ++kt) {  // weighted sum
+      if (kt < kts) {
+        uint32_t hi[4], lo[4];
+        alpha_frag(alpha, sh.sa, i0, kt * 16, lane, hi, lo);
+        const int j = min(kt * 16 + lane % 8 + ((lane / 8) % 2) * 8, N - 1);
+        const bf16* rj = r_s + j * sh.ld + d0 + (lane / 16) * 8;
+#pragma unroll
+        for (int x = 0; x < 2; ++x) {
+          if (x == 0 || two) {
+            uint32_t b[4];
+            ldsm_x4_trans(b, smem_addr(rj + 16 * x));
+            mma_16816(acc[x][0], hi, b[0], b[1]);
+            mma_16816(acc[x][0], lo, b[0], b[1]);
+            mma_16816(acc[x][1], hi, b[2], b[3]);
+            mma_16816(acc[x][1], lo, b[2], b[3]);
           }
         }
       }
+    }
 #pragma unroll
-      for (int q = 0; q < kNTPerWarp; ++q) {
+    for (int x = 0; x < 2; ++x) {
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int i = mt * 16 + g + (e / 2) * 8, j = (nt0 + q) * 8 + 2 * t + e % 2;
-          if (i < N && j < N) s_s[i * N + j] = acc[q][e];
+      for (int q = 0; q < 2; ++q) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int i = i0 + g + 8 * h, d = d0 + 16 * x + q * 8 + 2 * t;
+          const bool store_ok = i < N && d < dc;
+          if (store_ok) {
+            if (kVec) {
+              *reinterpret_cast<__nv_bfloat162*>(pg_s + i * sh.ld + d) =
+                  __floats2bfloat162_rn(acc[x][q][2 * h], acc[x][q][2 * h + 1]);
+            } else {
+              store_pair(ob + static_cast<int64_t>(i) * D + d, acc[x][q][2 * h],
+                         acc[x][q][2 * h + 1], d + 1 < dc);
+            }
+          }
         }
       }
     }
   }
-  __syncthreads();
-
-  // alpha = softmax_j(s / sqrt(D)) in fp32, one warp per row (N <= 64),
-  // stored transposed, alpha^T[j, i], with zero rows i in [N, n_pad)
-  const float scale = rsqrtf(static_cast<float>(D));
-  const float neg_inf = __int_as_float(0xff800000);
-  for (int i = warp; i < n_pad; i += kWarps) {
-    const float* row = s_s + min(i, N - 1) * N;
-    const float v0 = lane < N ? row[lane] * scale : neg_inf;
-    const float v1 = lane + 32 < N ? row[lane + 32] * scale : neg_inf;
-    const float mx = warp_max(fmaxf(v0, v1));
-    const float e0 = lane < N ? expf(v0 - mx) : 0.f;
-    const float e1 = lane + 32 < N ? expf(v1 - mx) : 0.f;
-    const float inv = i < N ? 1.f / warp_sum(e0 + e1) : 0.f;
-    if (lane < N) a_s[lane * n_pad + i] = e0 * inv;
-    if (lane + 32 < N) a_s[(lane + 32) * n_pad + i] = e1 * inv;
+  if (kVec) {
+    fence_async_smem();
+    __syncthreads();
+    if (warp == 0) {
+      for (int i = lane; i < N; i += 32) {
+        bulk_store(ob + static_cast<int64_t>(i) * D, pg_s + i * sh.ld, 2u * dc);
+      }
+      bulk_commit_and_wait_read();  // pg_s read out before the CTA leaves
+    }
   }
-  __syncthreads();
+  if (split > 1) cluster_wait();  // no CTA leaves while a peer may still copy from it
+}
 
-  // out[i, d..d+W) = sum_j alpha[i, j] * r[j, d..d+W), kOutRows rows a thread
-  // item: one 16-byte load of r[j] and three 8-byte loads of alpha^T[j]
-  // (the same address across the warp) feed 6 x 8 fma, with no branch
-  constexpr int W = kVec ? 8 : 1;
-  const int n_col = D / W;
-  for (int item = tid; item < (n_pad / kOutRows) * n_col; item += kThreads) {
-    const int i0 = (item / n_col) * kOutRows;
-    const int d = (item % n_col) * W;
-    float acc[kOutRows][W] = {};
-#pragma unroll 2
-    for (int j = 0; j < N; ++j) {
-      float x[W];
-      if (kVec) {
-        Pack8 p;
-        p.u = *reinterpret_cast<const uint4*>(r_s + j * ld + d);
+// --------------------------------------------------------- tiled design
+
+// one 64-column chunk of the scores: this warp's 16 rows (mt) against its
+// pairs of 8-column tiles (p0, p0 + 4, ...; up to 4 of them), from the stage
+// `st` (pg's 64 x 64 box, then r's rows at j * 128, both 128-byte swizzled)
+__device__ __forceinline__ void score_chunk(const unsigned char* st, const TiledShape& sh, int mt,
+                                            int p0, int pairs, int N, int lane,
+                                            float (&acc)[kPairsPerWarp][2][4]) {
+  const int arow = mt * 16 + lane % 16;
+  const unsigned a_base = smem_addr(st) + arow * 128;
+  const unsigned r_base = smem_addr(st + sh.pg_box);
 #pragma unroll
-        for (int e = 0; e < W; ++e) x[e] = __bfloat162float(p.h[e]);
-      } else {
-        x[0] = __bfloat162float(r_s[j * ld + d]);
-      }
-      const float2* al2 = reinterpret_cast<const float2*>(a_s + j * n_pad + i0);
-      float al[kOutRows];
+  for (int ks = 0; ks < kChunk / 16; ++ks) {
+    uint32_t a[4];
+    ldsm_x4(a, a_base + (((2 * ks + lane / 16) ^ (arow & 7)) << 4));
 #pragma unroll
-      for (int q = 0; q < kOutRows / 2; ++q) {
-        const float2 v = al2[q];
-        al[2 * q] = v.x;
-        al[2 * q + 1] = v.y;
-      }
-#pragma unroll
-      for (int rr = 0; rr < kOutRows; ++rr)
-#pragma unroll
-        for (int e = 0; e < W; ++e) acc[rr][e] += al[rr] * x[e];
-    }
-#pragma unroll
-    for (int rr = 0; rr < kOutRows; ++rr) {
-      if (i0 + rr < N) {
-        bf16* o = ob + static_cast<int64_t>(i0 + rr) * D + d;
-        if (kVec) {
-          Pack8 p;
-#pragma unroll
-          for (int e = 0; e < W; ++e) p.h[e] = __float2bfloat16(acc[rr][e]);
-          *reinterpret_cast<uint4*>(o) = p.u;
-        } else {
-          o[0] = __float2bfloat16(acc[rr][0]);
-        }
+    for (int x = 0; x < kPairsPerWarp; ++x) {
+      const int p = p0 + kTQ * x;
+      if (p < pairs) {  // uniform across the warp
+        const int j = min(p * 16 + lane % 8 + (lane / 16) * 8, N - 1);
+        uint32_t b[4];
+        ldsm_x4(b, r_base + j * 128 + (((2 * ks + (lane / 8) % 2) ^ (j & 7)) << 4));
+        mma_16816(acc[x][0], a, b[0], b[1]);
+        mma_16816(acc[x][1], a, b[2], b[3]);
       }
     }
+  }
+}
+
+// the producer warp's plain copy of one stage (no TMA: D % 8 != 0 or a
+// pointer off 16 bytes), zero past N and D, in TMA's 128-byte swizzle
+__device__ __forceinline__ void copy_chunk_plain(unsigned char* st, const TiledShape& sh,
+                                                 const bf16* pgb, const bf16* rb, int i0, int col0,
+                                                 bool scores, int N, int D, int lane) {
+  auto put = [&](unsigned char* box, int row, int cc, bf16 v) {
+    *reinterpret_cast<bf16*>(box + row * 128 + (((cc / 8) ^ (row & 7)) << 4) + (cc % 8) * 2) = v;
+  };
+  const bf16 zero = __float2bfloat16(0.f);
+  if (scores) {
+    for (int x = lane; x < kTileRows * kChunk; x += 32) {
+      const int row = x / kChunk, cc = x % kChunk, i = i0 + row, col = col0 + cc;
+      put(st, row, cc, i < N && col < D ? pgb[static_cast<int64_t>(i) * D + col] : zero);
+    }
+  }
+  for (int x = lane; x < sh.nbox * sh.rb * kChunk; x += 32) {
+    const int j = x / kChunk, cc = x % kChunk, col = col0 + cc;
+    put(st + sh.pg_box, j, cc, j < N && col < D ? rb[static_cast<int64_t>(j) * D + col] : zero);
   }
 }
 
 template <bool kVec>
-cudaError_t launch(const bf16* pg, const bf16* r, bf16* out, int B, int N, int D, size_t smem,
-                   cudaStream_t s) {
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        relation_kernel<kVec>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
+__global__ void __launch_bounds__(32 * kTW + 32, 1)
+relation_tiled_kernel(const __grid_constant__ CUtensorMap pg_map,
+                      const __grid_constant__ CUtensorMap r_map,
+                      const __grid_constant__ CUtensorMap out_map, const bf16* __restrict__ pg,
+                      const bf16* __restrict__ r, bf16* __restrict__ out, int N, int D,
+                      int stages) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const TiledShape sh = tiled_shape(N);
+  unsigned char* ring = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  unsigned char* s_base = ring + stages * sh.stage;
+  uint64_t* full = reinterpret_cast<uint64_t*>(s_base + static_cast<size_t>(kTileRows) * sh.sr);
+  uint64_t* empty = full + stages;
+  const int n_tiles = ceil_div(N, kTileRows);
+  const int64_t b = blockIdx.x / n_tiles;
+  const int i0 = (blockIdx.x % n_tiles) * kTileRows;
+  const int rows = min(kTileRows, N - i0);
+  const int kc = ceil_div(D, kChunk);          // chunks of D
+  const int pairs = sh.nj / 16;                // pairs of 8-column tiles of s
+  const int passes = ceil_div(pairs, kPairsPerPass);
+  const int n_chunks = (passes + 1) * kc;      // the scores' passes, then the weighted sum
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, kTW);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  relation_kernel<kVec><<<B, kThreads, smem, s>>>(pg, r, out, N, D);
-  return cudaGetLastError();
+  __syncthreads();
+
+  if (warp == kTW) {  // the producer
+    for (int c = 0; c < n_chunks; ++c) {
+      const int s = c % stages;
+      if (c >= stages) mbar_wait(empty + s, ((c / stages) - 1) & 1);
+      unsigned char* st = ring + s * sh.stage;
+      const bool scores = c < passes * kc;
+      const int col0 = (scores ? c % kc : c - passes * kc) * kChunk;
+      if (kVec) {
+        if (lane == 0) {
+          const unsigned stage_tx =
+              static_cast<unsigned>((scores ? sh.pg_box : 0) + sh.stage - sh.pg_box);
+          mbar_expect_tx(full + s, stage_tx);
+          if (scores) tma_2d(st, &pg_map, full + s, col0, static_cast<int>(b * N + i0));
+          for (int q = 0; q < sh.nbox; ++q) {
+            tma_2d(st + sh.pg_box + static_cast<size_t>(q) * sh.rb * kChunk * 2, &r_map, full + s,
+                   col0, static_cast<int>(b * N + q * sh.rb));
+          }
+        }
+      } else {
+        copy_chunk_plain(st, sh, pg + b * N * D, r + b * N * D, i0, col0, scores, N, D, lane);
+        __threadfence_block();
+        __syncwarp();
+        if (lane == 0) mbar_arrive(full + s);
+      }
+    }
+    return;
+  }
+
+  // the scores: warp w owns rows (w % 4) * 16.. and, in each pass, the pairs
+  // of 8-column tiles of s p = pass * 16 + w / 4 + 4 x, kept in registers
+  // over the pass's chunks, then stored to s (fp32)
+  const int g = lane / 4, t = lane % 4;
+  const int mt = warp % 4, quarter = warp / 4;
+  int c = 0;
+  for (int pass = 0; pass < passes; ++pass) {
+    float acc[kPairsPerWarp][2][4] = {};
+    const int p0 = pass * kPairsPerPass + quarter;
+    for (int k = 0; k < kc; ++k, ++c) {
+      const int s = c % stages;
+      mbar_wait(full + s, (c / stages) & 1);
+      score_chunk(ring + s * sh.stage, sh, mt, p0, pairs, N, lane, acc);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + s);
+    }
+#pragma unroll
+    for (int x = 0; x < kPairsPerWarp; ++x) {
+      const int p = p0 + kTQ * x;
+      if (p < pairs) {
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int i = mt * 16 + g + 8 * h, j = p * 16 + q * 8 + 2 * t;
+            *reinterpret_cast<float2*>(s_base + i * sh.sr + j * 4) =
+                make_float2(acc[x][q][2 * h], acc[x][q][2 * h + 1]);
+          }
+        }
+      }
+    }
+  }
+  consumers_sync();
+
+  // alpha = softmax_j(s / sqrt(D)) in fp32, a warp a row, written in place as
+  // packed words (each lane rewrites only the words it read), zero past N;
+  // a row's values stay in registers up to N = 256
+  const float scale = rsqrtf(static_cast<float>(D));
+  const float neg_inf = __int_as_float(0xff800000);
+  for (int i = warp; i < rows; i += kTW) {  // softmax
+    float* srow = reinterpret_cast<float*>(s_base + i * sh.sr);
+    uint32_t* arow = reinterpret_cast<uint32_t*>(srow);
+    if (N <= 32 * kRowRegs) {
+      float v[kRowRegs];
+      float mx = neg_inf;
+#pragma unroll
+      for (int e = 0; e < kRowRegs; ++e) {
+        const int j = lane + 32 * e;
+        v[e] = j < N ? srow[j] * scale : neg_inf;
+        mx = fmaxf(mx, v[e]);
+      }
+      mx = warp_max(mx);
+      float sum = 0.f;
+#pragma unroll
+      for (int e = 0; e < kRowRegs; ++e) {
+        v[e] = lane + 32 * e < N ? expf(v[e] - mx) : 0.f;
+        sum += v[e];
+      }
+      const float inv = 1.f / warp_sum(sum);
+#pragma unroll
+      for (int e = 0; e < kRowRegs; ++e) {
+        const int j = lane + 32 * e;
+        if (j < sh.nj) arow[j] = j < N ? pack_alpha(v[e] * inv) : 0u;
+      }
+    } else {
+      float mx = neg_inf;
+      for (int j = lane; j < N; j += 32) mx = fmaxf(mx, srow[j] * scale);
+      mx = warp_max(mx);
+      float sum = 0.f;
+      for (int j = lane; j < N; j += 32) sum += expf(srow[j] * scale - mx);
+      const float inv = 1.f / warp_sum(sum);
+      for (int j = lane; j < sh.nj; j += 32) {
+        arow[j] = j < N ? pack_alpha(expf(srow[j] * scale - mx) * inv) : 0u;
+      }
+    }
+  }
+  consumers_sync();
+
+  // out[rows, chunk] = alpha . r[:, chunk], a chunk of 64 columns a stage:
+  // chunk k belongs to the kTQ warps of quarter k % kTQ, warp w computing
+  // rows (w % 4) * 16.. over the chunk's 64 columns (alpha's fragments read
+  // once a chunk, four chunks in flight); per 16 rows of j, both halves of
+  // alpha against one ldmatrix.trans of r for each 16-column pair. Every
+  // warp waits for every chunk and releases it (the ring's count).
+  const int kts = sh.nj / 16;
+  bf16* ob = out + (b * N + i0) * D;
+  for (int k = 0; k < kc; ++k, ++c) {
+    const int s = c % stages;
+    mbar_wait(full + s, (c / stages) & 1);
+    if (k % kTQ == quarter) {
+      const unsigned r_base = smem_addr(ring + s * sh.stage + sh.pg_box);
+      float acc[kChunk / 16][2][4] = {};
+      for (int kt = 0; kt < kts; ++kt) {  // weighted sum
+        uint32_t hi[4], lo[4];
+        alpha_frag(s_base, sh.sr, mt * 16, kt * 16, lane, hi, lo);
+        const int j = min(kt * 16 + lane % 8 + ((lane / 8) % 2) * 8, N - 1);
+#pragma unroll
+        for (int x = 0; x < kChunk / 16; ++x) {
+          uint32_t bb[4];
+          ldsm_x4_trans(bb, r_base + j * 128 + (((2 * x + lane / 16) ^ (j & 7)) << 4));
+          mma_16816(acc[x][0], hi, bb[0], bb[1]);
+          mma_16816(acc[x][0], lo, bb[0], bb[1]);
+          mma_16816(acc[x][1], hi, bb[2], bb[3]);
+          mma_16816(acc[x][1], lo, bb[2], bb[3]);
+        }
+      }
+      if (kVec) {
+        // the chunk's output into the stage's pg box (unused by the weighted
+        // sum), 128-byte swizzled, then one TMA store of it by the group
+        // (rows past N and columns past D clipped by the map)
+        unsigned char* o_s = ring + s * sh.stage;
+#pragma unroll
+        for (int x = 0; x < kChunk / 16; ++x) {
+#pragma unroll
+          for (int q = 0; q < 2; ++q) {
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int rho = mt * 16 + g + 8 * h, kq = 2 * x + q;
+              *reinterpret_cast<__nv_bfloat162*>(o_s + rho * 128 + ((kq ^ (rho & 7)) << 4) +
+                                                 4 * t) =
+                  __floats2bfloat162_rn(acc[x][q][2 * h], acc[x][q][2 * h + 1]);
+            }
+          }
+        }
+        fence_async_smem();
+        group_sync(quarter);
+        if (mt == 0 && lane == 0) {
+          tma_store_3d(&out_map, o_s, k * kChunk, i0, static_cast<int>(b));
+          bulk_commit_and_wait_read();
+        }
+      } else {
+#pragma unroll
+        for (int x = 0; x < kChunk / 16; ++x) {
+#pragma unroll
+          for (int q = 0; q < 2; ++q) {
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int i = mt * 16 + g + 8 * h, d = k * kChunk + x * 16 + q * 8 + 2 * t;
+              const bool store_ok = i < rows && d < D;
+              if (store_ok) {
+                store_pair(ob + static_cast<int64_t>(i) * D + d, acc[x][q][2 * h],
+                           acc[x][q][2 * h + 1], d + 1 < D);
+              }
+            }
+          }
+        }
+      }
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + s);
+  }
 }
 
-constexpr int kTileRows = 16;  // rows of i a block of the tiled entry owns
+// ---------------------------------------------------------- wide design
 
-// shared memory of one block of the tiled entry: its pg rows, s^T / alpha^T [N, 16]
-size_t tiled_smem_bytes(int N, int D) {
-  return align16(static_cast<size_t>(kTileRows) * D * 2) +
-         static_cast<size_t>(N) * kTileRows * sizeof(float);
+// The parent's N > 64 kernel, kept for N past what the tiled design's
+// shared memory holds (its s [64, N] and a stage of N rows of r: N > ~570
+// at D=1024): one block per (element, 16 rows of i); the tile's pg rows in
+// shared memory; one warp per column j computes that column's 16 scores in
+// fp32 (lanes over D, 16-byte loads of r[j] from L2, a shuffle reduction)
+// into s^T [N, 16]; the softmax a warp a row in place; the weighted sum
+// streams r again, each thread owning 4 columns of the 16 output rows. Its
+// only limit is shared memory: 32 D + 64 N bytes. Simple and slow (4.8% of
+// its bound at N=196), for shapes nothing else takes.
+
+constexpr int kWideRows = 16;  // rows of i a block of the wide design owns
+
+union Pack8 {
+  uint4 u;
+  bf16 h[8];
+};
+
+size_t wide_smem(int N, int D) {
+  return align16(static_cast<size_t>(kWideRows) * D * 2) +
+         static_cast<size_t>(N) * kWideRows * sizeof(float);
 }
 
 template <bool kVec>
 __global__ void __launch_bounds__(kThreads)
-relation_tiled_kernel(const bf16* __restrict__ pg, const bf16* __restrict__ r,
+relation_wide_kernel(const bf16* __restrict__ pg, const bf16* __restrict__ r,
                       bf16* __restrict__ out, int N, int D) {
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* pg_s = reinterpret_cast<bf16*>(smem);  // [16, D], zero rows past the tile
-  float* a_s = reinterpret_cast<float*>(smem + align16(static_cast<size_t>(kTileRows) * D * 2));
-  const int n_tiles = (N + kTileRows - 1) / kTileRows;
+  float* a_s = reinterpret_cast<float*>(smem + align16(static_cast<size_t>(kWideRows) * D * 2));
+  const int n_tiles = (N + kWideRows - 1) / kWideRows;
   const int64_t b = blockIdx.x / n_tiles;
-  const int i0 = (blockIdx.x % n_tiles) * kTileRows;
-  const int ni = min(kTileRows, N - i0);
+  const int i0 = (blockIdx.x % n_tiles) * kWideRows;
+  const int ni = min(kWideRows, N - i0);
   const int64_t nd = static_cast<int64_t>(N) * D;
   const bf16* pgb = pg + b * nd + static_cast<int64_t>(i0) * D;
   const bf16* rb = r + b * nd;
@@ -303,14 +872,14 @@ relation_tiled_kernel(const bf16* __restrict__ pg, const bf16* __restrict__ r,
 
   if (kVec) {
     const int n_col = D / 8;
-    for (int i = tid; i < kTileRows * n_col; i += kThreads) {
+    for (int i = tid; i < kWideRows * n_col; i += kThreads) {
       const int row = i / n_col, c = (i % n_col) * 8;
       uint4 x = make_uint4(0u, 0u, 0u, 0u);
       if (row < ni) x = *reinterpret_cast<const uint4*>(pgb + static_cast<int64_t>(row) * D + c);
       *reinterpret_cast<uint4*>(pg_s + row * D + c) = x;
     }
   } else {
-    for (int i = tid; i < kTileRows * D; i += kThreads) {
+    for (int i = tid; i < kWideRows * D; i += kThreads) {
       const int row = i / D;
       pg_s[i] = row < ni ? pgb[static_cast<int64_t>(row) * D + i % D] : __float2bfloat16(0.f);
     }
@@ -320,7 +889,7 @@ relation_tiled_kernel(const bf16* __restrict__ pg, const bf16* __restrict__ r,
   // s^T[j, i] = <pg_i, r_j>, one warp per column j, all 16 rows at once
   for (int j = warp; j < N; j += kWarps) {
     const bf16* rj = rb + static_cast<int64_t>(j) * D;
-    float acc[kTileRows] = {};
+    float acc[kWideRows] = {};
     if (kVec) {
 #pragma unroll 2
       for (int d = lane * 8; d < D; d += 32 * 8) {
@@ -330,7 +899,7 @@ relation_tiled_kernel(const bf16* __restrict__ pg, const bf16* __restrict__ r,
 #pragma unroll
         for (int e = 0; e < 8; ++e) xf[e] = __bfloat162float(x.h[e]);
 #pragma unroll
-        for (int i = 0; i < kTileRows; ++i) {
+        for (int i = 0; i < kWideRows; ++i) {
           Pack8 q;
           q.u = *reinterpret_cast<const uint4*>(pg_s + i * D + d);
 #pragma unroll
@@ -341,31 +910,31 @@ relation_tiled_kernel(const bf16* __restrict__ pg, const bf16* __restrict__ r,
       for (int d = lane; d < D; d += 32) {
         const float x = __bfloat162float(rj[d]);
 #pragma unroll
-        for (int i = 0; i < kTileRows; ++i) acc[i] += __bfloat162float(pg_s[i * D + d]) * x;
+        for (int i = 0; i < kWideRows; ++i) acc[i] += __bfloat162float(pg_s[i * D + d]) * x;
       }
     }
     float mine = 0.f;  // lane i keeps row i's sum (no register array indexed at run time)
 #pragma unroll
-    for (int i = 0; i < kTileRows; ++i) {
+    for (int i = 0; i < kWideRows; ++i) {
       const float t = warp_sum(acc[i]);
       if (lane == i) mine = t;
     }
-    if (lane < kTileRows) a_s[j * kTileRows + lane] = mine;
+    if (lane < kWideRows) a_s[j * kWideRows + lane] = mine;
   }
   __syncthreads();
 
   // alpha = softmax_j(s / sqrt(D)) in fp32, one warp per row, in place
   const float scale = rsqrtf(static_cast<float>(D));
   const float neg_inf = __int_as_float(0xff800000);
-  for (int i = warp; i < kTileRows; i += kWarps) {
+  for (int i = warp; i < kWideRows; i += kWarps) {
     float mx = neg_inf;
-    for (int j = lane; j < N; j += 32) mx = fmaxf(mx, a_s[j * kTileRows + i] * scale);
+    for (int j = lane; j < N; j += 32) mx = fmaxf(mx, a_s[j * kWideRows + i] * scale);
     mx = warp_max(mx);
     float sum = 0.f;
-    for (int j = lane; j < N; j += 32) sum += expf(a_s[j * kTileRows + i] * scale - mx);
+    for (int j = lane; j < N; j += 32) sum += expf(a_s[j * kWideRows + i] * scale - mx);
     const float inv = 1.f / warp_sum(sum);
     for (int j = lane; j < N; j += 32) {
-      a_s[j * kTileRows + i] = expf(a_s[j * kTileRows + i] * scale - mx) * inv;
+      a_s[j * kWideRows + i] = expf(a_s[j * kWideRows + i] * scale - mx) * inv;
     }
   }
   __syncthreads();
@@ -373,7 +942,7 @@ relation_tiled_kernel(const bf16* __restrict__ pg, const bf16* __restrict__ r,
   // out[i, d..d+W) = sum_j alpha[i, j] * r[j, d..d+W) for the 16 rows
   constexpr int W = kVec ? 4 : 1;
   for (int d = tid * W; d < D; d += kThreads * W) {
-    float acc[kTileRows][W] = {};
+    float acc[kWideRows][W] = {};
 #pragma unroll 4
     for (int j = 0; j < N; ++j) {
       float x[W];
@@ -391,9 +960,9 @@ relation_tiled_kernel(const bf16* __restrict__ pg, const bf16* __restrict__ r,
       } else {
         x[0] = __bfloat162float(rb[static_cast<int64_t>(j) * D + d]);
       }
-      const float4* al = reinterpret_cast<const float4*>(a_s + j * kTileRows);
+      const float4* al = reinterpret_cast<const float4*>(a_s + j * kWideRows);
 #pragma unroll
-      for (int q = 0; q < kTileRows / 4; ++q) {
+      for (int q = 0; q < kWideRows / 4; ++q) {
         const float4 a = al[q];
 #pragma unroll
         for (int e = 0; e < W; ++e) {
@@ -405,7 +974,7 @@ relation_tiled_kernel(const bf16* __restrict__ pg, const bf16* __restrict__ r,
       }
     }
 #pragma unroll
-    for (int i = 0; i < kTileRows; ++i) {
+    for (int i = 0; i < kWideRows; ++i) {
       if (i < ni) {
 #pragma unroll
         for (int e = 0; e < W; ++e) {
@@ -416,46 +985,179 @@ relation_tiled_kernel(const bf16* __restrict__ pg, const bf16* __restrict__ r,
   }
 }
 
-}  // namespace
 
-// One block per batch element on `stream`. Needs N <= 64 and smem_bytes(N, D)
-// of shared memory (at most 227 KB); the Python wrapper checks both.
-// Returns the launch's cudaError_t, or 0.
-extern "C" int vqa_relation_attend(const void* pg, const void* r, void* out, int B, int N, int D,
-                                   void* stream) {
-  if (B <= 0 || N <= 0 || D <= 0) return 0;
-  if (N > kMaxN) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t smem = smem_bytes(N, D);
+// ------------------------------------------------------------------ host
+
+// cuTensorMapEncodeTiled is a driver entry point; reach it through the runtime
+// so that the library links against nothing but cudart.
+using EncodeFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                              const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                              const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                              CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+cudaError_t encode_fn(EncodeFn* fn) {
+  static EncodeFn cached = nullptr;
+  if (cached == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult status;
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &status);
+    if (err != cudaSuccess) return err;
+    if (status != cudaDriverEntryPointSuccess || p == nullptr) return cudaErrorNotSupported;
+    cached = reinterpret_cast<EncodeFn>(p);
+  }
+  *fn = cached;
+  return cudaSuccess;
+}
+
+// [B * N rows, D columns] of bf16 in boxes of `rows` x 64 columns, 128-byte
+// swizzle, zero past either end
+cudaError_t encode_rows(CUtensorMap* map, const void* base, int B, int N, int D, int rows) {
+  EncodeFn encode;
+  const cudaError_t err = encode_fn(&encode);
+  if (err != cudaSuccess) return err;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(D),
+                              static_cast<cuuint64_t>(B) * static_cast<cuuint64_t>(N)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(D) * 2};
+  const cuuint32_t box[2] = {kChunk, static_cast<cuuint32_t>(rows)};
+  const cuuint32_t estr[2] = {1, 1};
+  if (encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims, strides, box,
+             estr, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return cudaErrorInvalidValue;
+  return cudaSuccess;
+}
+
+// [B, N, D] of bf16 in boxes of 64 rows x 64 columns of one element,
+// 128-byte swizzle: a store clips at the element's last row
+cudaError_t encode_out(CUtensorMap* map, void* base, int B, int N, int D) {
+  EncodeFn encode;
+  const cudaError_t err = encode_fn(&encode);
+  if (err != cudaSuccess) return err;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(N),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(D) * 2,
+                                 static_cast<cuuint64_t>(N) * static_cast<cuuint64_t>(D) * 2};
+  const cuuint32_t box[3] = {kChunk, kTileRows, 1};
+  const cuuint32_t estr[3] = {1, 1, 1};
+  if (encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, base, dims, strides, box, estr,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_NONE, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return cudaErrorInvalidValue;
+  return cudaSuccess;
+}
+
+// what a launch of `design` runs: CTAs, cluster size, threads, shared memory
+// of a CTA; cudaErrorInvalidValue for a schedule the design cannot run
+struct Geometry {
+  long long ctas, cluster, threads, smem;
+};
+
+cudaError_t geometry(int B, int N, int D, int design, int split, int stages, bool vec,
+                     Geometry* g) {
+  if (design == kDesignElement) {
+    if (N > kMaxN || split < 1 || split > kMaxSplit) return cudaErrorInvalidValue;
+    if (split > 1 && (!vec || D % (16 * split) != 0 || D / split < kMinCols))
+      return cudaErrorInvalidValue;
+    *g = {static_cast<long long>(B) * split, split, 32 * kEW,
+          static_cast<long long>(shape_of(N, D, split).total)};
+    return cudaSuccess;
+  }
+  if (design == kDesignTiled) {
+    if (stages < 1 || stages > kMaxStages || static_cast<long long>(B) * N >= (1LL << 31))
+      return cudaErrorInvalidValue;
+    *g = {static_cast<long long>(B) * ceil_div(N, kTileRows), 1, 32 * kTW + 32,
+          static_cast<long long>(tiled_smem(N, stages))};
+    return cudaSuccess;
+  }
+  if (design == kDesignWide) {
+    *g = {static_cast<long long>(B) * ceil_div(N, kWideRows), 1, kThreads,
+          static_cast<long long>(wide_smem(N, D))};
+    return cudaSuccess;
+  }
+  return cudaErrorInvalidValue;
+}
+
+template <typename Kernel>
+cudaError_t opt_in(Kernel kernel, long long smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
+}
+
+int launch(const void* pg, const void* r, void* out, int B, int N, int D, int design, int split,
+           int stages, cudaStream_t s) {
   const bool vec = D % 8 == 0 && (reinterpret_cast<uintptr_t>(pg) | reinterpret_cast<uintptr_t>(r) |
                                   reinterpret_cast<uintptr_t>(out)) % 16 == 0;
+  Geometry geo;
+  cudaError_t err = geometry(B, N, D, design, split, stages, vec, &geo);
+  if (err != cudaSuccess) return static_cast<int>(err);
   auto* pp = static_cast<const bf16*>(pg);
   auto* rp = static_cast<const bf16*>(r);
   auto* op = static_cast<bf16*>(out);
-  const cudaError_t err = vec ? launch<true>(pp, rp, op, B, N, D, smem, s)
-                              : launch<false>(pp, rp, op, B, N, D, smem, s);
-  return static_cast<int>(err);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(geo.ctas));
+  cfg.blockDim = dim3(static_cast<unsigned>(geo.threads));
+  cfg.dynamicSmemBytes = static_cast<size_t>(geo.smem);
+  cfg.stream = s;
+  if (design == kDesignElement) {
+    auto kernel = vec ? relation_element_kernel<true> : relation_element_kernel<false>;
+    err = opt_in(kernel, geo.smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = split;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = split > 1 ? 1 : 0;
+    err = cudaLaunchKernelEx(&cfg, kernel, pp, rp, op, N, D, split);
+  } else if (design == kDesignWide) {
+    auto kernel = vec ? relation_wide_kernel<true> : relation_wide_kernel<false>;
+    err = opt_in(kernel, geo.smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    err = cudaLaunchKernelEx(&cfg, kernel, pp, rp, op, N, D);
+  } else {
+    auto kernel = vec ? relation_tiled_kernel<true> : relation_tiled_kernel<false>;
+    err = opt_in(kernel, geo.smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    CUtensorMap pg_map = {}, r_map = {}, out_map = {};  // unused by the plain copies
+    if (vec) {
+      const TiledShape sh = tiled_shape(N);
+      err = encode_rows(&pg_map, pg, B, N, D, kTileRows);
+      if (err == cudaSuccess) err = encode_rows(&r_map, r, B, N, D, sh.rb);
+      if (err == cudaSuccess) err = encode_out(&out_map, out, B, N, D);
+      if (err != cudaSuccess) return static_cast<int>(err);
+    }
+    err = cudaLaunchKernelEx(&cfg, kernel, pg_map, r_map, out_map, pp, rp, op, N, D, stages);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
 }
 
-// The N > 64 entry: one block per (batch element, 16-row tile of i) on
-// `stream`. Needs tiled_smem_bytes(N, D) of shared memory (the Python
-// wrapper checks it against the card's opt-in limit). Returns the launch's
-// cudaError_t, or 0.
-extern "C" int vqa_relation_attend_tiled(const void* pg, const void* r, void* out, int B, int N,
-                                         int D, void* stream) {
+}  // namespace
+
+// One launch of `design` (0: element, 1: tiled, 2: wide) with `split` CTAs
+// an element (element) or `stages` ring stages (tiled), as
+// ops/relation.py::relation_plan gives them, on `stream`. Returns the
+// launch's cudaError_t, or 0.
+extern "C" int vqa_relation_attend(const void* pg, const void* r, void* out, int B, int N, int D,
+                                   int design, int split, int stages, void* stream) {
   if (B <= 0 || N <= 0 || D <= 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t smem = tiled_smem_bytes(N, D);
-  const bool vec = D % 8 == 0 && (reinterpret_cast<uintptr_t>(pg) | reinterpret_cast<uintptr_t>(r) |
-                                  reinterpret_cast<uintptr_t>(out)) % 16 == 0;
-  auto kernel = vec ? relation_tiled_kernel<true> : relation_tiled_kernel<false>;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  const int64_t grid = static_cast<int64_t>(B) * ((N + kTileRows - 1) / kTileRows);
-  kernel<<<static_cast<unsigned>(grid), kThreads, smem, s>>>(
-      static_cast<const bf16*>(pg), static_cast<const bf16*>(r), static_cast<bf16*>(out), N, D);
-  return static_cast<int>(cudaGetLastError());
+  return launch(pg, r, out, B, N, D, design, split, stages, static_cast<cudaStream_t>(stream));
+}
+
+// What vqa_relation_attend launches for this schedule (its own reckoning):
+// geometry[0] the CTAs, [1] the cluster size, [2] the threads of a CTA, [3]
+// its shared memory. Returns a cudaError_t.
+extern "C" int vqa_relation_geometry(int B, int N, int D, int design, int split, int stages,
+                                     int vec, long long* geometry_out) {
+  Geometry geo;
+  const cudaError_t err = geometry(B, N, D, design, split, stages, vec != 0, &geo);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  geometry_out[0] = geo.ctas;
+  geometry_out[1] = geo.cluster;
+  geometry_out[2] = geo.threads;
+  geometry_out[3] = geo.smem;
+  return 0;
 }

@@ -48,8 +48,8 @@ _SIGNATURES = {
     "vqa_glimpse_attend": [*[_PTR] * 3, *[_INT] * 8, _PTR],
     "vqa_smem_optin": [_PTR],
     "vqa_mfb_pool": [_PTR, _PTR, _I64, _INT, _INT, _PTR],
-    "vqa_relation_attend": [_PTR, _PTR, _PTR, _INT, _INT, _INT, _PTR],
-    "vqa_relation_attend_tiled": [_PTR, _PTR, _PTR, _INT, _INT, _INT, _PTR],
+    "vqa_relation_attend": [_PTR, _PTR, _PTR, *[_INT] * 6, _PTR],
+    "vqa_relation_geometry": [*[_INT] * 7, _PTR],
 }
 
 _lib: Optional[ctypes.CDLL] = None
