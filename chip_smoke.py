@@ -37,7 +37,22 @@ Phases, each printing one line of what it found:
      /answer and an oversized /batch, answers held equal to direct
      Predictor calls and to the plain path's on the same inputs;
   5. grid: MutanAtt and CoR, one forward at the serving batch over a table
-     of 196-region rows, held against the plain path.
+     of 196-region rows, held against the plain path;
+  6. eval_cli: the port's eval CLI (python -m vqa_tpu_torch.cli.train -e)
+     at the full width of options/vqa2/mutan_att.yaml over a synthetic raw
+     VQA v2 set (train and val questions and annotations in the official
+     schema; 1024 images; 32,500 val questions, so the last batch of 1024 is
+     padded, and 16,250 train questions for the vocabularies; bench.py's
+     question lengths; 10 annotators a question): the
+     port's prep writes the processed split, the loader feeds the eval step
+     over a table on the card, the results json is scored by the port's
+     scorer CLI. Three runs: the bf16 table through the kernels, the same
+     through the plain path, the int8 table; exactly gather_rows (int8:
+     gather_rows_dequant), lstm_seq and glimpse_head launched; one results
+     row per val question; acc1 recomputed on the host from the results and
+     the split's answers; answers agreeing with the plain run's. The card's
+     machine has no h5py, so an in-memory FeatureStore of the table stands
+     in the dataset factory's store cache where the HDF5 file would be read.
 
 Any failed check raises, and the script exits non-zero. On success the
 second-to-last line is the per-kernel JSON record and the last line is
@@ -124,6 +139,15 @@ ARCHS = {
     "CoR": ("cor", ("gather_rows", "lstm_seq", "relation_attend")),
 }
 GRID_ARCHS = ("MutanAtt", "CoR")  # also run once over the 196-region grid
+# the eval CLI's data: val questions (not a multiple of BATCH: the last batch
+# is padded), half as many train questions (the vocabularies come from them:
+# ~100k tokens leave almost none of the NUM_WORDS - 2 words unseen), and
+# distinct answers drawn with a long tail, of which the YAML's nans=2000 make
+# the answer vocabulary (the rest are out-of-vocabulary consensus answers)
+CLI_QUESTIONS = 32_500
+CLI_TRAIN_QUESTIONS = CLI_QUESTIONS // 2
+CLI_ANSWERS = 3_000
+CLI_KERNELS = ("gather_rows", "lstm_seq", "glimpse_head")
 SOURCES = {  # kernel -> (its CUDA source, the TPU kernel it replaces)
     "gather_rows": ("vqa_tpu_torch/csrc/gather.cu", "vqa_tpu/ops/gather.py:58"),
     # the same TPU kernel on the int8 rows, with the dequant after it
@@ -941,6 +965,179 @@ def _arch_phases(torch, dev, arch, features, int8_features, eval_data) -> dict:
     return {k: counts[k] + int8_counts[k] + serve[k] + grid[k] for k in counts}
 
 
+def _write_raw_vqa2(dir_raw: str, rng: np.random.Generator) -> None:
+    """A synthetic raw VQA v2 set in the official schema
+    (vqa_tpu_torch/datasets/interim.py): CLI_TRAIN_QUESTIONS train and
+    CLI_QUESTIONS val questions over
+    N_IMAGES images, bench.py:39-58's question lengths over NUM_WORDS - 2
+    words, 10 annotators a question who give the consensus answer 7 times in
+    10, answers drawn from CLI_ANSWERS with weights 1 / (rank + 10)."""
+    from vqa_tpu_torch.datasets.interim import RAW_FILES
+    from vqa_tpu_torch.flagship import NUM_WORDS
+
+    words = [f"w{i}" for i in range(NUM_WORDS - 2)]
+    answers = [f"a{i}" for i in range(CLI_ANSWERS)]
+    weights = 1.0 / (np.arange(CLI_ANSWERS) + 10.0)
+    weights /= weights.sum()
+    kinds = (("what color", "other"), ("how many", "number"), ("is the", "yes/no"),
+             ("what is", "other"))
+    os.makedirs(dir_raw, exist_ok=True)
+    for split, n, first_qid in (("train", CLI_TRAIN_QUESTIONS, 1),
+                                ("val", CLI_QUESTIONS, 10_000_000)):
+        lengths = np.clip(np.round(rng.normal(6.2, 2.2, n)), 3, SEQ).astype(int).tolist()
+        tokens = rng.integers(0, len(words), (n, SEQ)).tolist()
+        image_ids = rng.integers(0, N_IMAGES, n).tolist()
+        consensus = rng.choice(CLI_ANSWERS, n, p=weights)
+        pool = np.where(rng.random((n, 10)) < 0.7, consensus[:, None],
+                        rng.choice(CLI_ANSWERS, (n, 10), p=weights)).tolist()
+        kind = rng.integers(0, len(kinds), n).tolist()
+        questions, annotations = [], []
+        for i in range(n):
+            qid = first_qid + i
+            text = " ".join(words[t] for t in tokens[i][:lengths[i]]) + "?"
+            questions.append({"image_id": image_ids[i], "question": text, "question_id": qid})
+            annotations.append({
+                "image_id": image_ids[i], "question_id": qid,
+                "question_type": kinds[kind[i]][0], "answer_type": kinds[kind[i]][1],
+                "multiple_choice_answer": answers[consensus[i]],
+                "answers": [{"answer": answers[a], "answer_confidence": "yes", "answer_id": j + 1}
+                            for j, a in enumerate(pool[i])],
+            })
+        qfile, afile = RAW_FILES[split]
+        with open(os.path.join(dir_raw, qfile), "w") as f:
+            json.dump({"questions": questions}, f)
+        with open(os.path.join(dir_raw, afile), "w") as f:
+            json.dump({"annotations": annotations}, f)
+
+
+def _eval_cli_phase(torch, dev, table: np.ndarray) -> dict:
+    """The port's eval CLI at the full width of options/vqa2/mutan_att.yaml
+    over a synthetic raw VQA v2 set (docstring, phase 6); returns the launch
+    counts of its kernel runs (bf16 and int8 tables)."""
+    import dataclasses
+    import io
+    import tempfile
+
+    from vqa_tpu_torch.cli import score as score_cli
+    from vqa_tpu_torch.cli import train as train_cli
+    from vqa_tpu_torch.config import load_options
+    from vqa_tpu_torch.datasets import factory as data_factory
+    from vqa_tpu_torch.datasets.features import FeatureStore
+    from vqa_tpu_torch.datasets.interim import RAW_FILES, image_name
+    from vqa_tpu_torch.flagship import NUM_WORDS
+    from vqa_tpu_torch.models.factory import factory as model_factory
+    from vqa_tpu_torch.weights import export_params, random_params
+
+    path_opt = os.path.join(_REPO, "options", "vqa2", "mutan_att.yaml")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_eval_cli_") as tmp:
+        t0 = time.perf_counter()
+        _write_raw_vqa2(os.path.join(tmp, "vqa2", "raw"), np.random.default_rng(0))
+        raw_s = time.perf_counter() - t0
+        data = [f"vqa.dir={tmp}/vqa2", f"coco.dir={tmp}/coco"]
+        opt = load_options(path_opt, data)
+        # no h5py on the card's machine: the table stands in the store cache
+        names = [image_name("val2014", i) for i in range(N_IMAGES)]
+        data_factory._STORE_CACHE[(opt.coco.dir, opt.coco.arch, opt.coco.mode, "ram")] = \
+            FeatureStore.in_memory(names, table)
+        t0 = time.perf_counter()
+        val_set = data_factory.factory("val", opt)  # the port's prep, on first use
+        prep_s = time.perf_counter() - t0
+        split = val_set.split
+        _require(val_set.num_answers == opt.vqa.nans, f"answer vocabulary {val_set.num_answers} "
+                 f"== nans {opt.vqa.nans}")
+        _require(val_set.num_words >= 0.99 * NUM_WORDS, f"word vocabulary {val_set.num_words} "
+                 f"~ {NUM_WORDS}")
+        _require(len(split) == CLI_QUESTIONS and len(split) % BATCH, "a padded last batch")
+
+        model = model_factory(dataclasses.asdict(opt.model), val_set.num_words,
+                              val_set.num_answers, dtype=torch.bfloat16, device=dev,
+                              dim_v=val_set.feature_shape[-1])
+        random_params(model, seed=0)
+        npz = os.path.join(tmp, "params.npz")
+        np.savez(npz, **export_params(model))
+        del model
+        argv = ["--path_opt", path_opt, "-e", "--split", "val"]
+        for o in data + [f"model.pretrained_params={npz}", "engine.device_features=true",
+                         "optim.eval_batch_size=1024"]:
+            argv += ["--opt", o]
+
+        runs = {}
+        for label, features_dtype, plain in (("bf16", "bfloat16", False),
+                                             ("plain", "bfloat16", True),
+                                             ("int8", "int8", False)):
+            logs = os.path.join(tmp, "logs", label)
+            _reset_counts()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()), \
+                    (_plain_ops(torch) if plain else contextlib.nullcontext()):
+                rc = train_cli.main(argv + ["--dir_logs", logs,
+                                            "--opt", f"engine.features_dtype={features_dtype}"])
+            wall = time.perf_counter() - t0
+            counts = _read_counts()
+            _require(rc == 0, f"eval CLI ({label}) returned {rc}")
+            with open(os.path.join(logs, "metrics.jsonl")) as f:
+                metrics = [json.loads(line) for line in f][-1]
+            path = os.path.join(logs, "results", "vqa_OpenEnded_val_epoch0_results.json")
+            with open(path) as f:
+                results = {r["question_id"]: r["answer"] for r in json.load(f)}
+            runs[label] = dict(counts=counts, metrics=metrics, results=results, path=path,
+                               wall=wall)
+
+        want = {"bf16": set(CLI_KERNELS), "plain": set(),
+                "int8": {"gather_rows_dequant", "lstm_seq", "glimpse_head"}}
+        answer_of = dict(zip(split.question_ids.tolist(), split.answers.tolist()))
+        ans_to_aid = val_set.vocabs.ans_to_aid
+        for label, run in runs.items():
+            counts, m, results = run["counts"], run["metrics"], run["results"]
+            _require({k for k, c in counts.items() if c} == want[label],
+                     f"eval CLI ({label}) launched exactly {sorted(want[label])}: {counts}")
+            _require(len(results) == len(split) and set(results) == set(answer_of),
+                     f"eval CLI ({label}): one results row per val question, padded rows dropped")
+            correct1 = sum(ans_to_aid[a] == answer_of[q] for q, a in results.items())
+            _require(m["n"] == len(split) and m["n_labeled"] == int((split.answers >= 0).sum()),
+                     f"eval CLI ({label}): n and n_labeled")
+            _require(m["acc1"] == correct1 / m["n"],
+                     f"eval CLI ({label}): acc1 {m['acc1']} == {correct1}/{m['n']} from the results")
+            correct5 = round(m["acc5"] * m["n"])
+            _require(abs(correct5 / m["n"] - m["acc5"]) < 1e-12
+                     and correct1 <= correct5 <= m["n_labeled"],
+                     f"eval CLI ({label}): acc5 {m['acc5']} a count over n, >= acc1")
+        agree = float(np.mean([runs["bf16"]["results"][q] == a
+                               for q, a in runs["plain"]["results"].items()]))
+        _require(agree >= PRED_AGREE_FLOOR, f"eval CLI answers agree with the plain run's "
+                 f"on {agree} >= {PRED_AGREE_FLOOR}")
+        int8_agree = float(np.mean([runs["bf16"]["results"][q] == a
+                                    for q, a in runs["int8"]["results"].items()]))
+
+        report_path = os.path.join(tmp, "report.json")
+        annotations = os.path.join(tmp, "vqa2", "raw", RAW_FILES["val"][1])
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = score_cli.main(["--results", runs["bf16"]["path"], "--annotations", annotations,
+                                 "--out", report_path])
+        with open(report_path) as f:
+            report = json.load(f)
+        _require(rc == 0 and report["n"] == len(split)
+                 and {"overall", "per_answer_type", "per_question_type"} <= set(report)
+                 and set(report["per_answer_type"]) == {"other", "number", "yes/no"},
+                 "the scorer's report has overall and per-type accuracies for every row")
+        del data_factory._STORE_CACHE[(opt.coco.dir, opt.coco.arch, opt.coco.mode, "ram")]
+
+    _phase("eval_cli", arch="MutanAtt", questions=len(split), images=N_IMAGES, batch=BATCH,
+           batches=-(-len(split) // BATCH), padded_rows=-len(split) % BATCH,
+           n_labeled=runs["bf16"]["metrics"]["n_labeled"], words=val_set.num_words,
+           answers=val_set.num_answers, raw_s=round(raw_s, 3), prep_s=round(prep_s, 3),
+           **{f"{label}_{key}": value for label, run in runs.items()
+              for key, value in (("qa_per_sec", round(run["metrics"]["qa_per_sec"], 1)),
+                                 ("eval_time", round(run["metrics"]["eval_time"], 4)),
+                                 ("cli_s", round(run["wall"], 3)),
+                                 ("acc1", run["metrics"]["acc1"]))},
+           score_overall=report["overall"], pred_agree_plain=round(agree, 5),
+           floor=PRED_AGREE_FLOOR, pred_agree_int8=round(int8_agree, 5),
+           launches={k: c for k, c in runs["bf16"]["counts"].items() if c},
+           int8_launches={k: c for k, c in runs["int8"]["counts"].items() if c})
+    return {k: runs["bf16"]["counts"][k] + runs["int8"]["counts"][k] for k in runs["bf16"]["counts"]}
+
+
 def main() -> int:
     import torch
 
@@ -975,8 +1172,9 @@ def main() -> int:
     from vqa_tpu_torch.engine.steps import quantize_features
 
     eval_data = _synthetic_eval_arrays(np.random.default_rng(0), BATCH * N_BATCHES)
-    int8_table = quantize_features(eval_data[-1])
-    features = torch.from_numpy(eval_data[-1]).to(dev, torch.bfloat16)
+    host_table = eval_data[-1]
+    int8_table = quantize_features(host_table)
+    features = torch.from_numpy(host_table).to(dev, torch.bfloat16)
     int8_features = (torch.from_numpy(int8_table[0]).to(dev),
                      torch.from_numpy(int8_table[1]).to(dev, torch.bfloat16))
     eval_data = eval_data[:-1]
@@ -993,14 +1191,18 @@ def main() -> int:
         "relation_attend": _check_relation(torch, dev, rng),
     }
 
-    # 3. eval step (bf16 and int8 tables) and 4. serve, each arch at full
-    # width, one after another
+    # 3. eval step (bf16 and int8 tables), 4. serve and 5. grid, each arch at
+    # full width, one after another
     launches = dict.fromkeys(kernels, 0)
     for arch in ARCHS:
         for name, c in _arch_phases(torch, dev, arch, features, int8_features,
                                     eval_data).items():
             launches[name] += c
     _require(all(c > 0 for c in launches.values()), f"every kernel launched: {launches}")
+
+    # 6. the eval CLI over a processed split
+    for name, c in _eval_cli_phase(torch, dev, host_table).items():
+        launches[name] += c
 
     record = []
     for name, k in kernels.items():

@@ -1,7 +1,8 @@
 """The port stands alone: every vqa_tpu_torch module loads in a fresh
 interpreter (subprocess, so sys.modules starts clean) with nothing of jax,
-flax or optax, and nothing of the JAX package vqa_tpu, in sys.modules, and
-Predictor.from_run answers from a fixture run in such an interpreter.
+flax or optax, and nothing of the JAX package vqa_tpu, in sys.modules;
+Predictor.from_run answers from a fixture run, and the eval CLI prepares and
+evaluates one, in such an interpreter.
 chip_smoke.py refuses to run without a CUDA card."""
 
 import importlib
@@ -35,7 +36,13 @@ def _run(code: str, *args: str) -> subprocess.CompletedProcess:
 def test_every_port_module_is_listed():
     mods = _port_modules()
     for expected in ("vqa_tpu_torch.ops.lstm", "vqa_tpu_torch.predictor",
-                     "vqa_tpu_torch.cli.serve", "vqa_tpu_torch.engine.steps"):
+                     "vqa_tpu_torch.cli.serve", "vqa_tpu_torch.engine.steps",
+                     "vqa_tpu_torch.datasets.interim", "vqa_tpu_torch.datasets.processed",
+                     "vqa_tpu_torch.datasets.features", "vqa_tpu_torch.datasets.vqa2",
+                     "vqa_tpu_torch.datasets.pipeline", "vqa_tpu_torch.datasets.factory",
+                     "vqa_tpu_torch.engine.logger", "vqa_tpu_torch.engine.engine",
+                     "vqa_tpu_torch.scorer", "vqa_tpu_torch.cli.score",
+                     "vqa_tpu_torch.cli.train"):
         assert expected in mods
 
 
@@ -64,8 +71,8 @@ def test_port_imports_no_jax():
 
 @pytest.fixture(scope="module")
 def fixture_run(tmp_path_factory):
-    """A fixture VQA run prepared by the JAX package (the port does not run
-    data prep) and a tiny MutanAtt's weights as a '/'-keyed npz. The JAX
+    """A fixture VQA run prepared by the JAX package and a tiny MutanAtt's
+    weights as a '/'-keyed npz. The JAX
     package is imported here, not at module level: the card's machine runs
     this file's collection without h5py or flax."""
     import jax
@@ -120,14 +127,45 @@ def test_from_run_imports_nothing_of_jax(fixture_run):
 
 
 def test_from_run_names_the_missing_prep(fixture_run, tmp_path):
-    """Without the processed split the port raises FileNotFoundError naming
-    the JAX package's prep, which it does not run itself."""
+    """Without a processed split, from_run runs the port's own prep, which
+    raises FileNotFoundError naming the raw VQA files it did not find."""
     from vqa_tpu_torch.predictor import Predictor
 
     _, path_opt, npz, overrides = fixture_run
     moved = [o for o in overrides if not o.startswith("vqa.dir=")] + [f"vqa.dir={tmp_path}"]
-    with pytest.raises(FileNotFoundError, match="run_prep"):
+    with pytest.raises(FileNotFoundError, match=r"raw VQA files for split\(s\) \['train'\]"):
         Predictor.from_run(str(tmp_path), path_opt, params=npz, overrides=moved, device="cpu")
+
+
+def test_eval_cli_imports_nothing_of_jax(fixture_run, tmp_path):
+    """The port's eval CLI (python -m vqa_tpu_torch.cli.train -e) prepares a
+    copy of the fixture's raw files with the port's own prep, evaluates and
+    writes its results: after it, nothing of vqa_tpu, jax, flax or optax is
+    in sys.modules."""
+    import shutil
+
+    d, path_opt, npz, overrides = fixture_run
+    shutil.copytree(os.path.join(d, "vqa2", "raw"), str(tmp_path / "vqa2" / "raw"))
+    moved = [o for o in overrides if not o.startswith("vqa.dir=")] + [
+        f"vqa.dir={tmp_path}/vqa2", f"model.pretrained_params={npz}", "optim.eval_batch_size=16"]
+    argv = ["--path_opt", path_opt, "-e", "--platform", "cpu", "--dir_logs",
+            str(tmp_path / "logs")] + [a for o in moved for a in ("--opt", o)]
+    code = (
+        "import json, sys\n"
+        "from vqa_tpu_torch.cli.train import main\n"
+        f"assert main({argv!r}) == 0\n"
+        f"rows = json.load(open({str(tmp_path / 'logs' / 'results')!r} + "
+        "'/vqa_OpenEnded_val_epoch0_results.json'))\n"
+        "assert len(rows) == 24 and len({r['question_id'] for r in rows}) == 24, rows\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'optax', "
+        "'vqa_tpu'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    proc = _run(code)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().splitlines()[-1] == "ok"
+    assert os.path.exists(tmp_path / "vqa2" / "processed")
 
 
 def test_chip_smoke_refuses_to_run_without_a_card():

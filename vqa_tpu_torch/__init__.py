@@ -7,5 +7,7 @@ use (``ops/_build.py``), with its plain PyTorch version beside it in
 ``ops/``. The package imports torch and never jax; ``vqa_tpu`` stays the
 reference it is tested against. Ported so far: inference of MutanAtt,
 MFBCoAtt, MFHCoAtt and CoR (eval step and the HTTP answer service), with
-all six Pallas kernels; see ROADMAP.md for the rest.
+all six Pallas kernels, and evaluation over a dataset (data prep, loader,
+eval loop, results and scorer behind ``python -m vqa_tpu_torch.cli.train
+-e``); see ROADMAP.md for the rest.
 """

@@ -1,3 +1,4 @@
-"""The port's data layer: copies of the serving-side text encoding and of the
-read side of vqa_tpu.datasets (vocabularies, the feature table); yaml and
-h5py are imported only where a file is read. Data prep is not ported."""
+"""The port's data layer, copies of vqa_tpu.datasets: data prep (raw VQA json
+-> interim -> processed npz), the feature store, the dataset, the batching
+pipeline and the factory that prepares on first use; yaml and h5py are
+imported only where a file is read or written."""

@@ -1,1 +1,2 @@
-"""Eval step of the port (the train step is not ported yet)."""
+"""Eval step and eval loop of the port, and its experiment logger (the train
+step and loop are not ported yet)."""

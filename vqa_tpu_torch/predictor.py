@@ -9,10 +9,13 @@
 The weights come from a '/'-keyed npz (``python -m vqa_tpu.cli.export
 --params external`` of a trained run, or ``vqa_tpu.importers.save_tree_npz``):
 the port cannot read Orbax checkpoints, which need jax. ``from_run`` reads the
-run's options YAML, the processed val vocabulary and the feature table with
-the port's own readers (it needs yaml and h5py, nothing of the JAX package);
-``Predictor(...)`` builds from in-memory parts and needs neither. Both run on
-the card unless the caller asks for the CPU (``device="cpu"``).
+run's options YAML and builds the val dataset through the port's own
+``datasets.factory``, which prepares the raw VQA files on first use
+(``datasets.processed.run_prep``, as the port's eval CLI
+``python -m vqa_tpu_torch.cli.train -e`` does); it needs yaml and h5py,
+nothing of the JAX package. ``Predictor(...)`` builds from in-memory parts
+and needs neither. Both run on the card unless the caller asks for the CPU
+(``device="cpu"``).
 """
 
 from __future__ import annotations
@@ -82,18 +85,16 @@ class Predictor:
         overrides: Optional[List[str]] = None,
         device="cuda",
     ) -> "Predictor":
-        """Load a run's config, val vocabulary and feature table, and the
-        weights from the ``params`` npz (default: the config's
+        """Load a run's config, its val dataset (prepared on first use, as the
+        JAX package's ``from_run`` does) with the vocabularies and the feature
+        table, and the weights from the ``params`` npz (default: the config's
         ``model.pretrained_params``). With no ``path_opt`` the run's own
-        options.yaml is used. The model computes in bf16 on CUDA (the
-        kernels take bf16) and in the config's ``engine.dtype`` elsewhere.
-        Raises FileNotFoundError when the processed val split is missing:
-        the port does not run data prep."""
+        options.yaml is used. The model computes in bf16 on CUDA (the kernels
+        take bf16) and in the config's ``engine.dtype`` elsewhere."""
         import os
 
         from vqa_tpu_torch.config import load_options
-        from vqa_tpu_torch.datasets.features import FeatureTable
-        from vqa_tpu_torch.datasets.processed import load_vocabs, processed_split
+        from vqa_tpu_torch.datasets.factory import factory as dataset_factory
 
         if path_opt is None:
             path_opt = os.path.join(dir_logs, "options.yaml")
@@ -106,16 +107,17 @@ class Predictor:
             )
         device = torch.device(device)
         dtype = torch.bfloat16 if device.type == "cuda" else opt.engine.dtype
-        vocabs = load_vocabs(processed_split(opt, "val"))
-        features = FeatureTable(opt.coco.dir, opt.coco.arch, opt.coco.mode)
+        val_set = dataset_factory("val", opt)
+        features = val_set.features
         model = model_factory(
-            dataclasses.asdict(opt.model), vocabs.num_words, vocabs.num_answers,
+            dataclasses.asdict(opt.model), val_set.num_words, val_set.num_answers,
             dtype=dtype, device=device, dim_v=features.feature_shape[-1],
         )
         with np.load(params) as flat:
             load_params(model, flat)
-        catalog = Catalog(vocabs.word_to_wid, vocabs.aid_to_ans, features.image_rows)
-        table = torch.from_numpy(features.array)
+        vocabs = val_set.vocabs
+        catalog = Catalog(vocabs.word_to_wid, vocabs.aid_to_ans, features._name_to_index)
+        table = torch.from_numpy(features.as_array())
         return cls(model, catalog, table, opt.vqa.maxlength, opt.vqa.pad, opt.vqa.nlp)
 
     def encode_questions(self, questions: Sequence[str]):
