@@ -10,28 +10,35 @@ Phases, each printing one line of what it found:
   2. kernels: all seven (gather_rows, gather_rows_dequant, lstm_seq,
      glimpse_head, glimpse_attend, mfb_pool, relation_attend) against their
      plain PyTorch versions on the card, at the eval shapes of the archs that
-     run them (batch 1024), at their serving shapes (batch 64, questions of
-     26 tokens) and at the shapes an options/ knob or the extract CLI's
-     196-region grid can give (8 glimpses, R = N = 196, an odd LSTM H=41),
+     run them (batch 1024; glimpse_head at MutanAtt's M=510, MFB's 512,
+     ConcatAtt's 1024 with one glimpse and MLBAtt's 1200; the gathers over
+     36x2048 region rows and the NoAtt archs' pooled 2048-wide rows), at
+     their serving shapes (batch 64, questions of 26 tokens) and at the
+     shapes an options/ knob or the extract CLI's 196-region grid can give
+     (8 glimpses, R = N = 196, an odd LSTM H=41),
      with each tolerance stated, and timed
      (median of CUDA-event timings) beside the plain version, the bound
      (the larger of the bytes over HBM's rate and the operations over the
      peak rate for their type) and, where one PyTorch call computes the
      same function, that call; the two gathers also by device time alone
      (back-to-back launches, indices already where each version reads them)
-     beside their call time; lstm_seq, both glimpse kernels and
-     relation_attend also bit-equal across two calls, each with its
+     beside their call time; the gathers, lstm_seq, both glimpse kernels
+     and relation_attend also bit-equal across two calls, each with its
      schedule (relation_attend also by device time, its plan's design
      named); lstm_seq with a
      cuBLAS yardstick of its products alone;
   3. eval: each arch at the full width of its options/vqa2 YAML (MutanAtt,
-     MFBCoAtt, MFHCoAtt, CoR), bf16, random seeded weights, through the
-     port's eval step over a feature table resident on the card (bench.py's
-     synthetic data, batch 1024, the {7, 13, 26} ladder), once over the bf16
-     table and once over its int8 quantization (quantize_features, bf16
+     MFBCoAtt, MFHCoAtt, CoR, ConcatAtt, MLBAtt, MutanNoAtt, MLBNoAtt) or
+     flagship.VARIANTS entry (ConcatNoAtt; MutanAtt with the skip-thoughts
+     GRU, 620 -> 2400), bf16, random seeded weights, through the port's eval
+     step over a feature table resident on the card (bench.py's synthetic
+     data, batch 1024, the {7, 13, 26} ladder; the NoAtt archs over the
+     pooled table, the mean of its regions, [1024, 2048]), once over the
+     bf16 table and once over its int8 quantization (quantize_features, bf16
      scales); kernel path held against the plain path; exactly the kernels
      of that arch's path launched (gather_rows_dequant in place of
-     gather_rows over the int8 table);
+     gather_rows over the int8 table; no lstm_seq for the GRU, which is
+     plain PyTorch, and no glimpse kernel for the NoAtt archs);
   4. serve: each arch's Predictor behind the port's AnswerService,
      DynamicBatcher and HTTP server (vqa_tpu_torch.cli.serve); /healthz,
      /answer and an oversized /batch, answers held equal to direct
@@ -39,20 +46,24 @@ Phases, each printing one line of what it found:
   5. grid: MutanAtt and CoR, one forward at the serving batch over a table
      of 196-region rows, held against the plain path;
   6. eval_cli: the port's eval CLI (python -m vqa_tpu_torch.cli.train -e)
-     at the full width of options/vqa2/mutan_att.yaml over a synthetic raw
+     at the full width of options/vqa2/mutan_att.yaml (and of
+     mutan_noatt.yaml over the pooled table) over a synthetic raw
      VQA v2 set (train and val questions and annotations in the official
      schema; 1024 images; 32,500 val questions, so the last batch of 1024 is
      padded, and 16,250 train questions for the vocabularies; bench.py's
      question lengths; 10 annotators a question): the
      port's prep writes the processed split, the loader feeds the eval step
      over a table on the card, the results json is scored by the port's
-     scorer CLI. Three runs: the bf16 table through the kernels, the same
-     through the plain path, the int8 table; exactly gather_rows (int8:
-     gather_rows_dequant), lstm_seq and glimpse_head launched; one results
-     row per val question; acc1 recomputed on the host from the results and
-     the split's answers; answers agreeing with the plain run's. The card's
-     machine has no h5py, so an in-memory FeatureStore of the table stands
-     in the dataset factory's store cache where the HDF5 file would be read.
+     scorer CLI. Five runs: MutanAtt over the bf16 table through the
+     kernels, the same through the plain path, the int8 table; MutanNoAtt
+     over the pooled bf16 table through the kernels and through the plain
+     path; exactly gather_rows (int8: gather_rows_dequant), lstm_seq and
+     (MutanAtt) glimpse_head launched; one results row per val question;
+     acc1 recomputed on the host from the results and the split's answers;
+     answers agreeing with the plain run's. The card's machine has no h5py,
+     so in-memory FeatureStores of the tables (bottomup36 att and noatt)
+     stand in the dataset factory's store cache where the HDF5 files would
+     be read.
 
 Any failed check raises, and the script exits non-zero. On success the
 second-to-last line is the per-kernel JSON record and the last line is
@@ -128,16 +139,28 @@ N_IMAGES = 1024
 SEQ, REGIONS, DIM = 26, 36, 2048
 GRID = 196  # regions of the extract CLI's 14 x 14 ResNet grid
 
-# each arch: its options/vqa2 config (vqa_tpu_torch.flagship.CONFIGS) and
-# the kernels its path runs
+# each arch: its options/vqa2 config (vqa_tpu_torch.flagship.CONFIGS, or a
+# flagship.VARIANTS entry) and the kernels its path runs
+_ATT_KERNELS = ("gather_rows", "lstm_seq", "glimpse_head")
+_NOATT_KERNELS = ("gather_rows", "lstm_seq")
 ARCHS = {
-    "MutanAtt": ("mutan_att", ("gather_rows", "lstm_seq", "glimpse_head")),
+    "MutanAtt": ("mutan_att", _ATT_KERNELS),
     "MFBCoAtt": ("mfb_coatt", ("gather_rows", "lstm_seq", "glimpse_attend", "mfb_pool",
                                "glimpse_head")),
     "MFHCoAtt": ("mfh_coatt", ("gather_rows", "lstm_seq", "glimpse_attend", "mfb_pool",
                                "glimpse_head")),
     "CoR": ("cor", ("gather_rows", "lstm_seq", "relation_attend")),
+    "ConcatAtt": ("concat_att", _ATT_KERNELS),
+    "MLBAtt": ("mlb_att", _ATT_KERNELS),
+    "MutanNoAtt": ("mutan_noatt", _NOATT_KERNELS),
+    "MLBNoAtt": ("mlb_noatt", _NOATT_KERNELS),
+    "ConcatNoAtt": ("concat_noatt", _NOATT_KERNELS),
+    # the skip-thoughts GRU (620 -> 2400) is plain PyTorch: no lstm_seq
+    "MutanAtt+skipthoughts": ("mutan_att_skipthoughts", ("gather_rows", "glimpse_head")),
 }
+# these read the pooled table [N, 2048] (coco.mode: noatt), the mean of the
+# eval table's regions, as vqa_tpu/datasets/fixtures.py writes it
+NOATT_ARCHS = ("MutanNoAtt", "MLBNoAtt", "ConcatNoAtt")
 GRID_ARCHS = ("MutanAtt", "CoR")  # also run once over the 196-region grid
 # the eval CLI's data: val questions (not a multiple of BATCH: the last batch
 # is padded), half as many train questions (the vocabularies come from them:
@@ -148,6 +171,7 @@ CLI_QUESTIONS = 32_500
 CLI_TRAIN_QUESTIONS = CLI_QUESTIONS // 2
 CLI_ANSWERS = 3_000
 CLI_KERNELS = ("gather_rows", "lstm_seq", "glimpse_head")
+CLI_NOATT_KERNELS = ("gather_rows", "lstm_seq")
 SOURCES = {  # kernel -> (its CUDA source, the TPU kernel it replaces)
     "gather_rows": ("vqa_tpu_torch/csrc/gather.cu", "vqa_tpu/ops/gather.py:58"),
     # the same TPU kernel on the int8 rows, with the dequant after it
@@ -233,29 +257,37 @@ def _check_gather(torch, dev, rng):
                                           gather_rows_reference, launch_gather_rows)
 
     for n, tail, b in ((37, (36, 72), 53), (11, (3, 5), 29), (50, (6,), 5000),
-                       (48, (REGIONS, DIM), SERVE_BATCH), (N_IMAGES, (REGIONS, DIM), BATCH)):
+                       (48, (REGIONS, DIM), SERVE_BATCH), (N_IMAGES, (REGIONS, DIM), BATCH),
+                       (48, (DIM,), SERVE_BATCH), (N_IMAGES, (DIM,), BATCH)):
         table = torch.randn((n,) + tail, device=dev).to(torch.bfloat16)
         idx = rng.integers(0, n, b)
         idx[: b // 4] = idx[0]  # repeated rows
         before = gather_rows.launches
         out = gather_rows(table, idx)
+        again = gather_rows(table, idx)
         ref = gather_rows_reference(table, torch.from_numpy(idx).to(dev))
         torch.cuda.synchronize()
-        _require(torch.equal(out, ref), f"gather_rows {tuple(table.shape)} x {b} is bit-exact")
-        _require(gather_rows.launches - before == math.ceil(b / ROWS_PER_LAUNCH),
+        _require(torch.equal(out, ref) and torch.equal(out, again),
+                 f"gather_rows {tuple(table.shape)} x {b} is bit-exact, twice")
+        _require(gather_rows.launches - before == 2 * math.ceil(b / ROWS_PER_LAUNCH),
                  f"one launch per {ROWS_PER_LAUNCH} rows")
     # timed at the eval's index distribution (uniform over the table, so
-    # rows repeat: 63% distinct at B=1024) and at distinct rows
+    # rows repeat: 63% distinct at B=1024), at distinct rows, at the serving
+    # batch and over the NoAtt archs' pooled table (rows of 2048)
     timing = {}
-    row_bytes = REGIONS * DIM * 2
-    for label, n, b in (("", N_IMAGES, BATCH), ("distinct_", N_IMAGES, BATCH),
-                        ("serve_", 48, SERVE_BATCH)):
-        table = torch.randn((n, REGIONS, DIM), device=dev).to(torch.bfloat16)
+    for label, n, tail, b in (("", N_IMAGES, (REGIONS, DIM), BATCH),
+                              ("distinct_", N_IMAGES, (REGIONS, DIM), BATCH),
+                              ("serve_", 48, (REGIONS, DIM), SERVE_BATCH),
+                              ("pooled_", N_IMAGES, (DIM,), BATCH)):
+        table = torch.randn((n,) + tail, device=dev).to(torch.bfloat16)
         idx = rng.permutation(n)[:b] if label == "distinct_" else rng.integers(0, n, b)
-        if not label:  # the rows these indices read, once each; the output; the indices
-            bound = _bound(len(np.unique(idx)) * row_bytes + b * row_bytes + 4 * b)
+        row_bytes = math.prod(tail) * 2
+        if label in ("", "pooled_"):
+            # the rows these indices read, once each; the output; the indices
+            timing[label + "bound_ms"] = _bound(
+                len(np.unique(idx)) * row_bytes + b * row_bytes + 4 * b)[0]
         idx_dev, idx32 = torch.from_numpy(idx).to(dev), _host_indices(idx, n)
-        out = torch.empty((b, REGIONS, DIM), dtype=torch.bfloat16, device=dev)
+        out = torch.empty((b,) + tail, dtype=torch.bfloat16, device=dev)
         timing[label + "ms"], timing[label + "plain_ms"] = _in_turns(
             torch, _device_ms, lambda: launch_gather_rows(table, idx32, out),
             lambda: torch.index_select(table, 0, idx_dev, out=out))
@@ -264,28 +296,37 @@ def _check_gather(torch, dev, rng):
                 torch, _median_ms, lambda: gather_rows(table, idx),
                 lambda: gather_rows_reference(table, torch.from_numpy(idx).to(dev)))
     _phase("gather_rows",
-           shapes="1024x36x2048[1024],48x36x2048[64],37x36x72[53],11x3x5[29],50x6[5000]",
-           max_abs_err=0.0, tol="exact", **{k: round(v, 4) for k, v in timing.items()})
-    return {"max_abs_err": 0.0, **timing, "bound_ms": bound[0], "bound_by": bound[1],
+           shapes="1024x36x2048[1024],48x36x2048[64],1024x2048[1024],48x2048[64],37x36x72[53],"
+                  "11x3x5[29],50x6[5000]",
+           max_abs_err=0.0, tol="exact", bit_equal=True,
+           **{k: round(v, 4) for k, v in timing.items()})
+    bound_ms = timing.pop("bound_ms")
+    return {"max_abs_err": 0.0, **timing, "bound_ms": bound_ms, "bound_by": "bytes",
             "library_ms": timing["plain_ms"],
             "shape": "table 1024x36x2048 bf16, B=1024; ms/plain_ms: device time (index_select "
                      "on indices already on the card); call_ms/plain_call_ms: the whole call "
-                     "from host indices; library_ms: index_select, the plain version itself"}
+                     "from host indices; pooled_: the NoAtt archs' table 1024x2048; library_ms: "
+                     "index_select, the plain version itself"}
 
 
-def _check_gather_dequant(torch, dev, rng, flagship):
+def _check_gather_dequant(torch, dev, rng, flagship, pooled):
     """int8 rows gathered and dequantized, bit-exact against the plain chain
-    (index_select, cast, multiply) at bf16 and f32 scales; ``flagship`` is
-    the eval's quantized table (values, scales)."""
+    (index_select, cast, multiply) at bf16 and f32 scales and across two
+    calls; ``flagship`` is the eval's quantized table (values, scales),
+    ``pooled`` that of the NoAtt archs' pooled table [N, 2048]."""
     from vqa_tpu_torch.engine.steps import quantize_features
     from vqa_tpu_torch.ops.gather import (_host_indices, gather_rows_dequant,
                                           gather_rows_dequant_reference,
                                           launch_gather_rows_dequant)
 
-    tables = [quantize_features(3 * rng.standard_normal(shape, dtype=np.float32))
-              for shape in ((11, 3, 40), (37, 36, 7), (7, 3, 16), (48, REGIONS, DIM))]
+    small = [quantize_features(3 * rng.standard_normal(shape, dtype=np.float32))
+             for shape in ((11, 3, 40), (37, 36, 7), (7, 3, 16), (48, REGIONS, DIM), (48, DIM))]
+    # (table, batch, timing label: "" the eval's, "serve_", "pooled_"; None: untimed)
+    cases = [(small[0], 29, None), (small[1], 53, None), (small[2], 2100, None),
+             (small[3], SERVE_BATCH, "serve_"), (small[4], SERVE_BATCH, None),
+             (flagship, BATCH, ""), (pooled, BATCH, "pooled_")]
     timing = {}
-    for (values, scales), b in zip(tables + [flagship], (29, 53, 2100, SERVE_BATCH, BATCH)):
+    for (values, scales), b, label in cases:
         n = values.shape[0]
         values = torch.from_numpy(values).to(dev)
         idx = rng.integers(0, n, b)
@@ -294,19 +335,22 @@ def _check_gather_dequant(torch, dev, rng, flagship):
         for sdt in (torch.bfloat16, torch.float32):
             sc = torch.from_numpy(scales).to(dev, sdt)
             out = gather_rows_dequant(values, sc, idx)
+            again = gather_rows_dequant(values, sc, idx)
             ref = gather_rows_dequant_reference(values, sc, idx_dev)
             torch.cuda.synchronize()
-            _require(out.dtype == sdt and torch.equal(out, ref),
-                     f"gather_rows_dequant {tuple(values.shape)} x {b}, {sdt} scales, bit-exact")
-            if b in (BATCH, SERVE_BATCH) and (b == BATCH or sdt == torch.bfloat16):
+            _require(out.dtype == sdt and torch.equal(out, ref) and torch.equal(out, again),
+                     f"gather_rows_dequant {tuple(values.shape)} x {b}, {sdt} scales, bit-exact, "
+                     f"twice")
+            if label is not None and (not label or sdt == torch.bfloat16):
                 tidx = rng.integers(0, n, b)  # the eval's index distribution
                 tidx_dev, tidx32 = torch.from_numpy(tidx).to(dev), _host_indices(tidx, n)
                 buf = torch.empty_like(ref)
-                key = ("" if b == BATCH else "serve_") + ("" if sdt == torch.bfloat16 else "f32_")
-                if not key:  # distinct int8 rows and their scales, once; the bf16 output
-                    rows = len(np.unique(tidx))
-                    bound = _bound(rows * (REGIONS * DIM + REGIONS * 2)
-                                   + b * REGIONS * DIM * 2 + 4 * b)
+                key = label + ("" if sdt == torch.bfloat16 else "f32_")
+                if key in ("", "pooled_"):
+                    # distinct int8 rows and their scales, once; the bf16 output
+                    rows, row, segs = len(np.unique(tidx)), values[0].numel(), scales[0].size
+                    timing[key + "bound_ms"] = _bound(
+                        rows * (row + segs * 2) + b * row * 2 + 4 * b)[0]
                 timing[key + "ms"], timing[key + "plain_ms"] = _in_turns(
                     torch, _device_ms,
                     lambda: launch_gather_rows_dequant(values, sc, tidx32, buf),
@@ -316,16 +360,19 @@ def _check_gather_dequant(torch, dev, rng, flagship):
                         torch, _median_ms, lambda: gather_rows_dequant(values, sc, tidx),
                         lambda: gather_rows_dequant_reference(
                             values, sc, torch.from_numpy(tidx).to(dev)))
-        del values, idx_dev, out, ref
+        del values, idx_dev, out, again, ref
     _phase("gather_rows_dequant",
-           shapes="1024x36x2048[1024],48x36x2048[64],11x3x40[29],37x36x7[53],7x3x16[2100]",
-           scales="bf16,f32", max_abs_err=0.0, tol="exact",
+           shapes="1024x36x2048[1024],1024x2048[1024],48x36x2048[64],48x2048[64],11x3x40[29],"
+                  "37x36x7[53],7x3x16[2100]",
+           scales="bf16,f32", max_abs_err=0.0, tol="exact", bit_equal=True,
            **{k: round(v, 4) for k, v in timing.items()})
-    return {"max_abs_err": 0.0, **timing, "bound_ms": bound[0], "bound_by": bound[1],
+    bound_ms = timing.pop("bound_ms")
+    return {"max_abs_err": 0.0, **timing, "bound_ms": bound_ms, "bound_by": "bytes",
             "library_ms": None,
             "shape": "int8 table 1024x36x2048 + bf16 scales, B=1024; ms/plain_ms: device time; "
-                     "f32_: float32 scales; call_ms/plain_call_ms: the whole call; no one PyTorch "
-                     "call gathers and dequantizes"}
+                     "f32_: float32 scales; pooled_: the NoAtt archs' table 1024x2048 (scales "
+                     "1024x1); call_ms/plain_call_ms: the whole call; no one PyTorch call "
+                     "gathers and dequantizes"}
 
 
 def _lstm_inputs(torch, dev, rng, T, B, H):
@@ -411,10 +458,14 @@ def _check_glimpse(torch, dev, rng):
     from vqa_tpu_torch.ops.attention import glimpse_head, glimpse_head_reference, glimpse_plan
 
     worst, timing = 0.0, {}
-    # M=510: MutanAtt; M=512: MFB/MFH (the 512-wide hidden layer); the
-    # serving batch; then 8 glimpses, the 196-region grid and odd shapes
+    # M=510: MutanAtt; M=512: MFB/MFH (the 512-wide hidden layer); M=1024,
+    # G=1: ConcatAtt (its 1024-wide hidden layer); M=1200: MLBAtt (the MLB
+    # fusion); each at the eval and the serving batch; then 8 glimpses, the
+    # 196-region grid and odd shapes
     for B, R, M, G, D in ((BATCH, REGIONS, 510, 2, DIM), (SERVE_BATCH, REGIONS, 510, 2, DIM),
-                          (BATCH, REGIONS, 512, 2, DIM), (SERVE_BATCH, REGIONS, 510, 8, DIM),
+                          (BATCH, REGIONS, 512, 2, DIM), (BATCH, REGIONS, 1024, 1, DIM),
+                          (SERVE_BATCH, REGIONS, 1024, 1, DIM), (BATCH, REGIONS, 1200, 2, DIM),
+                          (SERVE_BATCH, REGIONS, 1200, 2, DIM), (SERVE_BATCH, REGIONS, 510, 8, DIM),
                           (SERVE_BATCH, GRID, 510, 2, DIM), (37, 36, 45, 2, 72), (5, 7, 33, 3, 75)):
         joint = torch.tanh(torch.randn(B, R, M, device=dev)).to(torch.bfloat16)
         w = (torch.randn(M, G, device=dev) / M ** 0.5).to(torch.bfloat16)
@@ -435,16 +486,17 @@ def _check_glimpse(torch, dev, rng):
         line = dict(B=B, R=R, M=M, G=G, D=D, max_abs_err=round(err, 5), tol=GLIMPSE_ATOL,
                     bit_equal=True, plan=f"{plan['copy']}_split{plan['split']}"
                                          f"_chunk{plan['chunk']}x{plan['stages']}")
-        if D == DIM and G == 2 and R == REGIONS:
+        if D == DIM and G <= 2 and R == REGIONS:
             ms, plain = _in_turns(torch, _median_ms, lambda: glimpse_head(joint, w, b, v),
                                   lambda: glimpse_head_reference(joint, w, b, v))
             device = _device_ms(torch, lambda: glimpse_head(joint, w, b, v))
             bound, by = _glimpse_head_bound(B, R, M, G, D)
-            timing[f"B{B}_M{M}"] = dict(ms=ms, plain_ms=plain, device_ms=device, bound_ms=bound,
-                                        bound_by=by, pct_of_bound=100 * bound / ms,
-                                        device_pct_of_bound=100 * bound / device)
+            key = f"B{B}_M{M}" + ("" if G == 2 else f"_G{G}")
+            timing[key] = dict(ms=ms, plain_ms=plain, device_ms=device, bound_ms=bound,
+                               bound_by=by, pct_of_bound=100 * bound / ms,
+                               device_pct_of_bound=100 * bound / device, plan=plan["copy"])
             line.update({k: (round(x, 4) if isinstance(x, float) else x)
-                         for k, x in timing[f"B{B}_M{M}"].items()})
+                         for k, x in timing[key].items() if k != "plan"})
         _phase("glimpse_head", **line)
         del joint, w, b, v, att, logits, again, ref_att, ref_logits
     flagship = timing[f"B{BATCH}_M510"]
@@ -941,14 +993,14 @@ def _grid_phase(torch, dev, arch, model, num_answers, kernels) -> dict:
 
 def _arch_phases(torch, dev, arch, features, int8_features, eval_data) -> dict:
     """Build one arch at full width (bf16, random seeded weights), run its
-    eval over the bf16 table and over the int8 one, and its serve phase;
-    return the launch counts of all three (MutanAtt and CoR: also one forward
-    over the 196-region grid)."""
-    from vqa_tpu_torch.flagship import CONFIGS, build_config
+    eval over the bf16 table and over the int8 one (the NoAtt archs: the
+    pooled tables), and its serve phase; return the launch counts of all
+    three (MutanAtt and CoR: also one forward over the 196-region grid)."""
+    from vqa_tpu_torch.flagship import answer_count, build_config
     from vqa_tpu_torch.weights import random_params
 
     name, kernels = ARCHS[arch]
-    num_answers = CONFIGS[name][1]
+    num_answers = answer_count(name)
     model = build_config(name, dtype=torch.bfloat16, device=dev)
     random_params(model, seed=0)
     counts, preds = _eval_phase(torch, dev, arch, model, num_answers, kernels, features,
@@ -1010,10 +1062,11 @@ def _write_raw_vqa2(dir_raw: str, rng: np.random.Generator) -> None:
             json.dump({"annotations": annotations}, f)
 
 
-def _eval_cli_phase(torch, dev, table: np.ndarray) -> dict:
+def _eval_cli_phase(torch, dev, table: np.ndarray, pooled: np.ndarray) -> dict:
     """The port's eval CLI at the full width of options/vqa2/mutan_att.yaml
+    and of mutan_noatt.yaml (over ``pooled``, the bottomup36 noatt store)
     over a synthetic raw VQA v2 set (docstring, phase 6); returns the launch
-    counts of its kernel runs (bf16 and int8 tables)."""
+    counts of its kernel runs (bf16 and int8 tables, and the noatt run)."""
     import dataclasses
     import io
     import tempfile
@@ -1028,20 +1081,40 @@ def _eval_cli_phase(torch, dev, table: np.ndarray) -> dict:
     from vqa_tpu_torch.models.factory import factory as model_factory
     from vqa_tpu_torch.weights import export_params, random_params
 
-    path_opt = os.path.join(_REPO, "options", "vqa2", "mutan_att.yaml")
+    yamls = {"att": os.path.join(_REPO, "options", "vqa2", "mutan_att.yaml"),
+             "noatt": os.path.join(_REPO, "options", "vqa2", "mutan_noatt.yaml")}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_eval_cli_") as tmp:
         t0 = time.perf_counter()
         _write_raw_vqa2(os.path.join(tmp, "vqa2", "raw"), np.random.default_rng(0))
         raw_s = time.perf_counter() - t0
         data = [f"vqa.dir={tmp}/vqa2", f"coco.dir={tmp}/coco"]
-        opt = load_options(path_opt, data)
-        # no h5py on the card's machine: the table stands in the store cache
+        # no h5py on the card's machine: each table stands in the store cache
+        # where its HDF5 file (bottomup36_att, bottomup36_noatt) would be read
         names = [image_name("val2014", i) for i in range(N_IMAGES)]
-        data_factory._STORE_CACHE[(opt.coco.dir, opt.coco.arch, opt.coco.mode, "ram")] = \
-            FeatureStore.in_memory(names, table)
-        t0 = time.perf_counter()
-        val_set = data_factory.factory("val", opt)  # the port's prep, on first use
-        prep_s = time.perf_counter() - t0
+        argvs, store_keys = {}, []
+        for mode, features in (("att", table), ("noatt", pooled)):
+            opt = load_options(yamls[mode], data)
+            _require(opt.coco.mode == mode, f"{yamls[mode]} reads the {mode} table")
+            key = (opt.coco.dir, opt.coco.arch, opt.coco.mode, "ram")
+            data_factory._STORE_CACHE[key] = FeatureStore.in_memory(names, features)
+            store_keys.append(key)
+            t0 = time.perf_counter()
+            val_set = data_factory.factory("val", opt)  # the port's prep, on first use
+            if mode == "att":
+                prep_s = time.perf_counter() - t0
+            _require(val_set.feature_shape == features.shape[1:],
+                     f"the {mode} store's rows {val_set.feature_shape}")
+            model = model_factory(dataclasses.asdict(opt.model), val_set.num_words,
+                                  val_set.num_answers, dtype=torch.bfloat16, device=dev,
+                                  dim_v=val_set.feature_shape[-1])
+            random_params(model, seed=0)
+            npz = os.path.join(tmp, f"params_{mode}.npz")
+            np.savez(npz, **export_params(model))
+            del model
+            argvs[mode] = ["--path_opt", yamls[mode], "-e", "--split", "val"]
+            for o in data + [f"model.pretrained_params={npz}", "engine.device_features=true",
+                             "optim.eval_batch_size=1024"]:
+                argvs[mode] += ["--opt", o]
         split = val_set.split
         _require(val_set.num_answers == opt.vqa.nans, f"answer vocabulary {val_set.num_answers} "
                  f"== nans {opt.vqa.nans}")
@@ -1049,29 +1122,19 @@ def _eval_cli_phase(torch, dev, table: np.ndarray) -> dict:
                  f"~ {NUM_WORDS}")
         _require(len(split) == CLI_QUESTIONS and len(split) % BATCH, "a padded last batch")
 
-        model = model_factory(dataclasses.asdict(opt.model), val_set.num_words,
-                              val_set.num_answers, dtype=torch.bfloat16, device=dev,
-                              dim_v=val_set.feature_shape[-1])
-        random_params(model, seed=0)
-        npz = os.path.join(tmp, "params.npz")
-        np.savez(npz, **export_params(model))
-        del model
-        argv = ["--path_opt", path_opt, "-e", "--split", "val"]
-        for o in data + [f"model.pretrained_params={npz}", "engine.device_features=true",
-                         "optim.eval_batch_size=1024"]:
-            argv += ["--opt", o]
-
         runs = {}
-        for label, features_dtype, plain in (("bf16", "bfloat16", False),
-                                             ("plain", "bfloat16", True),
-                                             ("int8", "int8", False)):
+        for label, mode, features_dtype, plain in (("bf16", "att", "bfloat16", False),
+                                                   ("plain", "att", "bfloat16", True),
+                                                   ("int8", "att", "int8", False),
+                                                   ("noatt", "noatt", "bfloat16", False),
+                                                   ("noatt_plain", "noatt", "bfloat16", True)):
             logs = os.path.join(tmp, "logs", label)
             _reset_counts()
             t0 = time.perf_counter()
             with contextlib.redirect_stdout(io.StringIO()), \
                     (_plain_ops(torch) if plain else contextlib.nullcontext()):
-                rc = train_cli.main(argv + ["--dir_logs", logs,
-                                            "--opt", f"engine.features_dtype={features_dtype}"])
+                rc = train_cli.main(argvs[mode] + ["--dir_logs", logs, "--opt",
+                                                   f"engine.features_dtype={features_dtype}"])
             wall = time.perf_counter() - t0
             counts = _read_counts()
             _require(rc == 0, f"eval CLI ({label}) returned {rc}")
@@ -1084,7 +1147,8 @@ def _eval_cli_phase(torch, dev, table: np.ndarray) -> dict:
                                wall=wall)
 
         want = {"bf16": set(CLI_KERNELS), "plain": set(),
-                "int8": {"gather_rows_dequant", "lstm_seq", "glimpse_head"}}
+                "int8": {"gather_rows_dequant", "lstm_seq", "glimpse_head"},
+                "noatt": set(CLI_NOATT_KERNELS), "noatt_plain": set()}
         answer_of = dict(zip(split.question_ids.tolist(), split.answers.tolist()))
         ans_to_aid = val_set.vocabs.ans_to_aid
         for label, run in runs.items():
@@ -1102,12 +1166,16 @@ def _eval_cli_phase(torch, dev, table: np.ndarray) -> dict:
             _require(abs(correct5 / m["n"] - m["acc5"]) < 1e-12
                      and correct1 <= correct5 <= m["n_labeled"],
                      f"eval CLI ({label}): acc5 {m['acc5']} a count over n, >= acc1")
-        agree = float(np.mean([runs["bf16"]["results"][q] == a
-                               for q, a in runs["plain"]["results"].items()]))
-        _require(agree >= PRED_AGREE_FLOOR, f"eval CLI answers agree with the plain run's "
-                 f"on {agree} >= {PRED_AGREE_FLOOR}")
-        int8_agree = float(np.mean([runs["bf16"]["results"][q] == a
-                                    for q, a in runs["int8"]["results"].items()]))
+
+        def agreement(a, b):
+            return float(np.mean([runs[a]["results"][q] == ans
+                                  for q, ans in runs[b]["results"].items()]))
+
+        agree, noatt_agree = agreement("bf16", "plain"), agreement("noatt", "noatt_plain")
+        _require(agree >= PRED_AGREE_FLOOR and noatt_agree >= PRED_AGREE_FLOOR,
+                 f"eval CLI answers agree with the plain run's on {agree} (noatt: {noatt_agree}) "
+                 f">= {PRED_AGREE_FLOOR}")
+        int8_agree = agreement("bf16", "int8")
 
         report_path = os.path.join(tmp, "report.json")
         annotations = os.path.join(tmp, "vqa2", "raw", RAW_FILES["val"][1])
@@ -1120,10 +1188,11 @@ def _eval_cli_phase(torch, dev, table: np.ndarray) -> dict:
                  and {"overall", "per_answer_type", "per_question_type"} <= set(report)
                  and set(report["per_answer_type"]) == {"other", "number", "yes/no"},
                  "the scorer's report has overall and per-type accuracies for every row")
-        del data_factory._STORE_CACHE[(opt.coco.dir, opt.coco.arch, opt.coco.mode, "ram")]
+        for key in store_keys:
+            del data_factory._STORE_CACHE[key]
 
-    _phase("eval_cli", arch="MutanAtt", questions=len(split), images=N_IMAGES, batch=BATCH,
-           batches=-(-len(split) // BATCH), padded_rows=-len(split) % BATCH,
+    _phase("eval_cli", archs="MutanAtt,MutanNoAtt", questions=len(split), images=N_IMAGES,
+           batch=BATCH, batches=-(-len(split) // BATCH), padded_rows=-len(split) % BATCH,
            n_labeled=runs["bf16"]["metrics"]["n_labeled"], words=val_set.num_words,
            answers=val_set.num_answers, raw_s=round(raw_s, 3), prep_s=round(prep_s, 3),
            **{f"{label}_{key}": value for label, run in runs.items()
@@ -1132,10 +1201,12 @@ def _eval_cli_phase(torch, dev, table: np.ndarray) -> dict:
                                  ("cli_s", round(run["wall"], 3)),
                                  ("acc1", run["metrics"]["acc1"]))},
            score_overall=report["overall"], pred_agree_plain=round(agree, 5),
+           noatt_pred_agree_plain=round(noatt_agree, 5),
            floor=PRED_AGREE_FLOOR, pred_agree_int8=round(int8_agree, 5),
-           launches={k: c for k, c in runs["bf16"]["counts"].items() if c},
-           int8_launches={k: c for k, c in runs["int8"]["counts"].items() if c})
-    return {k: runs["bf16"]["counts"][k] + runs["int8"]["counts"][k] for k in runs["bf16"]["counts"]}
+           **{f"{label}_launches": {k: c for k, c in runs[label]["counts"].items() if c}
+              for label in ("bf16", "int8", "noatt")})
+    return {k: sum(runs[label]["counts"][k] for label in ("bf16", "int8", "noatt"))
+            for k in runs["bf16"]["counts"]}
 
 
 def main() -> int:
@@ -1173,17 +1244,22 @@ def main() -> int:
 
     eval_data = _synthetic_eval_arrays(np.random.default_rng(0), BATCH * N_BATCHES)
     host_table = eval_data[-1]
-    int8_table = quantize_features(host_table)
-    features = torch.from_numpy(host_table).to(dev, torch.bfloat16)
-    int8_features = (torch.from_numpy(int8_table[0]).to(dev),
-                     torch.from_numpy(int8_table[1]).to(dev, torch.bfloat16))
+    pooled_table = host_table.mean(axis=1)  # the NoAtt archs' [N, 2048] table
+    tables = {}  # (bf16 table, int8 (values, bf16 scales)) on the card, by layout
+    for layout, host in (("regions", host_table), ("pooled", pooled_table)):
+        values, scales = quantize_features(host)
+        tables[layout] = (torch.from_numpy(host).to(dev, torch.bfloat16),
+                          (torch.from_numpy(values).to(dev),
+                           torch.from_numpy(scales).to(dev, torch.bfloat16)))
     eval_data = eval_data[:-1]
 
     # 2. kernels against their plain versions
     rng = np.random.default_rng(0)
     kernels = {
         "gather_rows": _check_gather(torch, dev, rng),
-        "gather_rows_dequant": _check_gather_dequant(torch, dev, rng, int8_table),
+        "gather_rows_dequant": _check_gather_dequant(torch, dev, rng,
+                                                     quantize_features(host_table),
+                                                     quantize_features(pooled_table)),
         "lstm_seq": _check_lstm(torch, dev, rng),
         "glimpse_head": _check_glimpse(torch, dev, rng),
         "glimpse_attend": _check_glimpse_attend(torch, dev, rng),
@@ -1195,13 +1271,14 @@ def main() -> int:
     # full width, one after another
     launches = dict.fromkeys(kernels, 0)
     for arch in ARCHS:
+        features, int8_features = tables["pooled" if arch in NOATT_ARCHS else "regions"]
         for name, c in _arch_phases(torch, dev, arch, features, int8_features,
                                     eval_data).items():
             launches[name] += c
     _require(all(c > 0 for c in launches.values()), f"every kernel launched: {launches}")
 
     # 6. the eval CLI over a processed split
-    for name, c in _eval_cli_phase(torch, dev, host_table).items():
+    for name, c in _eval_cli_phase(torch, dev, host_table, pooled_table).items():
         launches[name] += c
 
     record = []

@@ -306,3 +306,69 @@ def test_pretrained_grafts_compose_as_the_jax_cli(run, tmp_path):
     model = model_factory(dataclasses.asdict(partial.model), ds.num_words, ds.num_answers)
     with pytest.raises(KeyError, match="missing"):
         load_params(model, port_cli._pretrained(partial))
+
+
+NOATT_PATH_OPT = os.path.join(REPO, "options", "vqa2", "mutan_noatt.yaml")
+NOATT_TINY = ["vqa.nans=12", "optim.eval_batch_size=16",
+              "model.seq2vec.emb_size=8", "model.seq2vec.hidden_size=16",
+              "model.fusion.dim_hv=8", "model.fusion.dim_hq=8", "model.fusion.dim_mm=8",
+              "model.fusion.R=2"]
+
+
+@pytest.fixture(scope="module")
+def noatt_run(run):
+    """The same fixture read as mutan_noatt.yaml reads it (coco.mode:
+    noatt, the pooled table [N, 2048]), and a tiny MutanNoAtt's params."""
+    import jax
+    import jax.numpy as jnp
+
+    from vqa_tpu.config import load_options as jax_load_options
+    from vqa_tpu.datasets import factory as jax_factory
+    from vqa_tpu.importers import save_tree_npz
+    from vqa_tpu.models import factory as jax_model_factory
+
+    d = run["dir"]
+    overrides = [f"vqa.dir={d}/vqa2", f"coco.dir={d}/coco"] + NOATT_TINY
+    jax_opt = jax_load_options(NOATT_PATH_OPT, overrides)
+    val_set = jax_factory("val", jax_opt)
+    assert jax_opt.coco.mode == "noatt" and len(val_set.feature_shape) == 1
+    model = jax_model_factory(jax_opt.model, val_set.num_words, val_set.num_answers)
+    params = model.init(jax.random.key(5), jnp.zeros((2,) + val_set.feature_shape),
+                        jnp.zeros((2, jax_opt.vqa.maxlength), jnp.int32),
+                        jnp.ones((2,), jnp.int32))["params"]
+    leaves, tree = jax.tree.flatten(params)  # non-zero biases throughout
+    params = jax.tree.unflatten(tree, [p + 0.02 * (i % 5) for i, p in enumerate(leaves)])
+    npz = os.path.join(d, "noatt_params.npz")
+    save_tree_npz(npz, params)
+    return {"dir": d, "overrides": overrides, "npz": npz}
+
+
+@pytest.mark.parametrize("extra", [
+    (),
+    ("engine.device_features=true", "engine.features_dtype=bfloat16"),
+    ("engine.device_features=true", "engine.features_dtype=int8"),
+])
+def test_noatt_eval_cli_writes_what_the_jax_cli_writes(noatt_run, tmp_path, extra):
+    """mutan_noatt.yaml over the fixture's pooled table: its float32 rows
+    gathered on the host, or the table on the device in bf16 or int8 (2-D
+    rows, one scale a row) gathered in the step."""
+    from vqa_tpu.cli.train import main as jax_main
+
+    port_logs, jax_logs = str(tmp_path / "port"), str(tmp_path / "jax")
+    opts = noatt_run["overrides"] + [f"model.pretrained_params={noatt_run['npz']}"] + list(extra)
+    argv = ["--path_opt", NOATT_PATH_OPT, "-e", "--platform", "cpu"] + \
+        [a for o in opts for a in ("--opt", o)]
+    assert port_cli.main(argv + ["--dir_logs", port_logs]) == 0
+    assert jax_main(argv + ["--dir_logs", jax_logs]) == 0
+    assert _metrics(port_logs) == _metrics(jax_logs)
+    opt = load_options(NOATT_PATH_OPT, noatt_run["overrides"])
+    ds = port_factory.factory("val", opt)
+    assert ds.feature_shape == (ds.features.as_array().shape[-1],)
+    model = model_factory(dataclasses.asdict(opt.model), ds.num_words, ds.num_answers,
+                          dim_v=ds.feature_shape[-1])
+    with np.load(noatt_run["npz"]) as flat:
+        load_params(model, flat)
+    kind = extra[-1].split("=")[1] if extra else "float32"
+    features = None if kind == "float32" else _tables(ds.features.as_array(), kind)[0]
+    _assert_same_answers(_results(port_logs, "val"), _results(jax_logs, "val"), ds, model.eval(),
+                         ds.vocabs.aid_to_ans, lambda rows: _visual_of(ds, rows, kind, features))

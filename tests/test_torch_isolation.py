@@ -42,7 +42,8 @@ def test_every_port_module_is_listed():
                      "vqa_tpu_torch.datasets.pipeline", "vqa_tpu_torch.datasets.factory",
                      "vqa_tpu_torch.engine.logger", "vqa_tpu_torch.engine.engine",
                      "vqa_tpu_torch.scorer", "vqa_tpu_torch.cli.score",
-                     "vqa_tpu_torch.cli.train"):
+                     "vqa_tpu_torch.cli.train", "vqa_tpu_torch.ops.gru",
+                     "vqa_tpu_torch.models.noatt"):
         assert expected in mods
 
 

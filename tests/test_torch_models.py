@@ -4,7 +4,8 @@ Each flax module is initialised, its param tree flattened
 (vqa_tpu.importers.flatten_tree) and loaded into the port's counterpart
 (weights.load_params); both then run float32 on the CPU on the same numpy
 inputs, and the outputs agree within 1e-4 (float32, sums taken in another
-order through several matmuls).
+order through several matmuls; 1e-5 for a single module). The bf16 cases
+run both sides in bf16, held to the watch list's bf16 tolerance (0.05).
 """
 
 import dataclasses
@@ -25,19 +26,26 @@ from vqa_tpu.models.att import GlimpseAttention as JaxGlimpseAttention
 from vqa_tpu.models.classifier import Classifier as JaxClassifier
 from vqa_tpu.models.cor import CoRStep as JaxCoRStep
 from vqa_tpu.models.mfb import QuestionSelfAttention as JaxQuestionSelfAttention
+from vqa_tpu.models.noatt import NoAttModel as JaxNoAttModel
 from vqa_tpu_torch import flagship
 from vqa_tpu_torch.models import factory as port_factory
 from vqa_tpu_torch.models.att import GlimpseAttention
 from vqa_tpu_torch.models.classifier import Classifier
 from vqa_tpu_torch.models.cor import CoRStep
-from vqa_tpu_torch.models.fusion import MFBFusion, MFHFusion, MutanFusion
+from vqa_tpu_torch.models.fusion import (ConcatFusion, MFBFusion, MFHFusion, MLBFusion,
+                                         MutanFusion)
 from vqa_tpu_torch.models.mfb import QuestionSelfAttention
-from vqa_tpu_torch.models.seq2vec import SeqEncoder
+from vqa_tpu_torch.models.noatt import NoAttModel
+from vqa_tpu_torch.models.seq2vec import GRULayer, SeqEncoder
+from vqa_tpu_torch.models.seq2vec import factory as port_seq2vec_factory
 from vqa_tpu_torch.weights import load_params
 
 torch.set_num_threads(1)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOL = dict(rtol=1e-4, atol=1e-4)
+MODULE_TOL = dict(rtol=1e-5, atol=1e-5)  # one module, float32 on both sides
+# bf16 on both sides, roundings at other places (ROADMAP queue 3's watch list)
+BF16_ATOL = 0.05
 TINY_ARCHS = {  # tiny widths of the other graded configs the port runs
     "mfb_coatt": ["model.seq2vec.emb_size=8", "model.seq2vec.hidden_size=12",
                   "model.attention.dim_h=6", "model.fusion.dim_mm=4",
@@ -47,7 +55,29 @@ TINY_ARCHS = {  # tiny widths of the other graded configs the port runs
                   "model.fusion.pool_factor=3", "model.fusion.mfh_order=3"],
     "cor": ["model.seq2vec.emb_size=8", "model.seq2vec.hidden_size=12",
             "model.fusion.dim_h=10", "model.classif.dim_h=7"],
+    "concat_att": ["model.seq2vec.emb_size=8", "model.seq2vec.hidden_size=12",
+                   "model.attention.dim_h=9", "model.classif.dim_h=7"],
+    "mlb_att": ["model.seq2vec.emb_size=8", "model.seq2vec.hidden_size=12",
+                "model.attention.dim_h=10", "model.fusion.dim_h=9"],
+    "mutan_noatt": ["model.seq2vec.emb_size=8", "model.seq2vec.hidden_size=12",
+                    "model.fusion.dim_hv=7", "model.fusion.dim_hq=6", "model.fusion.dim_mm=9",
+                    "model.fusion.R=3"],
+    "mlb_noatt": ["model.seq2vec.emb_size=8", "model.seq2vec.hidden_size=12",
+                  "model.fusion.dim_h=9"],
+    # the variants no YAML holds (flagship.VARIANTS), from their base YAML
+    "concat_noatt": ["model.seq2vec.emb_size=8", "model.seq2vec.hidden_size=12",
+                     "model.arch=ConcatNoAtt",
+                     "model.fusion={arch: concat, dropout_v: 0.5, dropout_q: 0.5}"],
+    "mutan_att_skipthoughts": ["model.seq2vec.arch=skipthoughts", "model.seq2vec.emb_size=8",
+                               "model.seq2vec.hidden_size=12", "model.attention.dim_hv=6",
+                               "model.attention.dim_hq=5", "model.attention.dim_mm=7",
+                               "model.attention.R=2", "model.fusion.dim_hv=6",
+                               "model.fusion.dim_hq=5", "model.fusion.dim_mm=7",
+                               "model.fusion.R=2"],
 }
+NEW_ARCHS = ("concat_att", "mlb_att", "mutan_noatt", "mlb_noatt", "concat_noatt",
+             "mutan_att_skipthoughts")
+NOATT = ("mutan_noatt", "mlb_noatt", "concat_noatt")
 TINY = [  # __graft_entry__._flagship_model(tiny=True) dims
     "model.seq2vec.emb_size=16", "model.seq2vec.hidden_size=32",
     "model.attention.dim_hv=12", "model.attention.dim_hq=12",
@@ -255,18 +285,24 @@ def test_mutan_att_logits_match_flax(overrides):
     np.testing.assert_allclose(got_alpha.numpy(), np.asarray(want_alpha), **TOL)
 
 
-def _arch(name, overrides, num_words=30, num_answers=11, dim_v=14, seed=0):
-    opt = load_options(os.path.join(REPO, f"options/vqa2/{name}.yaml"),
+def _arch(name, overrides, num_words=30, num_answers=11, dim_v=14, seed=0, pooled=False,
+          dtype=torch.float32):
+    """A tiny model of config ``name`` (a variant: of its base YAML) in flax
+    and in the port, with the same non-zero params; ``pooled`` gives a 2-D
+    visual, the pooled table's rows, as the NoAtt archs read them."""
+    yaml = flagship.VARIANTS[name][0] if name in flagship.VARIANTS else name
+    opt = load_options(os.path.join(REPO, f"options/vqa2/{yaml}.yaml"),
                        TINY_ARCHS[name] + overrides)
-    jax_model = jax_factory(opt.model, num_words, num_answers)
+    jax_model = jax_factory(opt.model, num_words, num_answers,
+                            dtype=jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32)
     rng = np.random.default_rng(seed)
-    visual = rng.standard_normal((6, 5, dim_v)).astype(np.float32)
+    visual = rng.standard_normal((6,) + ((dim_v,) if pooled else (5, dim_v))).astype(np.float32)
     tokens = _tokens(rng, 6, 8, num_words)
     tokens[4] = 0  # the empty question
     params = _init(jax_model, visual[:2], tokens[:2], seed=seed)
     params = jax.tree.map(lambda p: p + 0.05, params)  # non-zero biases throughout
     port = _load(port_factory(dataclasses.asdict(opt.model), num_words, num_answers,
-                              dim_v=dim_v), params)
+                              dtype=dtype, dim_v=dim_v), params)
     return jax_model, params, port, visual, tokens
 
 
@@ -307,20 +343,6 @@ def test_tiny_flagship_builds_the_flax_tree():
     want = {k: v.shape for k, v in flatten_tree(params).items()}
     got = {name.replace(".", "/"): tuple(p.shape) for name, p in port.named_parameters()}
     assert got == want
-
-
-@pytest.mark.parametrize("section,value,match", [
-    ("arch", "MutanNoAtt", "queue 1 item 6"),
-    ("arch", "ConcatAtt", "queue 1 item 6"),
-    ("arch", "MLBAtt", "queue 1 item 6"),
-    ("seq2vec", {"arch": "gru"}, "queue 1 item 6"),
-    ("fusion", {"arch": "mlb"}, "queue 1 item 6"),
-])
-def test_unported_archs_name_their_roadmap_item(section, value, match):
-    opt = flagship.model_options(tiny=True)
-    opt[section] = value
-    with pytest.raises(NotImplementedError, match=match):
-        port_factory(opt, 40, 11)
 
 
 @pytest.mark.parametrize("fusion", [
@@ -369,3 +391,153 @@ def test_train_is_not_ported():
     port = flagship.build(40, 11, tiny=True, dim_v=24, device="cpu")
     with pytest.raises(NotImplementedError, match="queue 1, item 5"):
         port(torch.zeros(2, 5, 24), torch.ones(2, 3, dtype=torch.int32), train=True)
+
+
+def test_gru_layer_matches_flax():
+    """The GRU cell (gates r, z, n; bh inside r * (h wh_n + bh_n)) over mixed
+    lengths, left- and right-padded rows and a fully padded one; biases
+    non-zero, so bx and bh each count."""
+    rng = np.random.default_rng(21)
+    tokens = _tokens(rng, 7, 9, 30)
+    tokens[5] = 0  # fully padded
+    mask = (tokens != 0).astype(np.float32).T[..., None]              # [T, B, 1]
+    x = rng.standard_normal((9, 7, 8)).astype(np.float32)
+    jax_mod = jax_seq2vec.GRULayer(hidden_size=12)
+    params = _plus(_init(jax_mod, x, mask))
+    port = _load(GRULayer(8, 12, torch.float32, "cpu"), params)
+    want_h, want_seq = jax_mod.apply({"params": params}, jnp.asarray(x), jnp.asarray(mask))
+    got_h, got_seq = port(torch.from_numpy(x), torch.from_numpy(mask))
+    np.testing.assert_allclose(got_h.numpy(), np.asarray(want_h), **MODULE_TOL)
+    np.testing.assert_allclose(got_seq.numpy(), np.asarray(want_seq), **MODULE_TOL)
+    np.testing.assert_array_equal(got_h[5].numpy(), 0.0)
+
+
+@pytest.mark.parametrize("num_layers,return_sequence", [(1, False), (2, False), (1, True),
+                                                        (2, True)])
+def test_gru_seq_encoder_matches_flax(num_layers, return_sequence):
+    """SeqEncoder with cell="gru": layers named gru_{i}, as in flax."""
+    rng = np.random.default_rng(22)
+    tokens = _tokens(rng, 7, 9, 30)
+    kw = dict(vocab_size=30, emb_size=8, hidden_size=12, num_layers=num_layers,
+              return_sequence=return_sequence, cell="gru")
+    jax_mod = jax_seq2vec.SeqEncoder(**kw)
+    params = _plus(_init(jax_mod, tokens))
+    port = _load(SeqEncoder(**kw), params)
+    assert {n.split(".")[0] for n, _ in port.named_parameters()} == \
+        {"embed"} | {f"gru_{i}" for i in range(num_layers)}
+    want = jax_mod.apply({"params": params}, jnp.asarray(tokens))
+    got = port(torch.from_numpy(tokens))
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), **MODULE_TOL)
+
+
+@pytest.mark.parametrize("opt,cell,layers,hidden", [
+    ({"arch": "skipthoughts"}, "gru", 1, 2400),
+    ({"arch": "skipthoughts", "num_layers": 3, "hidden_size": 20}, "gru", 1, 20),
+    ({"arch": "gru", "num_layers": 2}, "gru", 2, 1024),
+    ({"arch": "lstm"}, "lstm", 1, 1024),
+])
+def test_seq2vec_factory_builds_as_flax(opt, cell, layers, hidden):
+    """skipthoughts: one GRU layer whatever num_layers says, 2400 units by
+    default; gru keeps num_layers; both default emb 620."""
+    jax_mod = jax_seq2vec.factory(40, opt)
+    port = port_seq2vec_factory(40, opt, device="meta")
+    assert (port.cell, port.num_layers, port.hidden_size) == \
+        (jax_mod.cell, jax_mod.num_layers, jax_mod.hidden_size) == (cell, layers, hidden)
+    assert tuple(port.embed.embedding.shape) == (40, jax_mod.emb_size) == (40, 620)
+
+
+@pytest.mark.parametrize("per_region", [False, True])
+def test_concat_fusion_matches_flax(per_region):
+    """q [3, 1, 10] broadcast over 5 regions of v (or one row each)."""
+    q, v = _pair(np.random.default_rng(23), per_region)
+    jax_mod = jax_fusion.ConcatFusion()
+    want = jax_mod.apply({}, jnp.asarray(q), jnp.asarray(v))
+    port = ConcatFusion(10, 14)
+    got = port(torch.from_numpy(q), torch.from_numpy(v))
+    assert got.shape[-1] == port.out_dim == 24
+    assert tuple(got.shape) == tuple(want.shape) == ((3, 5, 24) if per_region else (3, 24))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("per_region", [False, True])
+@pytest.mark.parametrize("acts", [("tanh", "tanh"), ("relu", "none")])
+def test_mlb_fusion_matches_flax(per_region, acts):
+    q, v = _pair(np.random.default_rng(24), per_region)
+    jax_mod = jax_fusion.MLBFusion(dim_h=9, activation_q=acts[0], activation_v=acts[1])
+    params = _plus(_init(jax_mod, q, v))
+    port = _load(MLBFusion(10, 14, dim_h=9, activation_q=acts[0], activation_v=acts[1]), params)
+    want = jax_mod.apply({"params": params}, jnp.asarray(q), jnp.asarray(v))
+    got = port(torch.from_numpy(q), torch.from_numpy(v))
+    assert got.shape[-1] == port.out_dim == 9
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), **MODULE_TOL)
+
+
+@pytest.mark.parametrize("regions", [None, 5])
+@pytest.mark.parametrize("l2norm_visual", [False, True])
+def test_noatt_model_matches_flax(regions, l2norm_visual):
+    """The pooled visual [B, Dv], or regions [B, R, Dv] mean-pooled first;
+    an MLB fusion, so the fusion's tuple-free output feeds the classifier."""
+    rng = np.random.default_rng(25)
+    visual = rng.standard_normal((4,) + ((regions,) if regions else ()) + (14,))
+    visual = visual.astype(np.float32)
+    tokens = _tokens(rng, 4, 6, 30)
+    jax_mod = JaxNoAttModel(
+        encoder=jax_seq2vec.SeqEncoder(vocab_size=30, emb_size=8, hidden_size=10),
+        fusion=jax_fusion.MLBFusion(dim_h=9), classifier=JaxClassifier(num_answers=7),
+        l2norm_visual=l2norm_visual)
+    params = _plus(_init(jax_mod, visual, tokens))
+    port = _load(NoAttModel(SeqEncoder(30, emb_size=8, hidden_size=10), MLBFusion(10, 14, dim_h=9),
+                            Classifier(9, 7), l2norm_visual=l2norm_visual), params)
+    want = jax_mod.apply({"params": params}, jnp.asarray(visual), jnp.asarray(tokens))
+    with torch.inference_mode():
+        got = port(torch.from_numpy(visual), torch.from_numpy(tokens))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **MODULE_TOL)
+
+
+@pytest.mark.parametrize("name,pooled", [(n, False) for n in NEW_ARCHS] +
+                         [(n, True) for n in NOATT])
+def test_new_archs_logits_match_flax(name, pooled):
+    """ConcatAtt, MLBAtt, the three NoAtt archs (over region features and
+    over the pooled table's 2-D rows) and MutanAtt with the skip-thoughts
+    GRU, float32 at tiny widths; the attention family's alpha too."""
+    jax_model, params, port, visual, tokens = _arch(name, [], pooled=pooled)
+    assert type(port).__name__ == type(jax_model).__name__
+    kw = {} if name in NOATT else {"return_attention": True}
+    want = jax_model.apply({"params": params}, jnp.asarray(visual), jnp.asarray(tokens), **kw)
+    with torch.inference_mode():
+        got = port(torch.from_numpy(visual), torch.from_numpy(tokens), **kw)
+    for g, w in zip(*((got, want) if kw else ((got,), (want,)))):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), **TOL)
+
+
+@pytest.mark.parametrize("name", NEW_ARCHS)
+def test_new_archs_bf16_logits_match_flax(name):
+    """Both sides in bf16 (flax's dtype=bfloat16, the port's bf16 params):
+    roundings at other places, held to the watch list's bf16 tolerance."""
+    jax_model, params, port, visual, tokens = _arch(name, [], dtype=torch.bfloat16)
+    want = jax_model.apply({"params": params}, jnp.asarray(visual), jnp.asarray(tokens))
+    with torch.inference_mode():
+        got = port(torch.from_numpy(visual), torch.from_numpy(tokens))
+    assert got.dtype == torch.bfloat16 and want.dtype == jnp.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32), rtol=0,
+                               atol=BF16_ATOL)
+
+
+@pytest.mark.parametrize("name,attention", [
+    ("concat_att", {"activation": "relu"}),
+    ("mlb_att", {"activation": "relu"}),
+    ("mlb_att", {"activation_q": "relu", "activation_v": "none"}),
+    ("mlb_att", {"activation": "sigmoid", "activation_q": "relu"}),
+])
+def test_att_scoring_fusion_takes_the_flax_knobs(name, attention):
+    """ConcatAtt's ``attention.activation`` on the glimpse head's hidden
+    layer; MLBAtt's scoring fusion activations, ``activation`` overriding
+    ``activation_q`` and ``activation_v`` where given."""
+    overrides = [f"model.attention.{k}={v}" for k, v in attention.items()]
+    if name == "mlb_att":  # the YAML sets activation: tanh; drop it unless the case sets it
+        overrides.insert(0, "model.attention={nb_glimpses: 2, dim_h: 10}")
+    jax_model, params, port, visual, tokens = _arch(name, overrides)
+    want = jax_model.apply({"params": params}, jnp.asarray(visual), jnp.asarray(tokens))
+    with torch.inference_mode():
+        got = port(torch.from_numpy(visual), torch.from_numpy(tokens))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)

@@ -17,6 +17,7 @@ from jax.experimental.pallas import tpu as pltpu
 
 from vqa_tpu.ops import attention as jax_attention
 from vqa_tpu.ops import gather as jax_gather
+from vqa_tpu.ops import gru as jax_gru
 from vqa_tpu.ops import lstm as jax_lstm
 from vqa_tpu.ops import mfb_pool as jax_mfb_pool
 from vqa_tpu.ops import relation as jax_relation
@@ -27,6 +28,7 @@ from vqa_tpu_torch.ops.attention import (SMEM_LIMIT as GLIMPSE_SMEM_LIMIT, glimp
                                          glimpse_head_reference, glimpse_plan)
 from vqa_tpu_torch.ops.gather import (gather_rows, gather_rows_dequant,
                                       gather_rows_dequant_reference, gather_rows_reference)
+from vqa_tpu_torch.ops.gru import gru_seq, gru_seq_reference
 from vqa_tpu_torch.ops.lstm import (SMEM_LIMIT, SMS, gate_strips, launch_geometry, lstm_plan,
                                     lstm_seq, lstm_seq_reference, pad_odd_hidden)
 from vqa_tpu_torch.ops.mfb_pool import mfb_pool, mfb_pool_reference
@@ -168,6 +170,66 @@ def test_lstm_seq_train_is_not_ported():
         lstm_seq(xg, mask, wh, train=True)
 
 
+def _gru_inputs(seed, T, B, H):
+    """The LSTM's masks (mixed lengths, 1 and T included, a third of the rows
+    left-padded) with row 2 fully padded; gx [T, B, 3H], wh [H, 3H], a
+    non-zero bh."""
+    xg, mask, _ = _lstm_inputs(seed, T, B, H)
+    rng = np.random.default_rng(seed + 1)
+    mask[:, 2] = 0
+    wh = (rng.standard_normal((H, 3 * H)) / np.sqrt(H)).astype(np.float32)
+    bh = (0.3 * rng.standard_normal(3 * H)).astype(np.float32)
+    return np.ascontiguousarray(xg[..., : 3 * H]), mask, wh, bh
+
+
+@pytest.mark.parametrize("T,B,H", [(6, 12, 20), (5, 7, 13), (1, 3, 8)])
+def test_gru_seq_matches_jax(T, B, H):
+    """The plain GRU recurrence (the only one: the JAX package's is no Pallas
+    kernel) against gru_seq_reference, float32: h_last and seq, a fully
+    padded row staying at zero."""
+    gx, mask, wh, bh = _gru_inputs(T, T, B, H)
+    h, seq = gru_seq(*(torch.from_numpy(a) for a in (gx, mask, wh, bh)))
+    want_h, want_seq = jax_gru.gru_seq_reference(*(jnp.asarray(a) for a in (gx, mask, wh, bh)))
+    np.testing.assert_allclose(h.numpy(), np.asarray(want_h), **TOL)
+    np.testing.assert_allclose(seq.numpy(), np.asarray(want_seq), **TOL)
+    assert bool((h[2] == 0).all()) and bool((seq[:, 2] == 0).all())
+
+
+def test_gru_seq_left_padding_ends_on_last_token():
+    """A left-padded row ends where its right-padded twin does."""
+    gx, _, wh, bh = _gru_inputs(3, 5, 3, 6)
+    gx[:, 1] = np.roll(gx[:, 0], 2, axis=0)
+    mask = np.zeros((5, 3, 1), np.float32)
+    mask[:3, 0] = 1
+    mask[2:, 1] = 1
+    h, _ = gru_seq(*(torch.from_numpy(a) for a in (gx, mask, wh, bh)))
+    torch.testing.assert_close(h[1], h[0], rtol=0, atol=0)
+
+
+def test_gru_seq_bf16_matches_jax():
+    """bf16 on both sides: the recurrent product in bf16 and bh cast to it,
+    as the JAX reference computes it; within the watch list's bf16
+    tolerance of JAX's bf16 run, and of the float32 one."""
+    gx, mask, wh, bh = _gru_inputs(4, 13, 16, 24)
+    h, seq = gru_seq(*(torch.from_numpy(a).bfloat16() for a in (gx, mask, wh)),
+                     torch.from_numpy(bh))
+    assert h.dtype == seq.dtype == torch.bfloat16
+    want = jax_gru.gru_seq_reference(*(jnp.asarray(a, jnp.bfloat16) for a in (gx, mask, wh)),
+                                     jnp.asarray(bh))
+    exact = jax_gru.gru_seq_reference(*(jnp.asarray(a) for a in (gx, mask, wh, bh)))
+    for got, w, e in zip((h, seq), want, exact):
+        np.testing.assert_allclose(got.float().numpy(), np.asarray(w, np.float32), atol=0.05,
+                                   rtol=0)
+        np.testing.assert_allclose(got.float().numpy(), np.asarray(e), atol=0.05, rtol=0)
+
+
+def test_gru_seq_train_is_not_ported():
+    gx, mask, wh, bh = (torch.from_numpy(a) for a in _gru_inputs(0, 2, 3, 4))
+    with pytest.raises(NotImplementedError, match="queue 1, item 5"):
+        gru_seq(gx, mask, wh, bh, train=True)
+    assert torch.equal(gru_seq(gx, mask, wh, bh)[1], gru_seq_reference(gx, mask, wh, bh)[1])
+
+
 @pytest.mark.parametrize("H", [41, 43])
 def test_odd_hidden_padding_is_exact(H):
     """lstm_seq's wrapper runs an odd H as H + 1 units (the kernel takes an
@@ -222,6 +284,20 @@ def test_glimpse_plan_at_the_archs_shapes():
     assert glimpse_plan(1024, 36, 510, 8, 2048)["copy"] == "bulk"
     ring = glimpse_plan(64, 196, 510, 2, 2048)
     assert ring["copy"] == "bulk" and not ring["resident"] and ring["stages"] == 4
+
+
+@pytest.mark.parametrize("M,G", [(1024, 1), (1200, 2)])
+def test_glimpse_plan_at_the_concat_and_mlb_shapes(M, G):
+    """ConcatAtt (its 1024-wide hidden layer, one glimpse) and MLBAtt (the
+    1200-wide MLB fusion, two glimpses): the parent kernel at batch 1024
+    within its shared memory, the ring at the serving batch over clusters
+    of 4 with w and the joint slice staged."""
+    parent = glimpse_plan(1024, 36, M, G, 2048)
+    assert parent["copy"] == "parent" and parent["smem_bytes"] == (M + 36) * G * 4
+    serve = glimpse_plan(64, 36, M, G, 2048)
+    assert (serve["copy"], serve["split"], serve["ctas"], serve["staged"], serve["resident"]) == \
+        ("bulk", 4, 256, True, True)
+    assert serve["smem_bytes"] <= GLIMPSE_SMEM_LIMIT
 
 
 def test_glimpse_plan_refuses_only_past_shared_memory():
@@ -410,7 +486,7 @@ def test_relation_alpha_split_keeps_fp32_accuracy(N):
     assert err * 8 < hi_only
 
 
-@pytest.mark.parametrize("n,tail,b", [(10, (4, 16), 16), (7, (3,), 5)])
+@pytest.mark.parametrize("n,tail,b", [(10, (4, 16), 16), (7, (3,), 5), (9, (2048,), 16)])
 def test_gather_rows_plain_matches_jax(n, tail, b):
     rng = np.random.default_rng(n)
     table = rng.standard_normal((n,) + tail).astype(np.float32)
@@ -459,9 +535,20 @@ def test_gather_rows_dequant_plain_matches_jax(scale_dtype):
     and through the Pallas gather (interpret mode) on the int8 rows followed
     by its dequant. Exact (tolerance 0): int8 -> bf16 is exact (|v| <= 127)
     and each product is rounded once, on both sides."""
+    _check_dequant_matches_jax(scale_dtype, (4, 16))
+
+
+@pytest.mark.parametrize("scale_dtype", ["bfloat16", "float32"])
+def test_gather_rows_dequant_plain_matches_jax_on_pooled_rows(scale_dtype):
+    """The same on the NoAtt archs' pooled table: 2-D rows [N, 2048], one
+    scale a row ([N, 1])."""
+    _check_dequant_matches_jax(scale_dtype, (2048,))
+
+
+def _check_dequant_matches_jax(scale_dtype, tail):
     jax_steps = _jax_steps()
     rng = np.random.default_rng(11)
-    values, scales = quantize_features(rng.standard_normal((10, 4, 16)).astype(np.float32))
+    values, scales = quantize_features(rng.standard_normal((10,) + tail).astype(np.float32))
     idx = rng.integers(0, 10, 16).astype(np.int32)
     idx[:5] = idx[0]  # repeated rows
     got = gather_rows_dequant(torch.from_numpy(values),
@@ -469,7 +556,7 @@ def test_gather_rows_dequant_plain_matches_jax(scale_dtype):
     jv, js, ji = jnp.asarray(values), jnp.asarray(scales, getattr(jnp, scale_dtype)), jnp.asarray(idx)
     via_jnp = jax_steps._resolve_visual({"image_index": ji}, (jv, js), allow_kernel=False)
     via_pallas = jax_gather._pallas_fwd(jv, ji).astype(js.dtype) * jnp.take(js, ji, axis=0)
-    assert got.dtype == getattr(torch, scale_dtype) and got.shape == (16, 4, 16)
+    assert got.dtype == getattr(torch, scale_dtype) and got.shape == (16,) + tail
     for want in (via_jnp, via_pallas):
         assert want.dtype == js.dtype
         np.testing.assert_array_equal(got.float().numpy(), np.asarray(want, np.float32))
@@ -615,6 +702,27 @@ def test_gather_rows_dequant_kernel_is_bit_exact(cuda_device, scale_dtype, n, se
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("scale_dtype", [torch.bfloat16, torch.float32])
+def test_gathers_on_pooled_rows_are_bit_exact(cuda_device, scale_dtype):
+    """The NoAtt archs' pooled table [N, 2048]: rows of 4096 bytes (bf16),
+    2048 (int8) with scales [N, 1], repeated rows; both kernels bit-equal
+    to their plain versions."""
+    x = torch.randn(50, 2048, device=cuda_device) * 3
+    idx = np.random.default_rng(1).integers(0, 50, 1024)
+    idx[:256] = idx[0]
+    idx_dev = torch.from_numpy(idx).to(cuda_device)
+    table = x.bfloat16()
+    assert torch.equal(gather_rows(table, idx), gather_rows_reference(table, idx_dev))
+    values, scales = (torch.from_numpy(a).to(cuda_device)
+                      for a in quantize_features(x.cpu().numpy()))
+    scales = scales.to(scale_dtype)
+    out = gather_rows_dequant(values, scales, idx)
+    torch.cuda.synchronize()
+    assert out.shape == (1024, 2048) and out.dtype == scale_dtype
+    assert torch.equal(out, gather_rows_dequant_reference(values, scales, idx_dev))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("T,B,H", [(5, 37, 40), (4, 37, 42), (7, 130, 96), (3, 256, 128),
                                    (4, 64, 1024), (3, 1100, 2400), (3, 1024, 2400),
                                    (5, 37, 41)])
@@ -650,7 +758,8 @@ def test_lstm_seq_kernel_is_bit_equal_across_runs(cuda_device, T, B, H):
 @pytest.mark.parametrize("B,R,M,G,D", [(37, 36, 45, 2, 72), (5, 7, 33, 3, 75),
                                        (64, 36, 510, 2, 2048), (16, 36, 510, 8, 2048),
                                        (8, 196, 510, 2, 2048), (3, 196, 64, 16, 1024),
-                                       (4, 196, 33, 5, 75)])
+                                       (4, 196, 33, 5, 75), (1024, 36, 1024, 1, 2048),
+                                       (64, 36, 1200, 2, 2048)])
 def test_glimpse_head_kernel_matches_plain(cuda_device, B, R, M, G, D):
     """bf16 kernel vs the plain version in float32: alpha and the outputs
     are rounded to bf16 (0.05, as chip_smoke.py). G=8 and 16 run as groups

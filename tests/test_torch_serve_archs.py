@@ -1,5 +1,6 @@
-"""MFBCoAtt, MFHCoAtt and CoR through the port's serving side, against the
-JAX package's, on a fixture run.
+"""MFBCoAtt, MFHCoAtt, CoR, ConcatAtt, MLBAtt, MutanNoAtt and MLBNoAtt
+through the port's serving side, against the JAX package's, on a fixture
+run (the NoAtt archs over the fixture's pooled ``noatt`` table, [N, 2048]).
 
 For each arch, a tiny model's flax params are saved with save_tree_npz; the
 port's Predictor.from_run(params=npz) must answer as the JAX
@@ -38,6 +39,15 @@ TINY = {
                   "model.attention.dim_h=8", "model.fusion.dim_mm=6"],
     "cor": ["model.seq2vec.emb_size=16", "model.seq2vec.hidden_size=32",
             "model.fusion.dim_h=12", "model.classif.dim_h=10"],
+    "concat_att": ["model.seq2vec.emb_size=16", "model.seq2vec.hidden_size=32",
+                   "model.attention.dim_h=12", "model.classif.dim_h=10"],
+    "mlb_att": ["model.seq2vec.emb_size=16", "model.seq2vec.hidden_size=32",
+                "model.attention.dim_h=12", "model.fusion.dim_h=10"],
+    "mutan_noatt": ["model.seq2vec.emb_size=16", "model.seq2vec.hidden_size=32",
+                    "model.fusion.dim_hv=12", "model.fusion.dim_hq=10", "model.fusion.dim_mm=8",
+                    "model.fusion.R=2"],
+    "mlb_noatt": ["model.seq2vec.emb_size=16", "model.seq2vec.hidden_size=32",
+                  "model.fusion.dim_h=10"],
 }
 QUESTIONS = [
     "What color is the cat?",
@@ -92,6 +102,7 @@ def _same(got, want, tol=1e-5):
 def test_predictor_answers_match_jax(run):
     jax_pred, port_pred = run
     assert type(port_pred.model).__name__ == type(jax_pred.model).__name__
+    assert port_pred.table.ndim == (2 if "NoAtt" in type(port_pred.model).__name__ else 3)
     names = [str(n) for n in jax_pred.dataset.split.image_names[: len(QUESTIONS)]]
     _same(port_pred.answer_batch(QUESTIONS, names, topk=4),
           jax_pred.answer_batch(QUESTIONS, names, topk=4))

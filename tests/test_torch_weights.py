@@ -102,7 +102,26 @@ def test_flagship_dict_equals_the_yaml():
     assert flagship.model_options() == dataclasses.asdict(opt.model)
 
 
-@pytest.mark.parametrize("name", ["mfb_coatt", "mfh_coatt", "cor"])
+# flagship.VARIANTS as the --opt overrides of their base YAML
+VARIANT_OVERRIDES = {
+    "concat_noatt": ["model.arch=ConcatNoAtt",
+                     "model.fusion={arch: concat, dropout_v: 0.5, dropout_q: 0.5}"],
+    "mutan_att_skipthoughts": ["model.seq2vec.arch=skipthoughts"],
+}
+
+
+def _yaml_options(name):
+    """load_options of options/vqa2/<name>.yaml, or of a variant's base YAML
+    with the variant's overrides."""
+    if name in flagship.VARIANTS:
+        base = flagship.VARIANTS[name][0]
+        return load_options(os.path.join(REPO, f"options/vqa2/{base}.yaml"),
+                            VARIANT_OVERRIDES[name])
+    return load_options(os.path.join(REPO, f"options/vqa2/{name}.yaml"))
+
+
+@pytest.mark.parametrize("name", ["mfb_coatt", "mfh_coatt", "cor", "concat_att", "mlb_att",
+                                  "mutan_noatt", "mlb_noatt"])
 def test_config_dict_equals_the_yaml(name):
     """The model sections the GPU path builds from, and each family's answer
     count (vqa.nans: 3000 for CoR)."""
@@ -112,12 +131,25 @@ def test_config_dict_equals_the_yaml(name):
     assert num_answers == opt.vqa.nans
 
 
-@pytest.mark.parametrize("name", ["mutan_att", "mfb_coatt", "mfh_coatt", "cor"])
+@pytest.mark.parametrize("name", sorted(VARIANT_OVERRIDES))
+def test_variant_dict_equals_the_yaml_with_its_overrides(name):
+    """ConcatNoAtt (no YAML of its own) and MutanAtt with the skip-thoughts
+    encoder, as their base YAML with the overrides give them."""
+    assert set(VARIANT_OVERRIDES) == set(flagship.VARIANTS)
+    opt = _yaml_options(name)
+    assert flagship.model_options(name=name) == dataclasses.asdict(opt.model)
+    assert flagship.answer_count(name) == opt.vqa.nans
+    assert flagship.model_options(name=name) is not flagship.model_options(name=name)
+
+
+@pytest.mark.parametrize("name", ["mutan_att", "mfb_coatt", "mfh_coatt", "cor", "concat_att",
+                                  "mlb_att", "mutan_noatt", "mlb_noatt", "concat_noatt",
+                                  "mutan_att_skipthoughts"])
 def test_full_width_tree_equals_flax(name):
     """At the YAML's full widths (12,000 words, 36x2048 regions), the port's
     parameters are flax's tree leaf for leaf (shapes from jax.eval_shape;
     the port built on the meta device, so nothing is allocated)."""
-    opt = load_options(os.path.join(REPO, f"options/vqa2/{name}.yaml"))
+    opt = _yaml_options(name)
     jax_model = jax_factory(opt.model, flagship.NUM_WORDS, opt.vqa.nans)
     shapes = jax.eval_shape(jax_model.init, jax.random.key(0), jnp.zeros((1, 36, 2048)),
                             jnp.ones((1, 26), jnp.int32))["params"]

@@ -1,12 +1,17 @@
 """The flagship model: MutanAtt at ``options/vqa2/mutan_att.yaml`` dims, the
 port's counterpart of ``__graft_entry__._flagship_model`` and ``entry``;
-beside it the model sections of the other graded configs the port runs
-(``CONFIGS``: MFB and MFH co-attention, CoR), each with its answer count.
+beside it the model sections of the other configs under ``options/vqa2``
+(``CONFIGS``: ConcatAtt, MLBAtt, MutanNoAtt, MLBNoAtt, MFB and MFH
+co-attention, CoR), each with its answer count, and two variants no YAML
+holds (``VARIANTS``): ConcatNoAtt (MLBNoAtt's model with a concat fusion)
+and MutanAtt with the skip-thoughts encoder (a 620 -> 2400 GRU, the MUTAN
+paper's question encoder).
 
 The model sections are kept here as dicts so the GPU path builds the
 models without a YAML parser; tests/test_torch_weights.py holds each equal
 to ``load_options("options/vqa2/<name>.yaml").model`` (and the answer
-count to its ``vqa.nans``).
+count to its ``vqa.nans``), and each variant to its YAML with the
+overrides it names.
 """
 
 from __future__ import annotations
@@ -44,9 +49,53 @@ _MFB_SEQ2VEC = {"arch": "lstm", "emb_size": 300, "hidden_size": 1024, "num_layer
                 "dropout": 0.3, "return_sequence": True}
 _MFB_ATTENTION = {"nb_glimpses": 2, "dim_h": 512, "dropout": 0.1, "question_glimpses": 2}
 
+_NOATT_SEQ2VEC = {"arch": "lstm", "emb_size": 620, "hidden_size": 2400, "num_layers": 1}
+
 # name -> (model section, num_answers), for options/vqa2/<name>.yaml
 CONFIGS = {
     "mutan_att": (MODEL, NUM_ANSWERS),
+    "concat_att": ({
+        "arch": "ConcatAtt",
+        "seq2vec": {"arch": "lstm", "emb_size": 620, "hidden_size": 1024, "num_layers": 1,
+                    "dropout": 0.0},
+        "attention": {"nb_glimpses": 1, "dim_h": 1024, "dropout_v": 0.5, "dropout_q": 0.5,
+                      "dropout_mm": 0.5, "activation": "tanh"},
+        "fusion": {"arch": "concat", "dropout_v": 0.5, "dropout_q": 0.5},
+        "classif": {"dim_h": 1024, "dropout": 0.5},
+        "pretrained_params": None,
+        "extra": {},
+    }, 2_000),
+    "mlb_att": ({
+        "arch": "MLBAtt",
+        "seq2vec": {"arch": "lstm", "emb_size": 620, "hidden_size": 2400, "num_layers": 1,
+                    "dropout": 0.0},
+        "attention": {"nb_glimpses": 2, "dim_h": 1200, "dropout_v": 0.5, "dropout_q": 0.5,
+                      "dropout_mm": 0.0, "activation": "tanh"},
+        "fusion": {"arch": "mlb", "dim_h": 1200, "dropout_v": 0.5, "dropout_q": 0.5,
+                   "activation_v": "tanh", "activation_q": "tanh"},
+        "classif": {"dropout": 0.5},
+        "pretrained_params": None,
+        "extra": {},
+    }, 2_000),
+    "mutan_noatt": ({
+        "arch": "MutanNoAtt",
+        "seq2vec": _NOATT_SEQ2VEC,
+        "attention": {},
+        "fusion": {"arch": "mutan", "dim_hv": 620, "dim_hq": 310, "dim_mm": 510, "R": 5,
+                   "dropout_v": 0.5, "dropout_q": 0.5},
+        "classif": {"dropout": 0.5},
+        "pretrained_params": None,
+        "extra": {},
+    }, 2_000),
+    "mlb_noatt": ({
+        "arch": "MLBNoAtt",
+        "seq2vec": _NOATT_SEQ2VEC,
+        "attention": {},
+        "fusion": {"arch": "mlb", "dim_h": 1200, "dropout_v": 0.5, "dropout_q": 0.5},
+        "classif": {"dropout": 0.5},
+        "pretrained_params": None,
+        "extra": {},
+    }, 2_000),
     "mfb_coatt": ({
         "arch": "MFBCoAtt",
         "seq2vec": _MFB_SEQ2VEC,
@@ -78,6 +127,15 @@ CONFIGS = {
     }, 3_000),
 }
 
+# name -> (the config it derives from, the model-section keys it replaces):
+# the same as `--opt model.<key>=<value>` for each on that config's YAML
+VARIANTS = {
+    "concat_noatt": ("mlb_noatt", {"arch": "ConcatNoAtt", "fusion": {
+        "arch": "concat", "dropout_v": 0.5, "dropout_q": 0.5}}),
+    "mutan_att_skipthoughts": ("mutan_att", {"seq2vec": {
+        **MODEL["seq2vec"], "arch": "skipthoughts"}}),
+}
+
 # the tiny variant of __graft_entry__._flagship_model(tiny=True)
 _TINY = {
     "seq2vec": {"emb_size": 16, "hidden_size": 32},
@@ -86,9 +144,17 @@ _TINY = {
 }
 
 
+def answer_count(name: str) -> int:
+    """The answer count of a config or a variant."""
+    return CONFIGS[VARIANTS[name][0] if name in VARIANTS else name][1]
+
+
 def model_options(tiny: bool = False, name: str = "mutan_att") -> dict:
-    """A fresh copy of a config's model section (``tiny`` only for the
-    flagship)."""
+    """A fresh copy of a config's or a variant's model section (``tiny``
+    only for the flagship)."""
+    if name in VARIANTS:
+        base, changes = VARIANTS[name]
+        return {**model_options(name=base), **copy.deepcopy(changes)}
     opt = copy.deepcopy(CONFIGS[name][0])
     if tiny:
         for section, values in _TINY.items():
@@ -104,9 +170,9 @@ def build(num_words: int = NUM_WORDS, num_answers: int = NUM_ANSWERS, tiny: bool
 
 def build_config(name: str, num_words: int = NUM_WORDS, dtype=torch.float32, device="cuda",
                  dim_v: int = 2048):
-    """The model of ``options/vqa2/<name>.yaml`` at full width, with its
-    own answer count."""
-    return factory(model_options(name=name), num_words, CONFIGS[name][1], dtype=dtype,
+    """The model of ``options/vqa2/<name>.yaml`` (or of a variant) at full
+    width, with its own answer count."""
+    return factory(model_options(name=name), num_words, answer_count(name), dtype=dtype,
                    device=device, dim_v=dim_v)
 
 

@@ -1,6 +1,8 @@
 """Question-conditioned glimpse attention and the attention-family model, the
-port of ``vqa_tpu/models/att.py`` (the MutanAtt path; MFB co-attention's
-region attention is the same GlimpseAttention over an MFB fusion).
+port of ``vqa_tpu/models/att.py``: ConcatAtt, MLBAtt and MutanAtt, which
+differ in the scoring fusion GlimpseAttention applies per region (and
+ConcatAtt's hidden layer before the glimpse logits); MFB co-attention's
+region attention is the same GlimpseAttention over an MFB fusion.
 
 Model contract: model(visual [B, R, Dv], question int[B, T]) -> logits
 [B, num_answers].
@@ -38,7 +40,8 @@ class GlimpseAttention(nn.Module):
     """q [B, Dq], v [B, R, Dv] -> (attended [B, G*Dv], alpha [B, R, G]).
 
     ``dim_h`` adds a ``hidden`` Dense + activation between the fusion and the
-    glimpse logits (MFB co-attention: 512, relu; MutanAtt: none)."""
+    glimpse logits (MFB co-attention: 512, relu; ConcatAtt: 1024, tanh;
+    MutanAtt and MLBAtt: none)."""
 
     def __init__(self, fusion: nn.Module, nb_glimpses: int, dtype: torch.dtype, device,
                  dim_h: Optional[int] = None, activation: str = "tanh"):

@@ -1,13 +1,15 @@
-"""Model factory, the port of ``vqa_tpu/models/factory.py`` (MutanAtt,
-MFBCoAtt, MFHCoAtt, CoR).
+"""Model factory, the port of ``vqa_tpu/models/factory.py``: all nine archs
+(the attention family ConcatAtt, MLBAtt and MutanAtt; the no-attention
+MLBNoAtt, MutanNoAtt and ConcatNoAtt; MFBCoAtt, MFHCoAtt and CoR), each with
+the question encoder its ``seq2vec`` section names (``lstm``, ``gru`` or
+``skipthoughts``).
 
 factory(model_opt, num_words, num_answers) -> nn.Module with
 ``forward(visual, question, lengths=None) -> logits``.
 
 ``model_opt`` is the ``model`` section of an options YAML as a plain dict
 (``dataclasses.asdict(load_options(path).model)``, or ``flagship.py``'s
-copies), so building a model needs no YAML parser. Every arch not ported
-yet raises NotImplementedError naming its ROADMAP.md item.
+copies), so building a model needs no YAML parser.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ from vqa_tpu_torch.models.att import AttModel, GlimpseAttention
 from vqa_tpu_torch.models.classifier import Classifier
 from vqa_tpu_torch.models.cor import CoRModel
 from vqa_tpu_torch.models.mfb import MFBCoAttModel
+from vqa_tpu_torch.models.noatt import NoAttModel
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -49,14 +52,8 @@ _VALID_KEYS = {
     },
 }
 
-_NOT_PORTED = {
-    "ConcatAtt": "queue 1 item 6",
-    "MLBAtt": "queue 1 item 6",
-    "MLBNoAtt": "queue 1 item 6",
-    "MutanNoAtt": "queue 1 item 6",
-    "ConcatNoAtt": "queue 1 item 6",
-}
-_PORTED = ("MutanAtt", "MFBCoAtt", "MFHCoAtt", "CoR")
+_NOATT = ("MLBNoAtt", "MutanNoAtt", "ConcatNoAtt")
+_ARCHS = ("ConcatAtt", "MLBAtt", "MutanAtt") + _NOATT + ("MFBCoAtt", "MFHCoAtt", "CoR")
 
 
 def _check_keys(section: str, opt: Mapping) -> None:
@@ -80,7 +77,8 @@ def factory(
     device="cpu",
     dim_v: int = 2048,
 ) -> nn.Module:
-    """``dim_v`` is the region feature width (flax infers it at init)."""
+    """``dim_v`` is the width of a region feature, or of the pooled image
+    vector for the NoAtt archs (flax infers it at init)."""
     dtype = _dtype(dtype)
     arch = model_opt["arch"]
     extra = model_opt.get("extra") or {}
@@ -89,23 +87,54 @@ def factory(
     for name, opt in sections.items():
         _check_keys(name, opt)
     _check_keys("chain", extra.get("chain", {}))
-    if arch in _NOT_PORTED:
-        raise NotImplementedError(
-            f"model arch {arch!r} is not ported yet: ROADMAP.md {_NOT_PORTED[arch]}"
-        )
-    if arch not in _PORTED:
-        known = ", ".join(_PORTED + tuple(_NOT_PORTED))
-        raise KeyError(f"unknown model arch {arch!r}; known: {known}")
+    if arch not in _ARCHS:
+        raise KeyError(f"unknown model arch {arch!r}; known: {', '.join(_ARCHS)}")
     if arch in ("MFBCoAtt", "MFHCoAtt"):
         return MFBCoAttModel.build(model_opt, num_words, num_answers, dtype, device, dim_v)
     if arch == "CoR":
         return CoRModel.build(model_opt, num_words, num_answers, dtype, device, dim_v)
 
     encoder = seq2vec_lib.factory(num_words, sections["seq2vec"], dtype=dtype, device=device)
+    classif = sections["classif"]
+
+    def classifier(d_in: int) -> Classifier:
+        return Classifier(d_in, num_answers, dim_h=classif.get("dim_h"),
+                          activation=classif.get("activation", "tanh"), dtype=dtype,
+                          device=device)
+
+    l2norm_visual = extra.get("l2norm_visual", False)
+    if arch in _NOATT:  # the final fusion sees the one pooled image vector
+        final = fusion_lib.factory(sections["fusion"], encoder.hidden_size, dim_v, dtype=dtype,
+                                   device=device)
+        return NoAttModel(encoder, final, classifier(final.out_dim), l2norm_visual=l2norm_visual)
+
     att = sections["attention"]
-    scoring = fusion_lib.MutanFusion(
-        dim_q=encoder.hidden_size,
-        dim_v=dim_v,
+    scoring, head = _att_scoring_fusion(arch, att, encoder.hidden_size, dim_v, dtype, device)
+    nb_glimpses = att.get("nb_glimpses", 1)
+    attention = GlimpseAttention(scoring, nb_glimpses, dtype, device, **head)
+    final = fusion_lib.factory(
+        sections["fusion"], encoder.hidden_size, nb_glimpses * dim_v, dtype=dtype, device=device
+    )
+    return AttModel(encoder, attention, final, classifier(final.out_dim),
+                    l2norm_visual=l2norm_visual)
+
+
+def _att_scoring_fusion(arch: str, att: Mapping, dim_q: int, dim_v: int, dtype, device):
+    """The per-region scoring fusion of an attention-family arch and the
+    glimpse head's ``dim_h``/``activation``, as
+    ``vqa_tpu/models/factory.py::_att_scoring_fusion`` builds them."""
+    if arch == "ConcatAtt":
+        return (fusion_lib.ConcatFusion(dim_q, dim_v, dtype=dtype, device=device),
+                dict(dim_h=att.get("dim_h", 1024), activation=att.get("activation", "tanh")))
+    if arch == "MLBAtt":
+        # attention.activation, where given, sets both sides
+        return (fusion_lib.MLBFusion(
+            dim_q, dim_v, dim_h=att.get("dim_h", 1200),
+            activation_q=att.get("activation", att.get("activation_q", "tanh")),
+            activation_v=att.get("activation", att.get("activation_v", "tanh")),
+            dtype=dtype, device=device), {})
+    return (fusion_lib.MutanFusion(
+        dim_q, dim_v,
         dim_hq=att.get("dim_hq", 310),
         dim_hv=att.get("dim_hv", 310),
         dim_mm=att.get("dim_mm", 510),
@@ -115,16 +144,4 @@ def factory(
         core_bias=att.get("core_bias", True),
         dtype=dtype,
         device=device,
-    )
-    nb_glimpses = att.get("nb_glimpses", 1)
-    attention = GlimpseAttention(scoring, nb_glimpses, dtype, device)
-    final = fusion_lib.factory(
-        sections["fusion"], encoder.hidden_size, nb_glimpses * dim_v, dtype=dtype, device=device
-    )
-    classif = sections["classif"]
-    classifier = Classifier(
-        final.out_dim, num_answers, dim_h=classif.get("dim_h"),
-        activation=classif.get("activation", "tanh"), dtype=dtype, device=device,
-    )
-    return AttModel(encoder, attention, final, classifier,
-                    l2norm_visual=extra.get("l2norm_visual", False))
+    ), {})

@@ -1,5 +1,9 @@
-"""Fusions, the port of ``vqa_tpu/models/fusion.py`` (MutanFusion,
-MFBFusion, MFHFusion).
+"""Fusions, the port of ``vqa_tpu/models/fusion.py`` (ConcatFusion,
+MLBFusion, MutanFusion, MFBFusion, MFHFusion).
+
+Concat: z = [q; v], q and v broadcast to one leading shape first.
+
+MLB: z = act_q(q_proj(q)) * act_v(v_proj(v)) (a Hadamard product).
 
 MUTAN: z = tanh(sum_r act_hq(q~ W_q + b_q)_r * act_hv(v~ W_v + b_v)_r),
 with q~ = act_q(q_proj(q)) and v~ = act_v(v_proj(v)). The ``[*, R*M]``
@@ -17,7 +21,7 @@ it is accepted by the factory and not applied.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Union
+from typing import Any, Dict, Optional
 
 import torch
 from torch import nn
@@ -36,6 +40,35 @@ _ACT = {
 
 def l2_normalize(x: torch.Tensor, dim: int = -1, eps: float = 1e-12) -> torch.Tensor:
     return x * torch.rsqrt((x * x).sum(dim=dim, keepdim=True) + eps)
+
+
+class ConcatFusion(nn.Module):
+    """z = [q; v] over the broadcast leading dims: ``[..., dim_q + dim_v]``."""
+
+    def __init__(self, dim_q: int, dim_v: int, dtype: torch.dtype = torch.float32,
+                 device="cpu"):
+        super().__init__()
+        self.out_dim = dim_q + dim_v
+
+    def forward(self, q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+        lead = torch.broadcast_shapes(q.shape[:-1], v.shape[:-1])
+        return torch.cat([q.expand(lead + q.shape[-1:]), v.expand(lead + v.shape[-1:])], dim=-1)
+
+
+class MLBFusion(nn.Module):
+    """Low-rank bilinear fusion: ``act_q(q_proj(q)) * act_v(v_proj(v))``,
+    ``[..., dim_h]``."""
+
+    def __init__(self, dim_q: int, dim_v: int, dim_h: int = 1200, activation_q: str = "tanh",
+                 activation_v: str = "tanh", dtype: torch.dtype = torch.float32, device="cpu"):
+        super().__init__()
+        self.out_dim = dim_h
+        self.act_q, self.act_v = _ACT[activation_q], _ACT[activation_v]
+        self.q_proj = Dense(dim_q, dim_h, dtype, device)
+        self.v_proj = Dense(dim_v, dim_h, dtype, device)
+
+    def forward(self, q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+        return self.act_q(self.q_proj(q)) * self.act_v(self.v_proj(v))
 
 
 class MutanFusion(nn.Module):
@@ -136,9 +169,12 @@ class MFHFusion(nn.Module):
         return torch.cat(outs, dim=-1)
 
 
-# the knobs each flax fusion takes (vqa_tpu/models/fusion.py:87-186), checked
-# exactly per arch as vqa_tpu/models/fusion.py:198-217 does
+# the knobs each flax fusion takes (its dataclass fields but dtype,
+# vqa_tpu/models/fusion.py:44-186), checked exactly per arch as
+# vqa_tpu/models/fusion.py:198-217 does
 _FUSIONS = {
+    "concat": (ConcatFusion, {"dropout_q", "dropout_v"}),
+    "mlb": (MLBFusion, {"dim_h", "dropout_q", "dropout_v", "activation_q", "activation_v"}),
     "mutan": (MutanFusion, {
         "dim_hq", "dim_hv", "dim_mm", "R", "dropout_q", "dropout_v", "dropout_hq",
         "dropout_hv", "activation_q", "activation_v", "activation_hq", "activation_hv",
@@ -148,19 +184,14 @@ _FUSIONS = {
     "mfh": (MFHFusion, {"pool_factor", "dim_mm", "mfh_order", "dropout_pre"}),
 }
 _DROPOUT_KEYS = {"dropout_q", "dropout_v", "dropout_hq", "dropout_hv", "dropout_pre"}
-_NOT_PORTED = {"concat": "queue 1 item 6", "mlb": "queue 1 item 6"}
 
 
 def factory(opt: Dict[str, Any], dim_q: int, dim_v: int, dtype=torch.float32,
-            device="cpu") -> Union[MutanFusion, MFBFusion, MFHFusion]:
+            device="cpu") -> nn.Module:
     """Build a fusion from the model.fusion config dict."""
     arch = opt.get("arch", "mutan")
-    if arch in _NOT_PORTED:
-        raise NotImplementedError(
-            f"fusion arch {arch!r} is not ported yet: ROADMAP.md {_NOT_PORTED[arch]}"
-        )
     if arch not in _FUSIONS:
-        raise KeyError(f"unknown fusion arch {arch!r}")
+        raise KeyError(f"unknown fusion arch {arch!r}; known: {sorted(_FUSIONS)}")
     cls, valid = _FUSIONS[arch]
     kwargs = {k: v for k, v in opt.items() if k != "arch"}
     unknown = set(kwargs) - valid

@@ -2,7 +2,7 @@
 
 Every wrapper takes its kernel on a CUDA tensor and its plain PyTorch
 version on a CPU tensor, and counts its kernel launches in
-``<wrapper>.launches`` (``lstm_seq`` launches one kernel per time step):
+``<wrapper>.launches`` (``lstm_seq`` runs all T steps in one launch):
 
   gather.gather_rows          csrc/gather.cu        <- vqa_tpu/ops/gather.py
   gather.gather_rows_dequant  csrc/gather.cu        <- the same on int8 rows, with the
@@ -12,4 +12,7 @@ version on a CPU tensor, and counts its kernel launches in
   attention.glimpse_attend    csrc/glimpse_head.cu  <- vqa_tpu/ops/attention.py
   mfb_pool.mfb_pool           csrc/mfb_pool.cu      <- vqa_tpu/ops/mfb_pool.py
   relation.relation_attend    csrc/relation.cu      <- vqa_tpu/ops/relation.py
+
+``gru.gru_seq`` (<- vqa_tpu/ops/gru.py) is plain PyTorch on every device:
+the JAX package computes the GRU recurrence outside any Pallas kernel.
 """

@@ -62,7 +62,8 @@ class Catalog:
 
 
 class Predictor:
-    """Answers questions about images of ``table`` [N, R, D], which may live
+    """Answers questions about images of ``table`` ([N, R, D] regions, or the
+    NoAtt archs' pooled [N, D]), which may live
     on the host (rows are gathered there, then uploaded) or on the model's
     device (gathered there by the kernel)."""
 

@@ -2,17 +2,20 @@
 
     python -m vqa_tpu_torch.tools.profile_eval [ARCH[:int8] ...]
 
-For each arch (default: MutanAtt MFBCoAtt CoR) at the full width of its
-``options/vqa2`` config, bf16, random weights (seed 0): 8 eval batches of
-1024 over a 1024-image table resident on the card, with VQA v2 question
-lengths (mean ~6.2, sd ~2.2, clipped to [3, 26]) sorted into the {7, 13, 26}
-buckets, as ``chip_smoke.py`` runs them; ``:int8`` runs the same over the
-table's int8 quantization (bf16 scales). Two warm-up passes, one pass
-timed on the host clock, then one profiled pass. Prints one JSON line per
-arch: the device span (first kernel's start to last kernel's end), busy time
-(union of kernel intervals), idle share, kernel count, and device time by
-class (each hand-written kernel by name, GEMMs, elementwise, reductions,
-other), largest first. The profiler's own overhead is inside the span.
+For each arch (default: MutanAtt MFBCoAtt CoR; any of ``ARCHS``) at the
+full width of its ``options/vqa2`` config (or ``flagship.VARIANTS`` entry),
+bf16, random weights (seed 0): 8 eval batches of 1024 over a 1024-image
+table resident on the card (the NoAtt archs: its regions' mean, the pooled
+[1024, 2048] table), with VQA v2 question lengths (mean ~6.2, sd ~2.2,
+clipped to [3, 26]) sorted into the {7, 13, 26} buckets, as
+``chip_smoke.py`` runs them; ``:int8`` runs the same over the table's int8
+quantization (bf16 scales). Two warm-up passes, one pass timed on the host
+clock, then one profiled pass. Prints one JSON line per arch: the device
+span (first kernel's start to last kernel's end), busy time (union of kernel
+intervals), idle share, kernel count, device time by class (each
+hand-written kernel by name, GEMMs, elementwise, reductions, other), largest
+first, and the kernels that take the most time by name. The profiler's own
+overhead is inside the span.
 """
 
 from __future__ import annotations
@@ -28,7 +31,12 @@ import time
 import numpy as np
 import torch
 
-ARCHS = {"MutanAtt": "mutan_att", "MFBCoAtt": "mfb_coatt", "MFHCoAtt": "mfh_coatt", "CoR": "cor"}
+ARCHS = {"MutanAtt": "mutan_att", "MFBCoAtt": "mfb_coatt", "MFHCoAtt": "mfh_coatt", "CoR": "cor",
+         "ConcatAtt": "concat_att", "MLBAtt": "mlb_att", "MutanNoAtt": "mutan_noatt",
+         "MLBNoAtt": "mlb_noatt", "ConcatNoAtt": "concat_noatt",
+         "MutanAtt+skipthoughts": "mutan_att_skipthoughts"}
+NOATT = ("MutanNoAtt", "MLBNoAtt", "ConcatNoAtt")  # these read the pooled table
+TOP = 8  # kernels listed by name
 BUCKETS = (7, 13, 26)
 BATCH, N_BATCHES, N_IMAGES, SEQ, REGIONS, DIM = 1024, 8, 1024, 26, 36, 2048
 # kernel name -> class; the first pattern that matches wins
@@ -88,6 +96,8 @@ def profile(arch: str, int8: bool, dev) -> dict:
 
     rng = np.random.default_rng(0)
     table = rng.standard_normal((N_IMAGES, REGIONS, DIM), dtype=np.float32)
+    if arch in NOATT:
+        table = table.mean(axis=1)
     if int8:
         values, scales = quantize_features(table)
         features = (torch.from_numpy(values).to(dev), torch.from_numpy(scales).to(dev,
@@ -125,11 +135,11 @@ def profile(arch: str, int8: bool, dev) -> dict:
             busy += e - max(s, end)
             end = e
     span = spans[-1][1] - spans[0][0]
-    by_class = {}
+    by_class, by_name = {}, {}
     for e in kernels:
-        cls = _classify(e["name"])
-        t, n = by_class.get(cls, (0.0, 0))
-        by_class[cls] = (t + float(e["dur"]), n + 1)
+        for key, totals in ((_classify(e["name"]), by_class), (e["name"], by_name)):
+            t, n = totals.get(key, (0.0, 0))
+            totals[key] = (t + float(e["dur"]), n + 1)
     del model, features
     torch.cuda.empty_cache()
     return {
@@ -138,6 +148,10 @@ def profile(arch: str, int8: bool, dev) -> dict:
         "kernels": len(kernels), "host_pass_s": host_s,
         "by_class": {cls: {"ms": t / 1e3, "share_of_busy": t / busy, "launches": n}
                      for cls, (t, n) in sorted(by_class.items(), key=lambda kv: -kv[1][0])},
+        "top_kernels": [{"name": name[:120], "class": _classify(name), "ms": t / 1e3,
+                         "launches": n}
+                        for name, (t, n) in sorted(by_name.items(),
+                                                   key=lambda kv: -kv[1][0])[:TOP]],
     }
 
 

@@ -2,7 +2,9 @@
 
 A port parameter is named by its flax path with '/' replaced by '.', and
 keeps flax's layout ([in, out] Dense kernels; LSTM ``wx [E, 4H]``,
-``wh [H, 4H]``, ``b [4H]`` in i, f, g, o order; MUTAN ``w_core_q [D, R*M]``),
+``wh [H, 4H]``, ``b [4H]`` in i, f, g, o order; GRU ``wx [E, 3H]``,
+``wh [H, 3H]``, ``bx``, ``bh [3H]`` in r, z, n order; MUTAN
+``w_core_q [D, R*M]``),
 so the bridge is a rename with no transposes. The flat '/'-keyed mapping is
 what ``vqa_tpu.importers.flatten_tree`` returns and what
 ``importers.save_tree_npz`` and ``python -m vqa_tpu.cli.export --params
