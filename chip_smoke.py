@@ -63,7 +63,37 @@ Phases, each printing one line of what it found:
      answers agreeing with the plain run's. The card's machine has no h5py,
      so in-memory FeatureStores of the tables (bottomup36 att and noatt)
      stand in the dataset factory's store cache where the HDF5 files would
-     be read.
+     be read;
+  7. train_ops: the train path's two autograd Functions, lstm_seq(train=True)
+     (the kernel's forward, the big-matmul backward in plain PyTorch after a
+     plain recompute) at batch 128, H=2400 (T=7, 26) and H=1024 (T=7), rows
+     left- and right-padded and one fully padded, and glimpse_head (the
+     kernel's forward, the grads of its plain version recomputed) at batch
+     128, R=36, (M, G) = (510, 2), (1024, 1), (1200, 2): forward outputs and
+     every input grad against float32 autograd through the plain versions
+     on the same bf16 inputs (each grad's relative error beside its
+     tolerance; lstm_seq's dmask exactly 0), the plain bf16 path's own
+     errors beside, and the median time of forward + backward on both paths
+     (lstm_seq also its recompute and its backward scan alone);
+  8. train: MutanAtt at the full width of options/vqa2/mutan_att.yaml
+     (bf16 compute over float32 parameters, adam at the YAML's lr 1e-4,
+     batch 128, the YAML's dropout) over a synthetic train split from
+     default_rng(0): 16384 questions with bench.py's lengths over the
+     1024-image bf16 table on the card, answers of the 2000 with a long
+     tail; engine.train for one epoch (128 steps) over
+     BatchIterator(shuffle, bucket_window 8, the {7, 13, 26} ladder,
+     drop_last). Held: one step's loss, grads and gnorm, dropout off,
+     through the kernels against the plain path on the card; one step
+     launches gather_rows, lstm_seq and glimpse_head once each and nothing in
+     the backward, and the epoch once a step; finite losses, gnorms and
+     parameters, and the float32 loss of 4 fixed batches (dropout off)
+     lower after the epoch than before. Printed: the first step's loss and
+     the mean of the last 5, step time (median, host
+     clock after sync) and QA pairs/s on the kernel path and the plain path,
+     the recompute's share of a step, torch.cuda.max_memory_allocated. Then
+     MLBAtt, ConcatAtt, MutanNoAtt, MLBNoAtt and ConcatNoAtt (the NoAtt
+     archs over the pooled table) at their widths: the same kernel-against-
+     plain hold and three steps each.
 
 Any failed check raises, and the script exits non-zero. On success the
 second-to-last line is the per-kernel JSON record and the last line is
@@ -172,6 +202,41 @@ CLI_TRAIN_QUESTIONS = CLI_QUESTIONS // 2
 CLI_ANSWERS = 3_000
 CLI_KERNELS = ("gather_rows", "lstm_seq", "glimpse_head")
 CLI_NOATT_KERNELS = ("gather_rows", "lstm_seq")
+# the train phases (7, 8): mutan_att.yaml's batch, a synthetic train split of
+# 16384 questions (128 steps of 128 with drop_last), bucketed shuffling over
+# windows of 8 batches into the {7, 13, 26} ladder. From random weights at
+# the YAML's lr 1e-4 the loss moves by hundredths of a nat in a few hundred
+# steps (on an H100, 32 steps took the bf16 step loss from 7.625 to a last-5
+# mean of 7.644; bf16's step at 7.6 is 0.031), so learning is held on the
+# float32 loss of fixed batches, dropout off, before and after the epoch,
+# not on the bf16 step losses
+TRAIN_BATCH = 128
+TRAIN_QUESTIONS = 16384
+TRAIN_HELD_BATCHES = 4
+TRAIN_BUCKET_WINDOW = 8
+TRAIN_TIMED_STEPS = 10
+TRAIN_ARCH_STEPS = 3
+# (T, H) of the 2400- and 1024-unit archs; (M, G) of MutanAtt, ConcatAtt, MLBAtt
+TRAIN_LSTM_SHAPES = ((7, 2400), (26, 2400), (7, 1024))
+TRAIN_GLIMPSE_SHAPES = ((510, 2), (1024, 1), (1200, 2))
+TRAIN_ARCHS = {"MLBAtt": "mlb_att", "ConcatAtt": "concat_att", "MutanNoAtt": "mutan_noatt",
+               "MLBNoAtt": "mlb_noatt", "ConcatNoAtt": "concat_noatt"}
+# train tolerances, stated from bf16 rounding before the first run on the
+# card: the kernel path and the plain path (each bf16, ~2^-9 relative a
+# rounding) differ where they round at other places (fp32 gate math in the
+# lstm_seq kernel, against the plain recompute's bf16; the products' order),
+# and a grad carries those differences through up to 26 reverse steps and
+# the model's GEMMs: each grad within 5e-2 relative (Frobenius) of the
+# float32 oracle or of the plain path, measured against 1e-3 of the global
+# norm where a leaf's own is below that. The glimpse bias is not compared:
+# a softmax over the regions does not see it, so its grad is 0 in exact
+# arithmetic and what each path computes is its own rounding; it is held to
+# be below 1e-3 of the global norm on both paths.
+# The loss is a log-sum-exp minus a logit: logits within LOGITS_ATOL of each
+# other move it by at most twice that
+TRAIN_GRAD_RTOL = 5e-2
+TRAIN_GRAD_FLOOR = 1e-3
+TRAIN_LOSS_ATOL = 2 * LOGITS_ATOL
 SOURCES = {  # kernel -> (its CUDA source, the TPU kernel it replaces)
     "gather_rows": ("vqa_tpu_torch/csrc/gather.cu", "vqa_tpu/ops/gather.py:58"),
     # the same TPU kernel on the int8 rows, with the dequant after it
@@ -722,7 +787,7 @@ def _plain_ops(torch):
         return gather_rows_dequant_reference(values, scales, on_card(idx, values.device))
 
     plain = [  # (module, name of the kernel wrapper it calls, plain version)
-        (seq2vec, "lstm_seq", lambda xg, mask, wh, train=False: lstm_seq_reference(xg, mask, wh)),
+        (seq2vec, "lstm_seq", lambda xg, mask, wh, **_: lstm_seq_reference(xg, mask, wh)),
         (att, "glimpse_head", glimpse_head_reference),
         (steps, "gather_rows", plain_gather),
         (steps, "gather_rows_dequant", plain_gather_dequant),
@@ -741,16 +806,18 @@ def _plain_ops(torch):
             setattr(module, name, fn)
 
 
-def _synthetic_eval_arrays(rng: np.random.Generator, n_questions: int):
+def _synthetic_eval_arrays(rng: np.random.Generator, n_questions: int,
+                           with_table: bool = True):
     """bench.py:39-58: VQA v2 question lengths (mean ~6.2, sd ~2.2, clipped
-    to [3, 26]), 12,000 words, a [N_IMAGES, 36, 2048] table."""
+    to [3, 26]), 12,000 words, a [N_IMAGES, 36, 2048] table (or None)."""
     from vqa_tpu_torch.flagship import NUM_WORDS
 
     questions = rng.integers(1, NUM_WORDS, (n_questions, SEQ), dtype=np.int32)
     lengths = np.clip(np.round(rng.normal(6.2, 2.2, n_questions)), 3, SEQ).astype(np.int32)
     questions *= (np.arange(SEQ)[None, :] < lengths[:, None]).astype(np.int32)
     image_index = rng.integers(0, N_IMAGES, n_questions).astype(np.int32)
-    table = rng.standard_normal((N_IMAGES, REGIONS, DIM), dtype=np.float32)
+    table = (rng.standard_normal((N_IMAGES, REGIONS, DIM), dtype=np.float32) if with_table
+             else None)
     return questions, lengths, image_index, table
 
 
@@ -1209,6 +1276,364 @@ def _eval_cli_phase(torch, dev, table: np.ndarray, pooled: np.ndarray) -> dict:
             for k in runs["bf16"]["counts"]}
 
 
+# ----------------------------------------------------------------- train
+
+
+def _relative(got, want) -> float:
+    """The relative Frobenius error of ``got`` against ``want``."""
+    return float((got.float() - want.float()).norm() / want.float().norm().clamp_min(1e-30))
+
+
+def _fwd_bwd_ms(torch, fn, args, cots):
+    """Median time of ``fn``'s forward and the backward to ``args``."""
+    return _median_ms(torch, lambda: torch.autograd.grad(fn(*args), args, cots), iters=10)
+
+
+def _check_train_ops(torch, dev, rng, card) -> dict:
+    """lstm_seq(train=True) and glimpse_head, forward and every input grad, on
+    the card against float32 autograd through their plain versions on the
+    same bf16 inputs (phase 7); returns their fwd+bwd times by shape."""
+    from vqa_tpu_torch.ops.attention import glimpse_head, glimpse_head_reference
+    from vqa_tpu_torch.ops.lstm import _bm_bwd, _bm_fwd, lstm_seq, lstm_seq_reference
+
+    out = {"lstm_seq": {}, "glimpse_head": {}}
+    for T, H in TRAIN_LSTM_SHAPES:
+        xg, mask, wh = _lstm_inputs(torch, dev, rng, T, TRAIN_BATCH, H)
+        mask[:, 3] = 0  # one fully padded row
+        cots = [torch.randn(TRAIN_BATCH, H, device=dev).to(torch.bfloat16),
+                torch.randn(T, TRAIN_BATCH, H, device=dev).to(torch.bfloat16)]
+        args = [x.clone().requires_grad_() for x in (xg, mask, wh)]
+        outs = lstm_seq(*args, train=True)
+        got = torch.autograd.grad(outs, args, cots)
+        ref = [x.float().requires_grad_() for x in (xg, mask, wh)]
+        ref_outs = lstm_seq_reference(*ref)
+        want = torch.autograd.grad(ref_outs, ref, [c.float() for c in cots])
+        plain = [x.clone().requires_grad_() for x in (xg, wh)]
+        plain_grads = torch.autograd.grad(lstm_seq_reference(plain[0], mask, plain[1]), plain,
+                                          cots)
+        fwd_err = max((o.float() - r).abs().max().item() for o, r in zip(outs, ref_outs))
+        errs = {"dxg": _relative(got[0], want[0]), "dwh": _relative(got[2], want[2])}
+        plain_errs = {"dxg": _relative(plain_grads[0], want[0]),
+                      "dwh": _relative(plain_grads[1], want[2])}
+        _require(fwd_err <= LSTM_ATOL, f"lstm_seq train T={T} H={H}: forward err {fwd_err}")
+        for name, err in errs.items():
+            _require(err <= TRAIN_GRAD_RTOL, f"lstm_seq train T={T} H={H}: {name} relative "
+                     f"error {err} <= {TRAIN_GRAD_RTOL}")
+        _require(bool((got[1] == 0).all()), f"lstm_seq train T={T} H={H}: dmask exactly 0")
+        # times: the kernel's forward + the plain backward, against autograd
+        # through the plain version; the recompute and the backward scan alone
+        ms, plain_ms = _in_turns(
+            torch, lambda _t, fn: fn(),
+            lambda: _fwd_bwd_ms(torch, lambda x, w: lstm_seq(x, mask, w, train=True),
+                                [args[0], args[2]], cots),
+            lambda: _fwd_bwd_ms(torch, lambda x, w: lstm_seq_reference(x, mask, w), plain, cots))
+        with torch.no_grad():
+            recompute_ms = _median_ms(torch, lambda: _bm_fwd(xg, mask, wh), iters=10)
+            residuals = _bm_fwd(xg, mask, wh)[1]
+            scan_ms = _median_ms(torch, lambda: _bm_bwd(mask, wh, residuals, *cots), iters=10)
+        key = f"T{T}_B{TRAIN_BATCH}" + ("" if H == 2400 else f"_H{H}")
+        out["lstm_seq"][key] = dict(fwd_bwd_ms=ms, plain_fwd_bwd_ms=plain_ms,
+                                    recompute_ms=recompute_ms, backward_scan_ms=scan_ms)
+        _phase("train_ops", op="lstm_seq", T=T, B=TRAIN_BATCH, H=H, card=card,
+               fwd_max_abs_err=round(fwd_err, 5), fwd_tol=LSTM_ATOL,
+               **{f"{k}_rel_err": round(v, 5) for k, v in errs.items()},
+               **{f"plain_bf16_{k}_rel_err": round(v, 5) for k, v in plain_errs.items()},
+               grad_rtol=TRAIN_GRAD_RTOL, dmask_zero=True,
+               **{k: round(v, 4) for k, v in out["lstm_seq"][key].items()},
+               recompute_share=round(recompute_ms / ms, 4))
+        del xg, mask, wh, args, outs, got, ref, ref_outs, want, plain, plain_grads, residuals
+    for M, G in TRAIN_GLIMPSE_SHAPES:
+        joint = torch.tanh(torch.randn(TRAIN_BATCH, REGIONS, M, device=dev)).to(torch.bfloat16)
+        w = (torch.randn(M, G, device=dev) / M ** 0.5).to(torch.bfloat16)
+        b = (0.1 * torch.randn(G, device=dev)).to(torch.bfloat16)
+        v = torch.randn(TRAIN_BATCH, REGIONS, DIM, device=dev).to(torch.bfloat16)
+        cots = [torch.randn(TRAIN_BATCH, G, DIM, device=dev).to(torch.bfloat16),
+                torch.randn(TRAIN_BATCH, REGIONS, G, device=dev).to(torch.bfloat16)]
+        args = [x.clone().requires_grad_() for x in (joint, w, b, v)]
+        outs = glimpse_head(*args)
+        got = torch.autograd.grad(outs, args, cots)
+        ref = [x.float().requires_grad_() for x in (joint, w, b, v)]
+        ref_outs = glimpse_head_reference(*ref)
+        want = torch.autograd.grad(ref_outs, ref, [c.float() for c in cots])
+        plain = [x.clone().requires_grad_() for x in (joint, w, b, v)]
+        plain_grads = torch.autograd.grad(glimpse_head_reference(*plain), plain, cots)
+        fwd_err = max((o.float() - r).abs().max().item() for o, r in zip(outs, ref_outs))
+        names = ("djoint", "dw", "db", "dv")
+        errs = {n: _relative(g, x) for n, g, x in zip(names, got, want)}
+        _require(fwd_err <= GLIMPSE_ATOL, f"glimpse_head train M={M}: forward err {fwd_err}")
+        for name, err in errs.items():
+            _require(err <= TRAIN_GRAD_RTOL, f"glimpse_head train M={M} G={G}: {name} "
+                     f"relative error {err} <= {TRAIN_GRAD_RTOL}")
+        ms, plain_ms = _in_turns(
+            torch, lambda _t, fn: fn(),
+            lambda: _fwd_bwd_ms(torch, glimpse_head, args, cots),
+            lambda: _fwd_bwd_ms(torch, glimpse_head_reference, plain, cots))
+        key = f"B{TRAIN_BATCH}_M{M}" + ("" if G == 2 else f"_G{G}")
+        out["glimpse_head"][key] = dict(fwd_bwd_ms=ms, plain_fwd_bwd_ms=plain_ms)
+        _phase("train_ops", op="glimpse_head", B=TRAIN_BATCH, R=REGIONS, M=M, G=G, D=DIM,
+               card=card, fwd_max_abs_err=round(fwd_err, 5), fwd_tol=GLIMPSE_ATOL,
+               **{f"{k}_rel_err": round(x, 5) for k, x in errs.items()},
+               **{f"plain_bf16_{n}_rel_err": round(_relative(g, x), 5)
+                  for n, g, x in zip(names, plain_grads, want)},
+               grad_rtol=TRAIN_GRAD_RTOL, fwd_bwd_ms=round(ms, 4),
+               plain_fwd_bwd_ms=round(plain_ms, 4))
+        del joint, w, b, v, args, outs, got, ref, ref_outs, want, plain, plain_grads
+    torch.cuda.empty_cache()
+    return out
+
+
+def _train_split(rng: np.random.Generator, n: int, table: np.ndarray):
+    """A synthetic VQA v2 train split over the table's N_IMAGES images:
+    bench.py's question lengths over NUM_WORDS words, answers drawn from the
+    2000 with weights 1 / (rank + 10) (a long tail, as VQA's), as a
+    VQA2Dataset the loader batches (image indices, not rows)."""
+    from vqa_tpu_torch.config import VQAOptions
+    from vqa_tpu_torch.datasets.features import FeatureStore
+    from vqa_tpu_torch.datasets.processed import ProcessedSplit, Vocabs
+    from vqa_tpu_torch.datasets.vqa2 import VQA2Dataset
+    from vqa_tpu_torch.flagship import NUM_ANSWERS, NUM_WORDS
+
+    questions, lengths, image_index, _ = _synthetic_eval_arrays(rng, n, with_table=False)
+    weights = 1.0 / (np.arange(NUM_ANSWERS) + 10.0)
+    answers = rng.choice(NUM_ANSWERS, n, p=weights / weights.sum()).astype(np.int32)
+    names = [f"img{i}" for i in range(N_IMAGES)]
+    split = ProcessedSplit(question_ids=np.arange(n, dtype=np.int64), questions=questions,
+                           lengths=lengths, image_names=np.array(names)[image_index],
+                           answers=answers, answer_pool=None)
+    vocabs = Vocabs(["<pad>", "<unk>"] + [f"w{i}" for i in range(NUM_WORDS - 2)],
+                    [f"a{i}" for i in range(NUM_ANSWERS)])
+    return VQA2Dataset(split, vocabs, FeatureStore.in_memory(names, table), VQAOptions(),
+                       "train", visual_mode="index")
+
+
+def _grads_agree(torch, model, batch, features, arch) -> dict:
+    """Hold 1 of phase 8: one step's loss and grads from the same weights and
+    batch, dropout off, through the kernels and through the plain versions
+    on the card."""
+    from vqa_tpu_torch.engine import optim, steps
+
+    criterion = optim.criterion_factory()
+    params = [p for p in model.parameters() if p.requires_grad]
+    names = [n for n, p in model.named_parameters() if p.requires_grad]
+    runs = []
+    for plain in (False, True):
+        with (_plain_ops(torch) if plain else contextlib.nullcontext()):
+            with torch.no_grad():
+                visual = steps._resolve_visual(batch, features)
+            loss, _, grads = steps.loss_and_grads(model, params, batch, visual, criterion)
+            runs.append((loss.float().item(), grads, optim.global_norm(grads).item()))
+    (loss, grads, gnorm), (plain_loss, plain_grads, plain_gnorm) = runs
+    floor = TRAIN_GRAD_FLOOR * plain_gnorm
+    errs, zero_grads = {}, {}
+    for n, g, p in zip(names, grads, plain_grads):
+        if n.endswith("glimpse_logits.bias"):
+            zero_grads[n] = max(float(g.float().norm()), float(p.float().norm())) / plain_gnorm
+        else:
+            errs[n] = float((g.float() - p.float()).norm()) / max(float(p.float().norm()), floor)
+    worst = max(errs, key=errs.get)
+    _require(all(z <= TRAIN_GRAD_FLOOR for z in zero_grads.values()),
+             f"{arch} train step: the glimpse bias's grad is 0 but for rounding on both "
+             f"paths: {zero_grads} <= {TRAIN_GRAD_FLOOR} of the global norm")
+    gnorm_err = abs(gnorm - plain_gnorm) / plain_gnorm
+    _require(math.isfinite(loss) and abs(loss - plain_loss) <= TRAIN_LOSS_ATOL,
+             f"{arch} train step: loss {loss} vs plain {plain_loss} within {TRAIN_LOSS_ATOL}")
+    _require(errs[worst] <= TRAIN_GRAD_RTOL,
+             f"{arch} train step: grad {worst} relative error {errs[worst]} <= {TRAIN_GRAD_RTOL}")
+    _require(gnorm_err <= TRAIN_GRAD_RTOL,
+             f"{arch} train step: gnorm {gnorm} vs plain {plain_gnorm}")
+    return {"loss": round(loss, 5), "plain_loss": round(plain_loss, 5),
+            "loss_tol": TRAIN_LOSS_ATOL, "grad_worst_leaf": worst,
+            "grad_worst_rel_err": round(errs[worst], 5), "grad_rtol": TRAIN_GRAD_RTOL,
+            "glimpse_bias_grad_over_gnorm": {n: f"{z:.2e}" for n, z in zero_grads.items()},
+            "gnorm": round(gnorm, 5), "plain_gnorm": round(plain_gnorm, 5),
+            "gnorm_rel_err": round(gnorm_err, 6)}
+
+
+def _train_model(torch, dev, name):
+    """The training build of a config at full width, bf16 compute over
+    float32 parameters, random seeded weights."""
+    from vqa_tpu_torch.flagship import NUM_WORDS, answer_count, model_options
+    from vqa_tpu_torch.models.factory import factory
+    from vqa_tpu_torch.weights import random_params
+
+    model = factory(model_options(name=name), NUM_WORDS, answer_count(name),
+                    dtype=torch.bfloat16, device=dev, train=True)
+    random_params(model, seed=0)
+    return model
+
+
+def _held_loss(torch, model, batches, features, criterion) -> float:
+    """The mean float32 CE of the model's logits over ``batches``, dropout
+    off."""
+    from vqa_tpu_torch.engine import steps
+
+    with torch.no_grad():
+        return float(np.mean([
+            criterion(model(steps._resolve_visual(b, features), b["question"]).float(),
+                      b["answer"]).mean().item() for b in batches]))
+
+
+def _finite_params(torch, model) -> bool:
+    return all(bool(torch.isfinite(p).all()) for p in model.parameters())
+
+
+def _train_phase(torch, dev, host_table, table, pooled, card) -> dict:
+    """Phase 8: MutanAtt's training at full width over a synthetic train
+    split (the docstring), then the other five LSTM archs' few steps;
+    returns the launch counts of the train runs."""
+    from vqa_tpu_torch.config import load_options
+    from vqa_tpu_torch.datasets.pipeline import BatchIterator
+    from vqa_tpu_torch.engine import engine as engine_lib
+    from vqa_tpu_torch.engine import optim, steps
+    from vqa_tpu_torch.ops.lstm import _bm_fwd
+
+    opt = load_options(os.path.join(_REPO, "options", "vqa2", "mutan_att.yaml"))
+    _require(opt.optim.batch_size == TRAIN_BATCH and opt.optim.optimizer == "adam",
+             "mutan_att.yaml trains adam at batch 128")
+    torch.cuda.reset_peak_memory_stats()
+    dataset = _train_split(np.random.default_rng(0), TRAIN_QUESTIONS, host_table)
+    loader = BatchIterator(dataset, opt.optim.batch_size, shuffle=True, seed=opt.engine.seed,
+                           drop_last=True, bucket_window=TRAIN_BUCKET_WINDOW,
+                           length_buckets=BUCKETS,
+                           transform=engine_lib.make_device_transform(dev))
+    _require(loader.steps_per_epoch() >= 30, "an epoch of at least 30 steps")
+    criterion = optim.criterion_factory()
+    model = _train_model(torch, dev, "mutan_att")
+    batches = list(loader.epoch(1))  # batches for the holds and the timings
+    agree = _grads_agree(torch, model, batches[0], table, "MutanAtt")
+
+    state = steps.create_state(model, optim.factory(opt.optim, loader.steps_per_epoch()))
+    train_step = steps.make_train_step(criterion, opt.engine.seed)
+    _reset_counts()
+    train_step(state, batches[0], table)
+    torch.cuda.synchronize()
+    one_step = _read_counts()
+    _require({k: c for k, c in one_step.items() if c} ==
+              {"gather_rows": 1, "lstm_seq": 1, "glimpse_head": 1},
+              f"one train step launches gather_rows, lstm_seq and glimpse_head once each, "
+              f"nothing in the backward: {one_step}")
+
+    # the epoch, with the YAML's dropout, from fresh weights
+    model = _train_model(torch, dev, "mutan_att")
+    state = steps.create_state(model, optim.factory(opt.optim, loader.steps_per_epoch()))
+    held = batches[-TRAIN_HELD_BATCHES:]
+    held_before = _held_loss(torch, model, held, table, criterion)
+    seen = []
+
+    def recording_step(s, batch, features=None):
+        s, metrics = train_step(s, batch, features)
+        seen.append(metrics)
+        return s, metrics
+
+    _reset_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(sys.stderr):  # engine.train's print lines
+        state, avgs = engine_lib.train(loader, state, recording_step, None, 0,
+                                       print_freq=opt.engine.print_freq, features=table)
+    torch.cuda.synchronize()
+    epoch_s = time.perf_counter() - t0
+    counts = _read_counts()
+    n_steps = len(seen)
+    losses = [float(m["loss"]) for m in seen]
+    gnorms = [float(m["gnorm"]) for m in seen]
+    _require(n_steps == loader.steps_per_epoch() and state.step == n_steps,
+             f"the epoch ran its {loader.steps_per_epoch()} steps")
+    _require({k: c for k, c in counts.items() if c} ==
+             {"gather_rows": n_steps, "lstm_seq": n_steps, "glimpse_head": n_steps},
+             f"the epoch launched each kernel once a step: {counts}")
+    _require(all(math.isfinite(x) for x in losses + gnorms) and _finite_params(torch, model),
+             "finite losses, gnorms and parameters")
+    last5 = float(np.mean(losses[-5:]))
+    held_after = _held_loss(torch, model, held, table, criterion)
+    _require(held_after < held_before, f"the loss falls: the float32 loss of {len(held)} fixed "
+             f"batches, dropout off, {held_after} after the epoch < {held_before} before")
+    _require(abs(avgs["loss"] - float(np.mean(losses))) < 1e-4, "the epoch's mean loss")
+
+    # step time on both paths (host clock after sync), the recompute alone
+    timed = batches[1:1 + TRAIN_TIMED_STEPS]
+
+    def step_times():
+        out = []
+        for b in timed:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            train_step(state, b, table)
+            torch.cuda.synchronize()
+            out.append(time.perf_counter() - t)
+        return out
+
+    def plain_step_times():
+        with _plain_ops(torch):
+            return step_times()
+
+    kernel_s, plain_s = [], []
+    for fn, out in ((plain_step_times, plain_s), (step_times, kernel_s),
+                    (step_times, kernel_s), (plain_step_times, plain_s)):
+        out.extend(fn())
+    lstm = model.encoder.lstm_0
+    rec_ms = {}
+    with torch.no_grad():
+        for b in timed:
+            T = b["question"].shape[1]
+            if T not in rec_ms:
+                x = model.encoder.embed(b["question"]).transpose(0, 1)
+                xg = x @ lstm.wx.to(torch.bfloat16) + lstm.b.to(torch.bfloat16)
+                mask = (b["question"] != 0).to(torch.bfloat16).T.unsqueeze(-1).contiguous()
+                wh = lstm.wh.to(torch.bfloat16)
+                rec_ms[T] = _median_ms(torch, lambda: _bm_fwd(xg, mask, wh), iters=10)
+    step_ms, plain_step_ms = (statistics.median(kernel_s) * 1e3,
+                              statistics.median(plain_s) * 1e3)
+    # the recompute's share of a step: its mean time over the timed batches'
+    # lengths against their mean step time
+    recompute_share = (float(np.mean([rec_ms[b["question"].shape[1]] for b in timed]))
+                       / (float(np.mean(kernel_s)) * 1e3))
+    peak = torch.cuda.max_memory_allocated()
+    _phase("train", arch="MutanAtt", card=card, questions=TRAIN_QUESTIONS, batch=TRAIN_BATCH,
+           steps=n_steps, buckets=[b["question"].shape[1] for b in batches],
+           bucket_window=TRAIN_BUCKET_WINDOW, optimizer=opt.optim.optimizer, lr=opt.optim.lr,
+           **agree, one_step_launches={k: c for k, c in one_step.items() if c},
+           epoch_launches={k: c for k, c in counts.items() if c},
+           held_loss_before=round(held_before, 6), held_loss_after=round(held_after, 6),
+           first_loss=round(losses[0], 5), last5_mean_loss=round(last5, 5),
+           epoch_mean_loss=round(avgs["loss"], 5), epoch_mean_gnorm=round(avgs["gnorm"], 5),
+           epoch_s=round(epoch_s, 4), epoch_qa_per_s=round(n_steps * TRAIN_BATCH / epoch_s, 1),
+           timed_steps=len(timed), timed_buckets=[b["question"].shape[1] for b in timed],
+           step_ms=round(step_ms, 4), plain_step_ms=round(plain_step_ms, 4),
+           qa_per_s=round(TRAIN_BATCH / step_ms * 1e3, 1),
+           plain_qa_per_s=round(TRAIN_BATCH / plain_step_ms * 1e3, 1),
+           recompute_ms_by_T={t: round(m, 4) for t, m in sorted(rec_ms.items())},
+           recompute_share=round(recompute_share, 4),
+           max_memory_allocated_bytes=peak)
+    launches = {k: counts[k] + one_step[k] for k in counts}
+    del model, state, seen
+    torch.cuda.empty_cache()
+
+    # the other five LSTM archs: hold 1, then a few steps with dropout
+    for arch, name in TRAIN_ARCHS.items():
+        features = pooled if arch in NOATT_ARCHS else table
+        model = _train_model(torch, dev, name)
+        agree = _grads_agree(torch, model, batches[0], features, arch)
+        state = steps.create_state(model, optim.factory(opt.optim, loader.steps_per_epoch()))
+        _reset_counts()
+        metrics = [train_step(state, b, features)[1] for b in batches[:TRAIN_ARCH_STEPS]]
+        torch.cuda.synchronize()
+        counts = _read_counts()
+        kernels = {k: TRAIN_ARCH_STEPS for k in ARCHS[arch][1]}
+        _require({k: c for k, c in counts.items() if c} == kernels,
+                 f"{arch}: each step launched its kernels once: {counts}")
+        losses = [float(m["loss"]) for m in metrics]
+        _require(all(math.isfinite(x) for x in losses) and _finite_params(torch, model),
+                 f"{arch}: finite losses and parameters")
+        _phase("train", arch=arch, card=card, steps=TRAIN_ARCH_STEPS, **agree,
+               launches={k: c for k, c in counts.items() if c},
+               losses=[round(x, 5) for x in losses])
+        for k in launches:
+            launches[k] += counts[k]
+        del model, state
+        torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1280,6 +1705,18 @@ def main() -> int:
     # 6. the eval CLI over a processed split
     for name, c in _eval_cli_phase(torch, dev, host_table, pooled_table).items():
         launches[name] += c
+
+    # 7. the train path's two autograd Functions, 8. training
+    card = smi.strip().splitlines()[0]
+    train_ops = _check_train_ops(torch, dev, rng, card)
+    for name, c in _train_phase(torch, dev, host_table, tables["regions"][0],
+                                tables["pooled"][0], card).items():
+        launches[name] += c
+    for name, by_shape in train_ops.items():
+        kernels[name]["train_fwd_bwd_ms"] = {k: round(t["fwd_bwd_ms"], 4)
+                                             for k, t in by_shape.items()}
+        kernels[name]["train_plain_fwd_bwd_ms"] = {k: round(t["plain_fwd_bwd_ms"], 4)
+                                                   for k, t in by_shape.items()}
 
     record = []
     for name, k in kernels.items():

@@ -34,7 +34,7 @@ from vqa_tpu_torch.engine import engine as port_engine
 from vqa_tpu_torch.engine.logger import Experiment
 from vqa_tpu_torch.engine.steps import make_eval_step, quantize_features
 from vqa_tpu_torch.models.factory import factory as model_factory
-from vqa_tpu_torch.weights import load_params
+from vqa_tpu_torch.weights import load_params, pretrained_params
 
 torch.set_num_threads(1)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -239,7 +239,7 @@ def test_eval_cli_writes_what_the_jax_cli_writes(run, tmp_path, split, extra):
 
 
 @pytest.mark.parametrize("argv,error,match", [
-    (["--no-e"], NotImplementedError, "queue 1, item 5"),
+    (["--no-e"], NotImplementedError, "queue 1, item 5b.*item 13"),
     (["--resume", "best"], NotImplementedError, "queue 1, item 13"),
     (["--no-params"], ValueError, "queue 1, item 13"),
     (["--distributed"], NotImplementedError, "queue 1, item 12"),
@@ -297,7 +297,7 @@ def test_pretrained_grafts_compose_as_the_jax_cli(run, tmp_path):
         f"model.seq2vec.pretrained_emb={paths['emb']}",
         f"model.seq2vec.pretrained_encoder={paths['enc']}",
         f"model.pretrained_params={paths['rest']}"])
-    grafted = port_cli._pretrained(opt)
+    grafted = pretrained_params(opt.model)
     assert sorted(grafted) == sorted(full)
     for key, value in full.items():
         np.testing.assert_array_equal(grafted[key], value, err_msg=key)
@@ -305,7 +305,38 @@ def test_pretrained_grafts_compose_as_the_jax_cli(run, tmp_path):
     ds = port_factory.factory("val", partial)
     model = model_factory(dataclasses.asdict(partial.model), ds.num_words, ds.num_answers)
     with pytest.raises(KeyError, match="missing"):
-        load_params(model, port_cli._pretrained(partial))
+        load_params(model, pretrained_params(partial.model))
+
+
+def test_from_run_serves_a_run_whose_encoder_comes_from_the_grafts(run, tmp_path):
+    """A run whose params npz leaves the encoder to
+    seq2vec.pretrained_encoder: the eval CLI evaluates it, and
+    Predictor.from_run on the run dir (its options.yaml, the grafts in it)
+    answers every val question as the CLI's results json does."""
+    from vqa_tpu_torch.datasets.interim import RAW_FILES
+    from vqa_tpu_torch.predictor import Predictor
+
+    with np.load(run["npz"]) as npz:
+        full = {k: npz[k] for k in npz.files}
+    paths = {"enc": str(tmp_path / "enc.npz"), "rest": str(tmp_path / "rest.npz")}
+    np.savez(paths["enc"], **{k[len("encoder/"):]: v for k, v in full.items()
+                              if k.startswith("encoder/")})
+    np.savez(paths["rest"], **{k: v for k, v in full.items() if not k.startswith("encoder/")})
+    logs = str(tmp_path / "logs")
+    opts = run["overrides"] + [f"model.seq2vec.pretrained_encoder={paths['enc']}",
+                               f"model.pretrained_params={paths['rest']}"]
+    argv = ["--path_opt", PATH_OPT, "-e", "--platform", "cpu", "--dir_logs", logs]
+    assert port_cli.main(argv + [a for o in opts for a in ("--opt", o)]) == 0
+    want = {r["question_id"]: r["answer"] for r in _results(logs, "val")}
+
+    predictor = Predictor.from_run(logs, device="cpu")
+    split = port_factory.factory("val", load_options(PATH_OPT, opts)).split
+    with open(os.path.join(run["dir"], "vqa2", "raw", RAW_FILES["val"][0])) as f:
+        text = {q["question_id"]: q["question"] for q in json.load(f)["questions"]}
+    qids = split.question_ids.tolist()
+    answers = predictor.answer_batch([text[q] for q in qids],
+                                     [str(n) for n in split.image_names], topk=1)
+    assert {q: a[0][0] for q, a in zip(qids, answers)} == want
 
 
 NOATT_PATH_OPT = os.path.join(REPO, "options", "vqa2", "mutan_noatt.yaml")

@@ -9,6 +9,7 @@ skip here (chip_smoke.py runs the same comparisons at the flagship shapes).
 
 import os
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -165,9 +166,23 @@ def test_gate_strips_start_on_16_bytes(H):
 
 
 def test_lstm_seq_train_is_not_ported():
-    xg, mask, wh = (torch.from_numpy(a) for a in _lstm_inputs(0, 2, 2, 4))
-    with pytest.raises(NotImplementedError, match="queue 1, item 5"):
-        lstm_seq(xg, mask, wh, train=True)
+    """The train path is ported: lstm_seq(train=True) gives the eval
+    forward bit for bit and, with rnn_bwd bigmatmul, the grads of
+    jax.vjp(_lstm_seq_bigmatmul) (float32; dmask 0); an unknown rnn_bwd is
+    refused."""
+    xg, mask, wh = _lstm_inputs(0, 5, 6, 4)
+    args = [torch.from_numpy(a).requires_grad_() for a in (xg, mask, wh)]
+    h, seq = lstm_seq(*args, train=True)
+    want_h, want_seq = lstm_seq(*(torch.from_numpy(a) for a in (xg, mask, wh)))
+    assert torch.equal(h.detach(), want_h) and torch.equal(seq.detach(), want_seq)
+    got = torch.autograd.grad((h.sum(), seq.sum()), args)
+    _, vjp = jax.vjp(jax_lstm._lstm_seq_bigmatmul, *(jnp.asarray(a) for a in (xg, mask, wh)))
+    want = vjp((jnp.ones_like(want_h.numpy()), jnp.ones_like(want_seq.numpy())))
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), **TOL)
+    assert bool((got[1] == 0).all())
+    with pytest.raises(ValueError, match="rnn_bwd"):
+        lstm_seq(*args, train=True, rnn_bwd="scan")
 
 
 def _gru_inputs(seed, T, B, H):
@@ -225,7 +240,7 @@ def test_gru_seq_bf16_matches_jax():
 
 def test_gru_seq_train_is_not_ported():
     gx, mask, wh, bh = (torch.from_numpy(a) for a in _gru_inputs(0, 2, 3, 4))
-    with pytest.raises(NotImplementedError, match="queue 1, item 5"):
+    with pytest.raises(NotImplementedError, match="section A7.*queue 1, item 5c"):
         gru_seq(gx, mask, wh, bh, train=True)
     assert torch.equal(gru_seq(gx, mask, wh, bh)[1], gru_seq_reference(gx, mask, wh, bh)[1])
 
@@ -741,6 +756,54 @@ def test_lstm_seq_kernel_matches_plain(cuda_device, T, B, H):
     assert h.shape == (B, H) and seq.shape == (T, B, H)
     assert (h.float() - ref_h).abs().max().item() <= LSTM_ATOL
     assert (seq.float() - ref_seq).abs().max().item() <= LSTM_ATOL
+
+
+def _relative(got, want):
+    return float((got.float() - want).norm() / want.norm().clamp_min(1e-30))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,B,H", [(7, 128, 2400), (26, 128, 2400), (7, 128, 1024),
+                                   (9, 37, 40)])
+def test_lstm_seq_train_on_the_card_matches_plain(cuda_device, T, B, H):
+    """lstm_seq(train=True) on the card (the kernel's forward, the big-matmul
+    backward after a plain recompute) against float32 autograd through the
+    plain version on the same bf16 inputs, a row fully padded: dxg and dwh
+    within 5e-2 relative (Frobenius; chip_smoke.py's TRAIN_GRAD_RTOL),
+    dmask exactly 0."""
+    xg, mask, wh = _lstm_inputs(T + H, T, B, H)
+    mask[:, 2] = 0
+    rng = np.random.default_rng(H)
+    cots = [torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(cuda_device,
+                                                                           torch.bfloat16)
+            for s in ((B, H), (T, B, H))]
+    bf = [torch.from_numpy(a).to(cuda_device, torch.bfloat16) for a in (xg, mask, wh)]
+    args = [a.clone().requires_grad_() for a in bf]
+    got = torch.autograd.grad(lstm_seq(*args, train=True), args, cots)
+    ref = [a.float().requires_grad_() for a in bf]
+    want = torch.autograd.grad(lstm_seq_reference(*ref), ref, [c.float() for c in cots])
+    assert _relative(got[0], want[0]) <= 5e-2 and _relative(got[2], want[2]) <= 5e-2
+    assert bool((got[1] == 0).all()) and bool((got[0][:, 2] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,G", [(510, 2), (1024, 1), (1200, 2)])
+def test_glimpse_head_train_on_the_card_matches_plain(cuda_device, M, G):
+    """glimpse_head's Function on the card (the kernel's forward, the plain
+    version's grads recomputed) against float32 autograd through the plain
+    version: djoint, dw, db and dv within 5e-2 relative."""
+    gen = torch.Generator(device=cuda_device).manual_seed(M)
+    shapes = ((128, 36, M), (M, G), (G,), (128, 36, 2048))
+    bf = [torch.randn(s, generator=gen, device=cuda_device).to(torch.bfloat16) for s in shapes]
+    bf[0], bf[1] = torch.tanh(bf[0]), (bf[1].float() / M ** 0.5).to(torch.bfloat16)
+    cots = [torch.randn(s, generator=gen, device=cuda_device).to(torch.bfloat16)
+            for s in ((128, G, 2048), (128, 36, G))]
+    args = [a.clone().requires_grad_() for a in bf]
+    got = torch.autograd.grad(glimpse_head(*args), args, cots)
+    ref = [a.float().requires_grad_() for a in bf]
+    want = torch.autograd.grad(glimpse_head_reference(*ref), ref, [c.float() for c in cots])
+    for g, w in zip(got, want):
+        assert _relative(g, w) <= 5e-2
 
 
 @pytest.mark.cuda

@@ -220,6 +220,90 @@ def test_serve_cli_refuses_jax_only_artifacts(flag, capsys):
     assert "cli.export --params external" in capsys.readouterr().err
 
 
+def _reference_parser():
+    """The argparse parser ``vqa_tpu.cli.serve.main`` builds, caught at its
+    parse_args (the original builds it inside main)."""
+    import argparse
+
+    class Caught(Exception):
+        pass
+
+    def catch(self, *args, **kwargs):
+        raise Caught(self)
+
+    saved = argparse.ArgumentParser.parse_args
+    argparse.ArgumentParser.parse_args = catch
+    try:
+        jax_serve.main([])
+    except Caught as e:
+        return e.args[0]
+    finally:
+        argparse.ArgumentParser.parse_args = saved
+    raise AssertionError("vqa_tpu.cli.serve.main parsed no arguments")
+
+
+def _flags(parser):
+    return {a.option_strings[0]: a for a in parser._actions
+            if a.option_strings and a.option_strings[0] != "-h"}
+
+
+def test_serve_cli_flags_match_the_reference():
+    """Every flag of the original's serve CLI is the port's, with its
+    default, type and action, but the jax-only ones: --coco_dir (of an AOT
+    artifact) is not taken, and --resume / --exported are taken and refused;
+    the port adds --params (its npz) and requires --dir_logs."""
+    want, got = _flags(_reference_parser()), _flags(port_serve.build_argparser())
+    assert set(want) - set(got) == {"--coco_dir"}
+    assert set(got) - set(want) == {"--params"}
+    for flag, action in want.items():
+        if flag in ("--coco_dir", "--resume", "--dir_logs"):
+            continue
+        mine = got[flag]
+        assert (mine.default, mine.type, type(mine)) == \
+            (action.default, action.type, type(action)), flag
+    assert got["--dir_logs"].required and got["--resume"].default is None
+
+
+def test_serve_cli_refuses_a_request_timeout_without_dynamic_batching(capsys):
+    with pytest.raises(SystemExit):
+        serve_main(["--dir_logs", "x", "--request_timeout_s", "3"])
+    assert "requires --dynamic_batching" in capsys.readouterr().err
+
+
+def test_serve_cli_passes_its_flags_to_the_service(run, monkeypatch):
+    """--platform cpu reaches from_run, and the batching flags the
+    DynamicBatcher; the server is stubbed to stop at once."""
+    _, port_pred, _, _, _ = run
+    seen = {}
+
+    def from_run(dir_logs, path_opt=None, params=None, device="cuda"):
+        seen["device"] = device
+        return port_pred
+
+    class Server:
+        server_address = ("127.0.0.1", 0)
+
+        def serve_forever(self):
+            raise KeyboardInterrupt
+
+        def server_close(self):
+            pass
+
+    def build(service, host, port):
+        seen["service"] = service
+        return Server()
+
+    monkeypatch.setattr(Predictor, "from_run", staticmethod(from_run))
+    monkeypatch.setattr(port_serve, "build_server", build)
+    assert serve_main(["--dir_logs", "x", "--platform", "cpu", "--max_batch", "4",
+                       "--dynamic_batching", "--batch_wait_ms", "7", "--batch_window_ms", "30",
+                       "--request_timeout_s", "2.5"]) == 0
+    service = seen["service"]
+    assert seen["device"] == "cpu" and isinstance(service, DynamicBatcher)
+    assert (service.max_wait, service.window, service.request_timeout) == (0.007, 0.03, 2.5)
+    assert service.service.max_batch == 4
+
+
 def _transcript(serve_mod, predictor, dynamic):
     """Every kind of request the HTTP layer answers, and what it answered."""
     service = serve_mod.AnswerService(predictor, max_batch=4)

@@ -13,6 +13,7 @@ from vqa_tpu.config import load_options
 from vqa_tpu.importers import flatten_tree, save_tree_npz
 from vqa_tpu.models import factory as jax_factory
 from vqa_tpu_torch import flagship
+from vqa_tpu_torch.models import factory as port_factory
 from vqa_tpu_torch.weights import export_params, load_params, random_params
 
 torch.set_num_threads(1)
@@ -86,6 +87,25 @@ def test_values_land_in_the_model_dtype(jax_tiny_params):
     wh = flatten_tree(jax_tiny_params)["encoder/lstm_0/wh"]
     np.testing.assert_array_equal(model.encoder.lstm_0.wh.float().numpy(),
                                   torch.tensor(wh).bfloat16().float().numpy())
+
+
+def test_train_build_holds_float32_masters_of_the_same_values(jax_tiny_params):
+    """The same flax tree in an eval build (bf16, no grads, as before) and in
+    a training build (float32 parameters that take grads, cast to bf16 in
+    each layer): the train build's forward without grads equals the eval
+    build's bit for bit."""
+    flat = flatten_tree(jax_tiny_params)
+    evals = flagship.build(40, 11, tiny=True, dtype=torch.bfloat16, dim_v=24, device="cpu")
+    load_params(evals, flat)
+    train = port_factory(flagship.model_options(tiny=True), 40, 11, dtype=torch.bfloat16,
+                         dim_v=24, device="cpu", train=True)
+    load_params(train, flat)
+    assert all(p.dtype == torch.bfloat16 and not p.requires_grad for p in evals.parameters())
+    assert all(p.dtype == torch.float32 and p.requires_grad for p in train.parameters())
+    batch = flagship.example_batch(batch=3, seq=6, regions=5, dim=24, num_words=40, seed=2)
+    inputs = [torch.from_numpy(batch[k]) for k in ("visual", "question", "length")]
+    with torch.inference_mode():
+        assert torch.equal(evals(*inputs), train(*inputs))
 
 
 def test_random_params_are_seeded():

@@ -3,7 +3,8 @@ the port of ``vqa_tpu/cli/serve.py``.
 
   python -m vqa_tpu_torch.cli.serve --dir_logs logs/vqa2/mutan_att \
       --params exported/params.npz [--path_opt ...] [--host 127.0.0.1] \
-      [--port 8080] [--max_batch 64] [--dynamic_batching]
+      [--port 8080] [--max_batch 64] [--platform cpu] [--dynamic_batching \
+      [--batch_wait_ms 5] [--batch_window_ms 40] [--request_timeout_s 30]]
 
 Endpoints (JSON over POST, plus GET /healthz and GET /metrics):
   /answer  {"question": str, "image": str, "topk"?: int}
@@ -304,21 +305,46 @@ def build_server(service, host: str, port: int) -> ThreadingHTTPServer:
     return VQAHTTPServer((host, port), make_handler(service))
 
 
-def main(argv: Optional[List[str]] = None) -> int:
+def build_argparser() -> argparse.ArgumentParser:
+    """``vqa_tpu/cli/serve.py``'s flags and defaults, but ``--coco_dir`` (an
+    AOT artifact's, which needs jax), ``--params`` (the port's npz) and a
+    required ``--dir_logs``; ``--resume`` and ``--exported`` are taken and
+    refused (both need jax)."""
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--dir_logs", required=True)
     p.add_argument("--path_opt", default=None,
                    help="defaults to the run dir's own options.yaml")
     p.add_argument("--params", default=None,
-                   help="'/'-keyed params npz (default: model.pretrained_params)")
+                   help="'/'-keyed params npz (default: model.pretrained_params, with the "
+                        "seq2vec.pretrained_* grafts)")
     p.add_argument("--resume", default=None, help=argparse.SUPPRESS)
+    p.add_argument("--no_resume", action="store_true",
+                   help="serve init params (a model.pretrained_params import); the port "
+                        "always does, as it reads no Orbax checkpoint")
     p.add_argument("--exported", default=None, help=argparse.SUPPRESS)
+    p.add_argument("--platform", default=None, metavar="cuda|cpu",
+                   help="where to run: the card (default) or, with cpu, the host")
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=8080)
-    p.add_argument("--max_batch", type=int, default=64)
+    p.add_argument("--max_batch", type=int, default=None,
+                   help="serving batch (default 64)")
     p.add_argument("--dynamic_batching", action="store_true",
                    help="coalesce concurrent requests into shared forwards")
+    p.add_argument("--batch_wait_ms", type=float, default=5.0,
+                   help="coalescing inter-arrival gap: the group closes "
+                        "this long after the last queued request")
+    p.add_argument("--batch_window_ms", type=float, default=None,
+                   help="absolute cap on the coalescing window "
+                        "(default 8x batch_wait_ms)")
+    p.add_argument("--request_timeout_s", type=float, default=None,
+                   help="with --dynamic_batching: bound each request's wait "
+                        "(504 instead of hanging behind a wedged device)")
+    return p
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    p = build_argparser()
     args = p.parse_args(argv)
     if args.resume is not None or args.exported is not None:
         p.error(
@@ -326,19 +352,28 @@ def main(argv: Optional[List[str]] = None) -> int:
             "`python -m vqa_tpu.cli.export --params external` and pass its params.npz "
             "as --params"
         )
+    if args.request_timeout_s is not None and not args.dynamic_batching:
+        p.error("--request_timeout_s requires --dynamic_batching (the plain "
+                "service runs the forward on the request thread and cannot "
+                "abandon it)")
+    if args.platform not in (None, "cuda", "gpu", "cpu"):
+        p.error(f"--platform {args.platform!r}: the port serves on the card (cuda) or, with "
+                "--platform cpu, on the host")
 
     from vqa_tpu_torch.predictor import Predictor
 
-    # the port's CLI serves on the card, where the kernels run
     predictor = Predictor.from_run(args.dir_logs, args.path_opt, params=args.params,
-                                   device="cuda")
-    service = AnswerService(predictor, max_batch=args.max_batch)
+                                   device="cpu" if args.platform == "cpu" else "cuda")
+    max_batch = args.max_batch or 64
+    service = AnswerService(predictor, max_batch=max_batch)
     if args.dynamic_batching:
-        service = DynamicBatcher(service)
+        service = DynamicBatcher(service, max_wait_ms=args.batch_wait_ms,
+                                 window_ms=args.batch_window_ms,
+                                 request_timeout_s=args.request_timeout_s)
     service.warmup()
     server = build_server(service, args.host, args.port)
     print(f"serving on http://{args.host}:{server.server_address[1]} "
-          f"(max_batch {args.max_batch})", flush=True)
+          f"(max_batch {max_batch})", flush=True)
     try:
         server.serve_forever()
     except KeyboardInterrupt:

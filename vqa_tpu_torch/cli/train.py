@@ -23,8 +23,9 @@ from ``model.pretrained_params``, a '/'-keyed npz (``python -m
 vqa_tpu.cli.export --params external`` writes one), with
 ``model.seq2vec.pretrained_emb`` and ``pretrained_encoder`` grafted under it
 as the JAX CLI grafts them. What is not ported refuses and names its
-ROADMAP.md item: training, ``--resume``, multi-process and model-parallel
-runs, and a sharded table.
+ROADMAP.md item: training (the train step and epoch loop are ported, the
+CLI around them with its checkpoints is not), ``--resume``, multi-process
+and model-parallel runs, and a sharded table.
 """
 
 from __future__ import annotations
@@ -32,9 +33,8 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import sys
-from typing import Dict, List, Optional
+from typing import List, Optional
 
-import numpy as np
 import torch
 
 from vqa_tpu_torch.config import Options, dump_options, load_options
@@ -44,7 +44,7 @@ from vqa_tpu_torch.engine import engine as engine_lib
 from vqa_tpu_torch.engine.logger import Experiment
 from vqa_tpu_torch.engine.steps import make_eval_step, quantize_features
 from vqa_tpu_torch.models.factory import factory as model_factory
-from vqa_tpu_torch.weights import load_params
+from vqa_tpu_torch.weights import load_params, pretrained_params
 
 
 def build_argparser() -> argparse.ArgumentParser:
@@ -113,7 +113,9 @@ def options_from_args(args) -> Options:
 def _refuse_unported(args, opt: Options) -> None:
     if not args.evaluate:
         raise NotImplementedError(
-            "training is not ported yet (ROADMAP.md queue 1, item 5); run eval-only with -e")
+            "the train CLI is not ported yet: its loop with checkpoints is ROADMAP.md queue 1, "
+            "item 5b, with item 13's checkpoints (the train step itself runs: "
+            "vqa_tpu_torch.engine.steps.make_train_step); run eval-only with -e")
     if args.resume is not None:
         raise NotImplementedError(
             "--resume reads an Orbax checkpoint, which needs jax; the port's own "
@@ -147,24 +149,6 @@ def _device(platform: Optional[str]) -> torch.device:
             "no CUDA card: torch.cuda.is_available() is false, and the port's CLI has no "
             "fallback; pass --platform cpu to run on the host")
     return torch.device("cuda")
-
-
-def _pretrained(opt: Options) -> Dict[str, np.ndarray]:
-    """The '/'-keyed weights in the order ``vqa_tpu/cli/train.py::init_params``
-    grafts them: ``seq2vec.pretrained_emb`` under encoder/embed/,
-    ``seq2vec.pretrained_encoder`` under encoder/, then
-    ``model.pretrained_params`` over both. Unlike there, no init fills the
-    leaves they leave out: ``load_params`` refuses a missing one."""
-    flat: Dict[str, np.ndarray] = {}
-    seq2vec = opt.model.seq2vec or {}
-    grafts = ((seq2vec.get("pretrained_emb"), "encoder/embed/"),
-              (seq2vec.get("pretrained_encoder"), "encoder/"),
-              (opt.model.pretrained_params, ""))
-    for path, prefix in grafts:
-        if path:
-            with np.load(path) as npz:
-                flat.update({prefix + k: npz[k] for k in npz.files})
-    return flat
 
 
 def _device_table(store, opt: Options, device: torch.device,
@@ -205,7 +189,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         model = model_factory(dataclasses.asdict(opt.model), val_set.num_words,
                               val_set.num_answers, dtype=dtype, device=device,
                               dim_v=val_set.feature_shape[-1])
-        load_params(model, _pretrained(opt))
+        load_params(model, pretrained_params(opt.model))
         n_params = sum(p.numel() for p in model.parameters())
         print(f"model {opt.model.arch}: {n_params/1e6:.2f}M params, {device} {dtype}",
               flush=True)

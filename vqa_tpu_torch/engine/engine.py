@@ -1,7 +1,9 @@
-"""Eval loops, the port of ``vqa_tpu/engine/engine.py``'s ``validate`` and
-``test`` (with the device transform and the loop under them). ``train`` is
-not ported yet (ROADMAP.md queue 1, item 5).
+"""Epoch loops, the port of ``vqa_tpu/engine/engine.py`` (``train``,
+``validate`` and ``test``, with the device transform and the loop under
+them). The train loop's mid-epoch checkpoints and preemption handler are
+not ported yet (ROADMAP.md queue 1, items 5b and 13).
 
+train():    step loop over the loader, the train step, meters + logging
 validate(): eval loop -> top-1/top-5 accuracy + OpenEnded results list
 test():     eval loop without labels -> OpenEnded results list
 
@@ -22,6 +24,7 @@ import numpy as np
 import torch
 
 from vqa_tpu_torch.engine.logger import Experiment
+from vqa_tpu_torch.engine.meters import MeterBank
 
 # the batch keys the step reads on the card. ``image_index`` is not among
 # them: the gather range-checks it on the host and carries it in the
@@ -72,6 +75,60 @@ def _readback_stacked(outs: List[Dict[str, torch.Tensor]]) -> Dict[str, np.ndarr
 def _split_batch(batch):
     device_batch = {k: v for k, v in batch.items() if k not in ("question_id", "valid_host")}
     return device_batch, batch["question_id"], batch.get("valid_host")
+
+
+def train(
+    loader,
+    state,
+    train_step,
+    exp: Optional[Experiment],
+    epoch: int,
+    print_freq: int = 10,
+    features=None,
+    start_step: int = 0,
+) -> Tuple[Any, Dict[str, float]]:
+    """One training epoch. The epoch's batches are a pure function of (seed,
+    epoch), so ``start_step`` skips the first batches of a resumed epoch;
+    the logged epoch averages cover only the steps executed. Host metrics
+    are read only on print steps; the others are stacked on the card and
+    read back once at the epoch's end."""
+    meters = MeterBank()
+    steps_total = loader.steps_per_epoch()
+    step_metrics: list = []
+    t_data = time.perf_counter()
+    for i, batch in enumerate(loader.epoch(epoch)):
+        if i < start_step:
+            t_data = time.perf_counter()
+            continue
+        device_batch, _, _ = _split_batch(batch)
+        data_time = time.perf_counter() - t_data
+        state, metrics = train_step(state, device_batch, features)
+        step_metrics.append(metrics)
+        if print_freq and (i % print_freq == 0 or i + 1 == steps_total):
+            # the metrics' readback syncs: only on print steps
+            host = {k: float(v) for k, v in metrics.items()}
+            batch_time = time.perf_counter() - t_data - data_time
+            print(
+                f"Epoch [{epoch}][{i}/{steps_total}] "
+                f"loss {host['loss']:.4f} acc1 {host['acc1']*100:.2f} "
+                f"acc5 {host['acc5']*100:.2f} data {data_time:.3f}s",
+                flush=True,
+            )
+            if exp is not None:
+                exp.log_step(epoch, "train", i,
+                             {**host, "data_time": data_time, "batch_time": batch_time})
+        t_data = time.perf_counter()
+
+    if step_metrics:
+        keys = list(step_metrics[0])
+        stacked = torch.stack([torch.stack([m[k].float() for k in keys])
+                               for m in step_metrics]).cpu().numpy()   # one readback
+        for k, v in zip(keys, stacked.T):
+            meters.update({k: float(np.mean(v))}, n=len(step_metrics))
+    avgs = meters.averages()
+    if exp is not None:
+        exp.log_epoch(epoch, "train", avgs)
+    return state, avgs
 
 
 def _eval_loop(

@@ -1,6 +1,10 @@
-"""Eval step, the port of ``vqa_tpu/engine/steps.py`` (make_eval_step and
-_resolve_visual). The train step is not ported yet (ROADMAP.md queue 1,
-item 5).
+"""Train and eval steps, the port of ``vqa_tpu/engine/steps.py``.
+
+The train step (the six LSTM archs; a model built with ``train=True``):
+the table gather outside autograd, the forward with ``train=True`` and
+dropout masks from a generator seeded by (seed, step), the mean CE, the
+backward, then the optimizer's update of the parameters in place. Its
+metrics stay on the card: no host sync in the step.
 
 With a feature table resident on the device, a batch carries ``image_index``
 instead of ``visual`` and the step gathers the region tensors itself
@@ -16,12 +20,47 @@ gathered and dequantized by one kernel (``ops.gather.gather_rows_dequant``).
 
 from __future__ import annotations
 
-from typing import Dict
+import dataclasses
+from typing import Callable, Dict, List
 
 import numpy as np
 import torch
+from torch import nn
 
+from vqa_tpu_torch.engine import optim
 from vqa_tpu_torch.ops.gather import gather_rows, gather_rows_dequant
+
+
+@dataclasses.dataclass
+class TrainState:
+    """The counterpart of flax's TrainState: the model (its parameters are
+    the ones trained), the optimizer and its state, and the count of train
+    steps taken (micro-steps under ``grad_accum``), which seeds dropout."""
+
+    model: nn.Module
+    tx: optim.Transform
+    opt_state: object
+    step: int = 0
+
+    @property
+    def params(self) -> List[nn.Parameter]:
+        return [p for p in self.model.parameters() if p.requires_grad]
+
+
+def create_state(model: nn.Module, tx: optim.Transform) -> TrainState:
+    state = TrainState(model, tx, None)
+    if not state.params:
+        raise ValueError("the model has no trainable parameters: build it with train=True")
+    state.opt_state = tx.init([p.detach() for p in state.params])
+    return state
+
+
+def dropout_generator(seed: int, step: int, device) -> torch.Generator:
+    """The dropout stream of one step, a pure function of (seed, step), as
+    ``jax.random.fold_in(rng, state.step)`` is in the JAX step (the streams
+    themselves differ from flax's)."""
+    state = np.random.SeedSequence([seed, step]).generate_state(1, np.uint64)[0]
+    return torch.Generator(device=device).manual_seed(int(state) & (2 ** 63 - 1))
 
 
 def _topk_acc(logits: torch.Tensor, labels: torch.Tensor, k: int) -> torch.Tensor:
@@ -51,6 +90,42 @@ def _resolve_visual(batch: Dict[str, torch.Tensor], features) -> torch.Tensor:
         values, scales = features
         return gather_rows_dequant(values, scales, batch["image_index"])
     return gather_rows(features, batch["image_index"])
+
+
+def loss_and_grads(model: nn.Module, params: List[torch.Tensor], batch: Dict[str, torch.Tensor],
+                   visual: torch.Tensor, criterion: Callable, rng=None):
+    """(loss, logits, grads of ``params``) of one batch, the model run with
+    ``train=True``; dropout is on where ``rng`` is given."""
+    logits = model(visual, batch["question"], batch.get("length"), train=True, rng=rng)
+    loss = criterion(logits, batch["answer"]).mean()
+    return loss, logits, torch.autograd.grad(loss, params)
+
+
+def make_train_step(criterion: Callable, seed: int):
+    """Returns (state, batch, features=None) -> (state, metrics): ``loss``,
+    ``acc1``, ``acc5`` and ``gnorm`` (the global norm of the raw grads,
+    before any clip) as tensors on the step's device."""
+
+    def train_step(state: TrainState, batch: Dict[str, torch.Tensor], features=None):
+        with torch.no_grad():
+            visual = _resolve_visual(batch, features)
+        rng = dropout_generator(seed, state.step, visual.device)
+        params = state.params
+        loss, logits, grads = loss_and_grads(state.model, params, batch, visual, criterion, rng)
+        updates, state.opt_state = state.tx.update(list(grads), state.opt_state,
+                                                   [p.detach() for p in params])
+        optim.apply_updates(params, updates)
+        state.step += 1
+        logits = logits.detach()
+        metrics = {
+            "loss": loss.detach(),
+            "acc1": _topk_acc(logits, batch["answer"], 1).float().mean(),
+            "acc5": _topk_acc(logits, batch["answer"], 5).float().mean(),
+            "gnorm": optim.global_norm(grads),
+        }
+        return state, metrics
+
+    return train_step
 
 
 def make_eval_step():

@@ -17,7 +17,7 @@ from torch import nn
 
 from vqa_tpu_torch.models.classifier import Classifier
 from vqa_tpu_torch.models.fusion import _ACT, l2_normalize
-from vqa_tpu_torch.models.layers import Dense, param
+from vqa_tpu_torch.models.layers import Dense, dropout, param
 from vqa_tpu_torch.models.seq2vec import SeqEncoder
 from vqa_tpu_torch.ops.attention import glimpse_head
 
@@ -29,11 +29,14 @@ class _GlimpseTail(nn.Module):
 
     def __init__(self, d_in: int, nb_glimpses: int, dtype: torch.dtype, device):
         super().__init__()
+        self.dtype = dtype
         self.kernel = param(d_in, nb_glimpses, dtype=dtype, device=device)
         self.bias = param(nb_glimpses, dtype=dtype, device=device)
 
     def forward(self, joint: torch.Tensor, v: torch.Tensor):
-        return glimpse_head(joint.contiguous(), self.kernel, self.bias, v.contiguous())
+        # the card's kernel takes contiguous operands in the compute dtype
+        return glimpse_head(joint.contiguous(), self.kernel.to(self.dtype),
+                            self.bias.to(self.dtype), v.contiguous())
 
 
 class GlimpseAttention(nn.Module):
@@ -41,12 +44,15 @@ class GlimpseAttention(nn.Module):
 
     ``dim_h`` adds a ``hidden`` Dense + activation between the fusion and the
     glimpse logits (MFB co-attention: 512, relu; ConcatAtt: 1024, tanh;
-    MutanAtt and MLBAtt: none)."""
+    MutanAtt and MLBAtt: none); ``dropout_mm`` drops the fused joint before
+    it."""
 
     def __init__(self, fusion: nn.Module, nb_glimpses: int, dtype: torch.dtype, device,
-                 dim_h: Optional[int] = None, activation: str = "tanh"):
+                 dim_h: Optional[int] = None, activation: str = "tanh",
+                 dropout_mm: float = 0.0):
         super().__init__()
         self.fusion = fusion
+        self.dropout_mm = dropout_mm
         self.act = _ACT[activation]
         d_joint = fusion.out_dim
         if dim_h is not None:
@@ -54,10 +60,12 @@ class GlimpseAttention(nn.Module):
             d_joint = dim_h
         self.glimpse_logits = _GlimpseTail(d_joint, nb_glimpses, dtype, device)
 
-    def forward(self, q: torch.Tensor, v: torch.Tensor):
-        joint = self.fusion(q[:, None, :], v)                   # [B, R, M]
+    def forward(self, q: torch.Tensor, v: torch.Tensor,
+                rng: Optional[torch.Generator] = None):
+        joint = self.fusion(q[:, None, :], v, rng=rng)          # [B, R, M]
         if isinstance(joint, tuple):  # MFB-style fusions return (pooled, pre_pool)
             joint = joint[0]
+        joint = dropout(joint, self.dropout_mm, rng)
         if hasattr(self, "hidden"):
             joint = self.act(self.hidden(joint))
         attended, logits = self.glimpse_logits(joint, v)
@@ -79,16 +87,18 @@ class AttModel(nn.Module):
 
     def forward(self, visual: torch.Tensor, question: torch.Tensor,
                 lengths: Optional[torch.Tensor] = None, train: bool = False,
-                return_attention: bool = False):
+                return_attention: bool = False, rng: Optional[torch.Generator] = None):
+        """``train`` selects the train path's backwards; ``rng`` (the train
+        step's generator) switches dropout on."""
         v = visual.to(self.encoder.dtype)
         if self.l2norm_visual:
             v = l2_normalize(v)
-        q = self.encoder(question, lengths, train=train)  # train=True raises there
-        v_att, alpha = self.attention(q, v)
-        z = self.final_fusion(q, v_att)
+        q = self.encoder(question, lengths, train=train, rng=rng)
+        v_att, alpha = self.attention(q, v, rng=rng)
+        z = self.final_fusion(q, v_att, rng=rng)
         if isinstance(z, tuple):
             z = z[0]
-        logits = self.classifier(z)
+        logits = self.classifier(z, rng=rng)
         if return_attention:
             return logits, alpha
         return logits

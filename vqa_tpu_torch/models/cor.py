@@ -26,6 +26,11 @@ from vqa_tpu_torch.models.layers import Dense
 from vqa_tpu_torch.models.seq2vec import SeqEncoder
 from vqa_tpu_torch.ops.relation import relation_attend
 
+TRAIN_NOT_PORTED = (
+    "training CoR is not ported yet (its dropout and the relation_attend backward): "
+    "ROADMAP.md queue 1, item 5c"
+)
+
 
 class CoRStep(nn.Module):
     """(objects [B, N, Do], q [B, Dq]) -> (objects' [B, N, Do],
@@ -73,10 +78,12 @@ class CoRModel(nn.Module):
     def forward(self, visual: torch.Tensor, question: torch.Tensor,
                 lengths: Optional[torch.Tensor] = None, train: bool = False,
                 return_attention: bool = False):
+        if train:
+            raise NotImplementedError(TRAIN_NOT_PORTED)
         v = visual.to(self.encoder.dtype)
         if self.l2norm_visual:
             v = l2_normalize(v)
-        q = self.encoder(question, lengths, train=train)              # [B, Dq]; train=True raises
+        q = self.encoder(question, lengths)                           # [B, Dq]
         objects = torch.tanh(self.obj_proj(v))                        # [B, N, Do]
         decisions, betas = [], []
         for _ in range(self.steps):

@@ -7,6 +7,13 @@ the question encoder its ``seq2vec`` section names (``lstm``, ``gru`` or
 factory(model_opt, num_words, num_answers) -> nn.Module with
 ``forward(visual, question, lengths=None) -> logits``.
 
+``train=True`` builds for training: float32 master parameters that take
+grads, cast to the compute ``dtype`` inside each layer (flax's
+``param_dtype`` split), and the LSTM backward ``rnn_bwd``
+(``engine.rnn_bwd``). Training is ported for the six LSTM archs of the
+attention and NoAtt families; MFBCoAtt, MFHCoAtt, CoR and the GRU encoder
+refuse it.
+
 ``model_opt`` is the ``model`` section of an options YAML as a plain dict
 (``dataclasses.asdict(load_options(path).model)``, or ``flagship.py``'s
 copies), so building a model needs no YAML parser.
@@ -21,11 +28,11 @@ from torch import nn
 
 from vqa_tpu_torch.models import fusion as fusion_lib
 from vqa_tpu_torch.models import seq2vec as seq2vec_lib
+from vqa_tpu_torch.models import cor, mfb
 from vqa_tpu_torch.models.att import AttModel, GlimpseAttention
 from vqa_tpu_torch.models.classifier import Classifier
-from vqa_tpu_torch.models.cor import CoRModel
-from vqa_tpu_torch.models.mfb import MFBCoAttModel
 from vqa_tpu_torch.models.noatt import NoAttModel
+from vqa_tpu_torch.ops import gru
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -76,10 +83,25 @@ def factory(
     dtype: Any = torch.float32,
     device="cpu",
     dim_v: int = 2048,
+    train: bool = False,
+    rnn_bwd: str = "bigmatmul",
 ) -> nn.Module:
     """``dim_v`` is the width of a region feature, or of the pooled image
     vector for the NoAtt archs (flax infers it at init)."""
-    dtype = _dtype(dtype)
+    if not train:
+        return _build(model_opt, num_words, num_answers, _dtype(dtype), device, dim_v, rnn_bwd)
+    if model_opt["arch"] in ("MFBCoAtt", "MFHCoAtt"):
+        raise NotImplementedError(mfb.TRAIN_NOT_PORTED)
+    if model_opt["arch"] == "CoR":
+        raise NotImplementedError(cor.TRAIN_NOT_PORTED)
+    if (model_opt.get("seq2vec") or {}).get("arch", "lstm") != "lstm":
+        raise NotImplementedError(gru.TRAIN_NOT_PORTED)
+    model = _build(model_opt, num_words, num_answers, _dtype(dtype), device, dim_v, rnn_bwd)
+    return model.float().requires_grad_(True)
+
+
+def _build(model_opt: Mapping[str, Any], num_words: int, num_answers: int,
+           dtype: torch.dtype, device, dim_v: int, rnn_bwd: str) -> nn.Module:
     arch = model_opt["arch"]
     extra = model_opt.get("extra") or {}
     sections = {name: model_opt.get(name) or {} for name in ("seq2vec", "attention",
@@ -90,17 +112,18 @@ def factory(
     if arch not in _ARCHS:
         raise KeyError(f"unknown model arch {arch!r}; known: {', '.join(_ARCHS)}")
     if arch in ("MFBCoAtt", "MFHCoAtt"):
-        return MFBCoAttModel.build(model_opt, num_words, num_answers, dtype, device, dim_v)
+        return mfb.MFBCoAttModel.build(model_opt, num_words, num_answers, dtype, device, dim_v)
     if arch == "CoR":
-        return CoRModel.build(model_opt, num_words, num_answers, dtype, device, dim_v)
+        return cor.CoRModel.build(model_opt, num_words, num_answers, dtype, device, dim_v)
 
-    encoder = seq2vec_lib.factory(num_words, sections["seq2vec"], dtype=dtype, device=device)
+    encoder = seq2vec_lib.factory(num_words, sections["seq2vec"], dtype=dtype, device=device,
+                                  rnn_bwd=rnn_bwd)
     classif = sections["classif"]
 
     def classifier(d_in: int) -> Classifier:
         return Classifier(d_in, num_answers, dim_h=classif.get("dim_h"),
-                          activation=classif.get("activation", "tanh"), dtype=dtype,
-                          device=device)
+                          activation=classif.get("activation", "tanh"),
+                          dropout=classif.get("dropout", 0.5), dtype=dtype, device=device)
 
     l2norm_visual = extra.get("l2norm_visual", False)
     if arch in _NOATT:  # the final fusion sees the one pooled image vector
@@ -111,7 +134,8 @@ def factory(
     att = sections["attention"]
     scoring, head = _att_scoring_fusion(arch, att, encoder.hidden_size, dim_v, dtype, device)
     nb_glimpses = att.get("nb_glimpses", 1)
-    attention = GlimpseAttention(scoring, nb_glimpses, dtype, device, **head)
+    attention = GlimpseAttention(scoring, nb_glimpses, dtype, device,
+                                 dropout_mm=att.get("dropout_mm", 0.0), **head)
     final = fusion_lib.factory(
         sections["fusion"], encoder.hidden_size, nb_glimpses * dim_v, dtype=dtype, device=device
     )
@@ -122,14 +146,16 @@ def factory(
 def _att_scoring_fusion(arch: str, att: Mapping, dim_q: int, dim_v: int, dtype, device):
     """The per-region scoring fusion of an attention-family arch and the
     glimpse head's ``dim_h``/``activation``, as
-    ``vqa_tpu/models/factory.py::_att_scoring_fusion`` builds them."""
+    ``vqa_tpu/models/factory.py::_att_scoring_fusion`` builds them (with its
+    dropout defaults, which are not the fusions' own)."""
+    drop = dict(dropout_q=att.get("dropout_q", 0.5), dropout_v=att.get("dropout_v", 0.5))
     if arch == "ConcatAtt":
-        return (fusion_lib.ConcatFusion(dim_q, dim_v, dtype=dtype, device=device),
+        return (fusion_lib.ConcatFusion(dim_q, dim_v, dtype=dtype, device=device, **drop),
                 dict(dim_h=att.get("dim_h", 1024), activation=att.get("activation", "tanh")))
     if arch == "MLBAtt":
         # attention.activation, where given, sets both sides
         return (fusion_lib.MLBFusion(
-            dim_q, dim_v, dim_h=att.get("dim_h", 1200),
+            dim_q, dim_v, dim_h=att.get("dim_h", 1200), **drop,
             activation_q=att.get("activation", att.get("activation_q", "tanh")),
             activation_v=att.get("activation", att.get("activation_v", "tanh")),
             dtype=dtype, device=device), {})
@@ -139,6 +165,9 @@ def _att_scoring_fusion(arch: str, att: Mapping, dim_q: int, dim_v: int, dtype, 
         dim_hv=att.get("dim_hv", 310),
         dim_mm=att.get("dim_mm", 510),
         R=att.get("R", 5),
+        **drop,
+        dropout_hq=att.get("dropout_hq", 0.0),
+        dropout_hv=att.get("dropout_hv", 0.0),
         activation_q=att.get("activation_q", "tanh"),
         activation_v=att.get("activation_v", "tanh"),
         core_bias=att.get("core_bias", True),

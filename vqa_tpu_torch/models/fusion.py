@@ -15,8 +15,10 @@ cascades ``mfh_order`` MFB blocks and concatenates their pooled outputs.
 
 Leading dimensions of q and v broadcast (the attention applies the fusion
 per region). Each fusion's ``out_dim`` is the width of what it returns.
-Dropout is a training-time knob and the port is inference only so far, so
-it is accepted by the factory and not applied.
+Dropout sits where the flax fusions apply it, with their default rates, and
+is on only when ``forward`` gets the train step's ``rng``; MFB/MFH's
+``dropout_pre`` is accepted and not applied (their training is ROADMAP.md
+queue 1, item 5c).
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ from typing import Any, Dict, Optional
 import torch
 from torch import nn
 
-from vqa_tpu_torch.models.layers import Dense, param
+from vqa_tpu_torch.models.layers import Dense, dropout, param
 from vqa_tpu_torch.ops.mfb_pool import mfb_pool
 
 _ACT = {
@@ -45,12 +47,16 @@ def l2_normalize(x: torch.Tensor, dim: int = -1, eps: float = 1e-12) -> torch.Te
 class ConcatFusion(nn.Module):
     """z = [q; v] over the broadcast leading dims: ``[..., dim_q + dim_v]``."""
 
-    def __init__(self, dim_q: int, dim_v: int, dtype: torch.dtype = torch.float32,
-                 device="cpu"):
+    def __init__(self, dim_q: int, dim_v: int, dropout_q: float = 0.0, dropout_v: float = 0.0,
+                 dtype: torch.dtype = torch.float32, device="cpu"):
         super().__init__()
         self.out_dim = dim_q + dim_v
+        self.dropout_q, self.dropout_v = dropout_q, dropout_v
 
-    def forward(self, q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    def forward(self, q: torch.Tensor, v: torch.Tensor,
+                rng: Optional[torch.Generator] = None) -> torch.Tensor:
+        q = dropout(q, self.dropout_q, rng)
+        v = dropout(v, self.dropout_v, rng)
         lead = torch.broadcast_shapes(q.shape[:-1], v.shape[:-1])
         return torch.cat([q.expand(lead + q.shape[-1:]), v.expand(lead + v.shape[-1:])], dim=-1)
 
@@ -59,15 +65,20 @@ class MLBFusion(nn.Module):
     """Low-rank bilinear fusion: ``act_q(q_proj(q)) * act_v(v_proj(v))``,
     ``[..., dim_h]``."""
 
-    def __init__(self, dim_q: int, dim_v: int, dim_h: int = 1200, activation_q: str = "tanh",
-                 activation_v: str = "tanh", dtype: torch.dtype = torch.float32, device="cpu"):
+    def __init__(self, dim_q: int, dim_v: int, dim_h: int = 1200, dropout_q: float = 0.5,
+                 dropout_v: float = 0.5, activation_q: str = "tanh", activation_v: str = "tanh",
+                 dtype: torch.dtype = torch.float32, device="cpu"):
         super().__init__()
         self.out_dim = dim_h
+        self.dropout_q, self.dropout_v = dropout_q, dropout_v
         self.act_q, self.act_v = _ACT[activation_q], _ACT[activation_v]
         self.q_proj = Dense(dim_q, dim_h, dtype, device)
         self.v_proj = Dense(dim_v, dim_h, dtype, device)
 
-    def forward(self, q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    def forward(self, q: torch.Tensor, v: torch.Tensor,
+                rng: Optional[torch.Generator] = None) -> torch.Tensor:
+        q = dropout(q, self.dropout_q, rng)
+        v = dropout(v, self.dropout_v, rng)
         return self.act_q(self.q_proj(q)) * self.act_v(self.v_proj(v))
 
 
@@ -82,6 +93,10 @@ class MutanFusion(nn.Module):
         dim_hv: int = 310,
         dim_mm: int = 510,
         R: int = 5,
+        dropout_q: float = 0.5,
+        dropout_v: float = 0.5,
+        dropout_hq: float = 0.0,
+        dropout_hv: float = 0.0,
         activation_q: str = "tanh",
         activation_v: str = "tanh",
         activation_hq: str = "none",
@@ -94,6 +109,9 @@ class MutanFusion(nn.Module):
         super().__init__()
         self.R, self.dim_mm = R, dim_mm
         self.out_dim = dim_mm
+        self.dtype = dtype
+        self.dropout_q, self.dropout_v = dropout_q, dropout_v
+        self.dropout_hq, self.dropout_hv = dropout_hq, dropout_hv
         self.act_q, self.act_v = _ACT[activation_q], _ACT[activation_v]
         self.act_hq, self.act_hv = _ACT[activation_hq], _ACT[activation_hv]
         self.project_inputs = project_inputs
@@ -108,15 +126,20 @@ class MutanFusion(nn.Module):
             self.b_core_q = param(R * dim_mm, dtype=dtype, device=device)
             self.b_core_v = param(R * dim_mm, dtype=dtype, device=device)
 
-    def forward(self, q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    def forward(self, q: torch.Tensor, v: torch.Tensor,
+                rng: Optional[torch.Generator] = None) -> torch.Tensor:
         if self.project_inputs:
+            q = dropout(q, self.dropout_q, rng)
+            v = dropout(v, self.dropout_v, rng)
             q = self.act_q(self.q_proj(q))
             v = self.act_v(self.v_proj(v))
-        qr = q @ self.w_core_q
-        vr = v @ self.w_core_v
+        q = dropout(q, self.dropout_hq, rng)
+        v = dropout(v, self.dropout_hv, rng)
+        qr = q @ self.w_core_q.to(self.dtype)
+        vr = v @ self.w_core_v.to(self.dtype)
         if self.core_bias:
-            qr = qr + self.b_core_q
-            vr = vr + self.b_core_v
+            qr = qr + self.b_core_q.to(self.dtype)
+            vr = vr + self.b_core_v.to(self.dtype)
         qr = self.act_hq(qr).unflatten(-1, (self.R, self.dim_mm))
         vr = self.act_hv(vr).unflatten(-1, (self.R, self.dim_mm))
         return torch.tanh((qr * vr).sum(dim=-2))
@@ -143,7 +166,10 @@ class MFBFusion(nn.Module):
     def pool(self, z: torch.Tensor) -> torch.Tensor:
         return mfb_pool(z.contiguous(), self.pool_factor)
 
-    def forward(self, q: torch.Tensor, v: torch.Tensor, prev: Optional[torch.Tensor] = None):
+    def forward(self, q: torch.Tensor, v: torch.Tensor, prev: Optional[torch.Tensor] = None,
+                rng: Optional[torch.Generator] = None):
+        # rng is taken for the attention's call and not used: dropout_pre is
+        # not applied while the MFB models refuse training (item 5c)
         z = self.pre_pool(q, v, prev)
         return self.pool(z), z
 
@@ -161,8 +187,9 @@ class MFHFusion(nn.Module):
         for i in range(mfh_order):
             setattr(self, f"mfb_{i}", MFBFusion(dim_q, dim_v, pool_factor, dim_mm, dtype, device))
 
-    def forward(self, q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-        outs, prev = [], None
+    def forward(self, q: torch.Tensor, v: torch.Tensor,
+                rng: Optional[torch.Generator] = None) -> torch.Tensor:
+        outs, prev = [], None  # rng: as MFBFusion's
         for i in range(self.mfh_order):
             out, prev = getattr(self, f"mfb_{i}")(q, v, prev=prev)
             outs.append(out)
@@ -183,7 +210,7 @@ _FUSIONS = {
     "mfb": (MFBFusion, {"pool_factor", "dim_mm", "dropout_pre"}),
     "mfh": (MFHFusion, {"pool_factor", "dim_mm", "mfh_order", "dropout_pre"}),
 }
-_DROPOUT_KEYS = {"dropout_q", "dropout_v", "dropout_hq", "dropout_hv", "dropout_pre"}
+_UNAPPLIED = {"dropout_pre"}  # MFB/MFH's, until their training (item 5c)
 
 
 def factory(opt: Dict[str, Any], dim_q: int, dim_v: int, dtype=torch.float32,
@@ -200,5 +227,5 @@ def factory(opt: Dict[str, Any], dim_q: int, dim_v: int, dtype=torch.float32,
             f"fusion arch {arch!r} got unknown option(s) {sorted(unknown)}; "
             f"valid: {sorted(valid)}"
         )
-    kwargs = {k: v for k, v in kwargs.items() if k not in _DROPOUT_KEYS}
+    kwargs = {k: v for k, v in kwargs.items() if k not in _UNAPPLIED}
     return cls(dim_q, dim_v, dtype=dtype, device=device, **kwargs)

@@ -24,6 +24,11 @@ from vqa_tpu_torch.models.layers import Dense
 from vqa_tpu_torch.models.seq2vec import SeqEncoder
 from vqa_tpu_torch.ops.attention import glimpse_attend
 
+TRAIN_NOT_PORTED = (
+    "training MFBCoAtt and MFHCoAtt is not ported yet (dropout_pre and the mfb_pool and "
+    "glimpse_attend backwards): ROADMAP.md queue 1, item 5c"
+)
+
 
 class QuestionSelfAttention(nn.Module):
     """seq [B, T, H], mask [B, T] bool -> [B, glimpses*H].
@@ -65,10 +70,12 @@ class MFBCoAttModel(nn.Module):
     def forward(self, visual: torch.Tensor, question: torch.Tensor,
                 lengths: Optional[torch.Tensor] = None, train: bool = False,
                 return_attention: bool = False):
+        if train:
+            raise NotImplementedError(TRAIN_NOT_PORTED)
         v = visual.to(self.encoder.dtype)
         if self.l2norm_visual:
             v = l2_normalize(v)
-        seq = self.encoder(question, lengths, train=train)   # [B, T, H]; train=True raises
+        seq = self.encoder(question, lengths)                # [B, T, H]
         q = self.q_attention(seq, question != 0)             # [B, Gq*H]
         v_att, alpha = self.v_attention(q, v)                # [B, Gv*Dv]
         z = self.final_fusion(q, v_att)

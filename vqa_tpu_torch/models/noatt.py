@@ -31,14 +31,16 @@ class NoAttModel(nn.Module):
         self.l2norm_visual = l2norm_visual
 
     def forward(self, visual: torch.Tensor, question: torch.Tensor,
-                lengths: Optional[torch.Tensor] = None, train: bool = False):
+                lengths: Optional[torch.Tensor] = None, train: bool = False,
+                rng: Optional[torch.Generator] = None):
+        """``train`` and ``rng`` as ``AttModel.forward``'s."""
         v = visual.to(self.encoder.dtype)
         if v.ndim == 3:  # region features given: mean-pool to a global vector
             v = v.mean(dim=1)
         if self.l2norm_visual:
             v = l2_normalize(v)
-        q = self.encoder(question, lengths, train=train)  # train=True raises there
-        z = self.fusion(q, v)
+        q = self.encoder(question, lengths, train=train, rng=rng)
+        z = self.fusion(q, v, rng=rng)
         if isinstance(z, tuple):
             z = z[0]
-        return self.classifier(z)
+        return self.classifier(z, rng=rng)

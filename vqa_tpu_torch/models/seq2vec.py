@@ -9,7 +9,8 @@ kernel). ``skipthoughts`` is the skip-thoughts encoder's shape, as in the
 JAX package: one GRU layer, 2400 units by default, trained from scratch
 (the pretrained weights are not available offline). The mask comes from
 the token ids (0 is <pad>), not from lengths, so left- and right-padded
-rows both end on their last real step.
+rows both end on their last real step. Dropout (``dropout``) applies to the
+embeddings and between layers, as in the JAX encoder.
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ from typing import Any, Dict, Optional
 import torch
 from torch import nn
 
-from vqa_tpu_torch.models.layers import Embed, param
+from vqa_tpu_torch.models.layers import Embed, dropout, param
 from vqa_tpu_torch.ops.gru import gru_seq
 from vqa_tpu_torch.ops.lstm import lstm_seq
 
@@ -29,15 +30,18 @@ class LSTMLayer(nn.Module):
 
     flax layout: ``wx [E, 4H]``, ``wh [H, 4H]``, ``b [4H]``, gates i, f, g, o."""
 
-    def __init__(self, d_in: int, hidden_size: int, dtype: torch.dtype, device):
+    def __init__(self, d_in: int, hidden_size: int, dtype: torch.dtype, device,
+                 rnn_bwd: str = "bigmatmul"):
         super().__init__()
+        self.dtype = dtype
+        self.rnn_bwd = rnn_bwd
         self.wx = param(d_in, 4 * hidden_size, dtype=dtype, device=device)
         self.wh = param(hidden_size, 4 * hidden_size, dtype=dtype, device=device)
         self.b = param(4 * hidden_size, dtype=dtype, device=device)
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor, train: bool = False):
-        xg = x @ self.wx + self.b
-        return lstm_seq(xg, mask, self.wh, train=train)
+        xg = x @ self.wx.to(self.dtype) + self.b.to(self.dtype)
+        return lstm_seq(xg, mask, self.wh.to(self.dtype), train=train, rnn_bwd=self.rnn_bwd)
 
 
 class GRULayer(nn.Module):
@@ -71,41 +75,49 @@ class SeqEncoder(nn.Module):
         emb_size: int = 620,
         hidden_size: int = 2400,
         num_layers: int = 1,
+        dropout: float = 0.0,
         cell: str = "lstm",
         return_sequence: bool = False,
         dtype: torch.dtype = torch.float32,
         device="cpu",
+        rnn_bwd: str = "bigmatmul",
     ):
         super().__init__()
         if cell not in _CELLS:
             raise ValueError(f"unknown cell {cell!r}")
         self.hidden_size = hidden_size
         self.num_layers = num_layers
+        self.dropout = dropout
         self.cell = cell
         self.return_sequence = return_sequence
         self.dtype = dtype
         self.embed = Embed(vocab_size, emb_size, dtype, device)
+        cell_opt = {"rnn_bwd": rnn_bwd} if cell == "lstm" else {}
         for layer in range(num_layers):
             d_in = emb_size if layer == 0 else hidden_size
-            setattr(self, f"{cell}_{layer}", _CELLS[cell](d_in, hidden_size, dtype, device))
+            setattr(self, f"{cell}_{layer}",
+                    _CELLS[cell](d_in, hidden_size, dtype, device, **cell_opt))
 
     def forward(self, tokens: torch.Tensor, lengths: Optional[torch.Tensor] = None,
-                train: bool = False) -> torch.Tensor:
-        x = self.embed(tokens).transpose(0, 1)                      # [T, B, E]
+                train: bool = False, rng: Optional[torch.Generator] = None) -> torch.Tensor:
+        """``train`` selects the recurrence's backward (``ops.lstm``);
+        ``rng``, the train step's generator, switches dropout on."""
+        x = dropout(self.embed(tokens), self.dropout, rng).transpose(0, 1)   # [T, B, E]
         mask = (tokens != 0).to(self.dtype).T.unsqueeze(-1).contiguous()  # [T, B, 1]
         h_last = None
         for layer in range(self.num_layers):
             h_last, x = getattr(self, f"{self.cell}_{layer}")(x, mask, train=train)
+            if layer + 1 < self.num_layers:
+                x = dropout(x, self.dropout, rng)
         if self.return_sequence:
             return x.transpose(0, 1)
         return h_last
 
 
 def factory(vocab_size: int, opt: Dict[str, Any], dtype=torch.float32,
-            device="cpu") -> SeqEncoder:
+            device="cpu", rnn_bwd: str = "bigmatmul") -> SeqEncoder:
     """Build the question encoder from the model.seq2vec config dict, as
-    ``vqa_tpu/models/seq2vec.py::factory`` does (dropout is a training-time
-    knob and not applied)."""
+    ``vqa_tpu/models/seq2vec.py::factory`` does."""
     arch = opt.get("arch", "lstm")
     if arch == "skipthoughts":  # the skip-thoughts shape: one GRU layer, 2400 units
         hidden_size, num_layers, cell = opt.get("hidden_size", 2400), 1, "gru"
@@ -118,8 +130,10 @@ def factory(vocab_size: int, opt: Dict[str, Any], dtype=torch.float32,
         emb_size=opt.get("emb_size", 620),
         hidden_size=hidden_size,
         num_layers=num_layers,
+        dropout=opt.get("dropout", 0.0),
         cell=cell,
         return_sequence=opt.get("return_sequence", False),
         dtype=dtype,
         device=device,
+        rnn_bwd=rnn_bwd,
     )

@@ -10,6 +10,13 @@ On CUDA tensors both launch the hand-written kernel in
 ``csrc/glimpse_head.cu`` (bf16; glimpse_attend is its logits-given entry)
 with the schedule ``glimpse_plan`` gives; on CPU tensors they take the
 plain version. Each wrapper counts its own launches.
+
+Where an input of glimpse_head asks for grads, the call is a
+``torch.autograd.Function``: the same forward, and a backward by autograd
+through ``glimpse_head_reference`` on the saved inputs (a recompute), as
+``vqa_tpu/ops/attention.py::_head_bwd`` takes the vjp of its jnp reference.
+Both outputs are differentiable. glimpse_attend has no backward yet (MFB/MFH
+training, ROADMAP.md queue 1, item 5c).
 """
 
 from __future__ import annotations
@@ -204,7 +211,38 @@ def launch_glimpse_head(joint, w, b, v, attended, logits, plan: dict) -> None:
     _build.check(err, "glimpse_head")
 
 
+class _GlimpseHead(torch.autograd.Function):
+    """``_glimpse_head_forward`` (the kernel on the card), and the grads of
+    ``glimpse_head_reference`` recomputed from the saved inputs."""
+
+    @staticmethod
+    def forward(ctx, joint, w, b, v):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(joint, w, b, v)
+        return _glimpse_head_forward(joint, w, b, v)
+
+    @staticmethod
+    def backward(ctx, g_att, g_logits):
+        with torch.enable_grad():
+            inputs = [x.detach().requires_grad_(need)
+                      for x, need in zip(ctx.saved_tensors, ctx.needs_input_grad)]
+            outs = glimpse_head_reference(*inputs)
+            # a caller that ignores an output passes no cotangent for it
+            pairs = [(o, g) for o, g in zip(outs, (g_att, g_logits)) if g is not None]
+            wanted = [x for x in inputs if x.requires_grad]
+            grads = iter(torch.autograd.grad([o for o, _ in pairs], wanted,
+                                             [g for _, g in pairs], allow_unused=True))
+        return tuple(next(grads) if x.requires_grad else None for x in inputs)
+
+
 def glimpse_head(joint: torch.Tensor, w: torch.Tensor, b: torch.Tensor, v: torch.Tensor):
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (joint, w, b, v)):
+        return _GlimpseHead.apply(joint, w, b, v)
+    return _glimpse_head_forward(joint, w, b, v)
+
+
+def _glimpse_head_forward(joint: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                          v: torch.Tensor):
     if joint.device.type == "cpu":
         return glimpse_head_reference(joint, w, b, v)
     if joint.ndim != 3 or w.ndim != 2 or v.ndim != 3:

@@ -15,14 +15,18 @@ kernel, so the port's version is plain PyTorch on every device: a loop of T
 steps, each one matmul and the gate math. As there, the recurrent product is
 taken in the compute dtype (``gx``'s) and ``bh`` is cast to it. The training
 path (the big-matmul backward, ``vqa_tpu/ops/gru.py::_bm_bwd``) is not
-ported yet.
+ported yet: ``train=True`` raises ``TRAIN_NOT_PORTED``.
 """
 
 from __future__ import annotations
 
 import torch
 
-from vqa_tpu_torch.ops.lstm import TRAIN_NOT_PORTED
+TRAIN_NOT_PORTED = (
+    "training the GRU encoder (gru, skipthoughts) is not ported yet: its "
+    "big-matmul backward is ROADMAP.md queue 2, section A7, with the MFB/MFH and "
+    "CoR train steps in queue 1, item 5c"
+)
 
 
 def gru_seq_reference(gx: torch.Tensor, mask: torch.Tensor, wh: torch.Tensor,

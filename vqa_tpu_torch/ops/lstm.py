@@ -1,4 +1,4 @@
-"""Masked LSTM recurrence, the port of ``vqa_tpu/ops/lstm.py`` (forward).
+"""Masked LSTM recurrence, the port of ``vqa_tpu/ops/lstm.py``.
 
 lstm_seq(xg [T, B, 4H], mask [T, B, 1], wh [H, 4H]) -> (h_last [B, H],
 seq [T, B, H])
@@ -8,11 +8,25 @@ one GEMM (models/seq2vec.py). Gates are in i, f, g, o order. Where the mask
 is 0, h and c stay frozen and ``seq`` is 0, so ``h_last`` is each row's last
 real step whichever side the padding is on.
 
-On CUDA tensors this launches the hand-written kernel in ``csrc/lstm.cu``
-(bf16, one persistent launch for all T steps, tiles chosen by
-``lstm_plan``); on CPU tensors it takes the plain version. The training
-path (the hand-written big-matmul backward,
-``vqa_tpu/ops/lstm.py::_lstm_seq_bigmatmul``) is not ported yet.
+On CUDA tensors the forward launches the hand-written kernel in
+``csrc/lstm.cu`` (bf16, one persistent launch for all T steps, tiles chosen
+by ``lstm_plan``); on CPU tensors it takes the plain version. Where grads
+are asked for, the call is a ``torch.autograd.Function`` whose backward is
+plain PyTorch, as the JAX package's vjps are jnp:
+
+- ``train=True`` with ``rnn_bwd="bigmatmul"`` (``engine.rnn_bwd``'s
+  default): ``_lstm_seq_bigmatmul``'s backward (``_bm_bwd``), a reverse scan
+  that keeps only the dh/dc propagation, then ``dwh`` as one GEMM over
+  [T*B] accumulated in fp32 and rounded to wh's dtype, ``dxg = dgates``,
+  ``dmask = 0``;
+- ``rnn_bwd="native"``, or ``train=False``: autograd through
+  ``lstm_seq_reference``.
+
+The kernel saves no gate activations, so the backward first recomputes the
+forward's residuals by a plain scan (``_bm_fwd``), as the JAX package's
+Pallas vjp recomputes. The recompute keeps the plain version's arithmetic
+(gate math in the compute dtype), where the kernel does its gate math in
+fp32: in bf16 the residuals differ from the kernel's by bf16 rounding.
 """
 
 from __future__ import annotations
@@ -25,10 +39,7 @@ import torch
 
 from vqa_tpu_torch.ops import _build
 
-TRAIN_NOT_PORTED = (
-    "training is not ported yet: the LSTM backward and the train step are "
-    "ROADMAP.md queue 1, item 5"
-)
+RNN_BWD = ("bigmatmul", "native")  # engine.rnn_bwd
 
 
 SMS = 132  # streaming multiprocessors of an H100 SXM
@@ -164,9 +175,106 @@ def lstm_seq_reference(xg: torch.Tensor, mask: torch.Tensor, wh: torch.Tensor):
     return h, torch.stack(seq)
 
 
-def lstm_seq(xg: torch.Tensor, mask: torch.Tensor, wh: torch.Tensor, train: bool = False):
-    if train:
-        raise NotImplementedError(TRAIN_NOT_PORTED)
+def _bm_fwd(xg: torch.Tensor, mask: torch.Tensor, wh: torch.Tensor):
+    """The plain forward scan that also returns what ``_bm_bwd`` reads
+    (``vqa_tpu/ops/lstm.py::_bm_fwd``): the carries h and c after each step,
+    the gate activations i, f, g, o ([T, B, 4H]) and tanh(c) ([T, B, H])."""
+    T, B, _ = xg.shape
+    H = wh.shape[0]
+    h = xg.new_zeros(B, H)
+    c = xg.new_zeros(B, H)
+    seq, h_carry, c_carry, acts, tcs = [], [], [], [], []
+    for t in range(T):
+        gates = xg[t] + h @ wh
+        i, f, g, o = gates.chunk(4, dim=-1)
+        i, f, o = torch.sigmoid(i), torch.sigmoid(f), torch.sigmoid(o)
+        g = torch.tanh(g)
+        new_c = f * c + i * g
+        tc = torch.tanh(new_c)
+        new_h = o * tc
+        keep = mask[t] != 0
+        h = torch.where(keep, new_h, h)
+        c = torch.where(keep, new_c, c)
+        seq.append(new_h * mask[t])
+        h_carry.append(h)
+        c_carry.append(c)
+        acts.append(torch.cat([i, f, g, o], dim=-1))
+        tcs.append(tc)
+    residuals = tuple(torch.stack(x) for x in (h_carry, c_carry, acts, tcs))
+    return (h, torch.stack(seq)), residuals
+
+
+def _bm_bwd(mask, wh, residuals, dh_last, dseq):
+    """(dxg, dwh) of ``vqa_tpu/ops/lstm.py::_bm_bwd``: the reverse scan keeps
+    only the dh/dc propagation and stores the gate grads; ``dwh`` is then one
+    GEMM over [T*B] (on the card cuBLAS accumulates a bf16 GEMM in fp32) in
+    wh's dtype, and ``dxg`` is the gate grads."""
+    h_carry, c_carry, acts, tcs = residuals
+    T, B, H = h_carry.shape
+    zero = h_carry.new_zeros(1, B, H)
+    # step t consumed the carries (h_{t-1}, c_{t-1})
+    h_prev = torch.cat([zero, h_carry[:-1]])
+    c_prev = torch.cat([zero, c_carry[:-1]])
+    wh_t = wh.t()
+    dh = dh_last.to(h_carry.dtype)
+    dc = h_carry.new_zeros(B, H)
+    dgates = h_carry.new_empty(T, B, 4 * H)
+    for t in reversed(range(T)):
+        m = mask[t]
+        i, f, g, o = acts[t].chunk(4, dim=-1)
+        tc = tcs[t]
+        dnew_h = m * (dh + dseq[t])  # seq_t = new_h * m; h = m ? new_h : h
+        dnew_c = m * dc + dnew_h * o * (1.0 - tc * tc)
+        torch.cat([(dnew_c * g) * i * (1.0 - i), (dnew_c * c_prev[t]) * f * (1.0 - f),
+                   (dnew_c * i) * (1.0 - g * g), (dnew_h * tc) * o * (1.0 - o)],
+                  dim=-1, out=dgates[t])
+        dh = (1.0 - m) * dh + dgates[t] @ wh_t
+        dc = (1.0 - m) * dc + dnew_c * f
+    dwh = h_prev.reshape(T * B, H).t() @ dgates.reshape(T * B, 4 * H)
+    return dgates, dwh.to(wh.dtype)
+
+
+class _LSTMSeq(torch.autograd.Function):
+    """The forward of ``_lstm_seq_forward`` (the kernel on the card), the
+    backward of ``rnn_bwd`` in plain PyTorch after a plain recompute."""
+
+    @staticmethod
+    def forward(ctx, xg, mask, wh, rnn_bwd):
+        ctx.rnn_bwd = rnn_bwd
+        ctx.save_for_backward(xg, mask, wh)
+        return _lstm_seq_forward(xg, mask, wh)
+
+    @staticmethod
+    def backward(ctx, dh_last, dseq):
+        xg, mask, wh = ctx.saved_tensors
+        if ctx.rnn_bwd == "native":
+            with torch.enable_grad():
+                inputs = [x.detach().requires_grad_(need)
+                          for x, need in zip((xg, mask, wh), ctx.needs_input_grad)]
+                outs = lstm_seq_reference(*inputs)
+                wanted = [x for x in inputs if x.requires_grad]
+                grads = iter(torch.autograd.grad(outs, wanted, (dh_last, dseq)))
+            return (*(next(grads) if x.requires_grad else None for x in inputs), None)
+        with torch.no_grad():
+            _, residuals = _bm_fwd(xg, mask, wh)
+            dxg, dwh = _bm_bwd(mask, wh, residuals, dh_last, dseq)
+        dmask = torch.zeros_like(mask) if ctx.needs_input_grad[1] else None
+        return dxg, dmask, dwh, None
+
+
+def lstm_seq(xg: torch.Tensor, mask: torch.Tensor, wh: torch.Tensor, train: bool = False,
+             rnn_bwd: str = "bigmatmul"):
+    """The forward, or, where an input asks for grads, ``_LSTMSeq`` with the
+    backward ``rnn_bwd`` names (``train=False``: "native", as the JAX
+    package's eval path differentiates its reference)."""
+    if rnn_bwd not in RNN_BWD:
+        raise ValueError(f"rnn_bwd must be one of {RNN_BWD}, got {rnn_bwd!r}")
+    if torch.is_grad_enabled() and (xg.requires_grad or wh.requires_grad):
+        return _LSTMSeq.apply(xg, mask, wh, rnn_bwd if train else "native")
+    return _lstm_seq_forward(xg, mask, wh)
+
+
+def _lstm_seq_forward(xg: torch.Tensor, mask: torch.Tensor, wh: torch.Tensor):
     if xg.device.type == "cpu":
         return lstm_seq_reference(xg, mask, wh)
     if xg.ndim != 3 or wh.ndim != 2:
@@ -182,7 +290,7 @@ def lstm_seq(xg: torch.Tensor, mask: torch.Tensor, wh: torch.Tensor, train: bool
     _build.require("wh", wh, dev, dt, (H, 4 * H))
     if H % 2:  # the kernel takes an even H: one zero unit more, sliced off after
         xp, wp = pad_odd_hidden(xg, wh)
-        h_last, seq = lstm_seq(xp, mask, wp)
+        h_last, seq = _lstm_seq_forward(xp, mask, wp)
         return h_last[:, :H].contiguous(), seq[..., :H].contiguous()
     if xg.data_ptr() % 16:
         raise ValueError("lstm_seq reads xg in 16-byte chunks: its storage must start on 16 "

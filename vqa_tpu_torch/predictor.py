@@ -32,7 +32,7 @@ from vqa_tpu_torch.datasets.tokenizer import get_tokenizer
 from vqa_tpu_torch.models.factory import factory as model_factory
 from vqa_tpu_torch.ops.gather import gather_rows
 from vqa_tpu_torch.utils.decode import topk_answers
-from vqa_tpu_torch.weights import load_params
+from vqa_tpu_torch.weights import load_params, pretrained_params
 
 
 @dataclasses.dataclass
@@ -89,9 +89,12 @@ class Predictor:
         """Load a run's config, its val dataset (prepared on first use, as the
         JAX package's ``from_run`` does) with the vocabularies and the feature
         table, and the weights from the ``params`` npz (default: the config's
-        ``model.pretrained_params``). With no ``path_opt`` the run's own
-        options.yaml is used. The model computes in bf16 on CUDA (the kernels
-        take bf16) and in the config's ``engine.dtype`` elsewhere."""
+        ``model.pretrained_params``) over the config's
+        ``seq2vec.pretrained_emb`` / ``pretrained_encoder`` grafts, as the
+        eval CLI and the JAX ``from_run(resume=None)`` compose them. With no
+        ``path_opt`` the run's own options.yaml is used. The model computes in
+        bf16 on CUDA (the kernels take bf16) and in the config's
+        ``engine.dtype`` elsewhere."""
         import os
 
         from vqa_tpu_torch.config import load_options
@@ -100,8 +103,9 @@ class Predictor:
         if path_opt is None:
             path_opt = os.path.join(dir_logs, "options.yaml")
         opt = load_options(path_opt, overrides, default_path=None)
-        params = params or opt.model.pretrained_params
-        if params is None:
+        seq2vec = opt.model.seq2vec or {}
+        if not (params or opt.model.pretrained_params or seq2vec.get("pretrained_emb")
+                or seq2vec.get("pretrained_encoder")):
             raise ValueError(
                 "the port loads weights from an npz, not an Orbax checkpoint: pass "
                 "params= (python -m vqa_tpu.cli.export --params external writes one)"
@@ -114,8 +118,7 @@ class Predictor:
             dataclasses.asdict(opt.model), val_set.num_words, val_set.num_answers,
             dtype=dtype, device=device, dim_v=features.feature_shape[-1],
         )
-        with np.load(params) as flat:
-            load_params(model, flat)
+        load_params(model, pretrained_params(opt.model, params))
         vocabs = val_set.vocabs
         catalog = Catalog(vocabs.word_to_wid, vocabs.aid_to_ans, features._name_to_index)
         table = torch.from_numpy(features.as_array())

@@ -8,12 +8,14 @@ keeps flax's layout ([in, out] Dense kernels; LSTM ``wx [E, 4H]``,
 so the bridge is a rename with no transposes. The flat '/'-keyed mapping is
 what ``vqa_tpu.importers.flatten_tree`` returns and what
 ``importers.save_tree_npz`` and ``python -m vqa_tpu.cli.export --params
-external`` write (``params.npz``).
+external`` write (``params.npz``). A training build (float32 parameters,
+``models.factory(..., train=True)``) loads a flax tree and exports its
+trained parameters the same way.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -43,14 +45,13 @@ def load_params(model: nn.Module, flat: Mapping[str, np.ndarray]) -> None:
 
 
 def export_params(model: nn.Module) -> Dict[str, np.ndarray]:
-    """The model's parameters as a '/'-keyed mapping of numpy arrays (bf16
-    parameters come back as float32, which numpy can hold)."""
+    """The model's parameters as a '/'-keyed mapping of numpy arrays, copies
+    that later training steps leave as they are (bf16 parameters come back as
+    float32, which numpy can hold)."""
     out = {}
     for name, p in model.named_parameters():
-        t = p.detach().cpu()
-        if t.dtype == torch.bfloat16:
-            t = t.float()
-        out[_key(name)] = t.numpy()
+        dtype = torch.float32 if p.dtype == torch.bfloat16 else p.dtype
+        out[_key(name)] = p.detach().to("cpu", dtype, copy=True).numpy()
     return out
 
 
@@ -70,3 +71,22 @@ def random_params(model: nn.Module, seed: int) -> None:
             else:
                 value = torch.zeros(p.shape)
             p.copy_(value)
+
+
+def pretrained_params(model_opt: Any, params: Optional[str] = None) -> Dict[str, np.ndarray]:
+    """The '/'-keyed weights a run's ``model`` options name, in the order
+    ``vqa_tpu/cli/train.py::init_params`` grafts them:
+    ``seq2vec.pretrained_emb`` under encoder/embed/,
+    ``seq2vec.pretrained_encoder`` under encoder/, then ``params`` (default
+    ``model.pretrained_params``) over both. Unlike there, no init fills the
+    leaves they leave out: ``load_params`` refuses a missing one."""
+    flat: Dict[str, np.ndarray] = {}
+    seq2vec = model_opt.seq2vec or {}
+    grafts = ((seq2vec.get("pretrained_emb"), "encoder/embed/"),
+              (seq2vec.get("pretrained_encoder"), "encoder/"),
+              (params or model_opt.pretrained_params, ""))
+    for path, prefix in grafts:
+        if path:
+            with np.load(path) as npz:
+                flat.update({prefix + k: npz[k] for k in npz.files})
+    return flat
