@@ -93,7 +93,25 @@ Phases, each printing one line of what it found:
      the recompute's share of a step, torch.cuda.max_memory_allocated. Then
      MLBAtt, ConcatAtt, MutanNoAtt, MLBNoAtt and ConcatNoAtt (the NoAtt
      archs over the pooled table) at their widths: the same kernel-against-
-     plain hold and three steps each.
+     plain hold and three steps each;
+  9. train_cli: the port's train CLI (python -m vqa_tpu_torch.cli.train,
+     called in-process) at the full width of options/vqa2/mutan_att.yaml,
+     from the port's init (weights.init_params, engine.seed), over phase
+     6's synthetic raw VQA v2 set (train questions over 1024 train2014
+     images, val over 1024 val2014 images: one in-memory store of 2048 rows,
+     bf16 on the card), engine.train_bucketing=8, the YAML's batch 128 and
+     dropout, --epochs 2 --checkpoint_every_steps 40. Run A straight; run B
+     sent SIGTERM once epoch 1's step checkpoint at 40 has landed (main
+     returns 75, info.json names the step where the flag was seen), then
+     --resume latest. Held: B's final params, optimizer arrays and step
+     equal A's bit for bit, and its epoch-1 val acc1; -e --resume best on A
+     reports the acc1 A logged for its best epoch; Predictor.from_run(A,
+     resume="best") answers 64 val questions as the eval step does on the
+     same batch; finite losses; no step lost or repeated; only gather_rows,
+     lstm_seq and glimpse_head launched. Printed: each run's train QA/s
+     and mean step time (host clock, the step checkpoints' time taken out)
+     and val QA/s (metrics.jsonl), each save's seconds and bytes, the
+     restore's seconds and the resume's lost steps.
 
 Any failed check raises, and the script exits non-zero. On success the
 second-to-last line is the per-kernel JSON record and the last line is
@@ -237,6 +255,17 @@ TRAIN_ARCHS = {"MLBAtt": "mlb_att", "ConcatAtt": "concat_att", "MutanNoAtt": "mu
 TRAIN_GRAD_RTOL = 5e-2
 TRAIN_GRAD_FLOOR = 1e-3
 TRAIN_LOSS_ATOL = 2 * LOGITS_ATOL
+# the train CLI phase (9): mutan_att.yaml at full width from the port's init,
+# over the eval CLI's synthetic raw VQA v2 set (its train questions cite
+# train2014 images, so the one in-memory store holds both 1024-image sets),
+# 2 epochs with a step checkpoint every 40 steps; run B is sent SIGTERM once
+# epoch 1's step checkpoint at 40 has landed, then resumed. 64 questions go
+# to the Predictor from the run's best checkpoint
+TRAIN_CLI_EPOCHS = 2
+TRAIN_CLI_CKPT_EVERY = 40
+TRAIN_CLI_SIGTERM_AT = (1, TRAIN_CLI_CKPT_EVERY)
+TRAIN_CLI_SERVED = 64
+TRAIN_CLI_KERNELS = ("gather_rows", "lstm_seq", "glimpse_head")
 SOURCES = {  # kernel -> (its CUDA source, the TPU kernel it replaces)
     "gather_rows": ("vqa_tpu_torch/csrc/gather.cu", "vqa_tpu/ops/gather.py:58"),
     # the same TPU kernel on the int8 rows, with the dequant after it
@@ -1634,6 +1663,264 @@ def _train_phase(torch, dev, host_table, table, pooled, card) -> dict:
     return launches
 
 
+# ------------------------------------------------------------- train CLI
+
+
+def _dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
+
+
+def _train_cli_phase(torch, dev, host_table: np.ndarray, card: str) -> dict:
+    """Phase 9 (the docstring): the port's train CLI, straight and preempted
+    then resumed, its eval-only resume and the Predictor from its
+    checkpoint; returns the launch counts of the phase."""
+    import io
+    import signal
+    import tempfile
+
+    from vqa_tpu_torch.cli import train as train_cli
+    from vqa_tpu_torch.config import load_options
+    from vqa_tpu_torch.datasets import factory as data_factory
+    from vqa_tpu_torch.datasets.features import FeatureStore
+    from vqa_tpu_torch.datasets.interim import RAW_FILES, image_name
+    from vqa_tpu_torch.engine import engine as engine_lib
+    from vqa_tpu_torch.engine.checkpoint import CheckpointManager
+    from vqa_tpu_torch.engine.steps import make_eval_step
+    from vqa_tpu_torch.predictor import Predictor
+
+    yaml = os.path.join(_REPO, "options", "vqa2", "mutan_att.yaml")
+    saves, restores, trains = [], [], []
+    sigterm = {"at": None, "seen": None}
+    real = {"save": CheckpointManager.save, "save_step": CheckpointManager.save_step,
+            "restore": CheckpointManager.restore,
+            "restore_step": CheckpointManager.restore_step,
+            "train": engine_lib.train, "make_train_step": train_cli.make_train_step}
+    executed = [0]
+
+    def timed_save(self, state, epoch, acc=None):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = real["save"](self, state, epoch, acc)
+        saves.append(("epoch", time.perf_counter() - t, _dir_bytes(self._epoch_dir(epoch))))
+        return out
+
+    def timed_save_step(self, state, epoch, next_step):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        real["save_step"](self, state, epoch, next_step)
+        saves.append(("step", time.perf_counter() - t,
+                      _dir_bytes(self._step_dir(epoch, next_step))))
+        if sigterm["at"] is not None and sigterm["seen"] is None and \
+                (epoch, next_step) > sigterm["at"]:
+            sigterm["seen"] = (epoch, next_step)  # the preemption save
+        if (epoch, next_step) == sigterm["at"]:
+            os.kill(os.getpid(), signal.SIGTERM)
+
+    def timed(name, store):
+        def wrapper(*args, **kwargs):
+            t = time.perf_counter()
+            out = real[name](*args, **kwargs)
+            torch.cuda.synchronize()
+            store.append(time.perf_counter() - t)
+            return out
+        return wrapper
+
+    def timed_train(loader, state, train_step, exp, epoch, *args, **kwargs):
+        n0, s0, t = executed[0], len(saves), time.perf_counter()
+        try:
+            return real["train"](loader, state, train_step, exp, epoch, *args, **kwargs)
+        finally:
+            wall = time.perf_counter() - t
+            ckpt_s = sum(sec for _, sec, _ in saves[s0:])
+            trains.append(dict(epoch=epoch, steps=executed[0] - n0, wall=wall, ckpt_s=ckpt_s,
+                               rows=(executed[0] - n0) * loader.batch_size))
+
+    def counting_make_train_step(*args, **kwargs):
+        step = real["make_train_step"](*args, **kwargs)
+
+        def counted(state, batch, features=None):
+            executed[0] += 1
+            return step(state, batch, features)
+        return counted
+
+    patches = [(CheckpointManager, "save", timed_save),
+               (CheckpointManager, "save_step", timed_save_step),
+               (CheckpointManager, "restore", timed("restore", restores)),
+               (CheckpointManager, "restore_step", timed("restore_step", restores)),
+               (engine_lib, "train", timed_train),
+               (train_cli, "make_train_step", counting_make_train_step)]
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_cli_") as tmp:
+        t0 = time.perf_counter()
+        _write_raw_vqa2(os.path.join(tmp, "vqa2", "raw"), np.random.default_rng(0))
+        data = [f"vqa.dir={tmp}/vqa2", f"coco.dir={tmp}/coco"]
+        opt = load_options(yaml, data)
+        # one store for every split, as the factory keeps it: the val images'
+        # rows (phase 6's table) and the train images' rows after them
+        names = ([image_name("val2014", i) for i in range(N_IMAGES)]
+                 + [image_name("train2014", i) for i in range(N_IMAGES)])
+        train_rows = np.random.default_rng(1).standard_normal(host_table.shape, np.float32)
+        key = (opt.coco.dir, opt.coco.arch, opt.coco.mode, "ram")
+        data_factory._STORE_CACHE[key] = FeatureStore.in_memory(
+            names, np.concatenate([host_table, train_rows]))
+        del train_rows
+        train_set = data_factory.factory("train", opt, visual_mode="index")
+        val_set = data_factory.factory("val", opt, visual_mode="index")
+        setup_s = time.perf_counter() - t0
+        steps_per_epoch = len(train_set) // opt.optim.batch_size
+        _require(opt.optim.batch_size == TRAIN_BATCH and steps_per_epoch > 2 * TRAIN_CLI_CKPT_EVERY,
+                 f"{steps_per_epoch} steps of {opt.optim.batch_size} an epoch")
+        _require(train_set.image_index.min() >= N_IMAGES and val_set.image_index.max() < N_IMAGES,
+                 "train rows index the train2014 half of the one table, val rows the val half")
+        base = ["--path_opt", yaml, "--epochs", str(TRAIN_CLI_EPOCHS),
+                "--checkpoint_every_steps", str(TRAIN_CLI_CKPT_EVERY)]
+        for o in data + ["engine.device_features=true", "engine.features_dtype=bfloat16",
+                         f"engine.train_bucketing={TRAIN_BUCKET_WINDOW}",
+                         "optim.eval_batch_size=1024"]:
+            base += ["--opt", o]
+        logs = {r: os.path.join(tmp, "logs", r) for r in ("A", "B")}
+        runs = {}
+
+        def run(label, argv):
+            executed[0], first_train = 0, len(trains)
+            t = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                rc = train_cli.main(argv)
+            torch.cuda.synchronize()
+            runs[label] = dict(rc=rc, wall=time.perf_counter() - t, steps=executed[0],
+                               trains=trains[first_train:])
+            torch.cuda.empty_cache()
+            return rc
+
+        for obj, name, fn in patches:
+            setattr(obj, name, fn)
+        _reset_counts()
+        try:
+            _require(run("A", base + ["--dir_logs", logs["A"]]) == 0, "run A returns 0")
+            sigterm["at"] = TRAIN_CLI_SIGTERM_AT
+            rc = run("B1", base + ["--dir_logs", logs["B"]])
+            sigterm["at"] = None
+            _require(rc == 75, f"run B, sent SIGTERM after step checkpoint "
+                     f"{TRAIN_CLI_SIGTERM_AT}, returns 75: {rc}")
+            with open(os.path.join(logs["B"], "ckpt", "info.json")) as f:
+                info_b = json.load(f)
+            _require(sigterm["seen"] is not None
+                     and info_b["step_latest"] == list(sigterm["seen"])
+                     and sigterm["seen"][0] == TRAIN_CLI_SIGTERM_AT[0],
+                     f"info.json names the preemption save {sigterm['seen']}: {info_b}")
+            with open(os.path.join(logs["B"], "ckpt", "inepoch_%04d_%08d" % sigterm["seen"],
+                                   "state.json")) as f:
+                saved_step = json.load(f)["step"]
+            _require(run("B2", base + ["--dir_logs", logs["B"], "--resume", "latest"]) == 0,
+                     "run B resumed returns 0")
+            ev = ["--path_opt", yaml, "-e", "--resume", "best", "--dir_logs", logs["A"]]
+            for o in data + ["engine.device_features=true", "engine.features_dtype=bfloat16",
+                             "optim.eval_batch_size=1024"]:
+                ev += ["--opt", o]
+            _require(run("eval", ev) == 0, "-e --resume best returns 0")
+
+            # the Predictor from A's best checkpoint against the eval step on
+            # the same 64-row batch
+            t = time.perf_counter()
+            predictor = Predictor.from_run(logs["A"], resume="best", device=dev)
+            load_s = time.perf_counter() - t
+            rows = np.arange(TRAIN_CLI_SERVED) * (len(val_set) // TRAIN_CLI_SERVED)
+            with open(os.path.join(tmp, "vqa2", "raw", RAW_FILES["val"][0])) as f:
+                text = {q["question_id"]: q["question"] for q in json.load(f)["questions"]}
+            questions = [text[q] for q in val_set.split.question_ids[rows].tolist()]
+            images = [str(n) for n in val_set.split.image_names[rows]]
+            served = [a[0][0] for a in predictor.answer_batch(questions, images, topk=1)]
+            q, lengths = predictor.encode_questions(questions)
+            table = predictor.table.to(dev, torch.bfloat16)
+            out = make_eval_step()(predictor.model,
+                                   {"question": q, "length": lengths,
+                                    "image_index": val_set.image_index[rows]}, table)
+            stepped = [val_set.vocabs.aid_to_ans[a] for a in out["pred"].cpu().tolist()]
+            del predictor, table
+            counts = _read_counts()
+        finally:
+            for (obj, name, _), fn in zip(patches, [real[n] for _, n, _ in patches]):
+                setattr(obj, name, fn)
+            sigterm["at"] = None
+        del data_factory._STORE_CACHE[key]
+        torch.cuda.empty_cache()
+
+        def metrics(label, split):
+            with open(os.path.join(logs[label], "metrics.jsonl")) as f:
+                return [r for r in map(json.loads, f) if r.get("split") == split]
+
+        def arrays(label):
+            path = os.path.join(logs[label], "ckpt", f"epoch_{TRAIN_CLI_EPOCHS - 1:04d}")
+            out = {}
+            for name in ("params.npz", "opt_state.npz"):
+                with np.load(os.path.join(path, name)) as npz:
+                    out.update({f"{name}:{k}": npz[k] for k in npz.files})
+            with open(os.path.join(path, "state.json")) as f:
+                out["step"] = np.asarray(json.load(f)["step"])
+            return out
+
+        a, b = arrays("A"), arrays("B")
+        differ = sorted(k for k in a if k not in b or a[k].dtype != b[k].dtype
+                        or not np.array_equal(a[k], b[k]))
+        _require(sorted(a) == sorted(b) and not differ,
+                 f"B's final params and optimizer arrays equal A's bit for bit: {differ[:8]}")
+        # A's val records: one an epoch, then the -e run's; B's: one an epoch
+        val_a, val_b = metrics("A", "val"), metrics("B", "val")
+        _require(len(val_b) == TRAIN_CLI_EPOCHS
+                 and val_b[-1]["acc1"] == val_a[TRAIN_CLI_EPOCHS - 1]["acc1"],
+                 f"B's epoch-{TRAIN_CLI_EPOCHS - 1} val acc1 equals A's")
+        with open(os.path.join(logs["A"], "ckpt", "info.json")) as f:
+            info_a = json.load(f)
+        best_acc = [r["acc1"] for r in val_a if r["epoch"] == info_a["best"]][0]
+        evaluated = val_a[-1]
+        _require(len(val_a) == TRAIN_CLI_EPOCHS + 1 and evaluated["acc1"] == best_acc,
+                 f"-e --resume best reports A's best acc1 {best_acc}: {evaluated['acc1']}")
+        _require(served == stepped, f"the Predictor from A's best checkpoint answers "
+                 f"{TRAIN_CLI_SERVED} questions as the eval step does: "
+                 f"{sum(x != y for x, y in zip(served, stepped))} differ")
+        losses = [r["loss"] for label in ("A", "B") for r in metrics(label, "train")]
+        _require(all(math.isfinite(x) for x in losses), f"finite train losses: {losses}")
+        # steps B ran before the preemption that its checkpoint does not hold
+        lost = runs["B1"]["steps"] - saved_step
+        _require(runs["A"]["steps"] == TRAIN_CLI_EPOCHS * steps_per_epoch and lost == 0
+                 and runs["B1"]["steps"] + runs["B2"]["steps"] == runs["A"]["steps"],
+                 f"no step lost or repeated: A {runs['A']['steps']}, B {runs['B1']['steps']} + "
+                 f"{runs['B2']['steps']}, the preemption checkpoint at step {saved_step}")
+        _require({k for k, c in counts.items() if c} == set(TRAIN_CLI_KERNELS),
+                 f"the train CLI launched exactly {TRAIN_CLI_KERNELS}: {counts}")
+
+        def per_run(label):
+            r = runs[label]
+            steps = sum(t["steps"] for t in r["trains"])
+            busy = sum(t["wall"] - t["ckpt_s"] for t in r["trains"])
+            return dict(steps=steps, train_qa_per_s=round(sum(t["rows"] for t in r["trains"])
+                                                         / busy, 1) if steps else None,
+                        step_ms=round(busy / steps * 1e3, 4) if steps else None,
+                        wall_s=round(r["wall"], 3))
+
+        step_saves = [x for x in saves if x[0] == "step"]
+        epoch_saves = [x for x in saves if x[0] == "epoch"]
+        _phase("train_cli", arch="MutanAtt", card=card, train_questions=len(train_set),
+               val_questions=len(val_set), table_rows=2 * N_IMAGES, batch=TRAIN_BATCH,
+               steps_per_epoch=steps_per_epoch, epochs=TRAIN_CLI_EPOCHS,
+               checkpoint_every=TRAIN_CLI_CKPT_EVERY, setup_s=round(setup_s, 3),
+               **{f"{label}_{k}": v for label in ("A", "B1", "B2") for k, v in per_run(label).items()},
+               **{f"{label}_val_qa_per_s": [round(r["qa_per_sec"], 1) for r in metrics(label, "val")]
+                  for label in ("A", "B")},
+               val_acc1=[r["acc1"] for r in val_a[:TRAIN_CLI_EPOCHS]], best=info_a["best"],
+               eval_resume_acc1=evaluated["acc1"], eval_resume_wall_s=round(runs["eval"]["wall"], 3),
+               train_loss=[round(r["loss"], 5) for r in metrics("A", "train")],
+               sigterm_after=list(TRAIN_CLI_SIGTERM_AT), preempted_at=list(sigterm["seen"]),
+               rc_B1=runs["B1"]["rc"], lost_steps=lost, bit_equal=True,
+               step_save_s=[round(x[1], 3) for x in step_saves],
+               epoch_save_s=[round(x[1], 3) for x in epoch_saves],
+               save_bytes=sorted({x[2] for x in saves}),
+               restore_s=[round(x, 3) for x in restores], predictor_load_s=round(load_s, 3),
+               served=TRAIN_CLI_SERVED, served_equal_eval_step=True,
+               launches={k: c for k, c in counts.items() if c})
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -1711,6 +1998,9 @@ def main() -> int:
     train_ops = _check_train_ops(torch, dev, rng, card)
     for name, c in _train_phase(torch, dev, host_table, tables["regions"][0],
                                 tables["pooled"][0], card).items():
+        launches[name] += c
+    # 9. the train CLI: checkpoints, SIGTERM, resume, eval and serve from them
+    for name, c in _train_cli_phase(torch, dev, host_table, card).items():
         launches[name] += c
     for name, by_shape in train_ops.items():
         kernels[name]["train_fwd_bwd_ms"] = {k: round(t["fwd_bwd_ms"], 4)

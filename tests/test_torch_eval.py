@@ -135,6 +135,11 @@ def _metrics(run_dir):
     return {k: v for k, v in rec.items() if k not in ("ts", "eval_time", "qa_per_sec")}
 
 
+def _metrics_all(run_dir):
+    with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+        return [json.loads(line) for line in f if "event" not in line]
+
+
 def _results(run_dir, split, epoch=0):
     path = os.path.join(run_dir, "results", f"vqa_OpenEnded_{split}_epoch{epoch}_results.json")
     with open(path) as f:
@@ -239,9 +244,6 @@ def test_eval_cli_writes_what_the_jax_cli_writes(run, tmp_path, split, extra):
 
 
 @pytest.mark.parametrize("argv,error,match", [
-    (["--no-e"], NotImplementedError, "queue 1, item 5b.*item 13"),
-    (["--resume", "best"], NotImplementedError, "queue 1, item 13"),
-    (["--no-params"], ValueError, "queue 1, item 13"),
     (["--distributed"], NotImplementedError, "queue 1, item 12"),
     (["--opt", "engine.model_parallel=2"], NotImplementedError, "queue 1, item 12"),
     (["--opt", "engine.features_sharded=true"], NotImplementedError, "queue 1, item 12"),
@@ -252,16 +254,107 @@ def test_eval_cli_refuses_what_is_not_ported(tmp_path, argv, error, match):
     item that ports it (or the port's own profiler)."""
     logs = str(tmp_path / "logs")
     args = ["--path_opt", PATH_OPT, "-e", "--platform", "cpu", "--dir_logs", logs,
-            "--opt", "model.pretrained_params=params.npz"]
-    if argv == ["--no-e"]:
-        args.remove("-e")
-    elif argv == ["--no-params"]:
-        args = args[:-2]
-    else:
-        args += argv
+            "--opt", "model.pretrained_params=params.npz"] + argv
     with pytest.raises(error, match=match):
         port_cli.main(args)
     assert not os.path.exists(logs)
+
+
+def _eval_rows(run, model, opt):
+    """The val results rows and acc1 of the eval loop over ``model``."""
+    ds = port_factory.factory("val", opt)
+    loader = BatchIterator(ds, 16, shuffle=False, pad_last=True, sort_by_length=True,
+                           length_buckets=BUCKETS,
+                           transform=port_engine.make_device_transform("cpu"))
+    acc1, rows = port_engine.validate(loader, model, make_eval_step(), ds.vocabs.aid_to_ans,
+                                      None, 0)
+    return acc1, {r["question_id"]: r["answer"] for r in rows}
+
+
+def _train_argv(run, logs, *extra):
+    """The train CLI (no -e) for one epoch at batch 8 from the run's npz."""
+    argv = _argv(run, logs, *extra)
+    argv.remove("-e")
+    return argv + ["--epochs", "1", "--batch_size", "8"]
+
+
+def test_train_cli_without_e_trains_and_checkpoints(run, tmp_path):
+    """Without -e the CLI trains from model.pretrained_params (grafted over
+    the init), validates and saves epoch 0 under ckpt/: float32 params in
+    the npz's flax names, adam's moments and the step count."""
+    logs = str(tmp_path / "train")
+    assert port_cli.main(_train_argv(run, logs)) == 0
+    with open(os.path.join(logs, "ckpt", "info.json")) as f:
+        info = json.load(f)
+    assert (info["latest"], info["best"], info["epochs"]) == (0, 0, [0])
+    ckpt = os.path.join(logs, "ckpt", "epoch_0000")
+    with np.load(run["npz"]) as want, np.load(os.path.join(ckpt, "params.npz")) as got:
+        assert sorted(got.files) == sorted(want.files)
+        assert all(got[k].dtype == np.float32 and got[k].shape == want[k].shape
+                   for k in want.files)
+        assert any(not np.array_equal(got[k], want[k]) for k in want.files)
+    with np.load(os.path.join(ckpt, "opt_state.npz")) as opt_state:
+        assert {"0/count", "1/count"} <= set(opt_state.files)
+        assert any(k.startswith("0/mu/encoder/") for k in opt_state.files)
+    with open(os.path.join(ckpt, "state.json")) as f:
+        steps = json.load(f)["step"]
+    ds = port_factory.factory("train", load_options(PATH_OPT, run["overrides"]))
+    assert steps == len(ds) // 8 > 0
+
+
+def test_eval_cli_resume_best_evaluates_the_checkpoint(run, tmp_path):
+    """-e --resume best reads the port's checkpoint: its acc1 is the one the
+    training run logged for that epoch, its answers are the eval step's on
+    the restored weights, and Predictor.from_run(resume="best") answers as
+    the eval step does."""
+    from vqa_tpu_torch.datasets.interim import RAW_FILES
+    from vqa_tpu_torch.predictor import Predictor
+
+    logs = str(tmp_path / "run")
+    assert port_cli.main(_train_argv(run, logs)) == 0
+    trained = [r for r in _metrics_all(logs) if r.get("split") == "val"]
+    assert port_cli.main(["--path_opt", PATH_OPT, "-e", "--platform", "cpu", "--dir_logs", logs,
+                          "--resume", "best"] +
+                         [a for o in run["overrides"] for a in ("--opt", o)]) == 0
+    evaluated = [r for r in _metrics_all(logs) if r.get("split") == "val"][-1]
+    assert evaluated["epoch"] == 1  # the JAX CLI's label: the epoch after the restored one
+    assert evaluated["acc1"] == trained[0]["acc1"]
+
+    opt = load_options(PATH_OPT, run["overrides"])
+    ds = port_factory.factory("val", opt)
+    model = model_factory(dataclasses.asdict(opt.model), ds.num_words, ds.num_answers,
+                          dim_v=ds.feature_shape[-1])
+    with np.load(os.path.join(logs, "ckpt", "epoch_0000", "params.npz")) as flat:
+        load_params(model, flat)
+    acc1, want = _eval_rows(run, model.eval(), opt)
+    assert acc1 == evaluated["acc1"]
+    assert {r["question_id"]: r["answer"] for r in _results(logs, "val", epoch=1)} == want
+
+    predictor = Predictor.from_run(logs, resume="best", device="cpu")
+    with open(os.path.join(run["dir"], "vqa2", "raw", RAW_FILES["val"][0])) as f:
+        text = {q["question_id"]: q["question"] for q in json.load(f)["questions"]}
+    qids = ds.split.question_ids.tolist()
+    answers = predictor.answer_batch([text[q] for q in qids],
+                                     [str(n) for n in ds.split.image_names], topk=1)
+    assert {q: a[0][0] for q, a in zip(qids, answers)} == want
+
+
+def test_eval_cli_without_weights_evaluates_the_init(run, tmp_path):
+    """-e with neither --resume nor an npz evaluates the init
+    (weights.init_params seeded by engine.seed), as the JAX CLI does."""
+    from vqa_tpu_torch.weights import init_params
+
+    logs = str(tmp_path / "init")
+    assert port_cli.main(["--path_opt", PATH_OPT, "-e", "--platform", "cpu", "--dir_logs", logs] +
+                         [a for o in run["overrides"] for a in ("--opt", o)]) == 0
+    opt = load_options(PATH_OPT, run["overrides"])
+    ds = port_factory.factory("val", opt)
+    model = model_factory(dataclasses.asdict(opt.model), ds.num_words, ds.num_answers,
+                          dim_v=ds.feature_shape[-1])
+    init_params(model, opt.engine.seed)
+    acc1, want = _eval_rows(run, model.eval(), opt)
+    assert {r["question_id"]: r["answer"] for r in _results(logs, "val")} == want
+    assert _metrics(logs)["acc1"] == acc1
 
 
 def test_eval_cli_without_a_card_fails_and_names_it(tmp_path):

@@ -213,11 +213,80 @@ def test_eval_step_int8_table_matches_jax(run, scale_dtype):
         np.testing.assert_array_equal(got[key].numpy(), np.asarray(want[key]), err_msg=key)
 
 
-@pytest.mark.parametrize("flag", [["--resume", "best"], ["--exported", "x"]])
+@pytest.mark.parametrize("flag", [["--exported", "x"]])
 def test_serve_cli_refuses_jax_only_artifacts(flag, capsys):
     with pytest.raises(SystemExit):
         serve_main(["--dir_logs", "x", *flag])
     assert "cli.export --params external" in capsys.readouterr().err
+
+
+class _StoppedServer:
+    server_address = ("127.0.0.1", 0)
+
+    def serve_forever(self):
+        raise KeyboardInterrupt
+
+    def server_close(self):
+        pass
+
+
+def _checkpointed_run(npz, overrides, run_dir):
+    """A run dir whose ckpt/ holds the npz's weights as epoch 0 (through the
+    port's CheckpointManager and a training build) and whose options.yaml
+    carries the overrides."""
+    import dataclasses
+
+    from vqa_tpu_torch.config import dump_options, load_options as port_load_options
+    from vqa_tpu_torch.datasets.factory import factory as port_dataset_factory
+    from vqa_tpu_torch.engine import optim
+    from vqa_tpu_torch.engine.checkpoint import CheckpointManager
+    from vqa_tpu_torch.engine.steps import create_state
+    from vqa_tpu_torch.models.factory import factory as port_model_factory
+    from vqa_tpu_torch.weights import load_params
+
+    opt = port_load_options(PATH_OPT, overrides)
+    ds = port_dataset_factory("val", opt)
+    model = port_model_factory(dataclasses.asdict(opt.model), ds.num_words, ds.num_answers,
+                               dim_v=ds.feature_shape[-1], train=True)
+    with np.load(npz) as flat:
+        load_params(model, flat)
+    CheckpointManager(os.path.join(run_dir, "ckpt")).save(
+        create_state(model, optim.factory(opt.optim)), 0, 0.5)
+    dump_options(opt, run_dir)
+
+
+def test_serve_cli_serves_the_runs_checkpoint(run, tmp_path, monkeypatch):
+    """With neither --params nor --no_resume the CLI serves the checkpoint
+    --resume names (default best): the same answers as the npz it holds."""
+    _, port_pred, npz, _, overrides = run
+    run_dir = str(tmp_path / "run")
+    _checkpointed_run(npz, overrides, run_dir)
+    seen = {}
+
+    def build(service, host, port):
+        seen["service"] = service
+        return _StoppedServer()
+
+    monkeypatch.setattr(port_serve, "build_server", build)
+    for flags in ([], ["--resume", "0"]):
+        assert serve_main(["--dir_logs", run_dir, "--platform", "cpu", *flags]) == 0
+        served = seen.pop("service").predictor
+        names = [str(n) for n in port_pred.dataset.split.image_names[: len(QUESTIONS)]]
+        _same(served.answer_batch(QUESTIONS, names, topk=3),
+              port_pred.answer_batch(QUESTIONS, names, topk=3), tol=0)
+
+
+def test_serve_cli_without_a_checkpoint_names_both_sources(tmp_path, capsys):
+    """No checkpoint and neither --params nor --no_resume: the error names
+    the missing checkpoint and both ways to serve an npz instead."""
+    from vqa_tpu_torch.config import dump_options, load_options as port_load_options
+
+    run_dir = str(tmp_path / "bare")
+    dump_options(port_load_options(PATH_OPT, TINY), run_dir)
+    with pytest.raises(SystemExit):
+        serve_main(["--dir_logs", run_dir, "--platform", "cpu"])
+    err = capsys.readouterr().err
+    assert "no 'best' checkpoint" in err and "--params" in err and "--no_resume" in err
 
 
 def _reference_parser():
@@ -249,19 +318,20 @@ def _flags(parser):
 
 def test_serve_cli_flags_match_the_reference():
     """Every flag of the original's serve CLI is the port's, with its
-    default, type and action, but the jax-only ones: --coco_dir (of an AOT
-    artifact) is not taken, and --resume / --exported are taken and refused;
-    the port adds --params (its npz) and requires --dir_logs."""
+    default, type and action (--resume best included), but the jax-only
+    ones: --coco_dir (of an AOT artifact) is not taken, and --exported is
+    taken and refused; the port adds --params (its npz) and requires
+    --dir_logs."""
     want, got = _flags(_reference_parser()), _flags(port_serve.build_argparser())
     assert set(want) - set(got) == {"--coco_dir"}
     assert set(got) - set(want) == {"--params"}
     for flag, action in want.items():
-        if flag in ("--coco_dir", "--resume", "--dir_logs"):
+        if flag in ("--coco_dir", "--dir_logs"):
             continue
         mine = got[flag]
         assert (mine.default, mine.type, type(mine)) == \
             (action.default, action.type, type(action)), flag
-    assert got["--dir_logs"].required and got["--resume"].default is None
+    assert got["--dir_logs"].required and got["--resume"].default == "best"
 
 
 def test_serve_cli_refuses_a_request_timeout_without_dynamic_batching(capsys):
@@ -271,35 +341,28 @@ def test_serve_cli_refuses_a_request_timeout_without_dynamic_batching(capsys):
 
 
 def test_serve_cli_passes_its_flags_to_the_service(run, monkeypatch):
-    """--platform cpu reaches from_run, and the batching flags the
-    DynamicBatcher; the server is stubbed to stop at once."""
+    """--platform cpu and --no_resume (no checkpoint: resume None) reach
+    from_run, and the batching flags the DynamicBatcher; the server is
+    stubbed to stop at once."""
     _, port_pred, _, _, _ = run
     seen = {}
 
-    def from_run(dir_logs, path_opt=None, params=None, device="cuda"):
-        seen["device"] = device
+    def from_run(dir_logs, path_opt=None, params=None, device="cuda", resume=None):
+        seen["device"], seen["resume"] = device, resume
         return port_pred
-
-    class Server:
-        server_address = ("127.0.0.1", 0)
-
-        def serve_forever(self):
-            raise KeyboardInterrupt
-
-        def server_close(self):
-            pass
 
     def build(service, host, port):
         seen["service"] = service
-        return Server()
+        return _StoppedServer()
 
     monkeypatch.setattr(Predictor, "from_run", staticmethod(from_run))
     monkeypatch.setattr(port_serve, "build_server", build)
-    assert serve_main(["--dir_logs", "x", "--platform", "cpu", "--max_batch", "4",
+    assert serve_main(["--dir_logs", "x", "--platform", "cpu", "--no_resume", "--max_batch", "4",
                        "--dynamic_batching", "--batch_wait_ms", "7", "--batch_window_ms", "30",
                        "--request_timeout_s", "2.5"]) == 0
     service = seen["service"]
-    assert seen["device"] == "cpu" and isinstance(service, DynamicBatcher)
+    assert seen["device"] == "cpu" and seen["resume"] is None
+    assert isinstance(service, DynamicBatcher)
     assert (service.max_wait, service.window, service.request_timeout) == (0.007, 0.03, 2.5)
     assert service.service.max_batch == 4
 

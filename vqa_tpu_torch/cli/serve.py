@@ -2,7 +2,8 @@
 the port of ``vqa_tpu/cli/serve.py``.
 
   python -m vqa_tpu_torch.cli.serve --dir_logs logs/vqa2/mutan_att \
-      --params exported/params.npz [--path_opt ...] [--host 127.0.0.1] \
+      [--resume best|latest|<epoch> | --params exported/params.npz | --no_resume] \
+      [--path_opt ...] [--host 127.0.0.1] \
       [--port 8080] [--max_batch 64] [--platform cpu] [--dynamic_batching \
       [--batch_wait_ms 5] [--batch_window_ms 40] [--request_timeout_s 30]]
 
@@ -20,16 +21,20 @@ requests. Every forward is padded to ``max_batch`` rows, as in the
 original, so a row's answer does not depend on which requests shared its
 forward.
 
-Weights come from a '/'-keyed npz: a trained JAX run reaches the port
-through ``python -m vqa_tpu.cli.export --params external`` (which writes
-``params.npz``) or ``vqa_tpu.importers.save_tree_npz``. Orbax ``--resume``
-and AOT ``--exported`` artifacts need jax, and are refused.
+Weights: ``--params <npz>`` or ``--no_resume`` serve a '/'-keyed npz (the
+given one, or the run's ``model.pretrained_params``; a trained JAX run
+reaches the port through ``python -m vqa_tpu.cli.export --params
+external``); otherwise the run's checkpoint that ``--resume`` names
+(default ``best``, as in the original), which the port's train CLI writes
+under ``<dir_logs>/ckpt``. AOT ``--exported`` artifacts need jax, and are
+refused.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import queue
 import threading
 import time
@@ -308,20 +313,22 @@ def build_server(service, host: str, port: int) -> ThreadingHTTPServer:
 def build_argparser() -> argparse.ArgumentParser:
     """``vqa_tpu/cli/serve.py``'s flags and defaults, but ``--coco_dir`` (an
     AOT artifact's, which needs jax), ``--params`` (the port's npz) and a
-    required ``--dir_logs``; ``--resume`` and ``--exported`` are taken and
-    refused (both need jax)."""
+    required ``--dir_logs``; ``--exported`` is taken and refused (it needs
+    jax)."""
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--dir_logs", required=True)
     p.add_argument("--path_opt", default=None,
                    help="defaults to the run dir's own options.yaml")
     p.add_argument("--params", default=None,
-                   help="'/'-keyed params npz (default: model.pretrained_params, with the "
-                        "seq2vec.pretrained_* grafts)")
-    p.add_argument("--resume", default=None, help=argparse.SUPPRESS)
+                   help="serve this '/'-keyed params npz (with the seq2vec.pretrained_* "
+                        "grafts) instead of the run's checkpoint")
+    p.add_argument("--resume", default="best",
+                   help="best | latest | <epoch>: the run's checkpoint to serve (under "
+                        "<dir_logs>/ckpt), unless --params or --no_resume names an npz")
     p.add_argument("--no_resume", action="store_true",
-                   help="serve init params (a model.pretrained_params import); the port "
-                        "always does, as it reads no Orbax checkpoint")
+                   help="serve model.pretrained_params (an npz, with the seq2vec.pretrained_* "
+                        "grafts), not a checkpoint")
     p.add_argument("--exported", default=None, help=argparse.SUPPRESS)
     p.add_argument("--platform", default=None, metavar="cuda|cpu",
                    help="where to run: the card (default) or, with cpu, the host")
@@ -346,11 +353,10 @@ def build_argparser() -> argparse.ArgumentParser:
 def main(argv: Optional[List[str]] = None) -> int:
     p = build_argparser()
     args = p.parse_args(argv)
-    if args.resume is not None or args.exported is not None:
+    if args.exported is not None:
         p.error(
-            "--resume (Orbax) and --exported (StableHLO) need jax; export the run with "
-            "`python -m vqa_tpu.cli.export --params external` and pass its params.npz "
-            "as --params"
+            "--exported (StableHLO) needs jax; export the run with `python -m vqa_tpu.cli.export "
+            "--params external` and pass its params.npz as --params"
         )
     if args.request_timeout_s is not None and not args.dynamic_batching:
         p.error("--request_timeout_s requires --dynamic_batching (the plain "
@@ -362,8 +368,19 @@ def main(argv: Optional[List[str]] = None) -> int:
 
     from vqa_tpu_torch.predictor import Predictor
 
+    # --params or --no_resume: an npz; otherwise the checkpoint --resume names
+    npz = args.params is not None or args.no_resume
+    if not npz:
+        from vqa_tpu_torch.engine.checkpoint import CheckpointManager
+
+        try:
+            CheckpointManager(os.path.join(args.dir_logs, "ckpt")).resolve(args.resume)
+        except FileNotFoundError as e:
+            p.error(f"{e}: no checkpoint --resume {args.resume} to serve; pass --params <npz> "
+                    "or --no_resume (model.pretrained_params) to serve an npz instead")
     predictor = Predictor.from_run(args.dir_logs, args.path_opt, params=args.params,
-                                   device="cpu" if args.platform == "cpu" else "cuda")
+                                   device="cpu" if args.platform == "cpu" else "cuda",
+                                   resume=None if npz else args.resume)
     max_batch = args.max_batch or 64
     service = AnswerService(predictor, max_batch=max_batch)
     if args.dynamic_batching:

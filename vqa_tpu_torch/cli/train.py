@@ -1,37 +1,49 @@
-"""Evaluation CLI, the port of ``vqa_tpu/cli/train.py``'s eval-only path.
+"""Training / evaluation CLI, the port of ``vqa_tpu/cli/train.py``.
 
-  python -m vqa_tpu_torch.cli.train --path_opt options/vqa2/mutan_att.yaml -e \\
-      --opt model.pretrained_params=exported/params.npz [--split val|test|testdev]
+  python -m vqa_tpu_torch.cli.train --path_opt options/vqa2/mutan_att.yaml     # train
+  python -m vqa_tpu_torch.cli.train --path_opt ... --resume latest             # continue
+  python -m vqa_tpu_torch.cli.train --path_opt ... -e --resume best            # eval-only
   python -m vqa_tpu_torch.cli.train ... --platform cpu   # on the host, no card
 
 The argument parser is the JAX CLI's, flag for flag, so one command line
 runs against either package. The raw VQA files under ``vqa.dir`` are
-prepared on first use (``datasets.factory``); the split runs through the
-loader (sorted by length, questions cut to the ``{7, maxlength/2,
-maxlength}`` ladder or ``engine.eval_buckets``, the last batch padded) and
-the eval step, and ``metrics.jsonl`` and
-``results/vqa_OpenEnded_<split>_epoch<e>_results.json`` land under
-``logs.dir_logs`` as the JAX CLI writes them. With
-``engine.device_features`` the feature table lives on the card
-(``engine.features_dtype``: float32, bfloat16, or int8 values with per-row
-scales) and the step gathers its rows there.
+prepared on first use (``datasets.factory``). Training runs the epoch loop
+of the JAX CLI: the train split through the loader (shuffled from
+``engine.seed``, ``drop_last``, with ``engine.train_bucketing`` bucketed
+shuffling into the ``{7, maxlength/2, maxlength}`` ladder), the train step,
+then the val split through the eval loop, a checkpoint of the epoch under
+``<dir_logs>/ckpt`` (``engine/checkpoint.py``: ``best``/``latest``, and with
+``--checkpoint_every_steps`` one mid-epoch step checkpoint) and the "new
+best" line. ``--resume latest`` continues a run bit for bit, from the step
+checkpoint when it is newer than the last epoch; on SIGTERM (under
+``--save_model``) the loop saves a step checkpoint at the next step and the
+CLI returns 75. With ``engine.device_features`` one feature table, the
+store the splits share, lives on the card (``engine.features_dtype``:
+float32, bfloat16, or int8 values with per-row scales) and the steps gather
+its rows there. ``metrics.jsonl``, ``steps.jsonl`` and the results json
+land under ``logs.dir_logs`` as the JAX CLI writes them.
 
 It runs on the card, where the model computes in bf16 (the kernels take
-bf16), unless ``--platform cpu`` asks for the host (then in
-``engine.dtype``); without a card it fails and says so. The weights come
-from ``model.pretrained_params``, a '/'-keyed npz (``python -m
-vqa_tpu.cli.export --params external`` writes one), with
-``model.seq2vec.pretrained_emb`` and ``pretrained_encoder`` grafted under it
-as the JAX CLI grafts them. What is not ported refuses and names its
-ROADMAP.md item: training (the train step and epoch loop are ported, the
-CLI around them with its checkpoints is not), ``--resume``, multi-process
-and model-parallel runs, and a sharded table.
+bf16; training keeps float32 master parameters), unless ``--platform cpu``
+asks for the host (then in ``engine.dtype``); without a card it fails and
+says so. Weights start from flax's initial distributions
+(``weights.init_params``, seeded by ``engine.seed``) with
+``model.seq2vec.pretrained_emb``, ``pretrained_encoder`` and
+``model.pretrained_params`` grafted over them, or come from the run's
+checkpoint with ``--resume``. Eval-only (``-e``) without ``--resume``
+evaluates ``model.pretrained_params`` (with the seq2vec grafts under it; it
+must hold every leaf) or, with no npz at all, the init. What is not ported
+refuses and names its ROADMAP.md item: multi-process and model-parallel
+runs and a sharded table (item 12), ``engine.profile_dir``, and training
+MFB/MFH, CoR or the GRU (item 5c).
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
+import signal
 import sys
 from typing import List, Optional
 
@@ -41,15 +53,19 @@ from vqa_tpu_torch.config import Options, dump_options, load_options
 from vqa_tpu_torch.datasets.factory import factory as dataset_factory
 from vqa_tpu_torch.datasets.pipeline import BatchIterator, normalize_buckets
 from vqa_tpu_torch.engine import engine as engine_lib
+from vqa_tpu_torch.engine import optim as optim_lib
+from vqa_tpu_torch.engine.checkpoint import CheckpointManager
 from vqa_tpu_torch.engine.logger import Experiment
-from vqa_tpu_torch.engine.steps import make_eval_step, quantize_features
+from vqa_tpu_torch.engine.steps import (create_state, make_eval_step, make_train_step,
+                                        quantize_features)
+from vqa_tpu_torch.models.factory import check_trainable
 from vqa_tpu_torch.models.factory import factory as model_factory
-from vqa_tpu_torch.weights import load_params, pretrained_params
+from vqa_tpu_torch.weights import graft_params, init_params, load_params, pretrained_params
 
 
 def build_argparser() -> argparse.ArgumentParser:
     """``vqa_tpu/cli/train.py``'s parser, flag for flag."""
-    p = argparse.ArgumentParser(description="vqa_tpu_torch trainer (eval-only)")
+    p = argparse.ArgumentParser(description="vqa_tpu_torch trainer")
     p.add_argument("--path_opt", required=True, help="model YAML under options/")
     p.add_argument("--dir_logs", default=None, help="override logs.dir_logs")
     p.add_argument("-e", "--evaluate", action="store_true", help="eval-only on --split")
@@ -61,7 +77,8 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--save_all_from", type=int, default=None)
     p.add_argument("--checkpoint_every_steps", type=int, default=None,
                    help="mid-epoch preemption points every N train steps "
-                        "(engine.checkpoint_steps)")
+                        "(engine.checkpoint_steps); --resume latest restores "
+                        "them bit-identically")
     p.add_argument("-lr", "--lr", "--learning_rate", dest="lr",
                    type=float, default=None)
     p.add_argument("-b", "--batch_size", dest="batch_size",
@@ -111,16 +128,6 @@ def options_from_args(args) -> Options:
 
 
 def _refuse_unported(args, opt: Options) -> None:
-    if not args.evaluate:
-        raise NotImplementedError(
-            "the train CLI is not ported yet: its loop with checkpoints is ROADMAP.md queue 1, "
-            "item 5b, with item 13's checkpoints (the train step itself runs: "
-            "vqa_tpu_torch.engine.steps.make_train_step); run eval-only with -e")
-    if args.resume is not None:
-        raise NotImplementedError(
-            "--resume reads an Orbax checkpoint, which needs jax; the port's own "
-            "checkpoints are ROADMAP.md queue 1, item 13. Pass the weights as "
-            "--opt model.pretrained_params=<npz>")
     for refused, what in ((args.distributed, "--distributed"),
                           (opt.engine.model_parallel > 1, "engine.model_parallel > 1"),
                           (opt.engine.features_sharded, "engine.features_sharded")):
@@ -129,13 +136,10 @@ def _refuse_unported(args, opt: Options) -> None:
                 f"{what}: multi-GPU runs are not ported yet (ROADMAP.md queue 1, item 12)")
     if opt.engine.profile_dir:
         raise NotImplementedError(
-            "engine.profile_dir traces with jax.profiler; the port's eval profile is "
-            "python -m vqa_tpu_torch.tools.profile_eval")
-    if not opt.model.pretrained_params:
-        raise ValueError(
-            "-e needs --opt model.pretrained_params=<npz> (python -m vqa_tpu.cli.export "
-            "--params external writes one): the port cannot reproduce flax's init "
-            "stream, and its own checkpoints are ROADMAP.md queue 1, item 13")
+            "engine.profile_dir traces with jax.profiler; the port's profile is "
+            "python -m vqa_tpu_torch.tools.profile_eval (--train for train steps)")
+    if not args.evaluate:
+        check_trainable(dataclasses.asdict(opt.model))
 
 
 def _device(platform: Optional[str]) -> torch.device:
@@ -173,6 +177,20 @@ def _device_table(store, opt: Options, device: torch.device,
     return features
 
 
+def _weights(model, opt: Options, evaluate: bool) -> None:
+    """A fresh run's weights, as the JAX CLI's ``init_params`` composes them:
+    the init with the npz grafts over it (``seq2vec.pretrained_emb`` under
+    encoder/embed/, ``seq2vec.pretrained_encoder`` under encoder/, then
+    ``model.pretrained_params``, each leaf's shape checked); for eval-only
+    with any npz named, the grafts alone, which must then hold every leaf."""
+    flat = pretrained_params(opt.model)
+    if evaluate and flat:
+        load_params(model, flat)
+        return
+    init_params(model, opt.engine.seed)
+    graft_params(model, flat, "model.pretrained_params / seq2vec.pretrained_*")
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     args = build_argparser().parse_args(argv)
     opt = options_from_args(args)
@@ -182,18 +200,57 @@ def main(argv: Optional[List[str]] = None) -> int:
     input_dtype = None if dtype == torch.float32 else dtype
     run_dir = opt.logs.dir_logs
     dump_options(opt, run_dir)
-    exp = Experiment(run_dir)
+    exp = Experiment(run_dir, resume=args.resume is not None)
+    prev_sigterm = signal.getsignal(signal.SIGTERM)
     try:
+        # --- data -----------------------------------------------------------
         visual_mode = "index" if opt.engine.device_features else "gather"
+        train_set = (None if args.evaluate
+                     else dataset_factory(opt.vqa.trainsplit, opt, visual_mode=visual_mode))
         val_set = dataset_factory("val", opt, visual_mode=visual_mode)
+
+        # --- model, weights, optimizer, resume ------------------------------
         model = model_factory(dataclasses.asdict(opt.model), val_set.num_words,
                               val_set.num_answers, dtype=dtype, device=device,
-                              dim_v=val_set.feature_shape[-1])
-        load_params(model, pretrained_params(opt.model))
+                              dim_v=val_set.feature_shape[-1], train=not args.evaluate,
+                              rnn_bwd=opt.engine.rnn_bwd)
+        if args.resume is None:  # a restore overwrites every leaf
+            _weights(model, opt, args.evaluate)
         n_params = sum(p.numel() for p in model.parameters())
         print(f"model {opt.model.arch}: {n_params/1e6:.2f}M params, {device} {dtype}",
               flush=True)
+        ckpt = CheckpointManager(os.path.join(run_dir, "ckpt"), args.save_all_from)
+        state = None
+        start_epoch, resume_step = 0, 0
+        if args.evaluate:
+            if args.resume is not None:
+                resumed_epoch = ckpt.restore_params(model, args.resume)
+                start_epoch = resumed_epoch + 1
+                print(f"resumed from epoch {resumed_epoch} (best acc {ckpt.best_acc})",
+                      flush=True)
+        else:
+            steps_per_epoch = len(train_set) // opt.optim.batch_size
+            state = create_state(model, optim_lib.factory(opt.optim, steps_per_epoch))
+            if args.resume is not None:
+                # a live mid-epoch checkpoint outranks the per-epoch saves for
+                # a training '--resume latest': it is strictly newer (clear_step
+                # drops it the moment its epoch completes)
+                step_latest = ckpt.step_info() if args.resume == "latest" else None
+                latest = ckpt.info().get("latest")
+                if step_latest is not None and (latest is None or step_latest[0] > latest):
+                    state, start_epoch, resume_step = ckpt.restore_step(state)
+                    print(f"resumed mid-epoch {start_epoch} at step {resume_step} "
+                          f"(best acc {ckpt.best_acc})", flush=True)
+                else:
+                    state, resumed_epoch = ckpt.restore(state, args.resume)
+                    start_epoch = resumed_epoch + 1
+                    print(f"resumed from epoch {resumed_epoch} (best acc {ckpt.best_acc})",
+                          flush=True)
+        if args.start_epoch is not None:
+            start_epoch = args.start_epoch
+            resume_step = 0
 
+        # --- pipelines --------------------------------------------------------
         transform = engine_lib.make_device_transform(device, input_dtype)
         eval_bs = opt.optim.eval_batch_size or opt.optim.batch_size
         # eval-time length bucketing (right-pad only); the default ladder
@@ -208,26 +265,76 @@ def main(argv: Optional[List[str]] = None) -> int:
             if opt.vqa.pad == "right"
             else {}
         )
+        val_loader = BatchIterator(val_set, eval_bs, shuffle=False, pad_last=True,
+                                   transform=transform, **bucketing)
+        # one table on the card: the feature store the splits share
         features = (_device_table(val_set.features, opt, device, input_dtype)
                     if opt.engine.device_features else None)
         eval_step = make_eval_step()
-        epoch = args.start_epoch if args.start_epoch is not None else 0
-        if args.split in ("test", "testdev"):
-            test_set = dataset_factory(args.split, opt, visual_mode=visual_mode)
-            test_loader = BatchIterator(test_set, eval_bs, shuffle=False, pad_last=True,
-                                        transform=transform, **bucketing)
-            results = engine_lib.test(test_loader, model, eval_step,
-                                      test_set.vocabs.aid_to_ans, exp, epoch,
-                                      split=args.split, features=features)
-            print(f"{args.split}: {len(results)} answers emitted", flush=True)
+
+        if args.evaluate:
+            if args.split in ("test", "testdev"):
+                test_set = dataset_factory(args.split, opt, visual_mode=visual_mode)
+                test_loader = BatchIterator(test_set, eval_bs, shuffle=False, pad_last=True,
+                                            transform=transform, **bucketing)
+                results = engine_lib.test(test_loader, model, eval_step,
+                                          test_set.vocabs.aid_to_ans, exp, start_epoch,
+                                          split=args.split, features=features)
+                print(f"{args.split}: {len(results)} answers emitted", flush=True)
+                return 0
+            acc1, _ = engine_lib.validate(val_loader, model, eval_step,
+                                          val_set.vocabs.aid_to_ans, exp, start_epoch,
+                                          features=features)
+            print(f"val acc1: {acc1*100:.2f}", flush=True)
             return 0
-        val_loader = BatchIterator(val_set, eval_bs, shuffle=False, pad_last=True,
-                                   transform=transform, **bucketing)
-        acc1, _ = engine_lib.validate(val_loader, model, eval_step, val_set.vocabs.aid_to_ans,
-                                      exp, epoch, features=features)
-        print(f"val acc1: {acc1*100:.2f}", flush=True)
+
+        train_ladder = normalize_buckets(
+            opt.engine.train_buckets
+            or sorted({min(7, opt.vqa.maxlength), (opt.vqa.maxlength + 1) // 2}),
+            opt.vqa.maxlength,
+        )
+        train_bucketing = (
+            dict(bucket_window=opt.engine.train_bucketing, length_buckets=train_ladder)
+            if opt.engine.train_bucketing and opt.vqa.pad == "right"
+            else {}
+        )
+        train_loader = BatchIterator(train_set, opt.optim.batch_size, shuffle=True,
+                                     seed=opt.engine.seed, drop_last=True, transform=transform,
+                                     **train_bucketing)
+        train_step = make_train_step(optim_lib.criterion_factory(), opt.engine.seed,
+                                     nan_check=opt.engine.nan_check)
+
+        def step_checkpoint(s, epoch, next_step):
+            ckpt.save_step(s, epoch, next_step)
+
+        # SIGTERM -> a step checkpoint at the next step boundary and exit 75
+        if args.save_model:
+            engine_lib.install_preemption_handler()
+        try:
+            for epoch in range(start_epoch, opt.optim.epochs):
+                state, _ = engine_lib.train(
+                    train_loader, state, train_step, exp, epoch, opt.engine.print_freq,
+                    features=features,
+                    start_step=resume_step if epoch == start_epoch else 0,
+                    checkpoint_every=opt.engine.checkpoint_steps if args.save_model else 0,
+                    step_checkpoint=step_checkpoint if args.save_model else None,
+                )
+                acc1, _ = engine_lib.validate(val_loader, state.model, eval_step,
+                                              val_set.vocabs.aid_to_ans, exp, epoch,
+                                              features=features)
+                if args.save_model:
+                    is_best = ckpt.save(state, epoch, acc1)
+                    ckpt.clear_step()  # the full-epoch save supersedes it
+                    if is_best:
+                        print(f"new best acc1 {acc1*100:.2f} @ epoch {epoch}", flush=True)
+        except engine_lib.Preempted as p:
+            print(f"preempted: checkpoint saved at epoch {p.epoch} step {p.next_step}; "
+                  "continue with --resume latest", flush=True)
+            return 75  # EX_TEMPFAIL: rerun to continue
         return 0
     finally:
+        if signal.getsignal(signal.SIGTERM) is not prev_sigterm:
+            signal.signal(signal.SIGTERM, prev_sigterm)
         exp.close()
 
 

@@ -1,9 +1,9 @@
 """Epoch loops, the port of ``vqa_tpu/engine/engine.py`` (``train``,
 ``validate`` and ``test``, with the device transform and the loop under
-them). The train loop's mid-epoch checkpoints and preemption handler are
-not ported yet (ROADMAP.md queue 1, items 5b and 13).
+them, and the train loop's mid-epoch checkpoints and SIGTERM preemption).
 
-train():    step loop over the loader, the train step, meters + logging
+train():    step loop over the loader, the train step, meters + logging,
+            step checkpoints and the preemption point
 validate(): eval loop -> top-1/top-5 accuracy + OpenEnded results list
 test():     eval loop without labels -> OpenEnded results list
 
@@ -17,6 +17,8 @@ them back once.
 
 from __future__ import annotations
 
+import signal
+import threading
 import time
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -30,6 +32,38 @@ from vqa_tpu_torch.engine.meters import MeterBank
 # them: the gather range-checks it on the host and carries it in the
 # launch's parameters (ops/gather.py)
 DEVICE_KEYS = ("visual", "question", "length", "answer", "valid")
+
+# -- preemption (SIGTERM -> checkpoint at the next step boundary) -------------
+# A preemptible machine gets SIGTERM with a grace period before eviction; the
+# handler only sets a flag (async-signal-safe), and the train loop saves a
+# mid-epoch checkpoint at the next step boundary and raises Preempted, so the
+# CLI exits cleanly and the run resumes with --resume latest losing no step.
+
+_PREEMPT = threading.Event()
+
+
+class Preempted(Exception):
+    """Raised by train() after the preemption checkpoint landed."""
+
+    def __init__(self, epoch: int, next_step: int):
+        super().__init__(f"preempted at epoch {epoch}, step {next_step}")
+        self.epoch = epoch
+        self.next_step = next_step
+
+
+def request_preemption() -> None:
+    """Flag the train loop to checkpoint-and-stop at the next boundary."""
+    _PREEMPT.set()
+
+
+def install_preemption_handler() -> bool:
+    """SIGTERM -> request_preemption(). Returns False when not installable
+    (signal handlers only work on the main thread). Clears any stale flag."""
+    if threading.current_thread() is not threading.main_thread():
+        return False
+    _PREEMPT.clear()
+    signal.signal(signal.SIGTERM, lambda *_: request_preemption())
+    return True
 
 
 def make_device_transform(device, dtype: Optional[torch.dtype] = None):
@@ -86,10 +120,17 @@ def train(
     print_freq: int = 10,
     features=None,
     start_step: int = 0,
+    checkpoint_every: int = 0,
+    step_checkpoint=None,
 ) -> Tuple[Any, Dict[str, float]]:
     """One training epoch. The epoch's batches are a pure function of (seed,
-    epoch), so ``start_step`` skips the first batches of a resumed epoch;
-    the logged epoch averages cover only the steps executed. Host metrics
+    epoch), so ``start_step`` skips the first batches of a resumed epoch,
+    and dropout is seeded by ``state.step``: a resumed run replays the
+    interrupted epoch exactly. ``step_checkpoint(state, epoch, next_step)``
+    is called after every ``checkpoint_every`` executed steps (never on the
+    epoch's last step: the epoch save supersedes it), and at once when
+    SIGTERM has set the preemption flag, which then raises ``Preempted``.
+    The logged epoch averages cover only the steps executed. Host metrics
     are read only on print steps; the others are stacked on the card and
     read back once at the epoch's end."""
     meters = MeterBank()
@@ -104,6 +145,14 @@ def train(
         data_time = time.perf_counter() - t_data
         state, metrics = train_step(state, device_batch, features)
         step_metrics.append(metrics)
+        if step_checkpoint is not None and _PREEMPT.is_set():
+            # SIGTERM landed: save now, not at the periodic boundary (the
+            # grace period is short), and hand control back
+            step_checkpoint(state, epoch, i + 1)
+            raise Preempted(epoch, i + 1)
+        if (checkpoint_every and step_checkpoint is not None
+                and (i + 1) % checkpoint_every == 0 and i + 1 < steps_total):
+            step_checkpoint(state, epoch, i + 1)
         if print_freq and (i % print_freq == 0 or i + 1 == steps_total):
             # the metrics' readback syncs: only on print steps
             host = {k: float(v) for k, v in metrics.items()}

@@ -19,8 +19,9 @@ optax divides by the norm.
 from __future__ import annotations
 
 import math
-from typing import Any, Callable, List, NamedTuple, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from vqa_tpu_torch.config import OptimOptions
@@ -54,11 +55,28 @@ def add_decayed_weights(weight_decay: float) -> Transform:
     return Transform(lambda params: (), update)
 
 
+class AdamState(NamedTuple):
+    count: int
+    mu: Tensors
+    nu: Tensors
+
+
+class ScheduleState(NamedTuple):
+    count: int
+
+
+class MultiStepsState(NamedTuple):
+    mini_step: int
+    inner_state: Any
+    grad_accum: Tensors
+
+
 def scale_by_adam(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8) -> Transform:
     """optax.scale_by_adam (eps_root 0): state (count, mu, nu)."""
 
     def init(params):
-        return 0, [torch.zeros_like(p) for p in params], [torch.zeros_like(p) for p in params]
+        return AdamState(0, [torch.zeros_like(p) for p in params],
+                         [torch.zeros_like(p) for p in params])
 
     def update(grads, state, params=None):
         count, mu, nu = state
@@ -67,7 +85,7 @@ def scale_by_adam(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8) -> Tran
         count += 1
         c1, c2 = 1 - b1 ** count, 1 - b2 ** count
         updates = [(m / c1) / (torch.sqrt(n / c2) + eps) for m, n in zip(mu, nu)]
-        return updates, (count, mu, nu)
+        return updates, AdamState(count, mu, nu)
 
     return Transform(init, update)
 
@@ -85,11 +103,11 @@ def trace(decay: float) -> Transform:
 def scale_by_schedule(step_size: Callable[[int], float]) -> Transform:
     """Multiply by ``step_size(count)``, count of earlier updates."""
 
-    def update(grads, count, params=None):
-        scale = step_size(count)
-        return [g * scale for g in grads], count + 1
+    def update(grads, state, params=None):
+        scale = step_size(state.count)
+        return [g * scale for g in grads], ScheduleState(state.count + 1)
 
-    return Transform(lambda params: 0, update)
+    return Transform(lambda params: ScheduleState(0), update)
 
 
 def chain(*transforms: Transform) -> Transform:
@@ -113,17 +131,76 @@ def multi_steps(inner: Transform, every_k: int) -> Transform:
     leaves the inner state as it was."""
 
     def init(params):
-        return 0, inner.init(params), [torch.zeros_like(p) for p in params]
+        return MultiStepsState(0, inner.init(params), [torch.zeros_like(p) for p in params])
 
     def update(grads, state, params=None):
         mini_step, inner_state, acc = state
         acc = [a + (g - a) / (mini_step + 1) for g, a in zip(grads, acc)]
         if mini_step + 1 < every_k:
-            return None, (mini_step + 1, inner_state, acc)
+            return None, MultiStepsState(mini_step + 1, inner_state, acc)
         updates, inner_state = inner.update(acc, inner_state, params)
-        return updates, (0, inner_state, [torch.zeros_like(a) for a in acc])
+        return updates, MultiStepsState(0, inner_state, [torch.zeros_like(a) for a in acc])
 
     return Transform(init, update)
+
+
+def _map_leaves(node: Any, keys: Sequence[str], fn: Callable[[str, Any], Any],
+                prefix: str = "") -> Any:
+    """``node`` with each tensor or count replaced by ``fn(name, leaf)``; a
+    NamedTuple's fields are named by field, a plain tuple's (the chain's) by
+    index, a list of per-parameter tensors by the parameters' ``keys``."""
+    if isinstance(node, (torch.Tensor, int)):
+        return fn(prefix, node)
+    if isinstance(node, list):
+        if len(node) != len(keys):
+            raise ValueError(f"{prefix}: {len(node)} tensors for {len(keys)} parameters")
+        return [_map_leaves(t, keys, fn, f"{prefix}/{k}") for k, t in zip(keys, node)]
+    if isinstance(node, tuple):
+        named = hasattr(node, "_fields")
+        children = [_map_leaves(c, keys, fn, f"{prefix}/{n}" if prefix else str(n))
+                    for n, c in zip(node._fields if named else range(len(node)), node)]
+        return type(node)(*children) if named else tuple(children)
+    raise TypeError(f"{prefix}: cannot store a {type(node).__name__}")
+
+
+def state_arrays(state: Any, keys: Sequence[str]) -> Dict[str, np.ndarray]:
+    """The optimizer state as '/'-named numpy arrays (host copies), a count
+    as a 0-d int64: e.g. ``0/mu/encoder/lstm_0/wh``, ``1/count``, and under
+    ``grad_accum`` ``mini_step``, ``inner_state/...`` and
+    ``grad_accum/<key>``."""
+    out: Dict[str, np.ndarray] = {}
+
+    def store(name, leaf):
+        out[name] = (leaf.detach().to("cpu", copy=True).numpy()
+                     if isinstance(leaf, torch.Tensor) else np.asarray(leaf, np.int64))
+
+    _map_leaves(state, keys, store)
+    return out
+
+
+def state_from_arrays(template: Any, arrays: Dict[str, np.ndarray],
+                      keys: Sequence[str]) -> Any:
+    """The state of ``template``'s structure with the values of ``arrays``
+    (``state_arrays``'s names), each tensor on its template's device and in
+    its dtype. A missing, extra or wrongly shaped array raises, naming it."""
+    shapes: Dict[str, tuple] = {}
+    _map_leaves(template, keys, lambda name, leaf: shapes.__setitem__(
+        name, tuple(leaf.shape) if isinstance(leaf, torch.Tensor) else ()))
+    missing, extra = sorted(set(shapes) - set(arrays)), sorted(set(arrays) - set(shapes))
+    if missing or extra:
+        raise KeyError(f"optimizer state differs from the template's: missing {missing}, "
+                       f"extra {extra}")
+    for name, shape in shapes.items():
+        if tuple(np.shape(arrays[name])) != shape:
+            raise ValueError(f"optimizer state {name}: shape {tuple(np.shape(arrays[name]))}, "
+                             f"the template's {shape}")
+
+    def load(name, leaf):
+        if isinstance(leaf, torch.Tensor):
+            return torch.as_tensor(np.asarray(arrays[name])).to(leaf.device, leaf.dtype)
+        return int(arrays[name])
+
+    return _map_leaves(template, keys, load)
 
 
 def apply_updates(params: Sequence[torch.Tensor], updates: Optional[Tensors]) -> None:

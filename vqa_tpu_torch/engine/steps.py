@@ -101,10 +101,23 @@ def loss_and_grads(model: nn.Module, params: List[torch.Tensor], batch: Dict[str
     return loss, logits, torch.autograd.grad(loss, params)
 
 
-def make_train_step(criterion: Callable, seed: int):
+def _check_finite(model: nn.Module, loss: torch.Tensor, grads) -> None:
+    """``engine.nan_check``: raise on a non-finite loss or grad, naming it
+    (one sync with the card a step)."""
+    if not bool(torch.isfinite(loss)):
+        raise FloatingPointError(f"non-finite loss {float(loss.detach())} (engine.nan_check)")
+    names = [n for n, p in model.named_parameters() if p.requires_grad]
+    finite = torch.stack([torch.isfinite(g).all() for g in grads]).cpu()
+    if not bool(finite.all()):
+        bad = [n for n, ok in zip(names, finite.tolist()) if not ok]
+        raise FloatingPointError(f"non-finite grads of {bad} (engine.nan_check)")
+
+
+def make_train_step(criterion: Callable, seed: int, nan_check: bool = False):
     """Returns (state, batch, features=None) -> (state, metrics): ``loss``,
     ``acc1``, ``acc5`` and ``gnorm`` (the global norm of the raw grads,
-    before any clip) as tensors on the step's device."""
+    before any clip) as tensors on the step's device. ``nan_check`` raises
+    before the update on a non-finite loss or grad."""
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor], features=None):
         with torch.no_grad():
@@ -112,6 +125,8 @@ def make_train_step(criterion: Callable, seed: int):
         rng = dropout_generator(seed, state.step, visual.device)
         params = state.params
         loss, logits, grads = loss_and_grads(state.model, params, batch, visual, criterion, rng)
+        if nan_check:
+            _check_finite(state.model, loss, grads)
         updates, state.opt_state = state.tx.update(list(grads), state.opt_state,
                                                    [p.detach() for p in params])
         optim.apply_updates(params, updates)

@@ -90,14 +90,20 @@ def factory(
     vector for the NoAtt archs (flax infers it at init)."""
     if not train:
         return _build(model_opt, num_words, num_answers, _dtype(dtype), device, dim_v, rnn_bwd)
+    check_trainable(model_opt)
+    model = _build(model_opt, num_words, num_answers, _dtype(dtype), device, dim_v, rnn_bwd)
+    return model.float().requires_grad_(True)
+
+
+def check_trainable(model_opt: Mapping[str, Any]) -> None:
+    """Raise NotImplementedError, naming its ROADMAP.md item, for an arch or
+    encoder whose training is not ported (MFB/MFH, CoR, the GRU)."""
     if model_opt["arch"] in ("MFBCoAtt", "MFHCoAtt"):
         raise NotImplementedError(mfb.TRAIN_NOT_PORTED)
     if model_opt["arch"] == "CoR":
         raise NotImplementedError(cor.TRAIN_NOT_PORTED)
     if (model_opt.get("seq2vec") or {}).get("arch", "lstm") != "lstm":
         raise NotImplementedError(gru.TRAIN_NOT_PORTED)
-    model = _build(model_opt, num_words, num_answers, _dtype(dtype), device, dim_v, rnn_bwd)
-    return model.float().requires_grad_(True)
 
 
 def _build(model_opt: Mapping[str, Any], num_words: int, num_answers: int,

@@ -1,18 +1,19 @@
 """Inference API, the port of ``vqa_tpu/predictor.py``.
 
     from vqa_tpu_torch.predictor import Predictor
-    p = Predictor.from_run("logs/vqa2/mutan_att", "options/vqa2/mutan_att.yaml",
-                           params="exported/params.npz", device="cuda")
+    p = Predictor.from_run("logs/vqa2/mutan_att", resume="best", device="cuda")
+    p = Predictor.from_run(run_dir, params="exported/params.npz")   # an npz instead
     answers = p.answer("What color is the cat?", "COCO_val2014_000000000042")
     # -> [(answer, prob), ...] top-k
 
-The weights come from a '/'-keyed npz (``python -m vqa_tpu.cli.export
---params external`` of a trained run, or ``vqa_tpu.importers.save_tree_npz``):
-the port cannot read Orbax checkpoints, which need jax. ``from_run`` reads the
-run's options YAML and builds the val dataset through the port's own
-``datasets.factory``, which prepares the raw VQA files on first use
-(``datasets.processed.run_prep``, as the port's eval CLI
-``python -m vqa_tpu_torch.cli.train -e`` does); it needs yaml and h5py,
+The weights come from the run's own checkpoint (``resume``: best, latest or
+an epoch of ``<dir_logs>/ckpt``, which the port's train CLI writes), or
+from a '/'-keyed npz (``params``, or the run's ``model.pretrained_params``;
+``python -m vqa_tpu.cli.export --params external`` of a JAX run writes
+one). ``from_run`` reads the run's options YAML and builds the val dataset
+through the port's own ``datasets.factory``, which prepares the raw VQA
+files on first use (``datasets.processed.run_prep``, as the port's eval
+CLI ``python -m vqa_tpu_torch.cli.train -e`` does); it needs yaml and h5py,
 nothing of the JAX package. ``Predictor(...)`` builds from in-memory parts
 and needs neither. Both run on the card unless the caller asks for the CPU
 (``device="cpu"``).
@@ -85,11 +86,14 @@ class Predictor:
         params: Optional[str] = None,
         overrides: Optional[List[str]] = None,
         device="cuda",
+        resume: Optional[str] = None,
     ) -> "Predictor":
         """Load a run's config, its val dataset (prepared on first use, as the
         JAX package's ``from_run`` does) with the vocabularies and the feature
-        table, and the weights from the ``params`` npz (default: the config's
-        ``model.pretrained_params``) over the config's
+        table, and the weights: with ``resume`` (best, latest or an epoch)
+        those of the run's checkpoint under ``<dir_logs>/ckpt``, as the JAX
+        ``from_run(resume=...)`` restores them; else the ``params`` npz
+        (default: the config's ``model.pretrained_params``) over the config's
         ``seq2vec.pretrained_emb`` / ``pretrained_encoder`` grafts, as the
         eval CLI and the JAX ``from_run(resume=None)`` compose them. With no
         ``path_opt`` the run's own options.yaml is used. The model computes in
@@ -99,16 +103,21 @@ class Predictor:
 
         from vqa_tpu_torch.config import load_options
         from vqa_tpu_torch.datasets.factory import factory as dataset_factory
+        from vqa_tpu_torch.engine.checkpoint import CheckpointManager
 
         if path_opt is None:
             path_opt = os.path.join(dir_logs, "options.yaml")
         opt = load_options(path_opt, overrides, default_path=None)
         seq2vec = opt.model.seq2vec or {}
-        if not (params or opt.model.pretrained_params or seq2vec.get("pretrained_emb")
-                or seq2vec.get("pretrained_encoder")):
+        if resume is not None and params is not None:
+            raise ValueError("pass resume= (the run's checkpoint) or params= (an npz), not both")
+        if resume is None and not (params or opt.model.pretrained_params
+                                   or seq2vec.get("pretrained_emb")
+                                   or seq2vec.get("pretrained_encoder")):
             raise ValueError(
-                "the port loads weights from an npz, not an Orbax checkpoint: pass "
-                "params= (python -m vqa_tpu.cli.export --params external writes one)"
+                "no weights named: pass resume= (best, latest or an epoch of the run's "
+                "checkpoint) or params= (an npz; python -m vqa_tpu.cli.export --params "
+                "external writes one)"
             )
         device = torch.device(device)
         dtype = torch.bfloat16 if device.type == "cuda" else opt.engine.dtype
@@ -118,7 +127,10 @@ class Predictor:
             dataclasses.asdict(opt.model), val_set.num_words, val_set.num_answers,
             dtype=dtype, device=device, dim_v=features.feature_shape[-1],
         )
-        load_params(model, pretrained_params(opt.model, params))
+        if resume is not None:
+            CheckpointManager(os.path.join(dir_logs, "ckpt")).restore_params(model, resume)
+        else:
+            load_params(model, pretrained_params(opt.model, params))
         vocabs = val_set.vocabs
         catalog = Catalog(vocabs.word_to_wid, vocabs.aid_to_ans, features._name_to_index)
         table = torch.from_numpy(features.as_array())

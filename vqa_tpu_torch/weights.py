@@ -56,11 +56,11 @@ def export_params(model: nn.Module) -> Dict[str, np.ndarray]:
 
 
 def random_params(model: nn.Module, seed: int) -> None:
-    """Seeded random weights: embedding tables N(0, 1) (as torch's
-    nn.Embedding), other matrices N(0, 1/fan_in) with fan_in their first axis
-    (flax's lecun_normal for [in, out] kernels), vectors zero. Drawn on the
-    CPU from one ``torch.Generator``, so the values do not depend on the
-    device."""
+    """Seeded random weights for tests and smoke runs (not flax's init: see
+    ``init_params``): embedding tables N(0, 1) (as torch's nn.Embedding),
+    other matrices an untruncated N(0, 1/fan_in) with fan_in their first
+    axis, vectors zero. Drawn on the CPU from one ``torch.Generator``, so
+    the values do not depend on the device."""
     gen = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for name, p in model.named_parameters():
@@ -73,13 +73,87 @@ def random_params(model: nn.Module, seed: int) -> None:
             p.copy_(value)
 
 
+# the stddev of a standard normal truncated to (-2, 2): flax's lecun_normal
+# divides by it so the truncated draw keeps variance 1/fan_in
+_TRUNCATED_STD = 0.87962566103423978
+
+
+def _lecun_normal(shape, gen: torch.Generator) -> torch.Tensor:
+    """flax ``lecun_normal``: a normal truncated to +-2 of its scale, with
+    variance 1/fan_in (fan_in the second-to-last axis times the axes before
+    it, as ``variance_scaling`` reckons a kernel [..., in, out])."""
+    fan_in = int(np.prod(shape[:-1]))
+    value = torch.nn.init.trunc_normal_(torch.empty(shape), 0.0, 1.0, -2.0, 2.0, generator=gen)
+    return value * (fan_in ** -0.5 / _TRUNCATED_STD)
+
+
+def _orthogonal(shape, gen: torch.Generator) -> torch.Tensor:
+    """flax ``orthogonal`` (column axis -1): QR of a normal
+    [max(n, m), min(n, m)] draw, the columns' signs set by R's diagonal,
+    transposed when the rows are fewer: orthonormal rows for ``wh [H, kH]``."""
+    n_cols = shape[-1]
+    n_rows = int(np.prod(shape)) // n_cols
+    z = torch.randn((max(n_rows, n_cols), min(n_rows, n_cols)), generator=gen)
+    q, r = torch.linalg.qr(z)
+    q = q * torch.sign(torch.diagonal(r))[None, :]
+    if n_rows < n_cols:
+        q = q.T
+    return q.reshape(shape)
+
+
+def init_params(model: nn.Module, seed: int) -> None:
+    """Fill ``model`` with flax's initial distributions, the counterpart of
+    ``vqa_tpu/cli/train.py::init_params``: ``lecun_normal`` (truncated) for
+    every kernel (Dense ``kernel``, ``wx``, ``w_core_*``, the glimpse
+    ``kernel``), ``orthogonal`` for the recurrent ``wh``, zeros for every
+    vector (biases), and ``nn.Embed``'s default for ``embedding``: an
+    untruncated normal of std 1/sqrt(features). The draws come from one
+    CPU ``torch.Generator`` seeded with ``seed``, in parameter order, so a
+    seed gives the same weights on every device; they are not flax's values
+    (another generator), only its distributions."""
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            shape = tuple(p.shape)
+            if p.ndim < 2:
+                value = torch.zeros(shape)
+            elif name.endswith("embedding"):
+                value = torch.randn(shape, generator=gen) * shape[-1] ** -0.5
+            elif name.endswith("wh"):
+                value = _orthogonal(shape, gen)
+            else:
+                value = _lecun_normal(shape, gen)
+            p.copy_(value)
+
+
+def graft_params(model: nn.Module, flat: Mapping[str, np.ndarray], label: str) -> None:
+    """Overwrite the leaves of ``model`` that ``flat`` names, keeping the
+    rest (``vqa_tpu/cli/train.py::_graft_npz``): every key must name a
+    parameter of the same shape."""
+    params = {_key(name): p for name, p in model.named_parameters()}
+    for key, value in flat.items():
+        if key not in params:
+            raise KeyError(f"{label} leaf {key!r} not in the param tree "
+                           "(wrong --cell/arch/config?)")
+        value = np.asarray(value)
+        if tuple(value.shape) != tuple(params[key].shape):
+            raise ValueError(
+                f"{label} {key}: shape {value.shape} != {tuple(params[key].shape)} (embedding "
+                "rows must be re-aligned to this run's vocab)")
+        if value.dtype.name == "bfloat16":
+            value = value.astype(np.float32)
+        with torch.no_grad():
+            params[key].copy_(torch.tensor(value))
+
+
 def pretrained_params(model_opt: Any, params: Optional[str] = None) -> Dict[str, np.ndarray]:
     """The '/'-keyed weights a run's ``model`` options name, in the order
     ``vqa_tpu/cli/train.py::init_params`` grafts them:
     ``seq2vec.pretrained_emb`` under encoder/embed/,
     ``seq2vec.pretrained_encoder`` under encoder/, then ``params`` (default
-    ``model.pretrained_params``) over both. Unlike there, no init fills the
-    leaves they leave out: ``load_params`` refuses a missing one."""
+    ``model.pretrained_params``) over both. The train CLI grafts them over
+    the init (``graft_params``); eval-only loads them alone, where
+    ``load_params`` refuses a leaf they leave out."""
     flat: Dict[str, np.ndarray] = {}
     seq2vec = model_opt.seq2vec or {}
     grafts = ((seq2vec.get("pretrained_emb"), "encoder/embed/"),
