@@ -1,5 +1,6 @@
 """The port's init (vqa_tpu_torch.weights.init_params) against flax's
-initial distributions for a narrow MutanAtt.
+initial distributions for narrow builds of MutanAtt, MFBCoAtt, MFHCoAtt,
+CoR and MutanAtt with the skip-thoughts GRU (training builds).
 
 flax draws ``lecun_normal`` (a normal truncated to +-2 of its scale, with
 variance 1/fan_in) for the kernels, ``orthogonal`` for the recurrent
@@ -7,8 +8,8 @@ variance 1/fan_in) for the kernels, ``orthogonal`` for the recurrent
 normal of std 1/sqrt(features)) for the embedding. The streams differ, so
 the distributions are held: every leaf flax zeros is zero; each lecun_normal
 leaf of at least 10^4 elements has its std within 5% of flax's and no value
-beyond flax's truncation; ``wh`` has orthonormal rows to 1e-5; the
-embedding's std is within 5% of flax's.
+beyond flax's truncation; ``wh`` (the LSTM's [H, 4H], the GRU's [H, 3H])
+has orthonormal rows to 1e-5; the embedding's std is within 5% of flax's.
 """
 
 import dataclasses
@@ -28,14 +29,28 @@ NARROW = ["model.seq2vec.emb_size=64", "model.seq2vec.hidden_size=64",
           "model.attention.dim_hv=96", "model.attention.dim_hq=64",
           "model.attention.dim_mm=80", "model.attention.R=2", "model.fusion.dim_hv=96",
           "model.fusion.dim_hq=64", "model.fusion.dim_mm=80", "model.fusion.R=2"]
+# each arch: its YAML and narrow widths that leave at least 6 lecun_normal
+# leaves of 10^4 elements or more
+ARCHS = {
+    "mutan_att": ("mutan_att", NARROW),
+    "mfb_coatt": ("mfb_coatt", ["model.seq2vec.emb_size=64", "model.seq2vec.hidden_size=64",
+                                "model.attention.dim_h=96", "model.fusion.dim_mm=80",
+                                "model.fusion.pool_factor=3"]),
+    "mfh_coatt": ("mfh_coatt", ["model.seq2vec.emb_size=64", "model.seq2vec.hidden_size=64",
+                                "model.attention.dim_h=96", "model.fusion.dim_mm=80",
+                                "model.fusion.pool_factor=3"]),
+    "cor": ("cor", ["model.seq2vec.emb_size=64", "model.seq2vec.hidden_size=64",
+                    "model.fusion.dim_h=128", "model.classif.dim_h=64"]),
+    "mutan_att_skipthoughts": ("mutan_att", NARROW + ["model.seq2vec.arch=skipthoughts"]),
+}
 NUM_WORDS, NUM_ANSWERS, DIM_V, REGIONS = 5000, 300, 128, 6
 STD_REL, MIN_ELEMENTS = 0.05, 10_000
 TRUNCATED_STD = 0.87962566103423978
 
 
-@pytest.fixture(scope="module")
-def leaves():
-    """(port init, flax init), '/'-keyed, of the same narrow MutanAtt."""
+@pytest.fixture(scope="module", params=sorted(ARCHS))
+def leaves(request):
+    """(port init, flax init), '/'-keyed, of the same narrow build."""
     import jax
     import jax.numpy as jnp
 
@@ -43,11 +58,12 @@ def leaves():
     from vqa_tpu.importers import flatten_tree
     from vqa_tpu.models import factory as jax_factory
 
-    path = os.path.join(REPO, "options", "vqa2", "mutan_att.yaml")
-    model = model_factory(dataclasses.asdict(load_options(path, NARROW).model), NUM_WORDS,
+    yaml, overrides = ARCHS[request.param]
+    path = os.path.join(REPO, "options", "vqa2", f"{yaml}.yaml")
+    model = model_factory(dataclasses.asdict(load_options(path, overrides).model), NUM_WORDS,
                           NUM_ANSWERS, dim_v=DIM_V, train=True)
     init_params(model, seed=1337)
-    jax_model = jax_factory(jax_load_options(path, NARROW).model, NUM_WORDS, NUM_ANSWERS)
+    jax_model = jax_factory(jax_load_options(path, overrides).model, NUM_WORDS, NUM_ANSWERS)
     params = jax_model.init(jax.random.key(1337), jnp.zeros((2, REGIONS, DIM_V)),
                             jnp.zeros((2, 26), jnp.int32), jnp.ones((2,), jnp.int32))["params"]
     return export_params(model), {k: np.asarray(v) for k, v in flatten_tree(params).items()}
@@ -89,9 +105,11 @@ def test_lecun_normal_leaves_match_flax(leaves):
 
 def test_wh_has_orthonormal_rows(leaves):
     port, flax = leaves
-    for w in (port["encoder/lstm_0/wh"], flax["encoder/lstm_0/wh"]):
+    (key,) = [k for k in flax if k.endswith("_0/wh")]
+    gates = 3 if "/gru_0/" in key else 4
+    for w in (port[key], flax[key]):
         w = w.astype(np.float64)
-        assert w.shape == (64, 256)
+        assert w.shape == (64, gates * 64)
         np.testing.assert_allclose(w @ w.T, np.eye(64), rtol=0, atol=1e-5)
 
 

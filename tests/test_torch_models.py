@@ -387,23 +387,6 @@ def test_example_batch_is_seeded_and_runs_the_tiny_flagship():
     assert logits.shape == (3, 11) and bool(torch.isfinite(logits).all())
 
 
-@pytest.mark.parametrize("name,match", [("mfb_coatt", "MFBCoAtt.*item 5c"),
-                                        ("mfh_coatt", "MFHCoAtt.*item 5c"),
-                                        ("cor", "CoR.*item 5c"),
-                                        ("mutan_att_skipthoughts", "GRU.*A7.*item 5c")])
-def test_train_is_not_ported(name, match):
-    """Training MFB/MFH, CoR and the GRU encoder refuses, naming its ROADMAP
-    item: the train build, and an eval build's forward with train=True."""
-    yaml = flagship.VARIANTS[name][0] if name in flagship.VARIANTS else name
-    opt = dataclasses.asdict(load_options(os.path.join(REPO, f"options/vqa2/{yaml}.yaml"),
-                                          TINY_ARCHS[name]).model)
-    with pytest.raises(NotImplementedError, match=match):
-        port_factory(opt, 30, 11, dim_v=14, train=True)
-    port = port_factory(opt, 30, 11, dim_v=14)
-    with pytest.raises(NotImplementedError, match=match):
-        port(torch.zeros(2, 5, 14), torch.ones(2, 3, dtype=torch.int32), train=True)
-
-
 def test_gru_layer_matches_flax():
     """The GRU cell (gates r, z, n; bh inside r * (h wh_n + bh_n)) over mixed
     lengths, left- and right-padded rows and a fully padded one; biases

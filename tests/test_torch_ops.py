@@ -238,13 +238,6 @@ def test_gru_seq_bf16_matches_jax():
         np.testing.assert_allclose(got.float().numpy(), np.asarray(e), atol=0.05, rtol=0)
 
 
-def test_gru_seq_train_is_not_ported():
-    gx, mask, wh, bh = (torch.from_numpy(a) for a in _gru_inputs(0, 2, 3, 4))
-    with pytest.raises(NotImplementedError, match="section A7.*queue 1, item 5c"):
-        gru_seq(gx, mask, wh, bh, train=True)
-    assert torch.equal(gru_seq(gx, mask, wh, bh)[1], gru_seq_reference(gx, mask, wh, bh)[1])
-
-
 @pytest.mark.parametrize("H", [41, 43])
 def test_odd_hidden_padding_is_exact(H):
     """lstm_seq's wrapper runs an odd H as H + 1 units (the kernel takes an
@@ -802,6 +795,63 @@ def test_glimpse_head_train_on_the_card_matches_plain(cuda_device, M, G):
     got = torch.autograd.grad(glimpse_head(*args), args, cots)
     ref = [a.float().requires_grad_() for a in bf]
     want = torch.autograd.grad(glimpse_head_reference(*ref), ref, [c.float() for c in cots])
+    for g, w in zip(got, want):
+        assert _relative(g, w) <= 5e-2
+
+
+def _grads_on_the_card(fn, reference, bf, cots):
+    """The grads of ``fn`` (a Function on the card) and of float32 autograd
+    through ``reference`` on the same bf16 inputs."""
+    args = [a.clone().requires_grad_() for a in bf]
+    got = torch.autograd.grad(fn(*args), args, cots)
+    ref = [a.float().requires_grad_() for a in bf]
+    want = torch.autograd.grad(reference(*ref), ref, [c.float() for c in cots])
+    return got, want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [7, 13, 26])
+def test_glimpse_attend_train_on_the_card_matches_plain(cuda_device, T):
+    """glimpse_attend's Function on the card (the kernel's forward, the plain
+    version's grads recomputed) at MFB's B=128, G=2, D=1024, logits masked
+    at finfo(bf16).min past each row's length and one row masked whole:
+    dlogits and dv within 5e-2 relative of float32 autograd, finite."""
+    rng = np.random.default_rng(T)
+    gen = torch.Generator(device=cuda_device).manual_seed(T)
+    valid = np.arange(T)[None, :] < rng.integers(1, T + 1, 128)[:, None]
+    valid[0] = False
+    logits = torch.randn(128, T, 2, generator=gen, device=cuda_device).to(torch.bfloat16)
+    logits = logits.masked_fill(~torch.from_numpy(valid[..., None]).to(cuda_device),
+                                torch.finfo(torch.bfloat16).min)
+    v = torch.randn(128, T, 1024, generator=gen, device=cuda_device).to(torch.bfloat16)
+    cot = torch.randn(128, 2, 1024, generator=gen, device=cuda_device).to(torch.bfloat16)
+    got, want = _grads_on_the_card(glimpse_attend, glimpse_attend_reference, [logits, v], [cot])
+    for g, w in zip(got, want):
+        assert bool(torch.isfinite(g).all()) and _relative(g, w) <= 5e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [128 * 36, 128])
+def test_mfb_pool_train_on_the_card_matches_plain(cuda_device, n):
+    """mfb_pool's Function on the card at MFB's k=5, m=1000 (the attention's
+    B*36 rows and the final fusion's B): dz, recomputed in bf16, within 5e-2
+    relative of float32 autograd."""
+    gen = torch.Generator(device=cuda_device).manual_seed(n)
+    z = torch.randn(n, 5000, generator=gen, device=cuda_device).to(torch.bfloat16)
+    cot = torch.randn(n, 1000, generator=gen, device=cuda_device).to(torch.bfloat16)
+    got, want = _grads_on_the_card(lambda x: mfb_pool(x, 5), lambda x: mfb_pool_reference(x, 5),
+                                   [z], [cot])
+    assert got[0].dtype == torch.bfloat16 and _relative(got[0], want[0]) <= 5e-2
+
+
+@pytest.mark.cuda
+def test_relation_attend_train_on_the_card_matches_plain(cuda_device):
+    """relation_attend's Function on the card at CoR's B=128, N=36, D=1024:
+    dpg and dr within 5e-2 relative of float32 autograd."""
+    gen = torch.Generator(device=cuda_device).manual_seed(36)
+    pg, r, cot = (torch.tanh(torch.randn(128, 36, 1024, generator=gen, device=cuda_device))
+                  .to(torch.bfloat16) for _ in range(3))
+    got, want = _grads_on_the_card(relation_attend, relation_attend_reference, [pg, r], [cot])
     for g, w in zip(got, want):
         assert _relative(g, w) <= 5e-2
 

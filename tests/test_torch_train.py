@@ -1,6 +1,7 @@
-"""The port's train path (vqa_tpu_torch: the autograd Functions of lstm_seq
-and glimpse_head, dropout, the optimizer, the train step and the epoch
-loop) against the JAX package's, on the CPU.
+"""The port's train path (vqa_tpu_torch: the autograd Functions of lstm_seq,
+glimpse_head, glimpse_attend, mfb_pool, relation_attend and the GRU,
+dropout, the optimizer, the train step of every arch and the epoch loop)
+against the JAX package's, on the CPU.
 
 The same numpy inputs go through both sides in float32. Where the JAX side
 would reach a Pallas kernel it takes its jnp reference, as the JAX package's
@@ -34,7 +35,10 @@ from vqa_tpu.engine.logger import Experiment as JaxExperiment
 from vqa_tpu.importers import flatten_tree
 from vqa_tpu.models import factory as jax_factory
 from vqa_tpu.ops import attention as jax_attention
+from vqa_tpu.ops import gru as jax_gru
 from vqa_tpu.ops import lstm as jax_lstm
+from vqa_tpu.ops import mfb_pool as jax_mfb_pool
+from vqa_tpu.ops import relation as jax_relation
 from vqa_tpu_torch import flagship
 from vqa_tpu_torch.config import OptimOptions, VQAOptions
 from vqa_tpu_torch.datasets.features import FeatureStore
@@ -47,8 +51,11 @@ from vqa_tpu_torch.engine import steps as port_steps
 from vqa_tpu_torch.engine.logger import Experiment
 from vqa_tpu_torch.models import factory as port_factory
 from vqa_tpu_torch.models.layers import dropout
-from vqa_tpu_torch.ops.attention import glimpse_head
+from vqa_tpu_torch.ops.attention import glimpse_attend, glimpse_head
+from vqa_tpu_torch.ops.gru import gru_seq
 from vqa_tpu_torch.ops.lstm import lstm_seq
+from vqa_tpu_torch.ops.mfb_pool import mfb_pool
+from vqa_tpu_torch.ops.relation import relation_attend
 from vqa_tpu_torch.weights import export_params, load_params
 
 torch.set_num_threads(1)
@@ -57,8 +64,22 @@ OP_TOL = dict(rtol=1e-5, atol=1e-5)
 OPTIM_ATOL = 1e-6
 STEP_ATOL = 1e-4
 PARAM_REL = 1e-5
-# tiny widths of the six LSTM archs (as tests/test_torch_models.py's)
+# tiny widths of every arch (as tests/test_torch_models.py's)
 TINY = {
+    "mfb_coatt": ["model.seq2vec.emb_size=8", "model.seq2vec.hidden_size=12",
+                  "model.attention.dim_h=6", "model.fusion.dim_mm=4",
+                  "model.fusion.pool_factor=3"],
+    "mfh_coatt": ["model.seq2vec.emb_size=8", "model.seq2vec.hidden_size=12",
+                  "model.attention.dim_h=6", "model.fusion.dim_mm=4",
+                  "model.fusion.pool_factor=3", "model.fusion.mfh_order=3"],
+    "cor": ["model.seq2vec.emb_size=8", "model.seq2vec.hidden_size=12",
+            "model.fusion.dim_h=10", "model.classif.dim_h=7"],
+    "mutan_att_skipthoughts": ["model.seq2vec.arch=skipthoughts", "model.seq2vec.emb_size=8",
+                               "model.seq2vec.hidden_size=12", "model.attention.dim_hv=6",
+                               "model.attention.dim_hq=5", "model.attention.dim_mm=7",
+                               "model.attention.R=2", "model.fusion.dim_hv=6",
+                               "model.fusion.dim_hq=5", "model.fusion.dim_mm=7",
+                               "model.fusion.R=2"],
     "mutan_att": ["model.seq2vec.emb_size=8", "model.seq2vec.hidden_size=12",
                   "model.attention.dim_hv=6", "model.attention.dim_hq=5",
                   "model.attention.dim_mm=7", "model.attention.R=2", "model.fusion.dim_hv=6",
@@ -78,6 +99,19 @@ TINY = {
 }
 NOATT = ("mutan_noatt", "mlb_noatt", "concat_noatt")
 NUM_WORDS, NUM_ANSWERS, DIM_V, N_IMAGES = 30, 11, 14, 9
+# leaves whose grad is 0 in exact arithmetic, a softmax not seeing them: the
+# glimpse logits' bias (over the regions), MFB's question-attention logits'
+# bias (over the tokens) and CoR's pooling logit's bias (over the objects)
+CANCELLING = ("glimpse_logits/bias", "q_attention/logits/bias", "chain/pool_logits/bias")
+# the MFB family's train-step tolerance, relative to each metric's (at least
+# 1) and each leaf's scale: the signed square root's derivative
+# 0.5 / sqrt(|p|) magnifies float32 rounding of pooled values near 0 (on this
+# batch the attention's smallest |p| is 3.8e-5, its median 0.028), so each
+# package's float32 grads sit up to 7e-5 (the port) and 3e-4 (JAX) of a
+# leaf's scale from a float64 run of the port, and three sgd steps at
+# momentum 0.9 carry that into the parameters (measured: 2.4e-4)
+MFB_REL = 1e-3
+MFB_FAMILY = ("mfb_coatt", "mfh_coatt")
 
 
 # ------------------------------------------------------------------ ops
@@ -166,6 +200,132 @@ def test_glimpse_head_grads_match_jax(cotangents, B, R, M, G, D):
     for name, g, w in zip(("djoint", "dw", "db", "dv"), got, want):
         g = np.zeros_like(np.asarray(w)) if g is None else g.numpy()
         np.testing.assert_allclose(g, np.asarray(w), err_msg=name, **OP_TOL)
+
+
+def _grads_match(got, want, names):
+    for name, g, w in zip(names, got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), err_msg=name, **OP_TOL)
+
+
+@pytest.mark.parametrize("k", [2, 5])
+@pytest.mark.parametrize("lead,m", [((6,), 7), ((2, 4), 3)])
+def test_mfb_pool_grads_match_jax(lead, m, k):
+    """mfb_pool's Function against jax.vjp(mfb_pool_reference), with pooled
+    values exactly 0 (the signed square root's grad is 0 there in both
+    packages) in one row, and a row that pools to 0 whole."""
+    rng = np.random.default_rng(k * 10 + m)
+    z = rng.standard_normal(lead + (k * m,)).astype(np.float32)
+    flat = z.reshape(-1, k, m)
+    flat[0, :, 0] = 0.0
+    flat[0, :2, 1] = (0.75, -0.75)
+    flat[0, 2:, 1] = 0.0
+    flat[-1] = 0.0
+    cot = rng.standard_normal(lead + (m,)).astype(np.float32)
+    x = torch.from_numpy(z).requires_grad_()
+    out = mfb_pool(x, k)
+    (got,) = torch.autograd.grad(out, x, torch.from_numpy(cot))
+    want_out, vjp = jax.vjp(lambda zz: jax_mfb_pool.mfb_pool_reference(zz, k), jnp.asarray(z))
+    (want,) = vjp(jnp.asarray(cot))
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(want_out), **OP_TOL)
+    _grads_match([got], [want], ["dz"])
+    assert bool(torch.isfinite(got).all())
+    assert bool((got.reshape(-1, k, m)[-1] == 0).all())
+
+
+@pytest.mark.parametrize("B,R,G,D", [(5, 7, 2, 6), (3, 13, 1, 9)])
+def test_glimpse_attend_grads_match_jax(B, R, G, D):
+    """glimpse_attend's Function against jax.vjp(glimpse_attend_reference),
+    with logits masked at finfo(float32).min past each row's length (MFB's
+    question self-attention) and one row masked whole: the masked logits of
+    a partly masked row take a zero grad, the whole-masked row finite ones."""
+    rng = np.random.default_rng(B * 10 + R)
+    logits = rng.standard_normal((B, R, G)).astype(np.float32)
+    lengths = rng.integers(1, R + 1, B)
+    valid = np.arange(R)[None, :] < lengths[:, None]
+    valid[1] = False
+    logits = np.where(valid[..., None], logits, np.finfo(np.float32).min).astype(np.float32)
+    v = rng.standard_normal((B, R, D)).astype(np.float32)
+    cot = rng.standard_normal((B, G, D)).astype(np.float32)
+    args = [torch.from_numpy(a).requires_grad_() for a in (logits, v)]
+    out = glimpse_attend(*args)
+    got = torch.autograd.grad(out, args, torch.from_numpy(cot))
+    want_out, vjp = jax.vjp(jax_attention.glimpse_attend_reference,
+                            *(jnp.asarray(a) for a in (logits, v)))
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(want_out), **OP_TOL)
+    _grads_match(got, vjp(jnp.asarray(cot)), ["dlogits", "dv"])
+    dlogits = got[0].numpy()
+    assert np.isfinite(dlogits).all() and np.isfinite(got[1].numpy()).all()
+    partly = ~valid & valid.any(axis=1, keepdims=True)
+    assert partly.any() and (dlogits[partly] == 0).all()
+
+
+@pytest.mark.parametrize("B,N,D", [(3, 5, 8), (2, 36, 6)])
+def test_relation_attend_grads_match_jax(B, N, D):
+    """relation_attend's Function against jax.vjp(relation_attend_reference)."""
+    rng = np.random.default_rng(B * 100 + N)
+    pg, r = (np.tanh(rng.standard_normal((B, N, D))).astype(np.float32) for _ in range(2))
+    cot = rng.standard_normal((B, N, D)).astype(np.float32)
+    args = [torch.from_numpy(a).requires_grad_() for a in (pg, r)]
+    out = relation_attend(*args)
+    got = torch.autograd.grad(out, args, torch.from_numpy(cot))
+    want_out, vjp = jax.vjp(jax_relation.relation_attend_reference,
+                            *(jnp.asarray(a) for a in (pg, r)))
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(want_out), **OP_TOL)
+    _grads_match(got, vjp(jnp.asarray(cot)), ["dpg", "dr"])
+
+
+def _gru_inputs(seed, T, B, H):
+    """The LSTM's masks (row 2 fully padded), gx [T, B, 3H], wh [H, 3H], a
+    non-zero bh, and cotangents of h_last and seq."""
+    xg, mask, _, cot_h, cot_seq = _lstm_inputs(seed, T, B, H)
+    rng = np.random.default_rng(seed + 1)
+    wh = (rng.standard_normal((H, 3 * H)) / np.sqrt(H)).astype(np.float32)
+    bh = (0.3 * rng.standard_normal(3 * H)).astype(np.float32)
+    return np.ascontiguousarray(xg[..., :3 * H]), mask, wh, bh, cot_h, cot_seq
+
+
+@pytest.mark.parametrize("rnn_bwd", ["bigmatmul", "native"])
+@pytest.mark.parametrize("T,B,H", [(6, 7, 5), (4, 5, 8), (1, 3, 4)])
+def test_gru_seq_grads_match_jax(rnn_bwd, T, B, H):
+    """gru_seq(train=True) against jax.vjp of _gru_seq_bigmatmul (its
+    hand-written backward: dmask 0) or of gru_seq_reference (native)."""
+    *inputs, cot_h, cot_seq = _gru_inputs(T * 10 + B, T, B, H)
+    args = [torch.from_numpy(a).requires_grad_() for a in inputs]
+    h, seq = gru_seq(*args, train=True, rnn_bwd=rnn_bwd)
+    got = torch.autograd.grad((h, seq), args, (torch.from_numpy(cot_h),
+                                                torch.from_numpy(cot_seq)))
+    fn = jax_gru._gru_seq_bigmatmul if rnn_bwd == "bigmatmul" else jax_gru.gru_seq_reference
+    (want_h, want_seq), vjp = jax.vjp(fn, *(jnp.asarray(a) for a in inputs))
+    np.testing.assert_allclose(h.detach().numpy(), np.asarray(want_h), **OP_TOL)
+    np.testing.assert_allclose(seq.detach().numpy(), np.asarray(want_seq), **OP_TOL)
+    _grads_match(got, vjp((jnp.asarray(cot_h), jnp.asarray(cot_seq))),
+                 ["dgx", "dmask", "dwh", "dbh"])
+    if rnn_bwd == "bigmatmul":
+        assert bool((got[1] == 0).all())
+    assert bool((got[0][:, 2] == 0).all())  # the fully padded row takes no grad
+
+
+def test_gru_seq_dbh_keeps_the_float32_bias_dtype_under_bf16():
+    """bf16 gx and wh with bh the raw float32 parameter (as GRULayer passes
+    it): the big-matmul backward gives a float32 dbh, within bf16 rounding
+    (the watch list's 0.05 of its scale) of JAX's bf16 backward and of the
+    float32 one; dgx and dwh keep the compute dtype."""
+    gx, mask, wh, bh, cot_h, cot_seq = _gru_inputs(7, 5, 6, 8)
+    bf = [torch.from_numpy(a).bfloat16().requires_grad_() for a in (gx, mask, wh)]
+    b = torch.from_numpy(bh).requires_grad_()
+    h, seq = gru_seq(bf[0], bf[1], bf[2], b, train=True)
+    cots = (torch.from_numpy(cot_h).bfloat16(), torch.from_numpy(cot_seq).bfloat16())
+    dgx, dwh, dbh = torch.autograd.grad((h, seq), (bf[0], bf[2], b), cots)
+    assert dbh.dtype == torch.float32 and dgx.dtype == dwh.dtype == torch.bfloat16
+    args = [jnp.asarray(a, jnp.bfloat16) for a in (gx, mask, wh)] + [jnp.asarray(bh)]
+    _, vjp = jax.vjp(jax_gru._gru_seq_bigmatmul, *args)
+    want = vjp(tuple(jnp.asarray(c.float().numpy(), jnp.bfloat16) for c in cots))[3]
+    assert want.dtype == jnp.float32
+    _, vjp32 = jax.vjp(jax_gru._gru_seq_bigmatmul, *(jnp.asarray(a) for a in (gx, mask, wh, bh)))
+    exact = vjp32((jnp.asarray(cot_h), jnp.asarray(cot_seq)))[3]
+    for w in (want, exact):
+        scale = float(np.abs(np.asarray(w)).max())
+        np.testing.assert_allclose(dbh.numpy(), np.asarray(w), rtol=0, atol=0.05 * scale)
 
 
 # ------------------------------------------------------------ optimizer
@@ -290,30 +450,33 @@ def _run_both(name, knobs, n_steps):
         state, want = step(state, jbatch, jax.random.key(0), jnp.asarray(table))
         pstate, got = pstep(pstate, _torch_batch(batch), torch.from_numpy(table))
         for key in ("loss", "acc1", "acc5", "gnorm"):
-            np.testing.assert_allclose(float(got[key]), float(want[key]), rtol=0,
-                                       atol=STEP_ATOL, err_msg=key)
+            atol = (MFB_REL * max(abs(float(want[key])), 1.0) if name in MFB_FAMILY
+                    else STEP_ATOL)
+            np.testing.assert_allclose(float(got[key]), float(want[key]), rtol=0, atol=atol,
+                                       err_msg=key)
     assert pstate.step == n_steps
     got_params = export_params(port)
     start = flatten_tree(params)
     for key, want in flatten_tree(state.params).items():
         want = np.asarray(want)
-        if knobs["optimizer"] == "adam" and key.endswith("glimpse_logits/bias"):
-            # the softmax over regions does not see a glimpse's bias: its grad
-            # is 0 but for rounding, which adam scales up to +-lr on either
-            # side; both sides move it by at most lr
+        if knobs["optimizer"] == "adam" and key.endswith(CANCELLING):
+            # the softmax does not see these biases: their grad is 0 but for
+            # rounding, which adam scales up to +-lr on either side; both
+            # sides move them by at most lr
             for moved in (got_params[key], want):
                 assert np.abs(moved - np.asarray(start[key])).max() <= knobs["lr"] * 1.001
             continue
         scale = max(float(np.abs(want).max()), 1e-3)
-        np.testing.assert_allclose(got_params[key], want, rtol=0, atol=PARAM_REL * scale,
-                                   err_msg=key)
+        rel = MFB_REL if name in MFB_FAMILY else PARAM_REL
+        np.testing.assert_allclose(got_params[key], want, rtol=0, atol=rel * scale, err_msg=key)
 
 
 @pytest.mark.parametrize("name", sorted(TINY))
 def test_train_step_matches_jax_sgd(name):
     """Three sgd-momentum steps on one batch, dropout off: each step's loss,
     acc1, acc5 and gnorm within 1e-4 of JAX make_train_step's, then every
-    parameter within 1e-5 of its leaf's scale."""
+    parameter within 1e-5 of its leaf's scale (the MFB family: 1e-3 of
+    each's scale, ``MFB_REL``)."""
     _run_both(name, dict(optimizer="sgd", lr=0.1, momentum=0.9), 3)
 
 
@@ -372,6 +535,89 @@ def test_dropout_in_the_model_follows_seed_and_step():
     other = logits(train=True, rng=port_steps.dropout_generator(0, 4, "cpu"))
     assert torch.equal(a, again)
     assert not torch.equal(a, other) and not torch.equal(a, eval_logits)
+
+
+NEW_ARCHS = ("mfb_coatt", "mfh_coatt", "cor", "mutan_att_skipthoughts")
+
+
+def _flax_sites(jax_model, params, visual, tokens, steps):
+    """flax's dropout sites of one train forward, as (rate, input shape) with
+    their counts: each ``nn.Dropout`` module is one site (flax names each
+    call's module apart); one inside CoR's scanned chain runs once a step."""
+    import flax.linen as fnn
+
+    seen = {}
+    real = fnn.Dropout.__call__
+
+    def recording(self, inputs, deterministic=None, rng=None):
+        seen[self.scope.path] = (self.rate, tuple(inputs.shape))
+        return real(self, inputs, deterministic=deterministic, rng=rng)
+
+    fnn.Dropout.__call__ = recording
+    try:
+        jax_model.apply({"params": params}, jnp.asarray(visual), jnp.asarray(tokens),
+                        train=True, rngs={"dropout": jax.random.key(0)})
+    finally:
+        fnn.Dropout.__call__ = real
+    sites = []
+    for path, site in seen.items():
+        if site[0] > 0:
+            sites += [site] * (steps if path[0] == "chain" else 1)
+    return sorted(sites)
+
+
+@pytest.mark.parametrize("name", NEW_ARCHS)
+def test_dropout_is_drawn_at_flaxs_sites(name, monkeypatch):
+    """With the YAML's rates, the port's train forward draws dropout at the
+    sites flax's draws it, with flax's rates, on tensors of the same shapes
+    (MFB: the encoder's embeddings, the question attention's input,
+    dropout_pre on the pre-pool product of both fusions, dropout_mm, the
+    classifier at 0.1; CoR: the objects twice and q once in each of the 3
+    chain steps, the classifier at 0.5 twice); CoR's two draws on the
+    objects are independent and every step draws anew."""
+    from vqa_tpu_torch.models import att, classifier, cor, fusion, mfb, seq2vec
+
+    jax_model, params, port, table, batch = _arch_pair(name, dropout_off=False)
+    visual = table[batch["image_index"]]
+    steps = getattr(port, "steps", 1)
+    want = _flax_sites(jax_model, params, visual, batch["question"], steps)
+    drawn = []
+
+    def recording(x, rate, rng):
+        out = dropout(x, rate, rng)
+        if rng is not None and rate > 0:
+            drawn.append((rate, tuple(x.shape), out == 0))
+        return out
+
+    for module in (att, classifier, cor, fusion, mfb, seq2vec):
+        monkeypatch.setattr(module, "dropout", recording)
+    with torch.no_grad():
+        port(torch.from_numpy(visual), torch.from_numpy(batch["question"]),
+             torch.from_numpy(batch["length"]), train=True,
+             rng=port_steps.dropout_generator(0, 0, "cpu"))
+    assert sorted((rate, shape) for rate, shape, _ in drawn) == want
+    if name == "cor":
+        objects = [dropped for rate, shape, dropped in drawn if len(shape) == 3]
+        assert len(objects) == 2 * steps
+        assert all(not torch.equal(a, b) for i, a in enumerate(objects) for b in objects[i + 1:])
+
+
+def test_question_attention_pools_the_undropped_sequence():
+    """MFB's question self-attention drops its logits' input only: with every
+    element dropped the logits are the bias alone, and the pooled vector is
+    the mean of the un-dropped sequence over each row's valid tokens."""
+    from vqa_tpu_torch.models.mfb import QuestionSelfAttention
+
+    rng = np.random.default_rng(9)
+    mask = np.arange(6)[None, :] < np.array([[6], [2], [4]])
+    seq = torch.from_numpy((rng.standard_normal((3, 6, 5)) * mask[..., None]).astype(np.float32))
+    module = QuestionSelfAttention(5, glimpses=2, dim_h=4, dropout=1.0)
+    with torch.no_grad():
+        for p in module.parameters():
+            p.copy_(torch.from_numpy(rng.standard_normal(tuple(p.shape)).astype(np.float32)))
+        got = module(seq, torch.from_numpy(mask), rng=port_steps.dropout_generator(0, 0, "cpu"))
+    mean = seq.sum(1) / torch.from_numpy(mask.sum(1, keepdims=True)).float()
+    torch.testing.assert_close(got, mean.repeat(1, 2), rtol=1e-6, atol=1e-6)
 
 
 # ----------------------------------------------------------- epoch loop

@@ -32,10 +32,11 @@ says so. Weights start from flax's initial distributions
 ``model.pretrained_params`` grafted over them, or come from the run's
 checkpoint with ``--resume``. Eval-only (``-e``) without ``--resume``
 evaluates ``model.pretrained_params`` (with the seq2vec grafts under it; it
-must hold every leaf) or, with no npz at all, the init. What is not ported
-refuses and names its ROADMAP.md item: multi-process and model-parallel
-runs and a sharded table (item 12), ``engine.profile_dir``, and training
-MFB/MFH, CoR or the GRU (item 5c).
+must hold every leaf) or, with no npz at all, the init. Every arch of
+``options/`` trains, with the ``lstm``, ``gru`` or ``skipthoughts`` encoder.
+What is not ported refuses: multi-process and model-parallel runs and a
+sharded table name their ROADMAP.md item (12), and ``engine.profile_dir``
+names the port's profiler.
 """
 
 from __future__ import annotations
@@ -58,7 +59,6 @@ from vqa_tpu_torch.engine.checkpoint import CheckpointManager
 from vqa_tpu_torch.engine.logger import Experiment
 from vqa_tpu_torch.engine.steps import (create_state, make_eval_step, make_train_step,
                                         quantize_features)
-from vqa_tpu_torch.models.factory import check_trainable
 from vqa_tpu_torch.models.factory import factory as model_factory
 from vqa_tpu_torch.weights import graft_params, init_params, load_params, pretrained_params
 
@@ -138,8 +138,6 @@ def _refuse_unported(args, opt: Options) -> None:
         raise NotImplementedError(
             "engine.profile_dir traces with jax.profiler; the port's profile is "
             "python -m vqa_tpu_torch.tools.profile_eval (--train for train steps)")
-    if not args.evaluate:
-        check_trainable(dataclasses.asdict(opt.model))
 
 
 def _device(platform: Optional[str]) -> torch.device:

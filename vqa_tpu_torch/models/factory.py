@@ -9,10 +9,9 @@ factory(model_opt, num_words, num_answers) -> nn.Module with
 
 ``train=True`` builds for training: float32 master parameters that take
 grads, cast to the compute ``dtype`` inside each layer (flax's
-``param_dtype`` split), and the LSTM backward ``rnn_bwd``
-(``engine.rnn_bwd``). Training is ported for the six LSTM archs of the
-attention and NoAtt families; MFBCoAtt, MFHCoAtt, CoR and the GRU encoder
-refuse it.
+``param_dtype`` split), and the recurrence's backward ``rnn_bwd``
+(``engine.rnn_bwd``, for the LSTM and the GRU alike). Every arch and
+encoder trains.
 
 ``model_opt`` is the ``model`` section of an options YAML as a plain dict
 (``dataclasses.asdict(load_options(path).model)``, or ``flagship.py``'s
@@ -32,7 +31,6 @@ from vqa_tpu_torch.models import cor, mfb
 from vqa_tpu_torch.models.att import AttModel, GlimpseAttention
 from vqa_tpu_torch.models.classifier import Classifier
 from vqa_tpu_torch.models.noatt import NoAttModel
-from vqa_tpu_torch.ops import gru
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -88,22 +86,8 @@ def factory(
 ) -> nn.Module:
     """``dim_v`` is the width of a region feature, or of the pooled image
     vector for the NoAtt archs (flax infers it at init)."""
-    if not train:
-        return _build(model_opt, num_words, num_answers, _dtype(dtype), device, dim_v, rnn_bwd)
-    check_trainable(model_opt)
     model = _build(model_opt, num_words, num_answers, _dtype(dtype), device, dim_v, rnn_bwd)
-    return model.float().requires_grad_(True)
-
-
-def check_trainable(model_opt: Mapping[str, Any]) -> None:
-    """Raise NotImplementedError, naming its ROADMAP.md item, for an arch or
-    encoder whose training is not ported (MFB/MFH, CoR, the GRU)."""
-    if model_opt["arch"] in ("MFBCoAtt", "MFHCoAtt"):
-        raise NotImplementedError(mfb.TRAIN_NOT_PORTED)
-    if model_opt["arch"] == "CoR":
-        raise NotImplementedError(cor.TRAIN_NOT_PORTED)
-    if (model_opt.get("seq2vec") or {}).get("arch", "lstm") != "lstm":
-        raise NotImplementedError(gru.TRAIN_NOT_PORTED)
+    return model.float().requires_grad_(True) if train else model
 
 
 def _build(model_opt: Mapping[str, Any], num_words: int, num_answers: int,
@@ -118,9 +102,11 @@ def _build(model_opt: Mapping[str, Any], num_words: int, num_answers: int,
     if arch not in _ARCHS:
         raise KeyError(f"unknown model arch {arch!r}; known: {', '.join(_ARCHS)}")
     if arch in ("MFBCoAtt", "MFHCoAtt"):
-        return mfb.MFBCoAttModel.build(model_opt, num_words, num_answers, dtype, device, dim_v)
+        return mfb.MFBCoAttModel.build(model_opt, num_words, num_answers, dtype, device, dim_v,
+                                       rnn_bwd)
     if arch == "CoR":
-        return cor.CoRModel.build(model_opt, num_words, num_answers, dtype, device, dim_v)
+        return cor.CoRModel.build(model_opt, num_words, num_answers, dtype, device, dim_v,
+                                  rnn_bwd)
 
     encoder = seq2vec_lib.factory(num_words, sections["seq2vec"], dtype=dtype, device=device,
                                   rnn_bwd=rnn_bwd)

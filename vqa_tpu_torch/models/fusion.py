@@ -16,9 +16,9 @@ cascades ``mfh_order`` MFB blocks and concatenates their pooled outputs.
 Leading dimensions of q and v broadcast (the attention applies the fusion
 per region). Each fusion's ``out_dim`` is the width of what it returns.
 Dropout sits where the flax fusions apply it, with their default rates, and
-is on only when ``forward`` gets the train step's ``rng``; MFB/MFH's
-``dropout_pre`` is accepted and not applied (their training is ROADMAP.md
-queue 1, item 5c).
+is on only when ``forward`` gets the train step's ``rng``: MFB/MFH's
+``dropout_pre`` drops the product z after the previous block's z has
+multiplied it and before the pool, so MFH cascades the dropped z.
 """
 
 from __future__ import annotations
@@ -147,30 +147,31 @@ class MutanFusion(nn.Module):
 
 class MFBFusion(nn.Module):
     """Multi-modal factorized bilinear pooling: returns ``(pooled [..., dim_mm],
-    z [..., pool_factor*dim_mm])``, z being the pre-pool product MFH
-    cascades."""
+    z [..., pool_factor*dim_mm])``, z being the (dropped) pre-pool product
+    MFH cascades."""
 
     def __init__(self, dim_q: int, dim_v: int, pool_factor: int = 5, dim_mm: int = 1000,
-                 dtype: torch.dtype = torch.float32, device="cpu"):
+                 dropout_pre: float = 0.1, dtype: torch.dtype = torch.float32, device="cpu"):
         super().__init__()
         self.pool_factor, self.dim_mm = pool_factor, dim_mm
+        self.dropout_pre = dropout_pre
         self.out_dim = dim_mm
         self.q_proj = Dense(dim_q, pool_factor * dim_mm, dtype, device)
         self.v_proj = Dense(dim_v, pool_factor * dim_mm, dtype, device)
 
-    def pre_pool(self, q: torch.Tensor, v: torch.Tensor,
-                 prev: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def pre_pool(self, q: torch.Tensor, v: torch.Tensor, prev: Optional[torch.Tensor] = None,
+                 rng: Optional[torch.Generator] = None) -> torch.Tensor:
         z = self.q_proj(q) * self.v_proj(v)
-        return z if prev is None else z * prev
+        if prev is not None:
+            z = z * prev
+        return dropout(z, self.dropout_pre, rng)
 
     def pool(self, z: torch.Tensor) -> torch.Tensor:
         return mfb_pool(z.contiguous(), self.pool_factor)
 
     def forward(self, q: torch.Tensor, v: torch.Tensor, prev: Optional[torch.Tensor] = None,
                 rng: Optional[torch.Generator] = None):
-        # rng is taken for the attention's call and not used: dropout_pre is
-        # not applied while the MFB models refuse training (item 5c)
-        z = self.pre_pool(q, v, prev)
+        z = self.pre_pool(q, v, prev, rng)
         return self.pool(z), z
 
 
@@ -180,18 +181,20 @@ class MFHFusion(nn.Module):
     outputs are concatenated: ``[..., mfh_order*dim_mm]``."""
 
     def __init__(self, dim_q: int, dim_v: int, pool_factor: int = 5, dim_mm: int = 1000,
-                 mfh_order: int = 2, dtype: torch.dtype = torch.float32, device="cpu"):
+                 mfh_order: int = 2, dropout_pre: float = 0.1,
+                 dtype: torch.dtype = torch.float32, device="cpu"):
         super().__init__()
         self.mfh_order, self.dim_mm = mfh_order, dim_mm
         self.out_dim = mfh_order * dim_mm
         for i in range(mfh_order):
-            setattr(self, f"mfb_{i}", MFBFusion(dim_q, dim_v, pool_factor, dim_mm, dtype, device))
+            setattr(self, f"mfb_{i}", MFBFusion(dim_q, dim_v, pool_factor, dim_mm, dropout_pre,
+                                                dtype, device))
 
     def forward(self, q: torch.Tensor, v: torch.Tensor,
                 rng: Optional[torch.Generator] = None) -> torch.Tensor:
-        outs, prev = [], None  # rng: as MFBFusion's
+        outs, prev = [], None
         for i in range(self.mfh_order):
-            out, prev = getattr(self, f"mfb_{i}")(q, v, prev=prev)
+            out, prev = getattr(self, f"mfb_{i}")(q, v, prev=prev, rng=rng)
             outs.append(out)
         return torch.cat(outs, dim=-1)
 
@@ -210,7 +213,6 @@ _FUSIONS = {
     "mfb": (MFBFusion, {"pool_factor", "dim_mm", "dropout_pre"}),
     "mfh": (MFHFusion, {"pool_factor", "dim_mm", "mfh_order", "dropout_pre"}),
 }
-_UNAPPLIED = {"dropout_pre"}  # MFB/MFH's, until their training (item 5c)
 
 
 def factory(opt: Dict[str, Any], dim_q: int, dim_v: int, dtype=torch.float32,
@@ -227,5 +229,4 @@ def factory(opt: Dict[str, Any], dim_q: int, dim_v: int, dtype=torch.float32,
             f"fusion arch {arch!r} got unknown option(s) {sorted(unknown)}; "
             f"valid: {sorted(valid)}"
         )
-    kwargs = {k: v for k, v in kwargs.items() if k not in _UNAPPLIED}
     return cls(dim_q, dim_v, dtype=dtype, device=device, **kwargs)

@@ -50,16 +50,22 @@ class GRULayer(nn.Module):
     flax layout: ``wx [E, 3H]``, ``wh [H, 3H]``, ``bx [3H]``, ``bh [3H]``,
     gates r, z, n."""
 
-    def __init__(self, d_in: int, hidden_size: int, dtype: torch.dtype, device):
+    def __init__(self, d_in: int, hidden_size: int, dtype: torch.dtype, device,
+                 rnn_bwd: str = "bigmatmul"):
         super().__init__()
+        self.dtype = dtype
+        self.rnn_bwd = rnn_bwd
         self.wx = param(d_in, 3 * hidden_size, dtype=dtype, device=device)
         self.wh = param(hidden_size, 3 * hidden_size, dtype=dtype, device=device)
         self.bx = param(3 * hidden_size, dtype=dtype, device=device)
         self.bh = param(3 * hidden_size, dtype=dtype, device=device)
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor, train: bool = False):
-        gx = x @ self.wx + self.bx
-        return gru_seq(gx, mask, self.wh, self.bh, train=train)
+        # bh goes in raw, as flax's GRULayer passes it: gru_seq casts it inside
+        # the cell, and its grad keeps the parameter's dtype
+        gx = x @ self.wx.to(self.dtype) + self.bx.to(self.dtype)
+        return gru_seq(gx, mask, self.wh.to(self.dtype), self.bh, train=train,
+                       rnn_bwd=self.rnn_bwd)
 
 
 _CELLS = {"lstm": LSTMLayer, "gru": GRULayer}
@@ -92,15 +98,15 @@ class SeqEncoder(nn.Module):
         self.return_sequence = return_sequence
         self.dtype = dtype
         self.embed = Embed(vocab_size, emb_size, dtype, device)
-        cell_opt = {"rnn_bwd": rnn_bwd} if cell == "lstm" else {}
         for layer in range(num_layers):
             d_in = emb_size if layer == 0 else hidden_size
             setattr(self, f"{cell}_{layer}",
-                    _CELLS[cell](d_in, hidden_size, dtype, device, **cell_opt))
+                    _CELLS[cell](d_in, hidden_size, dtype, device, rnn_bwd=rnn_bwd))
 
     def forward(self, tokens: torch.Tensor, lengths: Optional[torch.Tensor] = None,
                 train: bool = False, rng: Optional[torch.Generator] = None) -> torch.Tensor:
-        """``train`` selects the recurrence's backward (``ops.lstm``);
+        """``train`` selects the recurrence's backward (``ops.lstm``,
+        ``ops.gru``);
         ``rng``, the train step's generator, switches dropout on."""
         x = dropout(self.embed(tokens), self.dropout, rng).transpose(0, 1)   # [T, B, E]
         mask = (tokens != 0).to(self.dtype).T.unsqueeze(-1).contiguous()  # [T, B, 1]

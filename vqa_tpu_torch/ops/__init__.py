@@ -15,4 +15,29 @@ version on a CPU tensor, and counts its kernel launches in
 
 ``gru.gru_seq`` (<- vqa_tpu/ops/gru.py) is plain PyTorch on every device:
 the JAX package computes the GRU recurrence outside any Pallas kernel.
+
+Under autograd each kernel but the gathers is a ``torch.autograd.Function``:
+its kernel's forward, and a plain backward, as the JAX package's vjps are
+jnp. Most take the grads of their plain version on the saved inputs
+(``recompute_grads``).
 """
+
+import torch
+
+
+def recompute_grads(ctx, reference, cotangents):
+    """The backward of a Function whose inputs were saved whole: the grads of
+    ``reference`` on the saved tensors that ``ctx`` asks grads for, from the
+    cotangents of its outputs (None where a caller ignores an output); None
+    for the inputs past the saved tensors (non-tensor arguments)."""
+    with torch.enable_grad():
+        inputs = [x.detach().requires_grad_(need)
+                  for x, need in zip(ctx.saved_tensors, ctx.needs_input_grad)]
+        outs = reference(*inputs)
+        outs = (outs,) if isinstance(outs, torch.Tensor) else outs
+        pairs = [(o, g) for o, g in zip(outs, cotangents) if g is not None]
+        wanted = [x for x in inputs if x.requires_grad]
+        grads = iter(torch.autograd.grad([o for o, _ in pairs], wanted, [g for _, g in pairs],
+                                         allow_unused=True))
+    out = [next(grads) if x.requires_grad else None for x in inputs]
+    return tuple(out + [None] * (len(ctx.needs_input_grad) - len(out)))

@@ -1,5 +1,5 @@
 """Fused glimpse attention, the port of ``vqa_tpu/ops/attention.py``
-(``glimpse_head`` and ``glimpse_attend``, forward).
+(``glimpse_head`` and ``glimpse_attend``).
 
 glimpse_head(joint [B, R, M], w [M, G], b [G], v [B, R, D])
     -> (attended [B, G, D], logits [B, R, G])
@@ -11,12 +11,13 @@ On CUDA tensors both launch the hand-written kernel in
 with the schedule ``glimpse_plan`` gives; on CPU tensors they take the
 plain version. Each wrapper counts its own launches.
 
-Where an input of glimpse_head asks for grads, the call is a
-``torch.autograd.Function``: the same forward, and a backward by autograd
-through ``glimpse_head_reference`` on the saved inputs (a recompute), as
-``vqa_tpu/ops/attention.py::_head_bwd`` takes the vjp of its jnp reference.
-Both outputs are differentiable. glimpse_attend has no backward yet (MFB/MFH
-training, ROADMAP.md queue 1, item 5c).
+Where an input asks for grads, each call is a ``torch.autograd.Function``:
+the same forward, and a backward by autograd through the plain version on
+the saved inputs (a recompute), as ``vqa_tpu/ops/attention.py``'s ``_bwd``
+and ``_head_bwd`` take the vjp of their jnp references. Both outputs of
+glimpse_head are differentiable. Logits masked at ``finfo.min`` (MFB's
+question self-attention) take a zero grad, and a row masked whole takes
+uniform weights and finite grads.
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ import functools
 
 import torch
 
-from vqa_tpu_torch.ops import _build
+from vqa_tpu_torch.ops import _build, recompute_grads
 
 SMS = 132               # streaming multiprocessors of an H100 SXM
 SMEM_LIMIT = 232_448    # shared memory a Hopper block may opt into
@@ -169,7 +170,27 @@ def launch_glimpse_attend(logits: torch.Tensor, v: torch.Tensor, attended: torch
     _build.check(err, "glimpse_attend")
 
 
+class _GlimpseAttend(torch.autograd.Function):
+    """``_glimpse_attend_forward`` (the kernel on the card), and the grads of
+    ``glimpse_attend_reference`` recomputed from the saved inputs."""
+
+    @staticmethod
+    def forward(ctx, logits, v):
+        ctx.save_for_backward(logits, v)
+        return _glimpse_attend_forward(logits, v)
+
+    @staticmethod
+    def backward(ctx, g):
+        return recompute_grads(ctx, glimpse_attend_reference, (g,))
+
+
 def glimpse_attend(logits: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    if torch.is_grad_enabled() and (logits.requires_grad or v.requires_grad):
+        return _GlimpseAttend.apply(logits, v)
+    return _glimpse_attend_forward(logits, v)
+
+
+def _glimpse_attend_forward(logits: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     if logits.device.type == "cpu":
         return glimpse_attend_reference(logits, v)
     if logits.ndim != 3 or v.ndim != 3:
@@ -223,16 +244,7 @@ class _GlimpseHead(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g_att, g_logits):
-        with torch.enable_grad():
-            inputs = [x.detach().requires_grad_(need)
-                      for x, need in zip(ctx.saved_tensors, ctx.needs_input_grad)]
-            outs = glimpse_head_reference(*inputs)
-            # a caller that ignores an output passes no cotangent for it
-            pairs = [(o, g) for o, g in zip(outs, (g_att, g_logits)) if g is not None]
-            wanted = [x for x in inputs if x.requires_grad]
-            grads = iter(torch.autograd.grad([o for o, _ in pairs], wanted,
-                                             [g for _, g in pairs], allow_unused=True))
-        return tuple(next(grads) if x.requires_grad else None for x in inputs)
+        return recompute_grads(ctx, glimpse_head_reference, (g_att, g_logits))
 
 
 def glimpse_head(joint: torch.Tensor, w: torch.Tensor, b: torch.Tensor, v: torch.Tensor):

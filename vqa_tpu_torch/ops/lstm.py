@@ -37,7 +37,7 @@ import math
 
 import torch
 
-from vqa_tpu_torch.ops import _build
+from vqa_tpu_torch.ops import _build, recompute_grads
 
 RNN_BWD = ("bigmatmul", "native")  # engine.rnn_bwd
 
@@ -246,15 +246,9 @@ class _LSTMSeq(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dh_last, dseq):
-        xg, mask, wh = ctx.saved_tensors
         if ctx.rnn_bwd == "native":
-            with torch.enable_grad():
-                inputs = [x.detach().requires_grad_(need)
-                          for x, need in zip((xg, mask, wh), ctx.needs_input_grad)]
-                outs = lstm_seq_reference(*inputs)
-                wanted = [x for x in inputs if x.requires_grad]
-                grads = iter(torch.autograd.grad(outs, wanted, (dh_last, dseq)))
-            return (*(next(grads) if x.requires_grad else None for x in inputs), None)
+            return recompute_grads(ctx, lstm_seq_reference, (dh_last, dseq))
+        xg, mask, wh = ctx.saved_tensors
         with torch.no_grad():
             _, residuals = _bm_fwd(xg, mask, wh)
             dxg, dwh = _bm_bwd(mask, wh, residuals, dh_last, dseq)

@@ -1,4 +1,4 @@
-"""MFB pooling, the port of ``vqa_tpu/ops/mfb_pool.py`` (forward).
+"""MFB pooling, the port of ``vqa_tpu/ops/mfb_pool.py``.
 
 mfb_pool(z [..., k*m], k) -> [..., m]
 
@@ -11,13 +11,22 @@ projection that feeds it (``vqa_tpu/ops/mfb_pool.py:24-29``).
 On CUDA tensors this launches the hand-written kernel in
 ``csrc/mfb_pool.cu`` (bf16, one block per row, any row count); on CPU
 tensors it takes the plain version.
+
+Where ``z`` asks for grads, the call is a ``torch.autograd.Function``: the
+same forward, and a backward by autograd through ``mfb_pool_reference`` on
+the saved ``z`` (a recompute), as ``vqa_tpu/ops/mfb_pool.py::_bwd`` takes
+the vjp of its jnp reference, in z's dtype. The kernel pools in fp32, the
+bf16 recompute rounds the pooled values and the signed square root's
+derivative to bf16: on the card that leaves the grad 0.0041 (relative)
+from float32 autograd, against 0.0017 for a float32 recompute, both within
+the train path's 5e-2 (PERF.md, Findings).
 """
 
 from __future__ import annotations
 
 import torch
 
-from vqa_tpu_torch.ops import _build
+from vqa_tpu_torch.ops import _build, recompute_grads
 
 _SMEM_LIMIT = 48 * 1024  # m fp32 roots per block, default dynamic shared memory
 
@@ -28,7 +37,28 @@ def mfb_pool_reference(z: torch.Tensor, k: int) -> torch.Tensor:
     return ss * torch.rsqrt((ss * ss).sum(-1, keepdim=True) + 1e-12)
 
 
+class _MFBPool(torch.autograd.Function):
+    """``_mfb_pool_forward`` (the kernel on the card), and the grads of
+    ``mfb_pool_reference`` recomputed from the saved ``z``."""
+
+    @staticmethod
+    def forward(ctx, z, k):
+        ctx.k = k
+        ctx.save_for_backward(z)
+        return _mfb_pool_forward(z, k)
+
+    @staticmethod
+    def backward(ctx, g):
+        return recompute_grads(ctx, lambda z: mfb_pool_reference(z, ctx.k), (g,))
+
+
 def mfb_pool(z: torch.Tensor, k: int) -> torch.Tensor:
+    if torch.is_grad_enabled() and z.requires_grad:
+        return _MFBPool.apply(z, k)
+    return _mfb_pool_forward(z, k)
+
+
+def _mfb_pool_forward(z: torch.Tensor, k: int) -> torch.Tensor:
     if z.ndim < 1 or k < 1 or z.shape[-1] % k:
         raise ValueError(f"the last axis of z {tuple(z.shape)} is not k={k} groups")
     if z.device.type == "cpu":

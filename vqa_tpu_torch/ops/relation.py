@@ -1,4 +1,4 @@
-"""CoR relation core, the port of ``vqa_tpu/ops/relation.py`` (forward).
+"""CoR relation core, the port of ``vqa_tpu/ops/relation.py``.
 
 relation_attend(pg [B, N, D], r [B, N, D]) -> absorbed [B, N, D]
 
@@ -10,6 +10,11 @@ On CUDA tensors this launches the hand-written kernel in
 ``csrc/relation.cu`` (bf16 in and out; fp32 scores and softmax; alpha kept
 to ~2^-16 through the second product as two bf16 halves) with the schedule
 ``relation_plan`` gives; on CPU tensors it takes the plain version.
+
+Where an input asks for grads, the call is a ``torch.autograd.Function``:
+the same forward, and a backward by autograd through
+``relation_attend_reference`` on the saved ``(pg, r)`` (a recompute), as
+``vqa_tpu/ops/relation.py::_bwd`` takes the vjp of its jnp reference.
 """
 
 from __future__ import annotations
@@ -19,7 +24,7 @@ import functools
 
 import torch
 
-from vqa_tpu_torch.ops import _build
+from vqa_tpu_torch.ops import _build, recompute_grads
 
 SMEM_LIMIT = 232_448    # shared memory a Hopper block may opt into
 MAX_N = 64              # the element design: s at most 4 x 16 rows, 8 x 8 columns
@@ -185,7 +190,27 @@ def launch_geometry(B: int, N: int, D: int, plan: dict, vec: bool, device_index:
     return dict(zip(_GEOMETRY, geometry))
 
 
+class _RelationAttend(torch.autograd.Function):
+    """``_relation_attend_forward`` (the kernel on the card), and the grads
+    of ``relation_attend_reference`` recomputed from the saved inputs."""
+
+    @staticmethod
+    def forward(ctx, pg, r):
+        ctx.save_for_backward(pg, r)
+        return _relation_attend_forward(pg, r)
+
+    @staticmethod
+    def backward(ctx, g):
+        return recompute_grads(ctx, relation_attend_reference, (g,))
+
+
 def relation_attend(pg: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
+    if torch.is_grad_enabled() and (pg.requires_grad or r.requires_grad):
+        return _RelationAttend.apply(pg, r)
+    return _relation_attend_forward(pg, r)
+
+
+def _relation_attend_forward(pg: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
     if pg.device.type == "cpu":
         return relation_attend_reference(pg, r)
     if pg.ndim != 3:

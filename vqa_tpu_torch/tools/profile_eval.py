@@ -19,8 +19,8 @@ hand-written kernel by name, GEMMs, elementwise, reductions, other), largest
 first, and the kernels that take the most time by name. The profiler's own
 overhead is inside the span.
 
-``--train`` (default arch: MutanAtt; any of the six LSTM archs) profiles the
-train step instead: the training build (float32 parameters, bf16 compute,
+``--train`` (default arch: MutanAtt; any of ``ARCHS``) profiles the train
+step instead: the training build (float32 parameters, bf16 compute,
 the YAML's dropout, adam at lr 1e-4), 8 steps of batch 128 over the same
 kind of batches (the {7, 13, 26} buckets of sorted VQA v2 lengths, random
 answers of the 2000), the same warm-up and timing; the record adds the
@@ -45,7 +45,6 @@ ARCHS = {"MutanAtt": "mutan_att", "MFBCoAtt": "mfb_coatt", "MFHCoAtt": "mfh_coat
          "MLBNoAtt": "mlb_noatt", "ConcatNoAtt": "concat_noatt",
          "MutanAtt+skipthoughts": "mutan_att_skipthoughts"}
 NOATT = ("MutanNoAtt", "MLBNoAtt", "ConcatNoAtt")  # these read the pooled table
-TRAIN_ARCHS = ("MutanAtt", "ConcatAtt", "MLBAtt") + NOATT  # the archs that train
 TRAIN_BATCH = 128  # the YAMLs' optim.batch_size
 TOP = 8  # kernels listed by name
 BUCKETS = (7, 13, 26)
@@ -203,9 +202,9 @@ def main(argv=None) -> int:
     argv = [a for a in argv if a != "--train"]
     for spec in argv or (["MutanAtt"] if train else ["MutanAtt", "MFBCoAtt", "CoR"]):
         arch, _, table = spec.partition(":")
-        if arch not in (TRAIN_ARCHS if train else ARCHS) or table not in ("", "int8"):
+        if arch not in ARCHS or table not in ("", "int8"):
             raise SystemExit(f"unknown arch {spec!r}: one of "
-                             f"{sorted(TRAIN_ARCHS if train else ARCHS)}, optionally :int8")
+                             f"{sorted(ARCHS)}, optionally :int8")
         rec = profile(arch, table == "int8", dev, train=train)
         rec["device"] = smi
         print(json.dumps(rec), flush=True)
