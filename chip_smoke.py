@@ -121,7 +121,29 @@ Phases, each printing one line of what it found:
      and val QA/s (metrics.jsonl), each save's seconds and bytes, the
      restore's seconds and the resume's lost steps. Then mfb_coatt.yaml at
      full width, one straight epoch and -e --resume best: the acc1 equal to
-     the run's best, a finite loss, exactly MFBCoAtt's kernels launched.
+     the run's best, a finite loss, exactly MFBCoAtt's kernels launched;
+ 10. export: over phase 9's runs (MutanAtt run A, the MFBCoAtt run) and a
+     CoR run at cor.yaml's full width (weights.init_params, seed 0, written
+     as its best checkpoint), vqa_tpu_torch.export at the serving batch 64
+     on the card: MutanAtt baked (bf16, as the model holds them), external
+     (params.npz) and baked int8, MFBCoAtt and CoR baked. Each artifact is
+     loaded and run in a fresh interpreter (all five at once) with an
+     in-memory feature store: held there, no vqa_tpu_torch.models module and
+     nothing of jax imported, the graph calling exactly the arch's
+     registered ops (vqa_tpu_torch::lstm_seq, ...) and the loaded program
+     launching exactly those kernels; held here, its logits on 64 served
+     val questions within 0.05 of the live model's with the same answers
+     (int8: of an eager run of the same dequantized weights; the agreement
+     with the unquantized model is printed). Then the export CLI's
+     --validate 1024 gate (agreement 1.0), the serve CLI's --exported on
+     port 0 in-process (with and without --dynamic_batching: three /answer
+     and a /batch of 70, equal to ExportedPredictor.answer_batch's), and the
+     visu CLI for MutanAtt and CoR (its top-5 equal to Predictor.answer's;
+     the attention of the kernel path within 0.05 of the plain path's on a
+     CPU copy). Printed: each artifact's bytes, export and load seconds; the
+     forward at B=64 of the live model and of the loaded program (median,
+     host clock after sync, in turns); the host time of one registered op
+     call against a direct call of its CUDA implementation (20 calls).
 
 Any failed check raises, and the script exits non-zero. On success the
 second-to-last line is the per-kernel JSON record and the last line is
@@ -138,6 +160,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.request
@@ -300,6 +323,15 @@ TRAIN_CLI_CKPT_EVERY = 40
 TRAIN_CLI_SIGTERM_AT = (1, TRAIN_CLI_CKPT_EVERY)
 TRAIN_CLI_SERVED = 64
 TRAIN_CLI_KERNELS = ("gather_rows", "lstm_seq", "glimpse_head")
+# phase 10: the serving batch the artifacts are frozen at, the val questions
+# of the export CLI's --validate gate, each exported arch's registered ops
+# (its kernels inside the program), and the ops whose dispatch cost is timed
+EXPORT_BATCH = SERVE_BATCH
+EXPORT_VALIDATE = 1024
+EXPORT_OPS = {"MutanAtt": ("lstm_seq", "glimpse_head"),
+              "MFBCoAtt": ("lstm_seq", "glimpse_attend", "mfb_pool", "glimpse_head"),
+              "CoR": ("lstm_seq", "relation_attend")}
+EXPORT_VISU = ("MutanAtt", "CoR")
 SOURCES = {  # kernel -> (its CUDA source, the TPU kernel it replaces)
     "gather_rows": ("vqa_tpu_torch/csrc/gather.cu", "vqa_tpu/ops/gather.py:58"),
     # the same TPU kernel on the int8 rows, with the dequant after it
@@ -1199,7 +1231,6 @@ def _eval_cli_phase(torch, dev, table: np.ndarray, pooled: np.ndarray) -> dict:
     counts of its kernel runs (bf16 and int8 tables, and the noatt run)."""
     import dataclasses
     import io
-    import tempfile
 
     from vqa_tpu_torch.cli import score as score_cli
     from vqa_tpu_torch.cli import train as train_cli
@@ -1829,13 +1860,15 @@ def _dir_bytes(path: str) -> int:
     return sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
 
 
-def _train_cli_phase(torch, dev, host_table: np.ndarray, card: str) -> dict:
+def _train_cli_phase(torch, dev, host_table: np.ndarray, card: str, tmp: str):
     """Phase 9 (the docstring): the port's train CLI, straight and preempted
     then resumed, its eval-only resume and the Predictor from its
-    checkpoint; returns the launch counts of the phase."""
+    checkpoint, in ``tmp``; returns the launch counts of the phase and what
+    phase 10 reuses: run A's and the MFBCoAtt run's dirs, the data options,
+    the key of the store left in the dataset factory's cache, and the 64
+    served val questions with their images."""
     import io
     import signal
-    import tempfile
 
     from vqa_tpu_torch.cli import train as train_cli
     from vqa_tpu_torch.config import load_options
@@ -1909,177 +1942,177 @@ def _train_cli_phase(torch, dev, host_table: np.ndarray, card: str) -> dict:
                (engine_lib, "train", timed_train),
                (train_cli, "make_train_step", counting_make_train_step)]
 
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_cli_") as tmp:
-        t0 = time.perf_counter()
-        _write_raw_vqa2(os.path.join(tmp, "vqa2", "raw"), np.random.default_rng(0))
-        data = [f"vqa.dir={tmp}/vqa2", f"coco.dir={tmp}/coco"]
-        opt = load_options(yaml, data)
-        # one store for every split, as the factory keeps it: the val images'
-        # rows (phase 6's table) and the train images' rows after them
-        names = ([image_name("val2014", i) for i in range(N_IMAGES)]
-                 + [image_name("train2014", i) for i in range(N_IMAGES)])
-        train_rows = np.random.default_rng(1).standard_normal(host_table.shape, np.float32)
-        key = (opt.coco.dir, opt.coco.arch, opt.coco.mode, "ram")
-        data_factory._STORE_CACHE[key] = FeatureStore.in_memory(
-            names, np.concatenate([host_table, train_rows]))
-        del train_rows
-        train_set = data_factory.factory("train", opt, visual_mode="index")
-        val_set = data_factory.factory("val", opt, visual_mode="index")
-        setup_s = time.perf_counter() - t0
-        steps_per_epoch = len(train_set) // opt.optim.batch_size
-        _require(opt.optim.batch_size == TRAIN_BATCH and steps_per_epoch > 2 * TRAIN_CLI_CKPT_EVERY,
-                 f"{steps_per_epoch} steps of {opt.optim.batch_size} an epoch")
-        _require(train_set.image_index.min() >= N_IMAGES and val_set.image_index.max() < N_IMAGES,
-                 "train rows index the train2014 half of the one table, val rows the val half")
-        base = ["--path_opt", yaml, "--epochs", str(TRAIN_CLI_EPOCHS),
-                "--checkpoint_every_steps", str(TRAIN_CLI_CKPT_EVERY)]
-        for o in data + ["engine.device_features=true", "engine.features_dtype=bfloat16",
-                         f"engine.train_bucketing={TRAIN_BUCKET_WINDOW}",
-                         "optim.eval_batch_size=1024"]:
-            base += ["--opt", o]
-        logs = {r: os.path.join(tmp, "logs", r) for r in ("A", "B")}
-        runs = {}
+    t0 = time.perf_counter()
+    _write_raw_vqa2(os.path.join(tmp, "vqa2", "raw"), np.random.default_rng(0))
+    data = [f"vqa.dir={tmp}/vqa2", f"coco.dir={tmp}/coco"]
+    opt = load_options(yaml, data)
+    # one store for every split, as the factory keeps it: the val images'
+    # rows (phase 6's table) and the train images' rows after them
+    names = ([image_name("val2014", i) for i in range(N_IMAGES)]
+             + [image_name("train2014", i) for i in range(N_IMAGES)])
+    train_rows = np.random.default_rng(1).standard_normal(host_table.shape, np.float32)
+    key = (opt.coco.dir, opt.coco.arch, opt.coco.mode, "ram")
+    data_factory._STORE_CACHE[key] = FeatureStore.in_memory(
+        names, np.concatenate([host_table, train_rows]))
+    del train_rows
+    train_set = data_factory.factory("train", opt, visual_mode="index")
+    val_set = data_factory.factory("val", opt, visual_mode="index")
+    setup_s = time.perf_counter() - t0
+    steps_per_epoch = len(train_set) // opt.optim.batch_size
+    _require(opt.optim.batch_size == TRAIN_BATCH and steps_per_epoch > 2 * TRAIN_CLI_CKPT_EVERY,
+             f"{steps_per_epoch} steps of {opt.optim.batch_size} an epoch")
+    _require(train_set.image_index.min() >= N_IMAGES and val_set.image_index.max() < N_IMAGES,
+             "train rows index the train2014 half of the one table, val rows the val half")
+    base = ["--path_opt", yaml, "--epochs", str(TRAIN_CLI_EPOCHS),
+            "--checkpoint_every_steps", str(TRAIN_CLI_CKPT_EVERY)]
+    for o in data + ["engine.device_features=true", "engine.features_dtype=bfloat16",
+                     f"engine.train_bucketing={TRAIN_BUCKET_WINDOW}",
+                     "optim.eval_batch_size=1024"]:
+        base += ["--opt", o]
+    logs = {r: os.path.join(tmp, "logs", r) for r in ("A", "B")}
+    runs = {}
 
-        def run(label, argv):
-            executed[0], first_train = 0, len(trains)
-            t = time.perf_counter()
-            with contextlib.redirect_stdout(io.StringIO()):
-                rc = train_cli.main(argv)
-            torch.cuda.synchronize()
-            runs[label] = dict(rc=rc, wall=time.perf_counter() - t, steps=executed[0],
-                               trains=trains[first_train:])
-            torch.cuda.empty_cache()
-            return rc
-
-        for obj, name, fn in patches:
-            setattr(obj, name, fn)
-        _reset_counts()
-        try:
-            _require(run("A", base + ["--dir_logs", logs["A"]]) == 0, "run A returns 0")
-            sigterm["at"] = TRAIN_CLI_SIGTERM_AT
-            rc = run("B1", base + ["--dir_logs", logs["B"]])
-            sigterm["at"] = None
-            _require(rc == 75, f"run B, sent SIGTERM after step checkpoint "
-                     f"{TRAIN_CLI_SIGTERM_AT}, returns 75: {rc}")
-            with open(os.path.join(logs["B"], "ckpt", "info.json")) as f:
-                info_b = json.load(f)
-            _require(sigterm["seen"] is not None
-                     and info_b["step_latest"] == list(sigterm["seen"])
-                     and sigterm["seen"][0] == TRAIN_CLI_SIGTERM_AT[0],
-                     f"info.json names the preemption save {sigterm['seen']}: {info_b}")
-            with open(os.path.join(logs["B"], "ckpt", "inepoch_%04d_%08d" % sigterm["seen"],
-                                   "state.json")) as f:
-                saved_step = json.load(f)["step"]
-            _require(run("B2", base + ["--dir_logs", logs["B"], "--resume", "latest"]) == 0,
-                     "run B resumed returns 0")
-            ev = ["--path_opt", yaml, "-e", "--resume", "best", "--dir_logs", logs["A"]]
-            for o in data + ["engine.device_features=true", "engine.features_dtype=bfloat16",
-                             "optim.eval_batch_size=1024"]:
-                ev += ["--opt", o]
-            _require(run("eval", ev) == 0, "-e --resume best returns 0")
-
-            # the Predictor from A's best checkpoint against the eval step on
-            # the same 64-row batch
-            t = time.perf_counter()
-            predictor = Predictor.from_run(logs["A"], resume="best", device=dev)
-            load_s = time.perf_counter() - t
-            rows = np.arange(TRAIN_CLI_SERVED) * (len(val_set) // TRAIN_CLI_SERVED)
-            with open(os.path.join(tmp, "vqa2", "raw", RAW_FILES["val"][0])) as f:
-                text = {q["question_id"]: q["question"] for q in json.load(f)["questions"]}
-            questions = [text[q] for q in val_set.split.question_ids[rows].tolist()]
-            images = [str(n) for n in val_set.split.image_names[rows]]
-            served = [a[0][0] for a in predictor.answer_batch(questions, images, topk=1)]
-            q, lengths = predictor.encode_questions(questions)
-            table = predictor.table.to(dev, torch.bfloat16)
-            out = make_eval_step()(predictor.model,
-                                   {"question": q, "length": lengths,
-                                    "image_index": val_set.image_index[rows]}, table)
-            stepped = [val_set.vocabs.aid_to_ans[a] for a in out["pred"].cpu().tolist()]
-            del predictor, table
-            counts = _read_counts()
-        finally:
-            for (obj, name, _), fn in zip(patches, [real[n] for _, n, _ in patches]):
-                setattr(obj, name, fn)
-            sigterm["at"] = None
-        mfb = _train_cli_mfb(torch, train_cli, data, os.path.join(tmp, "logs", "mfb"),
-                             steps_per_epoch, card)
-        del data_factory._STORE_CACHE[key]
+    def run(label, argv):
+        executed[0], first_train = 0, len(trains)
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = train_cli.main(argv)
+        torch.cuda.synchronize()
+        runs[label] = dict(rc=rc, wall=time.perf_counter() - t, steps=executed[0],
+                           trains=trains[first_train:])
         torch.cuda.empty_cache()
+        return rc
 
-        def metrics(label, split):
-            with open(os.path.join(logs[label], "metrics.jsonl")) as f:
-                return [r for r in map(json.loads, f) if r.get("split") == split]
+    for obj, name, fn in patches:
+        setattr(obj, name, fn)
+    _reset_counts()
+    try:
+        _require(run("A", base + ["--dir_logs", logs["A"]]) == 0, "run A returns 0")
+        sigterm["at"] = TRAIN_CLI_SIGTERM_AT
+        rc = run("B1", base + ["--dir_logs", logs["B"]])
+        sigterm["at"] = None
+        _require(rc == 75, f"run B, sent SIGTERM after step checkpoint "
+                 f"{TRAIN_CLI_SIGTERM_AT}, returns 75: {rc}")
+        with open(os.path.join(logs["B"], "ckpt", "info.json")) as f:
+            info_b = json.load(f)
+        _require(sigterm["seen"] is not None
+                 and info_b["step_latest"] == list(sigterm["seen"])
+                 and sigterm["seen"][0] == TRAIN_CLI_SIGTERM_AT[0],
+                 f"info.json names the preemption save {sigterm['seen']}: {info_b}")
+        with open(os.path.join(logs["B"], "ckpt", "inepoch_%04d_%08d" % sigterm["seen"],
+                               "state.json")) as f:
+            saved_step = json.load(f)["step"]
+        _require(run("B2", base + ["--dir_logs", logs["B"], "--resume", "latest"]) == 0,
+                 "run B resumed returns 0")
+        ev = ["--path_opt", yaml, "-e", "--resume", "best", "--dir_logs", logs["A"]]
+        for o in data + ["engine.device_features=true", "engine.features_dtype=bfloat16",
+                         "optim.eval_batch_size=1024"]:
+            ev += ["--opt", o]
+        _require(run("eval", ev) == 0, "-e --resume best returns 0")
 
-        def arrays(label):
-            path = os.path.join(logs[label], "ckpt", f"epoch_{TRAIN_CLI_EPOCHS - 1:04d}")
-            out = {}
-            for name in ("params.npz", "opt_state.npz"):
-                with np.load(os.path.join(path, name)) as npz:
-                    out.update({f"{name}:{k}": npz[k] for k in npz.files})
-            with open(os.path.join(path, "state.json")) as f:
-                out["step"] = np.asarray(json.load(f)["step"])
-            return out
+        # the Predictor from A's best checkpoint against the eval step on
+        # the same 64-row batch
+        t = time.perf_counter()
+        predictor = Predictor.from_run(logs["A"], resume="best", device=dev)
+        load_s = time.perf_counter() - t
+        rows = np.arange(TRAIN_CLI_SERVED) * (len(val_set) // TRAIN_CLI_SERVED)
+        with open(os.path.join(tmp, "vqa2", "raw", RAW_FILES["val"][0])) as f:
+            text = {q["question_id"]: q["question"] for q in json.load(f)["questions"]}
+        questions = [text[q] for q in val_set.split.question_ids[rows].tolist()]
+        images = [str(n) for n in val_set.split.image_names[rows]]
+        served = [a[0][0] for a in predictor.answer_batch(questions, images, topk=1)]
+        q, lengths = predictor.encode_questions(questions)
+        table = predictor.table.to(dev, torch.bfloat16)
+        out = make_eval_step()(predictor.model,
+                               {"question": q, "length": lengths,
+                                "image_index": val_set.image_index[rows]}, table)
+        stepped = [val_set.vocabs.aid_to_ans[a] for a in out["pred"].cpu().tolist()]
+        del predictor, table
+        counts = _read_counts()
+    finally:
+        for (obj, name, _), fn in zip(patches, [real[n] for _, n, _ in patches]):
+            setattr(obj, name, fn)
+        sigterm["at"] = None
+    mfb = _train_cli_mfb(torch, train_cli, data, os.path.join(tmp, "logs", "mfb"),
+                         steps_per_epoch, card)
+    torch.cuda.empty_cache()
 
-        a, b = arrays("A"), arrays("B")
-        differ = sorted(k for k in a if k not in b or a[k].dtype != b[k].dtype
-                        or not np.array_equal(a[k], b[k]))
-        _require(sorted(a) == sorted(b) and not differ,
-                 f"B's final params and optimizer arrays equal A's bit for bit: {differ[:8]}")
-        # A's val records: one an epoch, then the -e run's; B's: one an epoch
-        val_a, val_b = metrics("A", "val"), metrics("B", "val")
-        _require(len(val_b) == TRAIN_CLI_EPOCHS
-                 and val_b[-1]["acc1"] == val_a[TRAIN_CLI_EPOCHS - 1]["acc1"],
-                 f"B's epoch-{TRAIN_CLI_EPOCHS - 1} val acc1 equals A's")
-        with open(os.path.join(logs["A"], "ckpt", "info.json")) as f:
-            info_a = json.load(f)
-        best_acc = [r["acc1"] for r in val_a if r["epoch"] == info_a["best"]][0]
-        evaluated = val_a[-1]
-        _require(len(val_a) == TRAIN_CLI_EPOCHS + 1 and evaluated["acc1"] == best_acc,
-                 f"-e --resume best reports A's best acc1 {best_acc}: {evaluated['acc1']}")
-        _require(served == stepped, f"the Predictor from A's best checkpoint answers "
-                 f"{TRAIN_CLI_SERVED} questions as the eval step does: "
-                 f"{sum(x != y for x, y in zip(served, stepped))} differ")
-        losses = [r["loss"] for label in ("A", "B") for r in metrics(label, "train")]
-        _require(all(math.isfinite(x) for x in losses), f"finite train losses: {losses}")
-        # steps B ran before the preemption that its checkpoint does not hold
-        lost = runs["B1"]["steps"] - saved_step
-        _require(runs["A"]["steps"] == TRAIN_CLI_EPOCHS * steps_per_epoch and lost == 0
-                 and runs["B1"]["steps"] + runs["B2"]["steps"] == runs["A"]["steps"],
-                 f"no step lost or repeated: A {runs['A']['steps']}, B {runs['B1']['steps']} + "
-                 f"{runs['B2']['steps']}, the preemption checkpoint at step {saved_step}")
-        _require({k for k, c in counts.items() if c} == set(TRAIN_CLI_KERNELS),
-                 f"the train CLI launched exactly {TRAIN_CLI_KERNELS}: {counts}")
+    def metrics(label, split):
+        with open(os.path.join(logs[label], "metrics.jsonl")) as f:
+            return [r for r in map(json.loads, f) if r.get("split") == split]
 
-        def per_run(label):
-            r = runs[label]
-            steps = sum(t["steps"] for t in r["trains"])
-            busy = sum(t["wall"] - t["ckpt_s"] for t in r["trains"])
-            return dict(steps=steps, train_qa_per_s=round(sum(t["rows"] for t in r["trains"])
-                                                         / busy, 1) if steps else None,
-                        step_ms=round(busy / steps * 1e3, 4) if steps else None,
-                        wall_s=round(r["wall"], 3))
+    def arrays(label):
+        path = os.path.join(logs[label], "ckpt", f"epoch_{TRAIN_CLI_EPOCHS - 1:04d}")
+        out = {}
+        for name in ("params.npz", "opt_state.npz"):
+            with np.load(os.path.join(path, name)) as npz:
+                out.update({f"{name}:{k}": npz[k] for k in npz.files})
+        with open(os.path.join(path, "state.json")) as f:
+            out["step"] = np.asarray(json.load(f)["step"])
+        return out
 
-        step_saves = [x for x in saves if x[0] == "step"]
-        epoch_saves = [x for x in saves if x[0] == "epoch"]
-        _phase("train_cli", arch="MutanAtt", card=card, train_questions=len(train_set),
-               val_questions=len(val_set), table_rows=2 * N_IMAGES, batch=TRAIN_BATCH,
-               steps_per_epoch=steps_per_epoch, epochs=TRAIN_CLI_EPOCHS,
-               checkpoint_every=TRAIN_CLI_CKPT_EVERY, setup_s=round(setup_s, 3),
-               **{f"{label}_{k}": v for label in ("A", "B1", "B2") for k, v in per_run(label).items()},
-               **{f"{label}_val_qa_per_s": [round(r["qa_per_sec"], 1) for r in metrics(label, "val")]
-                  for label in ("A", "B")},
-               val_acc1=[r["acc1"] for r in val_a[:TRAIN_CLI_EPOCHS]], best=info_a["best"],
-               eval_resume_acc1=evaluated["acc1"], eval_resume_wall_s=round(runs["eval"]["wall"], 3),
-               train_loss=[round(r["loss"], 5) for r in metrics("A", "train")],
-               sigterm_after=list(TRAIN_CLI_SIGTERM_AT), preempted_at=list(sigterm["seen"]),
-               rc_B1=runs["B1"]["rc"], lost_steps=lost, bit_equal=True,
-               step_save_s=[round(x[1], 3) for x in step_saves],
-               epoch_save_s=[round(x[1], 3) for x in epoch_saves],
-               save_bytes=sorted({x[2] for x in saves}),
-               restore_s=[round(x, 3) for x in restores], predictor_load_s=round(load_s, 3),
-               served=TRAIN_CLI_SERVED, served_equal_eval_step=True,
-               launches={k: c for k, c in counts.items() if c})
-    return {k: c + mfb[k] for k, c in counts.items()}
+    a, b = arrays("A"), arrays("B")
+    differ = sorted(k for k in a if k not in b or a[k].dtype != b[k].dtype
+                    or not np.array_equal(a[k], b[k]))
+    _require(sorted(a) == sorted(b) and not differ,
+             f"B's final params and optimizer arrays equal A's bit for bit: {differ[:8]}")
+    # A's val records: one an epoch, then the -e run's; B's: one an epoch
+    val_a, val_b = metrics("A", "val"), metrics("B", "val")
+    _require(len(val_b) == TRAIN_CLI_EPOCHS
+             and val_b[-1]["acc1"] == val_a[TRAIN_CLI_EPOCHS - 1]["acc1"],
+             f"B's epoch-{TRAIN_CLI_EPOCHS - 1} val acc1 equals A's")
+    with open(os.path.join(logs["A"], "ckpt", "info.json")) as f:
+        info_a = json.load(f)
+    best_acc = [r["acc1"] for r in val_a if r["epoch"] == info_a["best"]][0]
+    evaluated = val_a[-1]
+    _require(len(val_a) == TRAIN_CLI_EPOCHS + 1 and evaluated["acc1"] == best_acc,
+             f"-e --resume best reports A's best acc1 {best_acc}: {evaluated['acc1']}")
+    _require(served == stepped, f"the Predictor from A's best checkpoint answers "
+             f"{TRAIN_CLI_SERVED} questions as the eval step does: "
+             f"{sum(x != y for x, y in zip(served, stepped))} differ")
+    losses = [r["loss"] for label in ("A", "B") for r in metrics(label, "train")]
+    _require(all(math.isfinite(x) for x in losses), f"finite train losses: {losses}")
+    # steps B ran before the preemption that its checkpoint does not hold
+    lost = runs["B1"]["steps"] - saved_step
+    _require(runs["A"]["steps"] == TRAIN_CLI_EPOCHS * steps_per_epoch and lost == 0
+             and runs["B1"]["steps"] + runs["B2"]["steps"] == runs["A"]["steps"],
+             f"no step lost or repeated: A {runs['A']['steps']}, B {runs['B1']['steps']} + "
+             f"{runs['B2']['steps']}, the preemption checkpoint at step {saved_step}")
+    _require({k for k, c in counts.items() if c} == set(TRAIN_CLI_KERNELS),
+             f"the train CLI launched exactly {TRAIN_CLI_KERNELS}: {counts}")
+
+    def per_run(label):
+        r = runs[label]
+        steps = sum(t["steps"] for t in r["trains"])
+        busy = sum(t["wall"] - t["ckpt_s"] for t in r["trains"])
+        return dict(steps=steps, train_qa_per_s=round(sum(t["rows"] for t in r["trains"])
+                                                     / busy, 1) if steps else None,
+                    step_ms=round(busy / steps * 1e3, 4) if steps else None,
+                    wall_s=round(r["wall"], 3))
+
+    step_saves = [x for x in saves if x[0] == "step"]
+    epoch_saves = [x for x in saves if x[0] == "epoch"]
+    _phase("train_cli", arch="MutanAtt", card=card, train_questions=len(train_set),
+           val_questions=len(val_set), table_rows=2 * N_IMAGES, batch=TRAIN_BATCH,
+           steps_per_epoch=steps_per_epoch, epochs=TRAIN_CLI_EPOCHS,
+           checkpoint_every=TRAIN_CLI_CKPT_EVERY, setup_s=round(setup_s, 3),
+           **{f"{label}_{k}": v for label in ("A", "B1", "B2") for k, v in per_run(label).items()},
+           **{f"{label}_val_qa_per_s": [round(r["qa_per_sec"], 1) for r in metrics(label, "val")]
+              for label in ("A", "B")},
+           val_acc1=[r["acc1"] for r in val_a[:TRAIN_CLI_EPOCHS]], best=info_a["best"],
+           eval_resume_acc1=evaluated["acc1"], eval_resume_wall_s=round(runs["eval"]["wall"], 3),
+           train_loss=[round(r["loss"], 5) for r in metrics("A", "train")],
+           sigterm_after=list(TRAIN_CLI_SIGTERM_AT), preempted_at=list(sigterm["seen"]),
+           rc_B1=runs["B1"]["rc"], lost_steps=lost, bit_equal=True,
+           step_save_s=[round(x[1], 3) for x in step_saves],
+           epoch_save_s=[round(x[1], 3) for x in epoch_saves],
+           save_bytes=sorted({x[2] for x in saves}),
+           restore_s=[round(x, 3) for x in restores], predictor_load_s=round(load_s, 3),
+           served=TRAIN_CLI_SERVED, served_equal_eval_step=True,
+           launches={k: c for k, c in counts.items() if c})
+    context = dict(logs=logs["A"], mfb=os.path.join(tmp, "logs", "mfb"), data=data,
+                   store_key=key, questions=questions, images=images)
+    return {k: c + mfb[k] for k, c in counts.items()}, context
 
 
 def _train_cli_mfb(torch, train_cli, data, logs, steps_per_epoch, card) -> dict:
@@ -2124,6 +2157,358 @@ def _train_cli_mfb(torch, train_cli, data, logs, steps_per_epoch, card) -> dict:
            val_acc1=trained["acc1"],
            val_qa_per_s=round(trained["qa_per_sec"], 1), eval_resume_acc1=evaluated["acc1"],
            wall_s=[round(w, 3) for w in walls], launches={k: c for k, c in counts.items() if c})
+    return counts
+
+
+# ---------------------------------------------------------------- export
+
+# run in a fresh interpreter per artifact: load it with no model code, run
+# one forward at the frozen batch, report what the program launched
+_LOAD_CHECK = r"""
+import json, sys, time
+import numpy as np
+import torch
+from vqa_tpu_torch.datasets.features import FeatureStore
+from vqa_tpu_torch.export import load_export, program_ops
+from vqa_tpu_torch.ops.attention import glimpse_attend, glimpse_head
+from vqa_tpu_torch.ops.lstm import lstm_seq
+from vqa_tpu_torch.ops.mfb_pool import mfb_pool
+from vqa_tpu_torch.ops.relation import relation_attend
+
+export_dir, inputs, out = sys.argv[1:4]
+wrappers = {"lstm_seq": lstm_seq, "glimpse_head": glimpse_head,
+            "glimpse_attend": glimpse_attend, "mfb_pool": mfb_pool,
+            "relation_attend": relation_attend}
+with np.load(inputs) as f:
+    data = {k: f[k] for k in f.files}
+store = FeatureStore.in_memory([str(n) for n in data["names"]], data["visual"])
+t = time.perf_counter()
+ep = load_export(export_dir, features=store)
+torch.cuda.synchronize()
+load_s = time.perf_counter() - t
+for w in wrappers.values():
+    w.launches = 0
+logits = ep.logits(data["visual"], torch.from_numpy(data["question"]),
+                   torch.from_numpy(data["lengths"]))
+torch.cuda.synchronize()
+np.save(out, logits)
+leaked = sorted(m for m in sys.modules if m.startswith("vqa_tpu_torch.models")
+                or m.split(".")[0] in ("jax", "flax", "vqa_tpu"))
+print(json.dumps({"load_s": load_s, "ops": program_ops(ep.program), "device": str(ep.device),
+                  "launches": {k: w.launches for k, w in wrappers.items()},
+                  "leaked": leaked}))
+"""
+
+
+def _host_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
+    """Median host-clock time of ``fn`` with a sync after each call."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(iters):
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    return statistics.median(times)
+
+
+def _cor_run(torch, tmp: str, data: list) -> str:
+    """A CoR run dir at cor.yaml's full width over phase 9's data: its
+    options and, as its best checkpoint (epoch 0), weights from
+    weights.init_params (seed 0)."""
+    import dataclasses
+
+    from vqa_tpu_torch.config import dump_options, load_options
+    from vqa_tpu_torch.datasets import factory as data_factory
+    from vqa_tpu_torch.engine import optim
+    from vqa_tpu_torch.engine.checkpoint import CheckpointManager
+    from vqa_tpu_torch.engine.steps import create_state
+    from vqa_tpu_torch.models.factory import factory as model_factory
+    from vqa_tpu_torch.weights import init_params
+
+    opt = load_options(os.path.join(_REPO, "options", "vqa2", "cor.yaml"), data)
+    run = os.path.join(tmp, "logs", "cor")
+    dump_options(opt, run)
+    val_set = data_factory.factory("val", opt)  # the port's prep, for cor.yaml's 3000 answers
+    model = model_factory(dataclasses.asdict(opt.model), val_set.num_words, val_set.num_answers,
+                          dim_v=val_set.feature_shape[-1], train=True)
+    init_params(model, seed=0)
+    CheckpointManager(os.path.join(run, "ckpt")).save(
+        create_state(model, optim.factory(opt.optim)), 0, 0.0)
+    return run
+
+
+def _dispatch_us(torch, dev) -> dict:
+    """Host time of one call (us, the median of 5 trials of 20 calls, then a
+    sync) of each registered op against a direct call of its CUDA
+    implementation, at MutanAtt's and MFB's serving shapes: the cost the op
+    registration adds to every launch."""
+    from vqa_tpu_torch.ops import attention, lstm, mfb_pool, relation
+
+    B, T, R, D = EXPORT_BATCH, SEQ, REGIONS, DIM
+
+    def bf(*shape):
+        return torch.randn(shape, device=dev).bfloat16()
+
+    cases = {
+        "lstm_seq": (lstm._lstm_seq_cuda, (bf(T, B, 4 * 2400) * 0.1,
+                                           torch.ones(T, B, 1, device=dev).bfloat16(),
+                                           bf(2400, 4 * 2400) * 0.02)),
+        "glimpse_head": (attention._glimpse_head_cuda, (bf(B, R, 510), bf(510, 2), bf(2),
+                                                        bf(B, R, D))),
+        "glimpse_attend": (attention._glimpse_attend_cuda, (bf(B, T, 2), bf(B, T, 1024))),
+        "mfb_pool": (mfb_pool._mfb_pool_cuda, (bf(B * R, 5000), 5)),
+        "relation_attend": (relation._relation_attend_cuda, (bf(B, R, 1024), bf(B, R, 1024))),
+    }
+    out = {}
+    for name, (direct, args) in cases.items():
+        op = getattr(torch.ops.vqa_tpu_torch, name).default
+        per = {}
+        for label, fn in (("op", op), ("direct", direct), ("direct", direct), ("op", op)):
+            trials = []
+            for _ in range(5):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                for _ in range(20):
+                    fn(*args)
+                trials.append((time.perf_counter() - t) / 20 * 1e6)
+                torch.cuda.synchronize()
+            per.setdefault(label, []).append(statistics.median(trials))
+        out[name] = {k: round(statistics.median(v), 2) for k, v in per.items()}
+    return out
+
+
+def _export_phase(torch, dev, card: str, tmp: str, context: dict) -> dict:
+    """Phase 10 (the docstring): export, load in fresh interpreters, serve
+    --exported and visu, over phase 9's runs; returns the launch counts of
+    the loaded programs, the served artifact and visu."""
+    import io
+
+    from vqa_tpu_torch import export as export_lib
+    from vqa_tpu_torch.cli import export as export_cli
+    from vqa_tpu_torch.cli import serve as serve_cli
+    from vqa_tpu_torch.cli import visu as visu_cli
+    from vqa_tpu_torch.datasets import factory as data_factory
+    from vqa_tpu_torch.export import (_forward_at, dequantize_int8, load_export, model_params,
+                                      quantize_int8, save_export)
+    from vqa_tpu_torch.predictor import Predictor
+
+    store = data_factory._STORE_CACHE[context["store_key"]]
+    questions, images = context["questions"], context["images"]
+    counts = dict.fromkeys(_counters(), 0)
+
+    def add(c):
+        for k, v in c.items():
+            counts[k] += v
+
+    t0 = time.perf_counter()
+    runs = {"MutanAtt": context["logs"], "MFBCoAtt": context["mfb"],
+            "CoR": _cor_run(torch, tmp, context["data"])}
+    preds = {arch: Predictor.from_run(run, resume="best", device=dev)
+             for arch, run in runs.items()}
+    setup_s = time.perf_counter() - t0
+
+    # the 64 served val questions at the frozen batch, each arch's encoding
+    inputs, live = {}, {}
+    for arch, pred in preds.items():
+        q, lengths = pred.encode_questions(questions)
+        visual = pred.table[torch.as_tensor(pred.dataset.index_of(images))]
+        path = os.path.join(tmp, f"inputs_{arch}.npz")
+        np.savez(path, names=np.asarray(images), visual=visual.numpy(),
+                 question=q.cpu().numpy(), lengths=lengths.cpu().numpy())
+        inputs[arch] = (path, visual.to(dev), q, lengths)
+        with torch.inference_mode():
+            live[arch] = pred.model(visual.to(dev), q, lengths).float().cpu().numpy()
+
+    # export: MutanAtt three ways, MFBCoAtt and CoR baked
+    artifacts = {}  # label -> (arch, dir, weights_dtype, export_s, bytes)
+    plan = [("MutanAtt", "baked", None), ("MutanAtt", "external", None),
+            ("MutanAtt", "baked", "int8"), ("MFBCoAtt", "baked", None), ("CoR", "baked", None)]
+    for arch, mode, dtype in plan:
+        label = f"{arch}:{mode}" + (f":{dtype}" if dtype else "")
+        out = os.path.join(tmp, "exported", label.replace(":", "_"))
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        meta = save_export(out, preds[arch], batch=EXPORT_BATCH, weights_dtype=dtype,
+                           params_mode=mode)
+        export_s = time.perf_counter() - t
+        _require(meta["device"] == "cuda" and meta["compute_dtype"] == "bfloat16",
+                 f"{label}: traced on the card in bf16: {meta['device']}, "
+                 f"{meta['compute_dtype']}")
+        artifacts[label] = (arch, out, dtype, export_s, _dir_bytes(out))
+
+    # each artifact loaded and run in a fresh interpreter, all at once
+    procs = {}
+    for label, (arch, out, _, _, _) in artifacts.items():
+        logits_path = os.path.join(tmp, f"logits_{label.replace(':', '_')}.npy")
+        procs[label] = (subprocess.Popen(
+            [sys.executable, "-c", _LOAD_CHECK, out, inputs[arch][0], logits_path],
+            cwd=_REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True), logits_path)
+    loaded = {}
+    for label, (proc, logits_path) in procs.items():
+        stdout, stderr = proc.communicate(timeout=600)
+        _require(proc.returncode == 0, f"{label}: the fresh interpreter loads and runs the "
+                 f"artifact: rc {proc.returncode}\n{stderr[-3000:]}")
+        loaded[label] = (json.loads(stdout.strip().splitlines()[-1]), np.load(logits_path))
+
+    # held: no model code loaded, the kernels in the graph and launched, the
+    # logits against the live model (int8: against the same dequant, eagerly)
+    records = {}
+    for label, (report, got) in loaded.items():
+        arch, out, dtype, export_s, nbytes = artifacts[label]
+        expected = EXPORT_OPS[arch]
+        _require(not report["leaked"], f"{label}: loaded with no model code and no jax: "
+                 f"{report['leaked']}")
+        _require({op.split("::")[-1] for op in report["ops"]} == set(expected)
+                 and all(op.startswith("vqa_tpu_torch::") for op in report["ops"]),
+                 f"{label}: the graph calls exactly the registered ops {expected}: "
+                 f"{report['ops']}")
+        _require(all(report["launches"][k] > 0 for k in expected)
+                 and not any(c for k, c in report["launches"].items() if k not in expected),
+                 f"{label}: the loaded program launched exactly {expected}: "
+                 f"{report['launches']}")
+        add(report["launches"])
+        want = live[arch]
+        if dtype == "int8":
+            pred = preds[arch]
+            _, visual, q, lengths = inputs[arch]
+            deq = dequantize_int8(quantize_int8(model_params(pred.model)))
+            with torch.inference_mode():
+                want = _forward_at(pred.model, deq, visual, q, lengths).float().cpu().numpy()
+        err = float(np.abs(got - want).max())
+        agree = float((got.argmax(-1) == want.argmax(-1)).mean())
+        _require(got.shape == want.shape and np.isfinite(got).all(),
+                 f"{label}: finite logits of shape {want.shape}")
+        _require(err <= LOGITS_ATOL and agree == 1.0,
+                 f"{label}: logits within {LOGITS_ATOL} of the "
+                 f"{'eager dequantized' if dtype else 'live'} model ({err}) and the same "
+                 f"answers ({agree})")
+        records[label] = dict(bytes=nbytes, export_s=round(export_s, 3),
+                              load_s=round(report["load_s"], 3), max_abs_err=round(err, 6),
+                              agree=agree, launches={k: c for k, c in report["launches"].items()
+                                                     if c})
+        if dtype == "int8":  # reported, not held: quantization moves the logits
+            records[label]["agree_unquantized"] = round(
+                float((got.argmax(-1) == live[arch].argmax(-1)).mean()), 5)
+            records[label]["max_abs_err_unquantized"] = round(
+                float(np.abs(got - live[arch]).max()), 5)
+
+    # the forward at B=64: the live model against the loaded program, in turns
+    baked = load_export(artifacts["MutanAtt:baked"][1], features=store)
+    pred = preds["MutanAtt"]
+    _, visual, q, lengths = inputs["MutanAtt"]
+    args = (visual.float(), q.int(), lengths.int())
+    with torch.inference_mode():
+        program_ms, live_ms = _in_turns(torch, _host_ms, lambda: baked._call(*args),
+                                        lambda: pred.model(visual, q, lengths))
+
+    # the export CLI's deployment gate over the synthetic val split
+    buf = io.StringIO()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = export_cli.main(["--dir_logs", runs["MutanAtt"],
+                              "--out", os.path.join(tmp, "exported", "validated"),
+                              "--validate", str(EXPORT_VALIDATE)])
+    validate_s = time.perf_counter() - t
+    gate = f"answer agreement 1.0000 over {EXPORT_VALIDATE} val questions"
+    _require(rc == 0 and gate in buf.getvalue(),
+             f"export --validate {EXPORT_VALIDATE} returns 0 with {gate!r}: rc {rc}, "
+             f"{buf.getvalue()[-500:]}")
+
+    # serve --exported in-process on port 0, with and without dynamic batching;
+    # the card's machine has no h5py, so load_export gets the in-memory store
+    real_load, real_build = export_lib.load_export, serve_cli.build_server
+    box = {}
+
+    def load_with_store(export_dir, features=None, **kwargs):
+        return real_load(export_dir, features=store, **kwargs)
+
+    def build(service, host, port):
+        box["server"] = real_build(service, host, port)
+        box["ready"].set()
+        return box["server"]
+
+    qs = [questions[i % len(questions)] for i in range(EXPORT_BATCH + 6)]
+    ims = [images[i % len(images)] for i in range(EXPORT_BATCH + 6)]
+    served = {}
+    export_lib.load_export, serve_cli.build_server = load_with_store, build
+    try:
+        for dynamic in (False, True):
+            box["ready"] = threading.Event()
+            argv = ["--exported", artifacts["MutanAtt:baked"][1], "--port", "0"]
+            argv += ["--dynamic_batching"] if dynamic else []
+            _reset_counts()
+            thread = threading.Thread(target=serve_cli.main, args=(argv,), daemon=True)
+            thread.start()
+            _require(box["ready"].wait(300), "serve --exported started its server")
+            base = f"http://127.0.0.1:{box['server'].server_address[1]}"
+            try:
+                singles = []
+                for i in range(3):
+                    status, body = _post(base + "/answer", {"question": questions[i],
+                                                            "image": images[i], "topk": 5})
+                    _require(status == 200, f"/answer status {status}")
+                    singles.append([tuple(x) for x in body["answers"]])
+                status, body = _post(base + "/batch", {"questions": qs, "images": ims,
+                                                       "topk": 3})
+                _require(status == 200 and len(body["answers"]) == len(qs),
+                         f"/batch of {len(qs)} > the artifact's batch")
+            finally:
+                box["server"].shutdown()
+                thread.join(timeout=60)
+            _require(not thread.is_alive(), "serve --exported returned after shutdown")
+            add(_read_counts())
+            served[dynamic] = (singles, [[tuple(x) for x in row] for row in body["answers"]])
+    finally:
+        export_lib.load_export, serve_cli.build_server = real_load, real_build
+    for dynamic, (singles, rows) in served.items():
+        direct = [_direct(baked, [questions[i]], [images[i]], EXPORT_BATCH, 5)[0]
+                  for i in range(3)]
+        _require(_same_answers(singles, direct) and
+                 _same_answers(rows, _direct(baked, qs, ims, EXPORT_BATCH, 3)),
+                 f"served --exported answers (dynamic batching {dynamic}) equal "
+                 "ExportedPredictor.answer_batch's")
+
+    # visu: its top-k against Predictor.answer, the attention of the kernel
+    # path against the plain path (a CPU copy)
+    visu = {}
+    for arch in EXPORT_VISU:
+        question, image = questions[0], images[0]
+        buf = io.StringIO()
+        _reset_counts()
+        with contextlib.redirect_stdout(buf):
+            rc = visu_cli.main(["--dir_logs", runs[arch], "--image", image,
+                                "--question", question])
+        add(_read_counts())
+        printed = [line.strip().rsplit(maxsplit=1)[0] for line in buf.getvalue().splitlines()
+                   if line.startswith("  ")]
+        want = [a for a, _ in preds[arch].answer(question, image, topk=5)]
+        _require(rc == 0 and printed == want, f"{arch} visu prints Predictor.answer's top-5 "
+                 f"{want}: {printed}")
+        alpha = visu_cli.attention_map(preds[arch], question, image)
+        plain = visu_cli.attention_map(
+            Predictor.from_run(runs[arch], resume="best", device="cpu"), question, image)
+        err = float(np.abs(alpha - plain).max())
+        _require(alpha.shape == plain.shape == (REGIONS, 3 if arch == "CoR" else 2)
+                 and err <= LOGITS_ATOL,
+                 f"{arch} visu attention {alpha.shape} within {LOGITS_ATOL} of the plain "
+                 f"path's: {err}")
+        visu[arch] = dict(shape=list(alpha.shape), max_abs_err=round(err, 6))
+
+    dispatch = _dispatch_us(torch, dev)
+    del preds, baked, pred
+    torch.cuda.empty_cache()
+    _require(all(counts[k] > 0 for ops in EXPORT_OPS.values() for k in ops),
+             f"phase 10 launched every forward kernel inside loaded programs: {counts}")
+    for label, r in records.items():
+        _phase("export", artifact=label, card=card, batch=EXPORT_BATCH, **r)
+    _phase("export", card=card, setup_s=round(setup_s, 3), forward_b64_live_ms=round(live_ms, 4),
+           forward_b64_program_ms=round(program_ms, 4), validate=EXPORT_VALIDATE,
+           validate_agree=1.0, validate_s=round(validate_s, 3), served_equal_direct=True,
+           served_requests=8, visu=visu, dispatch_us=dispatch,
+           launches={k: c for k, c in counts.items() if c})
     return counts
 
 
@@ -2205,9 +2590,19 @@ def main() -> int:
     for name, c in _train_phase(torch, dev, host_table, tables["regions"][0],
                                 tables["pooled"][0], card).items():
         launches[name] += c
-    # 9. the train CLI: checkpoints, SIGTERM, resume, eval and serve from them
-    for name, c in _train_cli_phase(torch, dev, host_table, card).items():
-        launches[name] += c
+    # 9. the train CLI: checkpoints, SIGTERM, resume, eval and serve from
+    # them; 10. export, serve --exported and visu over its runs
+    from vqa_tpu_torch.datasets import factory as data_factory
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_cli_") as tmp:
+        counts, context = _train_cli_phase(torch, dev, host_table, card, tmp)
+        try:
+            counts = [counts, _export_phase(torch, dev, card, tmp, context)]
+        finally:
+            del data_factory._STORE_CACHE[context["store_key"]]
+    for phase_counts in counts:
+        for name, c in phase_counts.items():
+            launches[name] += c
     for name, by_shape in train_ops.items():
         kernels[name]["train_fwd_bwd_ms"] = {k: round(t["fwd_bwd_ms"], 4)
                                              for k, t in by_shape.items()}

@@ -44,7 +44,9 @@ def test_every_port_module_is_listed():
                      "vqa_tpu_torch.scorer", "vqa_tpu_torch.cli.score",
                      "vqa_tpu_torch.cli.train", "vqa_tpu_torch.ops.gru",
                      "vqa_tpu_torch.models.noatt", "vqa_tpu_torch.engine.checkpoint",
-                     "vqa_tpu_torch.weights", "vqa_tpu_torch.engine.optim"):
+                     "vqa_tpu_torch.weights", "vqa_tpu_torch.engine.optim",
+                     "vqa_tpu_torch.export", "vqa_tpu_torch.cli.export",
+                     "vqa_tpu_torch.cli.visu"):
         assert expected in mods
 
 

@@ -993,3 +993,91 @@ def test_relation_plan_matches_the_card(cuda_device, B, N, D, vec):
     geometry = relation_geometry(B, N, D, plan, vec, cuda_device.index or 0)
     assert geometry == {"ctas": plan["ctas"], "cluster": plan["cluster"],
                         "threads": plan["threads"], "smem_bytes": plan["smem_bytes"]}
+
+
+# the archs' shapes of each registered op: (inputs' shapes, non-tensor args)
+FAKE_CASES = {
+    "lstm_seq": [((26, 64, 4 * 2400), (26, 64, 1), (2400, 4 * 2400)),   # MutanAtt, serving
+                 ((7, 1024, 4 * 1024), (7, 1024, 1), (1024, 4 * 1024)),  # MFB / CoR, eval
+                 ((5, 3, 4 * 41), (5, 3, 1), (41, 4 * 41))],              # odd H
+    "glimpse_head": [((64, 36, 510), (510, 2), (2,), (64, 36, 2048)),    # MutanAtt
+                     ((1024, 36, 512), (512, 2), (2,), (1024, 36, 2048)),  # MFB
+                     ((64, 36, 1024), (1024, 1), (1,), (64, 36, 2048)),  # ConcatAtt
+                     ((64, 196, 1200), (1200, 2), (2,), (64, 196, 2048))],  # MLBAtt, grid
+    "glimpse_attend": [((64, 26, 2), (64, 26, 1024)), ((1024, 7, 2), (1024, 7, 1024))],
+    "mfb_pool": [((64, 36, 5000), 5), ((1024, 5000), 5), ((64, 1000), 2)],
+    "relation_attend": [((64, 36, 1024), (64, 36, 1024)), ((8, 196, 1024), (8, 196, 1024))],
+}
+FAKE_REFERENCES = {"lstm_seq": lstm_seq_reference, "glimpse_head": glimpse_head_reference,
+                   "glimpse_attend": glimpse_attend_reference, "mfb_pool": mfb_pool_reference,
+                   "relation_attend": relation_attend_reference}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("op,case", [(op, i) for op, cases in FAKE_CASES.items()
+                                     for i in range(len(cases))])
+def test_registered_op_fake_gives_the_plain_versions_shapes(op, case, dtype):
+    """Each registered op (torch.ops.vqa_tpu_torch.*) on meta tensors, which
+    takes its fake implementation (what torch.export traces with), gives the
+    output shapes and dtypes of its plain version on the same meta tensors,
+    at the archs' shapes."""
+    args = [torch.empty(a, dtype=dtype, device="meta") if isinstance(a, tuple) else a
+            for a in FAKE_CASES[op][case]]
+    got = getattr(torch.ops.vqa_tpu_torch, op)(*args)
+    want = FAKE_REFERENCES[op](*args)
+    got, want = ((x,) if isinstance(x, torch.Tensor) else tuple(x) for x in (got, want))
+    assert [(t.shape, t.dtype, t.device.type) for t in got] == \
+        [(t.shape, t.dtype, "meta") for t in want]
+
+
+def test_registered_ops_take_the_plain_version_on_the_cpu():
+    """On CPU tensors each registered op is its plain version, bit for bit."""
+    rng = np.random.default_rng(3)
+
+    def t(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+
+    mask = torch.from_numpy((rng.random((5, 3, 1)) > 0.3).astype(np.float32))
+    cases = {"lstm_seq": (t(5, 3, 4 * 6), mask, t(6, 4 * 6)),
+             "glimpse_head": (t(2, 5, 7), t(7, 2), t(2), t(2, 5, 8)),
+             "glimpse_attend": (t(2, 5, 3), t(2, 5, 8)),
+             "mfb_pool": (t(4, 10), 2),
+             "relation_attend": (t(2, 5, 8), t(2, 5, 8))}
+    for op, args in cases.items():
+        got = getattr(torch.ops.vqa_tpu_torch, op)(*args)
+        want = FAKE_REFERENCES[op](*args)
+        got, want = ((x,) if isinstance(x, torch.Tensor) else tuple(x) for x in (got, want))
+        assert len(got) == len(want) and all(torch.equal(g, w) for g, w in zip(got, want)), op
+
+
+@pytest.mark.cuda
+def test_exported_program_launches_the_kernels(cuda_device):
+    """A tiny MutanAtt exported on the card keeps lstm_seq and glimpse_head
+    as registered ops, and running the loaded program launches both kernels
+    (the launch counters live in the ops' CUDA implementations)."""
+    import io
+
+    from vqa_tpu_torch import flagship
+    from vqa_tpu_torch.export import export_forward, model_params, program_ops
+    from vqa_tpu_torch.weights import random_params
+
+    model = flagship.build(num_words=50, num_answers=7, tiny=True, dtype=torch.bfloat16,
+                           device=cuda_device, dim_v=64)
+    random_params(model, 0)
+    program = export_forward(model, model_params(model), batch=4, seq=6, feature_shape=(36, 64),
+                             device=cuda_device)
+    assert program_ops(program) == ["vqa_tpu_torch::lstm_seq", "vqa_tpu_torch::glimpse_head"]
+    buf = io.BytesIO()
+    torch.export.save(program, buf)
+    buf.seek(0)
+    loaded = torch.export.load(buf).module()
+    visual = torch.randn(4, 36, 64, device=cuda_device)
+    question = torch.randint(1, 50, (4, 6), device=cuda_device, dtype=torch.int32)
+    lengths = torch.full((4,), 6, device=cuda_device, dtype=torch.int32)
+    lstm_seq.launches = glimpse_head.launches = 0
+    with torch.inference_mode():
+        got = loaded(visual, question, lengths)
+        want = model(visual, question, lengths)
+    torch.cuda.synchronize()
+    assert lstm_seq.launches == 2 and glimpse_head.launches == 2
+    assert torch.equal(got, want)

@@ -213,11 +213,21 @@ def test_eval_step_int8_table_matches_jax(run, scale_dtype):
         np.testing.assert_array_equal(got[key].numpy(), np.asarray(want[key]), err_msg=key)
 
 
-@pytest.mark.parametrize("flag", [["--exported", "x"]])
-def test_serve_cli_refuses_jax_only_artifacts(flag, capsys):
+@pytest.mark.parametrize("flag", [["--exported"]])
+def test_serve_cli_refuses_jax_only_artifacts(run, tmp_path, flag, capsys):
+    """``--exported`` serves the port's artifacts; a JAX package's artifact
+    (program.jaxexport, written here by vqa_tpu.export) is refused, naming
+    both formats and the port's export CLI."""
+    from vqa_tpu.export import save_export as jax_save_export
+
+    jax_pred = run[0]
+    jax_dir = str(tmp_path / "jax_exported")
+    jax_save_export(jax_dir, jax_pred, batch=2)
     with pytest.raises(SystemExit):
-        serve_main(["--dir_logs", "x", *flag])
-    assert "cli.export --params external" in capsys.readouterr().err
+        serve_main([*flag, jax_dir, "--platform", "cpu"])
+    err = capsys.readouterr().err
+    assert "program.jaxexport" in err and "program.pt2" in err
+    assert "vqa_tpu_torch.cli.export" in err
 
 
 class _StoppedServer:
@@ -318,20 +328,17 @@ def _flags(parser):
 
 def test_serve_cli_flags_match_the_reference():
     """Every flag of the original's serve CLI is the port's, with its
-    default, type and action (--resume best included), but the jax-only
-    ones: --coco_dir (of an AOT artifact) is not taken, and --exported is
-    taken and refused; the port adds --params (its npz) and requires
-    --dir_logs."""
+    default, type and action (--resume best, --exported and --coco_dir
+    included; --dir_logs not required, as exactly one of it and --exported
+    is); the port adds --params (its npz)."""
     want, got = _flags(_reference_parser()), _flags(port_serve.build_argparser())
-    assert set(want) - set(got) == {"--coco_dir"}
+    assert set(want) - set(got) == set()
     assert set(got) - set(want) == {"--params"}
     for flag, action in want.items():
-        if flag in ("--coco_dir", "--dir_logs"):
-            continue
         mine = got[flag]
-        assert (mine.default, mine.type, type(mine)) == \
-            (action.default, action.type, type(action)), flag
-    assert got["--dir_logs"].required and got["--resume"].default == "best"
+        assert (mine.default, mine.type, type(mine), mine.required) == \
+            (action.default, action.type, type(action), action.required), flag
+    assert not got["--dir_logs"].required and got["--resume"].default == "best"
 
 
 def test_serve_cli_refuses_a_request_timeout_without_dynamic_batching(capsys):

@@ -8,7 +8,10 @@ use (``ops/_build.py``), with its plain PyTorch version beside it in
 reference it is tested against. Ported so far: inference of all nine archs
 (MutanAtt, MLBAtt, ConcatAtt, MFBCoAtt, MFHCoAtt, CoR and the NoAtt
 family, with the LSTM, GRU or skip-thoughts question encoder; eval step
-and the HTTP answer service), with all six Pallas kernels, and evaluation over a dataset (data prep, loader,
-eval loop, results and scorer behind ``python -m vqa_tpu_torch.cli.train
--e``); see ROADMAP.md for the rest.
+and the HTTP answer service), with all six Pallas kernels, evaluation over a
+dataset (data prep, loader, eval loop, results and scorer behind ``python -m
+vqa_tpu_torch.cli.train -e``), training, checkpoints and resume, export to a
+frozen ``torch.export`` program that serves without model code
+(``export.py``, ``cli/export.py``, ``cli/serve.py --exported``) and the
+attention demo (``cli/visu.py``); see ROADMAP.md for the rest.
 """

@@ -6,6 +6,7 @@ the port of ``vqa_tpu/cli/serve.py``.
       [--path_opt ...] [--host 127.0.0.1] \
       [--port 8080] [--max_batch 64] [--platform cpu] [--dynamic_batching \
       [--batch_wait_ms 5] [--batch_window_ms 40] [--request_timeout_s 30]]
+  python -m vqa_tpu_torch.cli.serve --exported exported/ [--coco_dir ...] [...]
 
 Endpoints (JSON over POST, plus GET /healthz and GET /metrics):
   /answer  {"question": str, "image": str, "topk"?: int}
@@ -22,12 +23,14 @@ original, so a row's answer does not depend on which requests shared its
 forward.
 
 Weights: ``--params <npz>`` or ``--no_resume`` serve a '/'-keyed npz (the
-given one, or the run's ``model.pretrained_params``; a trained JAX run
-reaches the port through ``python -m vqa_tpu.cli.export --params
-external``); otherwise the run's checkpoint that ``--resume`` names
-(default ``best``, as in the original), which the port's train CLI writes
-under ``<dir_logs>/ckpt``. AOT ``--exported`` artifacts need jax, and are
-refused.
+given one, or the run's ``model.pretrained_params``; ``python -m
+vqa_tpu_torch.cli.export --params external`` writes one, as the JAX
+package's export CLI does for a JAX run); otherwise the run's checkpoint
+that ``--resume`` names (default ``best``, as in the original), which the
+port's train CLI writes under ``<dir_logs>/ckpt``. ``--exported`` serves an
+artifact of ``python -m vqa_tpu_torch.cli.export`` instead of a run (no
+model code; its batch is the serving batch; ``--coco_dir`` moves its
+feature table), on the device it was traced on.
 """
 
 from __future__ import annotations
@@ -311,13 +314,15 @@ def build_server(service, host: str, port: int) -> ThreadingHTTPServer:
 
 
 def build_argparser() -> argparse.ArgumentParser:
-    """``vqa_tpu/cli/serve.py``'s flags and defaults, but ``--coco_dir`` (an
-    AOT artifact's, which needs jax), ``--params`` (the port's npz) and a
-    required ``--dir_logs``; ``--exported`` is taken and refused (it needs
-    jax)."""
+    """``vqa_tpu/cli/serve.py``'s flags and defaults, and ``--params`` (the
+    port's npz)."""
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
-    p.add_argument("--dir_logs", required=True)
+    p.add_argument("--dir_logs", default=None)
+    p.add_argument("--exported", default=None,
+                   help="serve a vqa_tpu_torch.cli.export artifact dir instead of a run dir")
+    p.add_argument("--coco_dir", default=None,
+                   help="feature-table dir override for --exported mode")
     p.add_argument("--path_opt", default=None,
                    help="defaults to the run dir's own options.yaml")
     p.add_argument("--params", default=None,
@@ -329,13 +334,12 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--no_resume", action="store_true",
                    help="serve model.pretrained_params (an npz, with the seq2vec.pretrained_* "
                         "grafts), not a checkpoint")
-    p.add_argument("--exported", default=None, help=argparse.SUPPRESS)
     p.add_argument("--platform", default=None, metavar="cuda|cpu",
                    help="where to run: the card (default) or, with cpu, the host")
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=8080)
     p.add_argument("--max_batch", type=int, default=None,
-                   help="serving batch (default 64)")
+                   help="serving batch (default 64; fixed by the artifact in --exported mode)")
     p.add_argument("--dynamic_batching", action="store_true",
                    help="coalesce concurrent requests into shared forwards")
     p.add_argument("--batch_wait_ms", type=float, default=5.0,
@@ -353,11 +357,8 @@ def build_argparser() -> argparse.ArgumentParser:
 def main(argv: Optional[List[str]] = None) -> int:
     p = build_argparser()
     args = p.parse_args(argv)
-    if args.exported is not None:
-        p.error(
-            "--exported (StableHLO) needs jax; export the run with `python -m vqa_tpu.cli.export "
-            "--params external` and pass its params.npz as --params"
-        )
+    if (args.exported is None) == (args.dir_logs is None):
+        p.error("exactly one of --dir_logs / --exported is required")
     if args.request_timeout_s is not None and not args.dynamic_batching:
         p.error("--request_timeout_s requires --dynamic_batching (the plain "
                 "service runs the forward on the request thread and cannot "
@@ -366,22 +367,43 @@ def main(argv: Optional[List[str]] = None) -> int:
         p.error(f"--platform {args.platform!r}: the port serves on the card (cuda) or, with "
                 "--platform cpu, on the host")
 
-    from vqa_tpu_torch.predictor import Predictor
-
-    # --params or --no_resume: an npz; otherwise the checkpoint --resume names
-    npz = args.params is not None or args.no_resume
-    if not npz:
-        from vqa_tpu_torch.engine.checkpoint import CheckpointManager
+    device = "cpu" if args.platform == "cpu" else "cuda"
+    if args.exported is not None:
+        # fail loudly on flags the artifact makes meaningless: a silently
+        # ignored --max_batch would serve another batch than asked
+        ignored = [name for name, bad in [
+            ("--max_batch", args.max_batch is not None),
+            ("--path_opt", args.path_opt is not None),
+            ("--no_resume", args.no_resume),
+            ("--resume", args.resume != "best"),
+            ("--params", args.params is not None),
+        ] if bad]
+        if ignored:
+            p.error(f"{', '.join(ignored)} cannot be used with --exported: the artifact fixes "
+                    "the batch and already contains the weights")
+        from vqa_tpu_torch.export import load_export
 
         try:
-            CheckpointManager(os.path.join(args.dir_logs, "ckpt")).resolve(args.resume)
-        except FileNotFoundError as e:
-            p.error(f"{e}: no checkpoint --resume {args.resume} to serve; pass --params <npz> "
-                    "or --no_resume (model.pretrained_params) to serve an npz instead")
-    predictor = Predictor.from_run(args.dir_logs, args.path_opt, params=args.params,
-                                   device="cpu" if args.platform == "cpu" else "cuda",
-                                   resume=None if npz else args.resume)
-    max_batch = args.max_batch or 64
+            predictor = load_export(args.exported, coco_dir=args.coco_dir, device=device)
+        except ValueError as e:  # a JAX artifact, or one traced for another device
+            p.error(str(e))
+        max_batch = predictor.batch  # the program's batch is frozen; serve at exactly it
+    else:
+        from vqa_tpu_torch.predictor import Predictor
+
+        # --params or --no_resume: an npz; otherwise the checkpoint --resume names
+        npz = args.params is not None or args.no_resume
+        if not npz:
+            from vqa_tpu_torch.engine.checkpoint import CheckpointManager
+
+            try:
+                CheckpointManager(os.path.join(args.dir_logs, "ckpt")).resolve(args.resume)
+            except FileNotFoundError as e:
+                p.error(f"{e}: no checkpoint --resume {args.resume} to serve; pass --params "
+                        "<npz> or --no_resume (model.pretrained_params) to serve an npz instead")
+        predictor = Predictor.from_run(args.dir_logs, args.path_opt, params=args.params,
+                                       device=device, resume=None if npz else args.resume)
+        max_batch = args.max_batch or 64
     service = AnswerService(predictor, max_batch=max_batch)
     if args.dynamic_batching:
         service = DynamicBatcher(service, max_wait_ms=args.batch_wait_ms,

@@ -16,6 +16,16 @@ version on a CPU tensor, and counts its kernel launches in
 ``gru.gru_seq`` (<- vqa_tpu/ops/gru.py) is plain PyTorch on every device:
 the JAX package computes the GRU recurrence outside any Pallas kernel.
 
+The five forward kernels of the models (``lstm_seq``, ``glimpse_head``,
+``glimpse_attend``, ``mfb_pool``, ``relation_attend``) are registered torch
+ops in the ``vqa_tpu_torch`` namespace (``torch.ops.vqa_tpu_torch.<name>``,
+defined on ``LIB``), so that ``torch.export`` keeps them in a frozen program
+(``vqa_tpu_torch/export.py``): each op's CPU implementation is the plain
+version, its CUDA implementation checks the operands, launches the kernel
+and counts the launch (also inside a loaded program), and its fake
+implementation gives the output shapes and dtypes alone. The gathers run
+before the forward and stay plain Python wrappers.
+
 Under autograd each kernel but the gathers is a ``torch.autograd.Function``:
 its kernel's forward, and a plain backward, as the JAX package's vjps are
 jnp. Most take the grads of their plain version on the saved inputs
@@ -23,6 +33,22 @@ jnp. Most take the grads of their plain version on the saved inputs
 """
 
 import torch
+
+NAMESPACE = "vqa_tpu_torch"
+# the namespace of the registered ops; each op module defines its op on it
+LIB = torch.library.Library(NAMESPACE, "DEF")
+
+
+def register(schema: str, cpu, cuda, fake):
+    """Define the op ``schema`` names on ``LIB``, with ``cpu`` (the plain
+    version), ``cuda`` (the kernel's launch) and ``fake`` (output shapes and
+    dtypes, for tracing and meta tensors); returns its overload."""
+    name = schema.split("(", 1)[0]
+    LIB.define(schema)
+    LIB.impl(name, cpu, "CPU")
+    LIB.impl(name, cuda, "CUDA")
+    torch.library.register_fake(f"{NAMESPACE}::{name}", fake, lib=LIB)
+    return getattr(getattr(torch.ops, NAMESPACE), name).default
 
 
 def recompute_grads(ctx, reference, cotangents):

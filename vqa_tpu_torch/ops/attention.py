@@ -6,10 +6,11 @@ glimpse_head(joint [B, R, M], w [M, G], b [G], v [B, R, D])
 glimpse_attend(logits [B, R, G], v [B, R, D]) -> attended [B, G, D]
 
 logits = joint·w + b (or given), softmax over axis 1, attended = alphaᵀ·v.
-On CUDA tensors both launch the hand-written kernel in
-``csrc/glimpse_head.cu`` (bf16; glimpse_attend is its logits-given entry)
-with the schedule ``glimpse_plan`` gives; on CPU tensors they take the
-plain version. Each wrapper counts its own launches.
+Both forwards are registered ops (``torch.ops.vqa_tpu_torch.glimpse_head``
+and ``.glimpse_attend``): on CUDA tensors they launch the hand-written
+kernel in ``csrc/glimpse_head.cu`` (bf16; glimpse_attend is its
+logits-given entry) with the schedule ``glimpse_plan`` gives; on CPU tensors
+they take the plain version. Each wrapper counts its own launches.
 
 Where an input asks for grads, each call is a ``torch.autograd.Function``:
 the same forward, and a backward by autograd through the plain version on
@@ -26,7 +27,7 @@ import functools
 
 import torch
 
-from vqa_tpu_torch.ops import _build, recompute_grads
+from vqa_tpu_torch.ops import _build, recompute_grads, register
 
 SMS = 132               # streaming multiprocessors of an H100 SXM
 SMEM_LIMIT = 232_448    # shared memory a Hopper block may opt into
@@ -171,13 +172,13 @@ def launch_glimpse_attend(logits: torch.Tensor, v: torch.Tensor, attended: torch
 
 
 class _GlimpseAttend(torch.autograd.Function):
-    """``_glimpse_attend_forward`` (the kernel on the card), and the grads of
-    ``glimpse_attend_reference`` recomputed from the saved inputs."""
+    """The registered op ``glimpse_attend`` (the kernel on the card), and the
+    grads of ``glimpse_attend_reference`` recomputed from the saved inputs."""
 
     @staticmethod
     def forward(ctx, logits, v):
         ctx.save_for_backward(logits, v)
-        return _glimpse_attend_forward(logits, v)
+        return _GLIMPSE_ATTEND_OP(logits, v)
 
     @staticmethod
     def backward(ctx, g):
@@ -187,12 +188,11 @@ class _GlimpseAttend(torch.autograd.Function):
 def glimpse_attend(logits: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     if torch.is_grad_enabled() and (logits.requires_grad or v.requires_grad):
         return _GlimpseAttend.apply(logits, v)
-    return _glimpse_attend_forward(logits, v)
+    return _GLIMPSE_ATTEND_OP(logits, v)
 
 
-def _glimpse_attend_forward(logits: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    if logits.device.type == "cpu":
-        return glimpse_attend_reference(logits, v)
+def _glimpse_attend_cuda(logits: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """The op's CUDA implementation: check the operands, plan, launch, count."""
     if logits.ndim != 3 or v.ndim != 3:
         raise ValueError(f"expected logits [B, R, G] and v [B, R, D], got "
                          f"{tuple(logits.shape)}, {tuple(v.shape)}")
@@ -211,7 +211,14 @@ def _glimpse_attend_forward(logits: torch.Tensor, v: torch.Tensor) -> torch.Tens
     return attended
 
 
+def _glimpse_attend_fake(logits: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    return v.new_empty(logits.shape[0], logits.shape[2], v.shape[2])
+
+
 glimpse_attend.launches = 0
+_GLIMPSE_ATTEND_OP = register("glimpse_attend(Tensor logits, Tensor v) -> Tensor",
+                              glimpse_attend_reference, _glimpse_attend_cuda,
+                              _glimpse_attend_fake)
 
 
 def glimpse_head_reference(joint: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
@@ -233,14 +240,14 @@ def launch_glimpse_head(joint, w, b, v, attended, logits, plan: dict) -> None:
 
 
 class _GlimpseHead(torch.autograd.Function):
-    """``_glimpse_head_forward`` (the kernel on the card), and the grads of
-    ``glimpse_head_reference`` recomputed from the saved inputs."""
+    """The registered op ``glimpse_head`` (the kernel on the card), and the
+    grads of ``glimpse_head_reference`` recomputed from the saved inputs."""
 
     @staticmethod
     def forward(ctx, joint, w, b, v):
         ctx.set_materialize_grads(False)
         ctx.save_for_backward(joint, w, b, v)
-        return _glimpse_head_forward(joint, w, b, v)
+        return _GLIMPSE_HEAD_OP(joint, w, b, v)
 
     @staticmethod
     def backward(ctx, g_att, g_logits):
@@ -250,13 +257,12 @@ class _GlimpseHead(torch.autograd.Function):
 def glimpse_head(joint: torch.Tensor, w: torch.Tensor, b: torch.Tensor, v: torch.Tensor):
     if torch.is_grad_enabled() and any(x.requires_grad for x in (joint, w, b, v)):
         return _GlimpseHead.apply(joint, w, b, v)
-    return _glimpse_head_forward(joint, w, b, v)
+    return _GLIMPSE_HEAD_OP(joint, w, b, v)
 
 
-def _glimpse_head_forward(joint: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
-                          v: torch.Tensor):
-    if joint.device.type == "cpu":
-        return glimpse_head_reference(joint, w, b, v)
+def _glimpse_head_cuda(joint: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                       v: torch.Tensor):
+    """The op's CUDA implementation: check the operands, plan, launch, count."""
     if joint.ndim != 3 or w.ndim != 2 or v.ndim != 3:
         raise ValueError(f"expected joint [B, R, M], w [M, G], v [B, R, D], got "
                          f"{tuple(joint.shape)}, {tuple(w.shape)}, {tuple(v.shape)}")
@@ -279,4 +285,14 @@ def _glimpse_head_forward(joint: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return attended, logits
 
 
+def _glimpse_head_fake(joint: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                       v: torch.Tensor):
+    B, R, _ = joint.shape
+    G = w.shape[1]
+    return joint.new_empty(B, G, v.shape[2]), joint.new_empty(B, R, G)
+
+
 glimpse_head.launches = 0
+_GLIMPSE_HEAD_OP = register("glimpse_head(Tensor joint, Tensor w, Tensor b, Tensor v) -> "
+                            "(Tensor, Tensor)",
+                            glimpse_head_reference, _glimpse_head_cuda, _glimpse_head_fake)

@@ -8,9 +8,10 @@ one GEMM (models/seq2vec.py). Gates are in i, f, g, o order. Where the mask
 is 0, h and c stay frozen and ``seq`` is 0, so ``h_last`` is each row's last
 real step whichever side the padding is on.
 
-On CUDA tensors the forward launches the hand-written kernel in
-``csrc/lstm.cu`` (bf16, one persistent launch for all T steps, tiles chosen
-by ``lstm_plan``); on CPU tensors it takes the plain version. Where grads
+The forward is the registered op ``torch.ops.vqa_tpu_torch.lstm_seq``: on
+CUDA tensors it launches the hand-written kernel in ``csrc/lstm.cu`` (bf16,
+one persistent launch for all T steps, tiles chosen by ``lstm_plan``); on
+CPU tensors it takes the plain version. Where grads
 are asked for, the call is a ``torch.autograd.Function`` whose backward is
 plain PyTorch, as the JAX package's vjps are jnp:
 
@@ -37,7 +38,7 @@ import math
 
 import torch
 
-from vqa_tpu_torch.ops import _build, recompute_grads
+from vqa_tpu_torch.ops import _build, recompute_grads, register
 
 RNN_BWD = ("bigmatmul", "native")  # engine.rnn_bwd
 
@@ -235,14 +236,15 @@ def _bm_bwd(mask, wh, residuals, dh_last, dseq):
 
 
 class _LSTMSeq(torch.autograd.Function):
-    """The forward of ``_lstm_seq_forward`` (the kernel on the card), the
-    backward of ``rnn_bwd`` in plain PyTorch after a plain recompute."""
+    """The forward of the registered op ``lstm_seq`` (the kernel on the
+    card), the backward of ``rnn_bwd`` in plain PyTorch after a plain
+    recompute."""
 
     @staticmethod
     def forward(ctx, xg, mask, wh, rnn_bwd):
         ctx.rnn_bwd = rnn_bwd
         ctx.save_for_backward(xg, mask, wh)
-        return _lstm_seq_forward(xg, mask, wh)
+        return _LSTM_SEQ_OP(xg, mask, wh)
 
     @staticmethod
     def backward(ctx, dh_last, dseq):
@@ -265,12 +267,11 @@ def lstm_seq(xg: torch.Tensor, mask: torch.Tensor, wh: torch.Tensor, train: bool
         raise ValueError(f"rnn_bwd must be one of {RNN_BWD}, got {rnn_bwd!r}")
     if torch.is_grad_enabled() and (xg.requires_grad or wh.requires_grad):
         return _LSTMSeq.apply(xg, mask, wh, rnn_bwd if train else "native")
-    return _lstm_seq_forward(xg, mask, wh)
+    return _LSTM_SEQ_OP(xg, mask, wh)
 
 
-def _lstm_seq_forward(xg: torch.Tensor, mask: torch.Tensor, wh: torch.Tensor):
-    if xg.device.type == "cpu":
-        return lstm_seq_reference(xg, mask, wh)
+def _lstm_seq_cuda(xg: torch.Tensor, mask: torch.Tensor, wh: torch.Tensor):
+    """The op's CUDA implementation: check the operands, launch, count."""
     if xg.ndim != 3 or wh.ndim != 2:
         raise ValueError(f"expected xg [T, B, 4H] and wh [H, 4H], got {tuple(xg.shape)}, "
                          f"{tuple(wh.shape)}")
@@ -284,7 +285,7 @@ def _lstm_seq_forward(xg: torch.Tensor, mask: torch.Tensor, wh: torch.Tensor):
     _build.require("wh", wh, dev, dt, (H, 4 * H))
     if H % 2:  # the kernel takes an even H: one zero unit more, sliced off after
         xp, wp = pad_odd_hidden(xg, wh)
-        h_last, seq = _lstm_seq_forward(xp, mask, wp)
+        h_last, seq = _lstm_seq_cuda(xp, mask, wp)
         return h_last[:, :H].contiguous(), seq[..., :H].contiguous()
     if xg.data_ptr() % 16:
         raise ValueError("lstm_seq reads xg in 16-byte chunks: its storage must start on 16 "
@@ -311,4 +312,12 @@ def _lstm_seq_forward(xg: torch.Tensor, mask: torch.Tensor, wh: torch.Tensor):
     return h_last, seq
 
 
+def _lstm_seq_fake(xg: torch.Tensor, mask: torch.Tensor, wh: torch.Tensor):
+    T, B, _ = xg.shape
+    H = wh.shape[0]
+    return xg.new_empty(B, H), xg.new_empty(T, B, H)
+
+
 lstm_seq.launches = 0
+_LSTM_SEQ_OP = register("lstm_seq(Tensor xg, Tensor mask, Tensor wh) -> (Tensor, Tensor)",
+                        lstm_seq_reference, _lstm_seq_cuda, _lstm_seq_fake)

@@ -8,9 +8,10 @@ The groups are STRIDED: ``pooled[d] = sum_j z[..., j*m + d]``, i.e.
 be a silent parity break: the layout is the checkpoint contract of the
 projection that feeds it (``vqa_tpu/ops/mfb_pool.py:24-29``).
 
-On CUDA tensors this launches the hand-written kernel in
-``csrc/mfb_pool.cu`` (bf16, one block per row, any row count); on CPU
-tensors it takes the plain version.
+The forward is the registered op ``torch.ops.vqa_tpu_torch.mfb_pool``: on
+CUDA tensors it launches the hand-written kernel in ``csrc/mfb_pool.cu``
+(bf16, one block per row, any row count); on CPU tensors it takes the plain
+version.
 
 Where ``z`` asks for grads, the call is a ``torch.autograd.Function``: the
 same forward, and a backward by autograd through ``mfb_pool_reference`` on
@@ -26,7 +27,7 @@ from __future__ import annotations
 
 import torch
 
-from vqa_tpu_torch.ops import _build, recompute_grads
+from vqa_tpu_torch.ops import _build, recompute_grads, register
 
 _SMEM_LIMIT = 48 * 1024  # m fp32 roots per block, default dynamic shared memory
 
@@ -61,8 +62,11 @@ def mfb_pool(z: torch.Tensor, k: int) -> torch.Tensor:
 def _mfb_pool_forward(z: torch.Tensor, k: int) -> torch.Tensor:
     if z.ndim < 1 or k < 1 or z.shape[-1] % k:
         raise ValueError(f"the last axis of z {tuple(z.shape)} is not k={k} groups")
-    if z.device.type == "cpu":
-        return mfb_pool_reference(z, k)
+    return _MFB_POOL_OP(z, k)
+
+
+def _mfb_pool_cuda(z: torch.Tensor, k: int) -> torch.Tensor:
+    """The op's CUDA implementation: check the operands, launch, count."""
     m = z.shape[-1] // k
     if m * 4 > _SMEM_LIMIT:
         raise ValueError(f"m={m} exceeds the kernel's shared memory")
@@ -80,4 +84,10 @@ def _mfb_pool_forward(z: torch.Tensor, k: int) -> torch.Tensor:
     return out
 
 
+def _mfb_pool_fake(z: torch.Tensor, k: int) -> torch.Tensor:
+    return z.new_empty(tuple(z.shape[:-1]) + (z.shape[-1] // k,))
+
+
 mfb_pool.launches = 0
+_MFB_POOL_OP = register("mfb_pool(Tensor z, int k) -> Tensor", mfb_pool_reference, _mfb_pool_cuda,
+                        _mfb_pool_fake)

@@ -6,7 +6,8 @@ relation_attend(pg [B, N, D], r [B, N, D]) -> absorbed [B, N, D]
     alpha = softmax_j(s)
     out_i = sum_j alpha_ij r_j
 
-On CUDA tensors this launches the hand-written kernel in
+The forward is the registered op ``torch.ops.vqa_tpu_torch.relation_attend``:
+on CUDA tensors it launches the hand-written kernel in
 ``csrc/relation.cu`` (bf16 in and out; fp32 scores and softmax; alpha kept
 to ~2^-16 through the second product as two bf16 halves) with the schedule
 ``relation_plan`` gives; on CPU tensors it takes the plain version.
@@ -24,7 +25,7 @@ import functools
 
 import torch
 
-from vqa_tpu_torch.ops import _build, recompute_grads
+from vqa_tpu_torch.ops import _build, recompute_grads, register
 
 SMEM_LIMIT = 232_448    # shared memory a Hopper block may opt into
 MAX_N = 64              # the element design: s at most 4 x 16 rows, 8 x 8 columns
@@ -191,13 +192,14 @@ def launch_geometry(B: int, N: int, D: int, plan: dict, vec: bool, device_index:
 
 
 class _RelationAttend(torch.autograd.Function):
-    """``_relation_attend_forward`` (the kernel on the card), and the grads
-    of ``relation_attend_reference`` recomputed from the saved inputs."""
+    """The registered op ``relation_attend`` (the kernel on the card), and
+    the grads of ``relation_attend_reference`` recomputed from the saved
+    inputs."""
 
     @staticmethod
     def forward(ctx, pg, r):
         ctx.save_for_backward(pg, r)
-        return _relation_attend_forward(pg, r)
+        return _RELATION_ATTEND_OP(pg, r)
 
     @staticmethod
     def backward(ctx, g):
@@ -207,12 +209,11 @@ class _RelationAttend(torch.autograd.Function):
 def relation_attend(pg: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
     if torch.is_grad_enabled() and (pg.requires_grad or r.requires_grad):
         return _RelationAttend.apply(pg, r)
-    return _relation_attend_forward(pg, r)
+    return _RELATION_ATTEND_OP(pg, r)
 
 
-def _relation_attend_forward(pg: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
-    if pg.device.type == "cpu":
-        return relation_attend_reference(pg, r)
+def _relation_attend_cuda(pg: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
+    """The op's CUDA implementation: check the operands, plan, launch, count."""
     if pg.ndim != 3:
         raise ValueError(f"expected pg and r [B, N, D], got {tuple(pg.shape)}")
     B, N, D = pg.shape
@@ -229,4 +230,11 @@ def _relation_attend_forward(pg: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def _relation_attend_fake(pg: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
+    return pg.new_empty(pg.shape)
+
+
 relation_attend.launches = 0
+_RELATION_ATTEND_OP = register("relation_attend(Tensor pg, Tensor r) -> Tensor",
+                               relation_attend_reference, _relation_attend_cuda,
+                               _relation_attend_fake)

@@ -9,12 +9,13 @@
 The weights come from the run's own checkpoint (``resume``: best, latest or
 an epoch of ``<dir_logs>/ckpt``, which the port's train CLI writes), or
 from a '/'-keyed npz (``params``, or the run's ``model.pretrained_params``;
-``python -m vqa_tpu.cli.export --params external`` of a JAX run writes
-one). ``from_run`` reads the run's options YAML and builds the val dataset
-through the port's own ``datasets.factory``, which prepares the raw VQA
-files on first use (``datasets.processed.run_prep``, as the port's eval
-CLI ``python -m vqa_tpu_torch.cli.train -e`` does); it needs yaml and h5py,
-nothing of the JAX package. ``Predictor(...)`` builds from in-memory parts
+``python -m vqa_tpu_torch.cli.export --params external`` writes one, as
+the JAX package's export CLI does for a JAX run). ``from_run`` reads the
+run's options YAML and builds the val dataset through the port's own
+``datasets.factory``, which prepares the raw VQA files on first use
+(``datasets.processed.run_prep``, as the port's eval CLI ``python -m
+vqa_tpu_torch.cli.train -e`` does); it needs yaml and h5py, nothing of the
+JAX package. ``Predictor(...)`` builds from in-memory parts
 and needs neither. Both run on the card unless the caller asks for the CPU
 (``device="cpu"``).
 """
@@ -77,6 +78,8 @@ class Predictor:
         self.pad = pad
         self._tok = get_tokenizer(nlp)
         self.device = next(model.parameters()).device
+        self.opt = None      # from_run's: the run's options and its val dataset,
+        self.val_set = None  # which the export CLI reads
 
     @classmethod
     def from_run(
@@ -116,7 +119,7 @@ class Predictor:
                                    or seq2vec.get("pretrained_encoder")):
             raise ValueError(
                 "no weights named: pass resume= (best, latest or an epoch of the run's "
-                "checkpoint) or params= (an npz; python -m vqa_tpu.cli.export --params "
+                "checkpoint) or params= (an npz; python -m vqa_tpu_torch.cli.export --params "
                 "external writes one)"
             )
         device = torch.device(device)
@@ -134,7 +137,9 @@ class Predictor:
         vocabs = val_set.vocabs
         catalog = Catalog(vocabs.word_to_wid, vocabs.aid_to_ans, features._name_to_index)
         table = torch.from_numpy(features.as_array())
-        return cls(model, catalog, table, opt.vqa.maxlength, opt.vqa.pad, opt.vqa.nlp)
+        predictor = cls(model, catalog, table, opt.vqa.maxlength, opt.vqa.pad, opt.vqa.nlp)
+        predictor.opt, predictor.val_set = opt, val_set
+        return predictor
 
     def encode_questions(self, questions: Sequence[str]):
         rows, lengths = encode_question_batch(

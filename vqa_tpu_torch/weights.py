@@ -7,8 +7,9 @@ keeps flax's layout ([in, out] Dense kernels; LSTM ``wx [E, 4H]``,
 ``w_core_q [D, R*M]``),
 so the bridge is a rename with no transposes. The flat '/'-keyed mapping is
 what ``vqa_tpu.importers.flatten_tree`` returns and what
-``importers.save_tree_npz`` and ``python -m vqa_tpu.cli.export --params
-external`` write (``params.npz``). A training build (float32 parameters,
+``importers.save_tree_npz`` writes, and the ``params.npz`` that ``python -m
+vqa_tpu_torch.cli.export --params external`` writes (as the JAX package's
+export CLI does). A training build (float32 parameters,
 ``models.factory(..., train=True)``) loads a flax tree and exports its
 trained parameters the same way.
 """
