@@ -15,7 +15,9 @@ Phases, each printing one line of what it found:
      36x2048 region rows and the NoAtt archs' pooled 2048-wide rows), at
      their serving shapes (batch 64, questions of 26 tokens) and at the
      shapes an options/ knob or the extract CLI's 196-region grid can give
-     (8 glimpses, R = N = 196, an odd LSTM H=41),
+     (8 glimpses, R = N = 196 and gather_rows's 196-region rows at the
+     serving and the eval batch, an odd
+     LSTM H=41),
      with each tolerance stated, and timed
      (median of CUDA-event timings) beside the plain version, the bound
      (the larger of the bytes over HBM's rate and the operations over the
@@ -140,10 +142,43 @@ Phases, each printing one line of what it found:
      and a /batch of 70, equal to ExportedPredictor.answer_batch's), and the
      visu CLI for MutanAtt and CoR (its top-5 equal to Predictor.answer's;
      the attention of the kernel path within 0.05 of the plain path's on a
-     CPU copy). Printed: each artifact's bytes, export and load seconds; the
+     CPU copy). Across devices: the card-traced MutanAtt artifact loaded on
+     the host by a fresh interpreter that sees no card
+     (CUDA_VISIBLE_DEVICES=""), no kernel launched, its logits within 0.005
+     of the live model's plain path on the card and the same answers
+     wherever that path's top-2 logits differ by more than 0.01; and MutanAtt
+     traced on the host (bf16, engine.dtype=bfloat16) loaded on the card,
+     launching exactly its kernels, held as the card's own artifacts are.
+     Printed: each artifact's bytes, export and load seconds; the
      forward at B=64 of the live model and of the loaded program (median,
      host clock after sync, in turns); the host time of one registered op
-     call against a direct call of its CUDA implementation (20 calls).
+     call against a direct call of its CUDA implementation (20 calls);
+ 11. extract: a seeded torchvision-named ResNet-152 state_dict (He-normal
+     convs, each block's bn3 weight in [0.1, 0.2], running statistics near
+     (0, 1), an fc head) saved as a DataParallel checkpoint and converted by
+     the port's import tool (python -m vqa_tpu_torch.tools.import_torch
+     --kind resnet152, in-process): its npz holds exactly the port ResNet's
+     variables, fc dropped. The extract CLI's function (cli/extract.py)
+     runs it over 1024 seeded 448x448 uint8 images, normalized with the
+     CLI's mean and std, at the CLI's batch 32: att in bf16 over all, the
+     first 64 in float32 with TF32 off (and noatt in bf16), 2 of them on
+     the host in float32, and those 2 once more on the card in float32
+     with TF32 on. Held: bf16 within 0.05 of float32 and the card's
+     float32 within 1e-4 of the host's (each relative to the max-abs), the
+     TF32 grid past that 1e-4, noatt the mean of att within 2^-7, every
+     value finite. Printed: the
+     forward's time at batch 32 in bf16 and float32 (CUDA events) and its
+     share of the bf16 bound (the multiply-adds this run's convs did, over
+     the peak), the function's images/s, peak memory, the features' std.
+     Then the eval CLI at the full width of mutan_att.yaml and cor.yaml
+     with coco.arch=resnet152 over an in-memory store of the extracted
+     [1024, 196, 2048] table (phase 6's synthetic raw VQA v2 set, made
+     again: its val images are the 1024 names), through the kernels and
+     through the plain path: exactly gather_rows, lstm_seq and glimpse_head
+     (CoR: relation_attend) launched, one results row per val question,
+     answers agreeing with the plain run's on at least 0.9. Printed: each
+     run's QA/s and peak memory, glimpse_head's and relation_attend's
+     device time at B=1024 over 196 regions (from phase 2).
 
 Any failed check raises, and the script exits non-zero. On success the
 second-to-last line is the per-kernel JSON record and the last line is
@@ -332,6 +367,13 @@ EXPORT_OPS = {"MutanAtt": ("lstm_seq", "glimpse_head"),
               "MFBCoAtt": ("lstm_seq", "glimpse_attend", "mfb_pool", "glimpse_head"),
               "CoR": ("lstm_seq", "relation_attend")}
 EXPORT_VISU = ("MutanAtt", "CoR")
+# the card-traced MutanAtt program run on the host against the live model's
+# plain path on the card: both plain bf16, differing in the order of the
+# float32 sums inside each bf16 product (the host's BLAS against cuBLAS's)
+# and in the roundings that follow; measured 0.000244 at B=64 (NVIDIA H100
+# 80GB HBM3, 700 W), ~20 times that. Answers are held equal wherever the
+# plain path's top-2 logits differ by more than twice it
+EXPORT_HOST_ATOL = 0.005
 SOURCES = {  # kernel -> (its CUDA source, the TPU kernel it replaces)
     "gather_rows": ("vqa_tpu_torch/csrc/gather.cu", "vqa_tpu/ops/gather.py:58"),
     # the same TPU kernel on the int8 rows, with the dequant after it
@@ -418,6 +460,7 @@ def _check_gather(torch, dev, rng):
 
     for n, tail, b in ((37, (36, 72), 53), (11, (3, 5), 29), (50, (6,), 5000),
                        (48, (REGIONS, DIM), SERVE_BATCH), (N_IMAGES, (REGIONS, DIM), BATCH),
+                       (48, (GRID, DIM), SERVE_BATCH), (N_IMAGES, (GRID, DIM), BATCH),
                        (48, (DIM,), SERVE_BATCH), (N_IMAGES, (DIM,), BATCH)):
         table = torch.randn((n,) + tail, device=dev).to(torch.bfloat16)
         idx = rng.integers(0, n, b)
@@ -433,16 +476,18 @@ def _check_gather(torch, dev, rng):
                  f"one launch per {ROWS_PER_LAUNCH} rows")
     # timed at the eval's index distribution (uniform over the table, so
     # rows repeat: 63% distinct at B=1024), at distinct rows, at the serving
-    # batch and over the NoAtt archs' pooled table (rows of 2048)
+    # batch, over the extracted 196-region table and over the NoAtt archs'
+    # pooled table (rows of 2048)
     timing = {}
     for label, n, tail, b in (("", N_IMAGES, (REGIONS, DIM), BATCH),
                               ("distinct_", N_IMAGES, (REGIONS, DIM), BATCH),
                               ("serve_", 48, (REGIONS, DIM), SERVE_BATCH),
+                              ("grid_", N_IMAGES, (GRID, DIM), BATCH),
                               ("pooled_", N_IMAGES, (DIM,), BATCH)):
         table = torch.randn((n,) + tail, device=dev).to(torch.bfloat16)
         idx = rng.permutation(n)[:b] if label == "distinct_" else rng.integers(0, n, b)
         row_bytes = math.prod(tail) * 2
-        if label in ("", "pooled_"):
+        if label in ("", "grid_", "pooled_"):
             # the rows these indices read, once each; the output; the indices
             timing[label + "bound_ms"] = _bound(
                 len(np.unique(idx)) * row_bytes + b * row_bytes + 4 * b)[0]
@@ -456,8 +501,8 @@ def _check_gather(torch, dev, rng):
                 torch, _median_ms, lambda: gather_rows(table, idx),
                 lambda: gather_rows_reference(table, torch.from_numpy(idx).to(dev)))
     _phase("gather_rows",
-           shapes="1024x36x2048[1024],48x36x2048[64],1024x2048[1024],48x2048[64],37x36x72[53],"
-                  "11x3x5[29],50x6[5000]",
+           shapes="1024x36x2048[1024],48x36x2048[64],1024x196x2048[1024],48x196x2048[64],"
+                  "1024x2048[1024],48x2048[64],37x36x72[53],11x3x5[29],50x6[5000]",
            max_abs_err=0.0, tol="exact", bit_equal=True,
            **{k: round(v, 4) for k, v in timing.items()})
     bound_ms = timing.pop("bound_ms")
@@ -465,7 +510,8 @@ def _check_gather(torch, dev, rng):
             "library_ms": timing["plain_ms"],
             "shape": "table 1024x36x2048 bf16, B=1024; ms/plain_ms: device time (index_select "
                      "on indices already on the card); call_ms/plain_call_ms: the whole call "
-                     "from host indices; pooled_: the NoAtt archs' table 1024x2048; library_ms: "
+                     "from host indices; grid_: the extracted table 1024x196x2048; pooled_: the "
+                     "NoAtt archs' table 1024x2048; library_ms: "
                      "index_select, the plain version itself"}
 
 
@@ -621,12 +667,14 @@ def _check_glimpse(torch, dev, rng):
     # M=510: MutanAtt; M=512: MFB/MFH (the 512-wide hidden layer); M=1024,
     # G=1: ConcatAtt (its 1024-wide hidden layer); M=1200: MLBAtt (the MLB
     # fusion); each at the eval and the serving batch; then 8 glimpses, the
-    # 196-region grid and odd shapes
+    # 196-region grid (MutanAtt over the extracted table: the eval batch too)
+    # and odd shapes
     for B, R, M, G, D in ((BATCH, REGIONS, 510, 2, DIM), (SERVE_BATCH, REGIONS, 510, 2, DIM),
                           (BATCH, REGIONS, 512, 2, DIM), (BATCH, REGIONS, 1024, 1, DIM),
                           (SERVE_BATCH, REGIONS, 1024, 1, DIM), (BATCH, REGIONS, 1200, 2, DIM),
                           (SERVE_BATCH, REGIONS, 1200, 2, DIM), (SERVE_BATCH, REGIONS, 510, 8, DIM),
-                          (SERVE_BATCH, GRID, 510, 2, DIM), (37, 36, 45, 2, 72), (5, 7, 33, 3, 75)):
+                          (SERVE_BATCH, GRID, 510, 2, DIM), (BATCH, GRID, 510, 2, DIM),
+                          (37, 36, 45, 2, 72), (5, 7, 33, 3, 75)):
         joint = torch.tanh(torch.randn(B, R, M, device=dev)).to(torch.bfloat16)
         w = (torch.randn(M, G, device=dev) / M ** 0.5).to(torch.bfloat16)
         b = (0.1 * torch.randn(G, device=dev)).to(torch.bfloat16)
@@ -646,12 +694,13 @@ def _check_glimpse(torch, dev, rng):
         line = dict(B=B, R=R, M=M, G=G, D=D, max_abs_err=round(err, 5), tol=GLIMPSE_ATOL,
                     bit_equal=True, plan=f"{plan['copy']}_split{plan['split']}"
                                          f"_chunk{plan['chunk']}x{plan['stages']}")
-        if D == DIM and G <= 2 and R == REGIONS:
+        if D == DIM and G <= 2 and (R == REGIONS or B == BATCH):
             ms, plain = _in_turns(torch, _median_ms, lambda: glimpse_head(joint, w, b, v),
                                   lambda: glimpse_head_reference(joint, w, b, v))
             device = _device_ms(torch, lambda: glimpse_head(joint, w, b, v))
             bound, by = _glimpse_head_bound(B, R, M, G, D)
-            key = f"B{B}_M{M}" + ("" if G == 2 else f"_G{G}")
+            key = (f"B{B}_M{M}" + ("" if G == 2 else f"_G{G}")
+                   + ("" if R == REGIONS else f"_R{R}"))
             timing[key] = dict(ms=ms, plain_ms=plain, device_ms=device, bound_ms=bound,
                                bound_by=by, pct_of_bound=100 * bound / ms,
                                device_pct_of_bound=100 * bound / device, plan=plan["copy"])
@@ -2162,8 +2211,9 @@ def _train_cli_mfb(torch, train_cli, data, logs, steps_per_epoch, card) -> dict:
 
 # ---------------------------------------------------------------- export
 
-# run in a fresh interpreter per artifact: load it with no model code, run
-# one forward at the frozen batch, report what the program launched
+# run in a fresh interpreter per artifact: load it with no model code on the
+# device named (empty: the one it was traced on), run one forward at the
+# frozen batch, report what the program launched
 _LOAD_CHECK = r"""
 import json, sys, time
 import numpy as np
@@ -2175,7 +2225,7 @@ from vqa_tpu_torch.ops.lstm import lstm_seq
 from vqa_tpu_torch.ops.mfb_pool import mfb_pool
 from vqa_tpu_torch.ops.relation import relation_attend
 
-export_dir, inputs, out = sys.argv[1:4]
+export_dir, inputs, out, device = sys.argv[1:5]
 wrappers = {"lstm_seq": lstm_seq, "glimpse_head": glimpse_head,
             "glimpse_attend": glimpse_attend, "mfb_pool": mfb_pool,
             "relation_attend": relation_attend}
@@ -2183,18 +2233,22 @@ with np.load(inputs) as f:
     data = {k: f[k] for k in f.files}
 store = FeatureStore.in_memory([str(n) for n in data["names"]], data["visual"])
 t = time.perf_counter()
-ep = load_export(export_dir, features=store)
-torch.cuda.synchronize()
+ep = load_export(export_dir, features=store, device=device or None)
+sync = torch.cuda.synchronize if ep.device.type == "cuda" else (lambda: None)
+sync()
 load_s = time.perf_counter() - t
 for w in wrappers.values():
     w.launches = 0
+t = time.perf_counter()
 logits = ep.logits(data["visual"], torch.from_numpy(data["question"]),
                    torch.from_numpy(data["lengths"]))
-torch.cuda.synchronize()
+sync()
+forward_s = time.perf_counter() - t
 np.save(out, logits)
 leaked = sorted(m for m in sys.modules if m.startswith("vqa_tpu_torch.models")
                 or m.split(".")[0] in ("jax", "flax", "vqa_tpu"))
-print(json.dumps({"load_s": load_s, "ops": program_ops(ep.program), "device": str(ep.device),
+print(json.dumps({"load_s": load_s, "forward_s": forward_s, "ops": program_ops(ep.program),
+                  "device": str(ep.device), "cuda_available": torch.cuda.is_available(),
                   "launches": {k: w.launches for k, w in wrappers.items()},
                   "leaked": leaked}))
 """
@@ -2339,13 +2393,35 @@ def _export_phase(torch, dev, card: str, tmp: str, context: dict) -> dict:
                  f"{meta['compute_dtype']}")
         artifacts[label] = (arch, out, dtype, export_s, _dir_bytes(out))
 
+    # the cross-device loads: MutanAtt traced on the host (computing in bf16,
+    # engine.dtype=bfloat16, as the card's kernels take it) to be loaded on
+    # the card, and the card-traced baked artifact loaded on the host by an
+    # interpreter that sees no card
+    t = time.perf_counter()
+    host_pred = Predictor.from_run(runs["MutanAtt"], resume="best", device="cpu",
+                                   overrides=["engine.dtype=bfloat16"])
+    out = os.path.join(tmp, "exported", "MutanAtt_host_traced")
+    meta = save_export(out, host_pred, batch=EXPORT_BATCH)
+    export_s = time.perf_counter() - t
+    del host_pred
+    _require(meta["device"] == "cpu" and meta["compute_dtype"] == "bfloat16",
+             f"MutanAtt:host_traced: traced on the host in bf16: {meta['device']}, "
+             f"{meta['compute_dtype']}")
+    artifacts["MutanAtt:host_traced"] = ("MutanAtt", out, None, export_s, _dir_bytes(out))
+    loads = {label: (label, "") for label in artifacts}  # label -> (artifact, load device)
+    loads["MutanAtt:host_traced"] = ("MutanAtt:host_traced", "cuda")
+    loads["MutanAtt:baked@host"] = ("MutanAtt:baked", "cpu")
+
     # each artifact loaded and run in a fresh interpreter, all at once
     procs = {}
-    for label, (arch, out, _, _, _) in artifacts.items():
+    for label, (artifact, device) in loads.items():
+        arch, out = artifacts[artifact][:2]
         logits_path = os.path.join(tmp, f"logits_{label.replace(':', '_')}.npy")
+        env = dict(os.environ, **({"CUDA_VISIBLE_DEVICES": ""} if device == "cpu" else {}))
         procs[label] = (subprocess.Popen(
-            [sys.executable, "-c", _LOAD_CHECK, out, inputs[arch][0], logits_path],
-            cwd=_REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True), logits_path)
+            [sys.executable, "-c", _LOAD_CHECK, out, inputs[arch][0], logits_path, device],
+            cwd=_REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True),
+            logits_path)
     loaded = {}
     for label, (proc, logits_path) in procs.items():
         stdout, stderr = proc.communicate(timeout=600)
@@ -2357,20 +2433,49 @@ def _export_phase(torch, dev, card: str, tmp: str, context: dict) -> dict:
     # logits against the live model (int8: against the same dequant, eagerly)
     records = {}
     for label, (report, got) in loaded.items():
-        arch, out, dtype, export_s, nbytes = artifacts[label]
+        artifact, device = loads[label]
+        arch, out, dtype, export_s, nbytes = artifacts[artifact]
         expected = EXPORT_OPS[arch]
+        on_host = device == "cpu"
         _require(not report["leaked"], f"{label}: loaded with no model code and no jax: "
                  f"{report['leaked']}")
         _require({op.split("::")[-1] for op in report["ops"]} == set(expected)
                  and all(op.startswith("vqa_tpu_torch::") for op in report["ops"]),
                  f"{label}: the graph calls exactly the registered ops {expected}: "
                  f"{report['ops']}")
-        _require(all(report["launches"][k] > 0 for k in expected)
-                 and not any(c for k, c in report["launches"].items() if k not in expected),
-                 f"{label}: the loaded program launched exactly {expected}: "
-                 f"{report['launches']}")
+        _require(report["device"] == ("cpu" if on_host else "cuda")
+                 and report["cuda_available"] != on_host,
+                 f"{label}: runs on {'the host, with no card in sight' if on_host else 'cuda'}: "
+                 f"{report['device']}, cuda available {report['cuda_available']}")
+        launched = {k for k, c in report["launches"].items() if c}
+        _require(launched == (set() if on_host else set(expected)),
+                 f"{label}: the loaded program launched exactly "
+                 f"{'no kernel' if on_host else expected}: {report['launches']}")
         add(report["launches"])
         want = live[arch]
+        if on_host:
+            # the host runs the plain versions: held against the live model's
+            # plain path on the card (EXPORT_HOST_ATOL), the answers wherever
+            # its top-2 logits are further apart than the tolerance reaches
+            pred = preds[arch]
+            _, visual, q, lengths = inputs[arch]
+            with torch.inference_mode(), _plain_ops(torch):
+                want = pred.model(visual, q, lengths).float().cpu().numpy()
+            top2 = np.sort(want, axis=-1)[:, -2:]
+            sure = (top2[:, 1] - top2[:, 0]) > 2 * EXPORT_HOST_ATOL
+            err = float(np.abs(got - want).max())
+            agree = float((got.argmax(-1) == want.argmax(-1)).mean())
+            _require(got.shape == want.shape and np.isfinite(got).all()
+                     and err <= EXPORT_HOST_ATOL
+                     and (got.argmax(-1) == want.argmax(-1))[sure].all(),
+                     f"{label}: finite logits within {EXPORT_HOST_ATOL} of the live plain "
+                     f"path's ({err}), the same answers wherever its top-2 differ by more "
+                     f"than 2*{EXPORT_HOST_ATOL} ({agree} of all)")
+            records[label] = dict(loaded_on="cpu", load_s=round(report["load_s"], 3),
+                                  forward_s=round(report["forward_s"], 3),
+                                  max_abs_err_vs_plain=round(err, 6), agree=agree,
+                                  top1_held=f"{int(sure.sum())}/{len(sure)}")
+            continue
         if dtype == "int8":
             pred = preds[arch]
             _, visual, q, lengths = inputs[arch]
@@ -2385,8 +2490,9 @@ def _export_phase(torch, dev, card: str, tmp: str, context: dict) -> dict:
                  f"{label}: logits within {LOGITS_ATOL} of the "
                  f"{'eager dequantized' if dtype else 'live'} model ({err}) and the same "
                  f"answers ({agree})")
-        records[label] = dict(bytes=nbytes, export_s=round(export_s, 3),
-                              load_s=round(report["load_s"], 3), max_abs_err=round(err, 6),
+        records[label] = dict(loaded_on=report["device"], bytes=nbytes,
+                              export_s=round(export_s, 3), load_s=round(report["load_s"], 3),
+                              forward_s=round(report["forward_s"], 3), max_abs_err=round(err, 6),
                               agree=agree, launches={k: c for k, c in report["launches"].items()
                                                      if c})
         if dtype == "int8":  # reported, not held: quantization moves the logits
@@ -2512,6 +2618,343 @@ def _export_phase(torch, dev, card: str, tmp: str, context: dict) -> dict:
     return counts
 
 
+# --------------------------------------------------------------- extract
+
+# phase 11: a seeded torchvision-named ResNet-152 checkpoint through the
+# import tool, the extract CLI's function over EXTRACT_IMAGES 448x448 images
+# at the CLI's batch (bf16; the first EXTRACT_F32 also in float32, TF32 off,
+# and EXTRACT_HOST of those on the host), then the eval CLI over the
+# [1024, 196, 2048] table it gave, for each arch of EXTRACT_EVAL
+EXTRACT_ARCH = "resnet152"
+EXTRACT_SIZE = 448
+EXTRACT_BATCH = 32  # the extract CLI's default --batch
+EXTRACT_IMAGES = N_IMAGES
+EXTRACT_F32 = 64
+EXTRACT_HOST = 2
+EXTRACT_EVAL = {"MutanAtt": ("mutan_att", ("gather_rows", "lstm_seq", "glimpse_head")),
+                "CoR": ("cor", ("gather_rows", "lstm_seq", "relation_attend"))}
+# tolerances, each relative to the max-abs of the grid it is held against:
+# - bf16 against float32 on the card: bf16 rounds each conv's inputs and
+#   output and each BatchNorm's output (up to 2^-8 relative: bf16 keeps 8
+#   significant bits). ResNet-50
+#   at 64x64 on the CPU moved its grid by 0.0077-0.0119 over 16 blocks
+#   (tests/test_torch_extract.py); ResNet-152's 50 blocks, sqrt(50 / 16)
+#   ~ 1.8 times that, ~0.02; 0.05 leaves room;
+# - float32 on the card (TF32 off) against float32 on the host: the same
+#   products summed in another order (cuDNN's algorithms, the host's), each
+#   conv's output moved by ~2^-24 sqrt(K) relative for K up to 4608, ~1e-6,
+#   carried through 50 blocks: ~1e-5; 1e-4 leaves room, and stays below
+#   the same forward with TF32 products (10-bit mantissas, ~2^-11 relative
+#   a product), which the phase runs once and holds past it;
+# - noatt, the grid's mean in bf16, against the mean of the att rows taken
+#   in float64: one bf16 rounding of the mean, up to 2^-8 of it; 2^-7
+EXTRACT_BF16_TOL = 0.05
+EXTRACT_HOST_TOL = 1e-4
+EXTRACT_NOATT_TOL = 2.0 ** -7
+
+
+def _resnet_state_dict(torch, arch: str, seed: int) -> dict:
+    """A torchvision-named ResNet state_dict (conv1, bn1,
+    layer{1..4}.{b}.conv{1..3} / bn{1..3} / downsample.{0,1}, fc) drawn from
+    one seeded generator so that the grid stays O(1) through the blocks:
+    He-normal convs (variance 2 / fan_in, what keeps a ReLU net's scale), a
+    unit-variance projection, BatchNorm weights in [0.8, 1.2] and each
+    block's bn3 in [0.1, 0.2] (as torchvision's zero_init_residual, but not
+    0), running statistics near (0, 1)."""
+    from vqa_tpu_torch.models.convnets import _DEPTHS
+
+    gen = torch.Generator().manual_seed(seed)
+    sd = {}
+
+    def conv(name, c_out, c_in, k, gain):
+        sd[f"{name}.weight"] = torch.randn(c_out, c_in, k, k, generator=gen) * (
+            gain / (c_in * k * k)) ** 0.5
+
+    def bn(name, c, scale=(0.8, 1.2)):
+        for leaf, (lo, hi) in (("weight", scale), ("bias", (-0.1, 0.1)),
+                               ("running_mean", (-0.1, 0.1)), ("running_var", (0.8, 1.2))):
+            sd[f"{name}.{leaf}"] = torch.empty(c).uniform_(lo, hi, generator=gen)
+        sd[f"{name}.num_batches_tracked"] = torch.tensor(0)
+
+    conv("conv1", 64, 3, 7, 2.0)
+    bn("bn1", 64)
+    c_in = 64
+    for stage, n_blocks in enumerate(_DEPTHS[arch]):
+        planes = 64 * 2**stage
+        for block in range(n_blocks):
+            t = f"layer{stage + 1}.{block}"
+            conv(f"{t}.conv1", planes, c_in, 1, 2.0)
+            bn(f"{t}.bn1", planes)
+            conv(f"{t}.conv2", planes, planes, 3, 2.0)
+            bn(f"{t}.bn2", planes)
+            conv(f"{t}.conv3", planes * 4, planes, 1, 2.0)
+            bn(f"{t}.bn3", planes * 4, scale=(0.1, 0.2))
+            if block == 0:
+                conv(f"{t}.downsample.0", planes * 4, c_in, 1, 1.0)
+                bn(f"{t}.downsample.1", planes * 4)
+            c_in = planes * 4
+    sd["fc.weight"] = torch.randn(1000, 2048, generator=gen) * 2048 ** -0.5
+    sd["fc.bias"] = torch.zeros(1000)
+    return sd
+
+
+def _normalized(pixels: np.ndarray):
+    """Seeded uint8 images [N, S, S, 3], each normalized with the extract
+    CLI's ImageNet mean and std as it is drawn: the decoded images its
+    extract function takes."""
+    from vqa_tpu_torch.cli.extract import normalize
+
+    return (normalize(p) for p in pixels)
+
+
+def _conv_macs(torch, model, images) -> float:
+    """Multiply-adds a image of one forward over ``images``: each conv's
+    output elements times its input channels and window, from this run's
+    shapes."""
+    from vqa_tpu_torch.models.convnets import Conv
+
+    macs = []
+    hooks = [m.register_forward_hook(lambda m, _, out: macs.append(out.numel()
+                                                                   * m.weight[0].numel()))
+             for m in model.modules() if isinstance(m, Conv)]
+    try:
+        with torch.inference_mode():
+            model(images)
+    finally:
+        for h in hooks:
+            h.remove()
+    return sum(macs) / images.shape[0]
+
+
+def _extract_import(torch, tmp: str) -> tuple:
+    """The seeded checkpoint through ``python -m
+    vqa_tpu_torch.tools.import_torch --kind resnet152`` (in-process): its
+    npz holds exactly the port ResNet's variables at their shapes, fc
+    dropped. Returns (npz path, seconds)."""
+    import io
+
+    from vqa_tpu_torch.models import convnets
+    from vqa_tpu_torch.tools import import_torch
+
+    ckpt, npz = os.path.join(tmp, f"{EXTRACT_ARCH}.pth"), os.path.join(tmp, f"{EXTRACT_ARCH}.npz")
+    sd = _resnet_state_dict(torch, EXTRACT_ARCH, seed=0)
+    torch.save({"state_dict": {f"module.{k}": v for k, v in sd.items()}}, ckpt)
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = import_torch.main([ckpt, "--kind", EXTRACT_ARCH, "--out", npz])
+    import_s = time.perf_counter() - t
+    want = {k: v.shape for k, v in convnets.export_variables(
+        convnets.factory(EXTRACT_ARCH)).items()}
+    with np.load(npz) as flat:
+        got = {k: flat[k].shape for k in flat.files}
+    _require(rc == 0 and got == want and not any("fc" in k for k in got),
+             f"the imported {EXTRACT_ARCH} npz holds the port ResNet's {len(want)} variables at "
+             f"their shapes, fc dropped: rc {rc}, {len(got)} keys")
+    return npz, import_s
+
+
+def _extract_phase(torch, dev, card: str, kernels: dict) -> dict:
+    """Phase 11 (the docstring): import, extract, and the eval CLI over the
+    extracted table; returns the launch counts of the eval CLI's kernel
+    runs."""
+    import dataclasses
+    import io
+
+    from vqa_tpu_torch.cli import train as train_cli
+    from vqa_tpu_torch.cli.extract import extract, normalize
+    from vqa_tpu_torch.config import load_options
+    from vqa_tpu_torch.datasets import factory as data_factory
+    from vqa_tpu_torch.datasets.features import FeatureStore
+    from vqa_tpu_torch.datasets.interim import image_name
+    from vqa_tpu_torch.models import convnets
+    from vqa_tpu_torch.models.factory import factory as model_factory
+    from vqa_tpu_torch.weights import export_params, random_params
+
+    _require(not torch.backends.cudnn.allow_tf32, "float32 convs without TF32 (main sets it)")
+    names = [image_name("val2014", i) for i in range(EXTRACT_IMAGES)]
+    pixels = np.random.default_rng(4).integers(
+        0, 256, (EXTRACT_IMAGES, EXTRACT_SIZE, EXTRACT_SIZE, 3), dtype=np.uint8)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_extract_") as tmp:
+        npz, import_s = _extract_import(torch, tmp)
+        models = {}
+        with np.load(npz) as flat:
+            for label, dtype, device in (("bfloat16", torch.bfloat16, dev),
+                                         ("float32", torch.float32, dev),
+                                         ("host", torch.float32, "cpu")):
+                models[label] = convnets.factory(EXTRACT_ARCH, dtype)
+                convnets.load_variables(models[label], flat)
+                models[label].to(device)
+
+        # the forward alone at the CLI's batch, on the card, both dtypes
+        batch = torch.from_numpy(np.stack([normalize(p) for p in pixels[:EXTRACT_BATCH]])).to(dev)
+        macs = _conv_macs(torch, models["bfloat16"], batch)
+        forward_ms = {}
+        with torch.inference_mode():
+            for dtype, iters in (("bfloat16", 10), ("float32", 3)):
+                forward_ms[dtype] = _median_ms(torch, lambda m=models[dtype]: m(batch),
+                                               iters=iters, warmup=2)
+        del batch
+        bound_ms = 2.0 * macs * EXTRACT_BATCH / PEAK_BF16 * 1e3
+
+        # the CLI's extract function: every image in bf16, the first ones in
+        # float32 on the card and on the host
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        got_names, feats = extract(models["bfloat16"], names, _normalized(pixels), "att",
+                                   EXTRACT_BATCH, dev)
+        bf16_s = time.perf_counter() - t
+        peak_gb = torch.cuda.max_memory_allocated() / 2**30
+        t = time.perf_counter()
+        _, feats32 = extract(models["float32"], names[:EXTRACT_F32],
+                             _normalized(pixels[:EXTRACT_F32]), "att", EXTRACT_BATCH, dev)
+        f32_s = time.perf_counter() - t
+        t = time.perf_counter()
+        _, host = extract(models["host"], names[:EXTRACT_HOST], _normalized(
+            pixels[:EXTRACT_HOST]), "att", EXTRACT_HOST, "cpu")
+        host_s = time.perf_counter() - t
+        # the same float32 forward with cuDNN's TF32 products, once: what
+        # the hold against the host must tell from float32
+        torch.backends.cudnn.allow_tf32 = True
+        try:
+            _, tf32 = extract(models["float32"], names[:EXTRACT_HOST], _normalized(
+                pixels[:EXTRACT_HOST]), "att", EXTRACT_HOST, dev)
+        finally:
+            torch.backends.cudnn.allow_tf32 = False
+        _, noatt = extract(models["bfloat16"], names[:EXTRACT_F32],
+                           _normalized(pixels[:EXTRACT_F32]), "noatt", EXTRACT_BATCH, dev)
+        del models
+        torch.cuda.empty_cache()
+
+        _require(got_names == names and feats.shape == (EXTRACT_IMAGES, GRID, DIM)
+                 and feats.dtype == np.float32, f"the extract function gives {EXTRACT_IMAGES} "
+                 f"named float32 rows [{GRID}, {DIM}]: {feats.shape} {feats.dtype}")
+        _require(all(np.isfinite(x).all() for x in (feats, feats32, host, noatt)),
+                 "every extracted value finite")
+        scale32 = float(np.abs(feats32).max())
+        bf16_err = float(np.abs(feats[:EXTRACT_F32] - feats32).max()) / scale32
+        host_scale = float(np.abs(host).max())
+        host_err = float(np.abs(feats32[:EXTRACT_HOST] - host).max()) / host_scale
+        tf32_err = float(np.abs(tf32 - host).max()) / host_scale
+        mean = feats[:EXTRACT_F32].astype(np.float64).mean(axis=1)
+        noatt_err = float(np.abs(noatt - mean).max()) / float(np.abs(mean).max())
+        _require(bf16_err <= EXTRACT_BF16_TOL, f"bf16 grid within {EXTRACT_BF16_TOL} of the "
+                 f"float32 one (TF32 off), relative to its max-abs: {bf16_err}")
+        _require(host_err <= EXTRACT_HOST_TOL, f"the card's float32 grid within "
+                 f"{EXTRACT_HOST_TOL} of the host's, relative to its max-abs: {host_err}")
+        _require(tf32_err > EXTRACT_HOST_TOL, f"the hold tells TF32 from float32: the TF32 "
+                 f"grid past {EXTRACT_HOST_TOL} of the host's: {tf32_err}")
+        _require(noatt_err <= EXTRACT_NOATT_TOL, f"noatt within {EXTRACT_NOATT_TOL} of the "
+                 f"mean of att, relative to its max-abs: {noatt_err}")
+        _phase("extract", card=card, arch=EXTRACT_ARCH, images=EXTRACT_IMAGES,
+               size=EXTRACT_SIZE, batch=EXTRACT_BATCH, import_s=round(import_s, 3),
+               gmacs_per_image=round(macs / 1e9, 4),
+               forward_bf16_ms=round(forward_ms["bfloat16"], 4),
+               forward_bf16_images_per_s=round(EXTRACT_BATCH / forward_ms["bfloat16"] * 1e3, 1),
+               forward_f32_ms=round(forward_ms["float32"], 4),
+               forward_f32_images_per_s=round(EXTRACT_BATCH / forward_ms["float32"] * 1e3, 1),
+               bound_ms=round(bound_ms, 4), bound_by="operations",
+               pct_of_bound=round(100 * bound_ms / forward_ms["bfloat16"], 2),
+               extract_bf16_s=round(bf16_s, 3),
+               extract_bf16_images_per_s=round(EXTRACT_IMAGES / bf16_s, 1),
+               extract_f32_images=EXTRACT_F32, extract_f32_s=round(f32_s, 3),
+               extract_f32_images_per_s=round(EXTRACT_F32 / f32_s, 1),
+               host_images=EXTRACT_HOST, host_s=round(host_s, 3),
+               bf16_vs_f32=round(bf16_err, 6), tol=EXTRACT_BF16_TOL,
+               f32_card_vs_host=round(host_err, 8), host_tol=EXTRACT_HOST_TOL,
+               tf32_card_vs_host=round(tf32_err, 8),
+               noatt_vs_mean=round(noatt_err, 6), noatt_tol=round(EXTRACT_NOATT_TOL, 6),
+               features_std=round(float(feats.std()), 5),
+               features_mean=round(float(feats.mean()), 5), peak_mem_gb=round(peak_gb, 3))
+        del feats32, host, tf32, noatt, pixels
+
+        # the eval CLI over the extracted table, kernels and plain path
+        _write_raw_vqa2(os.path.join(tmp, "vqa2", "raw"), np.random.default_rng(0))
+        data = [f"vqa.dir={tmp}/vqa2", f"coco.dir={tmp}/coco", f"coco.arch={EXTRACT_ARCH}"]
+        launches, lines = dict.fromkeys(_counters(), 0), {}
+        for arch, (name, arch_kernels) in EXTRACT_EVAL.items():
+            yaml = os.path.join(_REPO, "options", "vqa2", f"{name}.yaml")
+            opt = load_options(yaml, data)
+            _require(opt.coco.mode == "att", f"{name}.yaml reads the att table")
+            key = (opt.coco.dir, opt.coco.arch, opt.coco.mode, "ram")
+            data_factory._STORE_CACHE[key] = FeatureStore.in_memory(names, feats)
+            t = time.perf_counter()
+            val_set = data_factory.factory("val", opt)  # the port's prep, on first use
+            prep_s = time.perf_counter() - t
+            _require(val_set.feature_shape == (GRID, DIM),
+                     f"{arch} reads the {GRID}-region table: {val_set.feature_shape}")
+            model = model_factory(dataclasses.asdict(opt.model), val_set.num_words,
+                                  val_set.num_answers, dtype=torch.bfloat16, device=dev,
+                                  dim_v=DIM)
+            random_params(model, seed=0)
+            weights = os.path.join(tmp, f"params_{name}.npz")
+            np.savez(weights, **export_params(model))
+            del model
+            argv = ["--path_opt", yaml, "-e", "--split", "val"]
+            for o in data + [f"model.pretrained_params={weights}", "engine.device_features=true",
+                             "optim.eval_batch_size=1024", "engine.features_dtype=bfloat16"]:
+                argv += ["--opt", o]
+            runs = {}
+            for label, plain in (("kernels", False), ("plain", True)):
+                logs = os.path.join(tmp, "logs", f"{name}_{label}")
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+                _reset_counts()
+                t = time.perf_counter()
+                with contextlib.redirect_stdout(io.StringIO()), \
+                        (_plain_ops(torch) if plain else contextlib.nullcontext()):
+                    rc = train_cli.main(argv + ["--dir_logs", logs])
+                wall = time.perf_counter() - t
+                counts = _read_counts()
+                _require(rc == 0, f"eval CLI over the extracted table ({arch}, {label}) "
+                         f"returned {rc}")
+                with open(os.path.join(logs, "metrics.jsonl")) as f:
+                    metrics = [json.loads(line) for line in f][-1]
+                with open(os.path.join(logs, "results",
+                                       "vqa_OpenEnded_val_epoch0_results.json")) as f:
+                    results = {r["question_id"]: r["answer"] for r in json.load(f)}
+                runs[label] = dict(counts=counts, metrics=metrics, results=results, wall=wall,
+                                   peak_gb=torch.cuda.max_memory_allocated() / 2**30)
+            split = val_set.split
+            for label, run in runs.items():
+                want = set() if label == "plain" else set(arch_kernels)
+                _require({k for k, c in run["counts"].items() if c} == want,
+                         f"eval CLI over the extracted table ({arch}, {label}) launched exactly "
+                         f"{sorted(want)}: {run['counts']}")
+                _require(len(run["results"]) == len(split)
+                         and set(run["results"]) == set(split.question_ids.tolist()),
+                         f"eval CLI over the extracted table ({arch}, {label}): one results row "
+                         "per val question")
+            agree = float(np.mean([runs["kernels"]["results"][q] == a
+                                   for q, a in runs["plain"]["results"].items()]))
+            _require(agree >= PRED_AGREE_FLOOR, f"eval CLI over the extracted table ({arch}): "
+                     f"answers agree with the plain run's on {agree} >= {PRED_AGREE_FLOOR}")
+            for k, c in runs["kernels"]["counts"].items():
+                launches[k] += c
+            lines[arch] = dict(
+                prep_s=round(prep_s, 3), pred_agree_plain=round(agree, 5),
+                **{f"{label}_{key}": value for label, run in runs.items()
+                   for key, value in (("qa_per_sec", round(run["metrics"]["qa_per_sec"], 1)),
+                                      ("eval_time", round(run["metrics"]["eval_time"], 4)),
+                                      ("cli_s", round(run["wall"], 3)),
+                                      ("peak_mem_gb", round(run["peak_gb"], 3)),
+                                      ("acc1", run["metrics"]["acc1"]))},
+                launches={k: c for k, c in runs["kernels"]["counts"].items() if c})
+        for key in {k for k in data_factory._STORE_CACHE if k[0] == f"{tmp}/coco"}:
+            del data_factory._STORE_CACHE[key]
+    glimpse = kernels["glimpse_head"]["by_shape"][f"B{BATCH}_M510_R{GRID}"]
+    relation = kernels["relation_attend"]["by_shape"][f"B{BATCH}_N{GRID}"]
+    for arch, line in lines.items():
+        _phase("extract_eval", card=card, arch=arch, table=f"{EXTRACT_ARCH}_att",
+               regions=GRID, questions=len(split), batch=BATCH, floor=PRED_AGREE_FLOOR, **line)
+    _phase("extract_eval", card=card, glimpse_head_b1024_r196_device_ms=glimpse["device_ms"],
+           glimpse_head_b1024_r196_pct_of_bound=glimpse["device_pct_of_bound"],
+           relation_attend_b1024_n196_device_ms=relation["device_ms"],
+           relation_attend_b1024_n196_pct_of_bound=relation["pct_of_bound"],
+           launches={k: c for k, c in launches.items() if c})
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2603,6 +3046,10 @@ def main() -> int:
     for phase_counts in counts:
         for name, c in phase_counts.items():
             launches[name] += c
+    # 11. a ResNet-152 checkpoint through the import tool, the extract CLI's
+    # function over 1024 images, and the eval CLI over the table it gave
+    for name, c in _extract_phase(torch, dev, card, kernels).items():
+        launches[name] += c
     for name, by_shape in train_ops.items():
         kernels[name]["train_fwd_bwd_ms"] = {k: round(t["fwd_bwd_ms"], 4)
                                              for k, t in by_shape.items()}

@@ -507,17 +507,25 @@ def _jax_artifact(root, exported):
     return jax_dir
 
 
-@pytest.mark.parametrize("case", ["jax_artifact", "other_device", "cuda_artifact_no_card"])
-def test_load_refuses_what_it_cannot_run(exported_run, tmp_path, case):
-    """A JAX artifact (program.jaxexport), a device other than the one the
-    program was traced on, and a card's artifact on a machine without one:
-    each refused with a message naming both sides."""
+@pytest.mark.parametrize("case", ["jax_artifact", "other_device", "cuda_artifact_no_card",
+                                  "float32_program_on_the_card"])
+def test_load_refuses_what_it_cannot_run(exported_run, tmp_path, monkeypatch, case):
+    """A JAX artifact (program.jaxexport); the card asked for on a machine
+    without one, for a host-traced program and for a card-traced one; and a
+    program that computes in float32 asked for on the card, whose kernels
+    take bf16: each refused with a message naming what it found."""
     _, out, _ = exported_run
     if case == "jax_artifact":
         with pytest.raises(ValueError, match=r"program\.jaxexport.*program\.pt2"):
             load_export(_jax_artifact(str(tmp_path), out), device="cpu")
     elif case == "other_device":
-        with pytest.raises(ValueError, match="traced on cpu.*not on cuda"):
+        if torch.cuda.is_available():
+            pytest.skip("this machine has a CUDA card")
+        with pytest.raises(ValueError, match="traced on cpu.*cannot run on cuda.*no CUDA card"):
+            load_export(out, device="cuda")
+    elif case == "float32_program_on_the_card":
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+        with pytest.raises(ValueError, match="computes in float32.*take bfloat16"):
             load_export(out, device="cuda")
     else:
         moved = str(tmp_path / "cuda_artifact")
@@ -531,3 +539,63 @@ def test_load_refuses_what_it_cannot_run(exported_run, tmp_path, case):
             pytest.skip("this machine has a CUDA card")
         with pytest.raises(ValueError, match="traced on cuda.*no CUDA card"):
             load_export(moved)
+
+
+def _devices(program) -> set:
+    """Every device a program names: its weights' and constants', the
+    device arguments of its graph's nodes and their recorded outputs'."""
+    found = {v.device.type for v in (*program.state_dict.values(), *program.constants.values())
+             if isinstance(v, torch.Tensor)}
+    for node in program.graph.nodes:
+        leaves = torch.utils._pytree.tree_leaves((node.args, node.kwargs, node.meta.get("val")))
+        found |= {x.type for x in leaves if isinstance(x, torch.device)}
+        found |= {x.device.type for x in leaves if isinstance(x, torch.Tensor)}
+    return found
+
+
+def test_program_traced_elsewhere_runs_on_the_host(exported_run):
+    """A program traced on another device serves on the host. This CPU
+    build cannot trace the model under fake CUDA tensors (its advanced
+    indexing asks for a CUDA device guard, which the build lacks), so
+    MutanAtt's weight-free forward is traced on the meta device, which names
+    a device in the graph as the card does (chip_smoke.py's [export] loads a
+    card-traced artifact on the host). Traced, it names meta throughout;
+    written by ``write_program`` and loaded by ``load_export(device='cpu')``
+    it names the host alone, calls the same registered ops, and gives the
+    live model's logits (the same float32 ops), with its meta naming the
+    meta device or the card."""
+    from vqa_tpu_torch.export import _External, program_ops, write_program
+
+    setup, out, predictor = exported_run
+    out_ext = os.path.join(os.path.dirname(out), "exported_elsewhere")
+    _export(setup, out_ext, "--params", "external")
+    seq, shape = predictor.opt.vqa.maxlength, tuple(predictor.table.shape[1:])
+    args = ({k: v.to("meta") for k, v in model_params(predictor.model).items()},
+            torch.zeros((BATCH, *shape), device="meta"),
+            torch.ones((BATCH, seq), dtype=torch.int32, device="meta"),
+            torch.full((BATCH,), seq, dtype=torch.int32, device="meta"))
+    with torch.no_grad():
+        program = torch.export.export(_External(predictor.model), args, strict=False)
+    program.example_inputs = None
+    assert _devices(program) == {"meta"}
+    ops = program_ops(program)
+    write_program(program, out_ext)
+    assert _devices(torch.export.load(os.path.join(out_ext, "program.pt2"))) == {"cpu"}
+    with open(os.path.join(out_ext, "meta.json")) as f:
+        meta = json.load(f)
+    meta["device"] = "meta"
+    with open(os.path.join(out_ext, "meta.json"), "w") as f:
+        json.dump(meta, f)
+
+    ep = load_export(out_ext, device="cpu")
+    assert ep.device == torch.device("cpu") and _devices(ep.program) == {"cpu"}
+    assert program_ops(ep.program) == ops == [f"vqa_tpu_torch::{op}" for op in OPS["mutan_att"]]
+    _, visual, q, lengths = _inputs(predictor)
+    want = _live(predictor, visual, q, lengths)
+    np.testing.assert_allclose(ep.logits(visual, q, lengths), want, rtol=TOL, atol=TOL)
+    # a card-traced artifact's meta no longer keeps it off the host
+    meta["device"] = "cuda"
+    with open(os.path.join(out_ext, "meta.json"), "w") as f:
+        json.dump(meta, f)
+    np.testing.assert_allclose(load_export(out_ext, device="cpu").logits(visual, q, lengths),
+                               want, rtol=TOL, atol=TOL)

@@ -11,6 +11,7 @@ import pkgutil
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -46,7 +47,9 @@ def test_every_port_module_is_listed():
                      "vqa_tpu_torch.models.noatt", "vqa_tpu_torch.engine.checkpoint",
                      "vqa_tpu_torch.weights", "vqa_tpu_torch.engine.optim",
                      "vqa_tpu_torch.export", "vqa_tpu_torch.cli.export",
-                     "vqa_tpu_torch.cli.visu"):
+                     "vqa_tpu_torch.cli.visu", "vqa_tpu_torch.importers",
+                     "vqa_tpu_torch.models.convnets", "vqa_tpu_torch.cli.extract",
+                     "vqa_tpu_torch.tools.import_torch"):
         assert expected in mods
 
 
@@ -170,6 +173,37 @@ def test_eval_cli_imports_nothing_of_jax(fixture_run, tmp_path):
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip().splitlines()[-1] == "ok"
     assert os.path.exists(tmp_path / "vqa2" / "processed")
+
+
+def test_import_tool_model_kind_imports_nothing_of_jax(tmp_path):
+    """python -m vqa_tpu_torch.tools.import_torch --kind model takes its
+    template from a port model, not from flax's model.init: it converts a
+    lineage-named MLBNoAtt checkpoint through options/import_specs/
+    mlb_noatt.json with nothing of jax, flax or vqa_tpu in sys.modules."""
+    from test_torch_importers import CASES
+
+    spec, make, yaml, V, nans, _, dv, _ = CASES["MLBNoAtt"]
+    torch.save(make().state_dict(), tmp_path / "mlb.pth")
+    (tmp_path / "mlb.yaml").write_text(yaml)
+    out = tmp_path / "params.npz"
+    argv = [str(tmp_path / "mlb.pth"), "--kind", "model", "--path_opt", str(tmp_path / "mlb.yaml"),
+            "--num_words", str(V), "--num_answers", str(nans), "--feature_dim", str(dv),
+            "--out", str(out)]
+    code = (
+        "import sys\n"
+        "from vqa_tpu_torch.tools.import_torch import main\n"
+        f"assert main({argv!r}) == 0\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'optax', "
+        "'vqa_tpu'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    proc = _run(code)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().splitlines()[-1] == "ok"
+    with np.load(out) as flat:
+        assert "classifier/logits/kernel" in flat.files and flat["fusion/v_proj/kernel"].shape == (
+            dv, 7)
 
 
 def test_chip_smoke_refuses_to_run_without_a_card():

@@ -12,7 +12,9 @@ forward at the fixed serving shape, its five forward kernels kept as the
 registered ops ``torch.ops.vqa_tpu_torch.*``, weights baked in) and
 ``<out>/meta.json`` (vocabs, shapes, tokenizer flavor, the device it was
 traced on, provenance). The program is traced on the card (or, with
-``--platform cpu``, on the host) and runs only there. Serve it with
+``--platform cpu``, on the host) and serves on either: the card's kernels
+take bf16, so a host-traced program serves on the card only if it computes
+in bf16 (``--opt engine.dtype=bfloat16`` on the run). Serve it with
 
   python -m vqa_tpu_torch.cli.serve --exported exported/ [--coco_dir ...]
 
@@ -58,8 +60,8 @@ def build_argparser() -> argparse.ArgumentParser:
                         "the command if a same-dtype artifact disagrees; bf16/int8 exports "
                         "report without failing)")
     p.add_argument("--platform", default=None, metavar="cuda|cpu",
-                   help="where to trace and run: the card (default) or, with cpu, the host; "
-                        "the artifact runs only where it was traced")
+                   help="where to trace (and --validate): the card (default) or, with cpu, "
+                        "the host; the artifact loads on either (on the card in bf16 only)")
     return p
 
 

@@ -30,7 +30,8 @@ that ``--resume`` names (default ``best``, as in the original), which the
 port's train CLI writes under ``<dir_logs>/ckpt``. ``--exported`` serves an
 artifact of ``python -m vqa_tpu_torch.cli.export`` instead of a run (no
 model code; its batch is the serving batch; ``--coco_dir`` moves its
-feature table), on the device it was traced on.
+feature table), moved to the device ``--platform`` names, wherever it was
+traced (on the card only a program that computes in bf16).
 """
 
 from __future__ import annotations
@@ -335,7 +336,8 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="serve model.pretrained_params (an npz, with the seq2vec.pretrained_* "
                         "grafts), not a checkpoint")
     p.add_argument("--platform", default=None, metavar="cuda|cpu",
-                   help="where to run: the card (default) or, with cpu, the host")
+                   help="where to run: the card (default) or, with cpu, the host (an "
+                        "--exported artifact moves there from the device it was traced on)")
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=8080)
     p.add_argument("--max_batch", type=int, default=None,

@@ -17,10 +17,14 @@ A trained run is frozen into a self-contained directory
 The program keeps the model's five forward kernels as the registered ops
 ``torch.ops.vqa_tpu_torch.*`` (``vqa_tpu_torch/ops``), so on the card a
 loaded program launches the hand-written kernels (and counts the launches)
-and on the host runs their plain versions. It is traced on the device it
-will serve on and runs only there: tensors the model makes inside its
-forward are frozen with their device, so ``load_export`` refuses another.
-(The JAX program lowers for CPU and TPU alike.)
+and on the host runs their plain versions. It is saved with its tensors
+and device arguments on the host (``torch.export.passes.
+move_to_device_pass``) and moved at load time to the device asked for, so
+a program traced on the card serves on a CPU host and one traced on the
+host serves on the card, as the JAX program lowers for CPU and TPU alike;
+``meta.json``'s ``device`` records where it was traced. The card's kernels
+take bf16: a program serves there only if it computes in bf16 (a
+card-traced one does; on the host, trace with ``engine.dtype=bfloat16``).
 
 Loading imports no model code: ``load_export`` and ``ExportedPredictor``
 import ``torch``, the op registrations (needed before ``torch.export.load``
@@ -203,6 +207,18 @@ def program_ops(program) -> List[str]:
             if node.op == "call_function" and getattr(node.target, "namespace", None) == NAMESPACE]
 
 
+def write_program(program, out_dir: str) -> None:
+    """Save ``program`` as ``<out_dir>/program.pt2`` with its weights,
+    constants and device arguments moved to the host, so that a machine
+    without the device it was traced on can load it (``torch.export.load``
+    places each tensor on its recorded device); ``ExportedPredictor`` moves
+    it to the device it serves on. Moves ``program`` itself."""
+    from torch.export.passes import move_to_device_pass
+
+    os.makedirs(out_dir, exist_ok=True)
+    torch.export.save(move_to_device_pass(program, "cpu"), os.path.join(out_dir, PROGRAM_FILE))
+
+
 def save_export(
     out_dir: str,
     predictor,
@@ -266,8 +282,7 @@ def save_export(
     if params_mode == "external":
         meta["params_dtype"] = _dtype_name(
             next(v for v in params.values() if v.is_floating_point()).dtype)
-    os.makedirs(out_dir, exist_ok=True)
-    torch.export.save(program, os.path.join(out_dir, PROGRAM_FILE))
+    write_program(program, out_dir)
     if params_mode == "external":
         np.savez(os.path.join(out_dir, PARAMS_FILE),
                  **{k: v.detach().to("cpu", torch.float32 if v.is_floating_point() else v.dtype)
@@ -292,8 +307,10 @@ class _ServingDataset:
 
 
 def _check_loadable(export_dir: str, meta: dict, device) -> torch.device:
-    """The device the artifact runs on; refuses a JAX artifact, and a device
-    other than the one it was traced on, naming both."""
+    """The device the artifact will run on: ``device``, else the one it was
+    traced on. Refuses a JAX artifact, the card on a machine without one, and
+    on the card a program that does not compute in bf16 (its kernels take
+    bf16)."""
     if meta.get("format") != FORMAT:
         jax = os.path.exists(os.path.join(export_dir, JAX_PROGRAM_FILE))
         raise ValueError(
@@ -303,12 +320,14 @@ def _check_loadable(export_dir: str, meta: dict, device) -> torch.device:
             "python -m vqa_tpu_torch.cli.export")
     traced = torch.device(meta["device"])
     want = traced if device is None else torch.device(device)
-    if want.type != traced.type:
-        raise ValueError(f"{export_dir} was traced on {traced.type} and runs only there, "
-                         f"not on {want.type}: export it again on {want.type}")
     if want.type == "cuda" and not torch.cuda.is_available():
-        raise ValueError(f"{export_dir} was traced on cuda and runs only there, but this "
-                         "machine has no CUDA card (cpu): export it again on cpu")
+        raise ValueError(f"{export_dir} (traced on {traced.type}) cannot run on cuda: this "
+                         "machine has no CUDA card; load it with device='cpu'")
+    if want.type == "cuda" and meta["compute_dtype"] != "bfloat16":
+        raise ValueError(f"{export_dir} (traced on {traced.type}) computes in "
+                         f"{meta['compute_dtype']}, and the card's kernels take bfloat16: "
+                         "export it on the card, or on the host with --opt "
+                         "engine.dtype=bfloat16")
     return want
 
 
@@ -318,8 +337,8 @@ class ExportedPredictor:
     Mirrors the Predictor's serving surface (``answer_batch`` / ``answer`` /
     ``encode_questions`` / ``.dataset``), so ``cli.serve.AnswerService``
     works unchanged on top. The forward runs the loaded fixed-shape program
-    on the device it was traced on; arbitrary request sizes are padded and
-    chunked to the exported batch.
+    on ``device`` (default: the one it was traced on); arbitrary request
+    sizes are padded and chunked to the exported batch.
     """
 
     def __init__(self, export_dir: str, features=None, meta: Optional[dict] = None,
@@ -331,7 +350,10 @@ class ExportedPredictor:
 
         self.meta = _read_meta(export_dir) if meta is None else meta
         self.device = _check_loadable(export_dir, self.meta, device)
-        self.program = torch.export.load(os.path.join(export_dir, PROGRAM_FILE))
+        from torch.export.passes import move_to_device_pass
+
+        self.program = move_to_device_pass(
+            torch.export.load(os.path.join(export_dir, PROGRAM_FILE)), self.device)
         self._call = self.program.module()
         self._params = None
         if self.meta.get("params", "baked") == "external":
@@ -419,8 +441,9 @@ def load_export(
     coco_dir: Optional[str] = None,
     device=None,
 ) -> ExportedPredictor:
-    """Load an export onto the device it was traced on (``device``, if
-    given, must be that one). ``features`` may be a ready FeatureStore
+    """Load an export onto ``device`` (default: the device it was traced
+    on; a card-traced program loads on the host, and a host-traced bf16
+    program on the card). ``features`` may be a ready FeatureStore
     (``FeatureStore.in_memory`` where there is no h5py); otherwise the
     meta's feature-table coordinates are used (``coco_dir`` overrides the
     recorded directory: the table rarely lives at the training-time path on
