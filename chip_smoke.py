@@ -29,6 +29,17 @@ Phases, each printing one line of what it found:
      schedule (relation_attend also by device time, its plan's design
      named); lstm_seq with a
      cuBLAS yardstick of its products alone;
+ 2b. f32_kernels: each kernel's float32 entry (the YAMLs' engine.dtype)
+     against its plain version in float32 with TF32 off, at the archs'
+     shapes, R = N = 196 and an odd H: within 1e-5 of the plain output's
+     max-abs (glimpse_head, glimpse_attend, relation_attend), 1e-4
+     (lstm_seq, whose plain recurrence with TF32 products is run beside it
+     and must miss that), mfb_pool against its plain version in float64
+     (its signed square root is ill-conditioned near 0), gather_rows on
+     float32 rows bit-exact; each timed beside the plain version and its
+     bound in float32 bytes (lstm_seq: FLOPs at the FP32 peak),
+     relation_attend beside SDPA in float32. The readings go into each
+     kernel's record under "f32_";
   3. eval: each arch at the full width of its options/vqa2 YAML (MutanAtt,
      MFBCoAtt, MFHCoAtt, CoR, ConcatAtt, MLBAtt, MutanNoAtt, MLBNoAtt) or
      flagship.VARIANTS entry (ConcatNoAtt; MutanAtt with the skip-thoughts
@@ -180,6 +191,22 @@ Phases, each printing one line of what it found:
      run's QA/s and peak memory, glimpse_head's and relation_attend's
      device time at B=1024 over 196 regions (from phase 2).
 
+ 12. f32_path: mutan_att.yaml as written, in float32 (the CLI phases 6, 9,
+     10 and 11 pass engine.dtype=bfloat16, so their readings stay the bf16
+     path's): the eval step at full width over the float32 table (4
+     batches of 1024) and one CoR eval step over a 196-region table, each
+     against the plain float32 path (logits within 1e-4 of the max-abs,
+     answers agreeing on 0.999); the eval CLI over phase 6's set in
+     float32 through the kernels and through the plain path (answers
+     agreeing on 0.999; its log's model line naming cuda torch.float32);
+     one float32 train step of MutanAtt and of MFBCoAtt at batch 128,
+     dropout off (loss within 1e-5 relative, each grad within 1e-3 of the
+     plain float32 path, a grad past that held against float64 instead:
+     no further than twice the plain path's own error); a float32 program
+     of phase 9's run A from save_export, loaded in a fresh interpreter on
+     the card (within 1e-5 of the live model, launching its kernels). Each
+     part counts its launches from 0, and every float32 entry must launch.
+
 Any failed check raises, and the script exits non-zero. On success the
 second-to-last line is the per-kernel JSON record and the last line is
 {"ok": true, "device": {...}}. Imports nothing of jax and nothing of the
@@ -230,6 +257,35 @@ LSTM_ATOL = 0.0092
 GLIMPSE_ATOL = 0.05
 MFB_POOL_ATOL = 2e-3
 RELATION_ATOL = 0.01
+# float32 (engine.dtype as options/default.yaml sets it): each kernel's
+# float32 entry against its plain version in float32 (TF32 off), relative to
+# the plain output's max-abs ([f32_kernels]):
+# - glimpse_head, glimpse_attend, relation_attend: fp32 arithmetic, sums
+#   taken in another order: 1e-5;
+# - lstm_seq: the same carried through up to 26 steps: 1e-4. The plain
+#   recurrence with its products in TF32 (one pass, ~3 decimal digits) is
+#   run beside it and must miss that tolerance;
+# - mfb_pool: the signed square root is ill-conditioned near 0 (a pooled
+#   value of ~1e-7 from terms of ~1 moves by its whole self when the terms
+#   are summed in another order, and its root by ~3e-4), so the kernel is
+#   held against the plain version in float64: within 1e-5 of the max-abs,
+#   or no further than twice the plain float32 version's own error;
+# - gather_rows: bit-exact.
+F32_REL = 1e-5
+F32_LSTM_REL = 1e-4
+# the float32 path ([f32_path]), against the plain float32 path: eval
+# logits within 1e-4 of the max-abs (the LSTM's 1e-4 carried through the
+# fusions), answers agreeing on 0.999 (argmax flips only where the top-2
+# logits are that close); a train step's loss within 1e-5 relative and each
+# grad within 1e-3 (relative, Frobenius); an exported program's logits
+# within 1e-5 of the live model's (the same kernels, the same inputs)
+F32_LOGITS_REL = 1e-4
+F32_AGREE_FLOOR = 0.999
+F32_LOSS_REL = 1e-5
+F32_GRAD_REL = 1e-3
+F32_EXPORT_REL = 1e-5
+F32_EVAL_BATCHES = 4
+F32_TRAIN_ARCHS = {"MutanAtt": "mutan_att", "MFBCoAtt": "mfb_coatt"}
 # eval logits, kernel path vs plain bf16 path: the plain path rounds every
 # intermediate to bf16 at other places than the kernels (bf16 matmul output,
 # bf16 gate math), through the LSTM, both MUTAN fusions and the classifier;
@@ -581,23 +637,25 @@ def _check_gather_dequant(torch, dev, rng, flagship, pooled):
                      "gathers and dequantizes"}
 
 
-def _lstm_inputs(torch, dev, rng, T, B, H):
-    xg = torch.randn(T, B, 4 * H, device=dev).to(torch.bfloat16)
-    wh = (torch.randn(H, 4 * H, device=dev) / H ** 0.5).to(torch.bfloat16)
+def _lstm_inputs(torch, dev, rng, T, B, H, dtype=None):
+    dtype = dtype or torch.bfloat16
+    xg = torch.randn(T, B, 4 * H, device=dev).to(dtype)
+    wh = (torch.randn(H, 4 * H, device=dev) / H ** 0.5).to(dtype)
     lengths = rng.integers(1, T + 1, B)
     lengths[:3] = (1, T, T // 2 + 1)
     left = rng.random(B) < 0.25  # a quarter of the rows left-padded
     t = np.arange(T)[:, None]
     valid = np.where(left[None, :], t >= T - lengths[None, :], t < lengths[None, :])
-    mask = torch.from_numpy(valid[..., None].astype(np.float32)).to(dev, torch.bfloat16)
+    mask = torch.from_numpy(valid[..., None].astype(np.float32)).to(dev, dtype)
     return xg, mask, wh
 
 
-def _lstm_bound(T, B, H):
-    """xg, mask and wh read once, h_last and seq written once; the T-1
-    products h[B,H] x wh[H,4H] (step 0 has none)."""
-    return _bound(2 * (T * B * 4 * H + T * B + 4 * H * H + B * H + T * B * H),
-                  2.0 * (T - 1) * B * H * 4 * H)
+def _lstm_bound(T, B, H, elem=2):
+    """xg, mask and wh read once, h_last and seq written once, in
+    ``elem``-byte elements; the T-1 products h[B,H] x wh[H,4H] (step 0 has
+    none), at the bf16 tensor-core peak or (float32) the FP32 peak."""
+    return _bound(elem * (T * B * 4 * H + T * B + 4 * H * H + B * H + T * B * H),
+                  2.0 * (T - 1) * B * H * 4 * H, PEAK_BF16 if elem == 2 else PEAK_FP32)
 
 
 def _check_lstm(torch, dev, rng):
@@ -654,10 +712,11 @@ def _check_lstm(torch, dev, rng):
                              for n, v in s.items()} for k, s in timing.items()}}
 
 
-def _glimpse_head_bound(B, R, M, G, D):
-    """joint, w, b, v read once; attended and logits written once."""
-    return _bound(2 * (B * R * M + M * G + G + B * R * D + B * G * D + B * R * G),
-                  2.0 * B * R * G * (M + D))
+def _glimpse_head_bound(B, R, M, G, D, elem=2):
+    """joint, w, b, v read once; attended and logits written once
+    (``elem``-byte elements)."""
+    return _bound(elem * (B * R * M + M * G + G + B * R * D + B * G * D + B * R * G),
+                  2.0 * B * R * G * (M + D), PEAK_BF16 if elem == 2 else PEAK_FP32)
 
 
 def _check_glimpse(torch, dev, rng):
@@ -719,18 +778,19 @@ def _check_glimpse(torch, dev, rng):
                              for n, x in t.items()} for k, t in timing.items()}}
 
 
-def _masked_logits(torch, dev, rng, B, T, G):
-    """Self-attention logits as MFBCoAtt masks them: finfo(bf16).min past
+def _masked_logits(torch, dev, rng, B, T, G, dtype=None):
+    """Self-attention logits as MFBCoAtt masks them: finfo(dtype).min past
     each row's length (mixed lengths, a quarter of the rows left-padded),
-    and row 0 fully masked (the empty question)."""
-    logits = torch.randn(B, T, G, device=dev).to(torch.bfloat16)
+    and row 0 fully masked (the empty question); bf16 by default."""
+    dtype = dtype or torch.bfloat16
+    logits = torch.randn(B, T, G, device=dev).to(dtype)
     lengths = rng.integers(1, T + 1, B)
     left = rng.random(B) < 0.25
     t = np.arange(T)[None, :]
     valid = np.where(left[:, None], t >= T - lengths[:, None], t < lengths[:, None])
     valid[0] = False
     mask = torch.from_numpy(valid[..., None]).to(dev)
-    return logits.masked_fill(~mask, torch.finfo(torch.bfloat16).min)
+    return logits.masked_fill(~mask, torch.finfo(dtype).min)
 
 
 def _check_glimpse_attend(torch, dev, rng):
@@ -881,6 +941,238 @@ def _check_relation(torch, dev, rng):
                      "F.scaled_dot_product_attention(pg, r, r); N=196: the tiled design",
             "by_shape": {k: {n: (round(x, 4) if isinstance(x, float) else x)
                              for n, x in t.items()} for k, t in timing.items()}}
+
+
+# ------------------------------------------------------ float32 kernels
+
+
+def _rel_err(got, want) -> float:
+    """max |got - want| over max |want|."""
+    return float((got.double() - want.double()).abs().max()
+                 / want.double().abs().max().clamp_min(1e-30))
+
+
+def _f32_record(kernels, name, worst, timing, flagship, **extra):
+    """Put a kernel's float32 readings into its record under ``f32_``."""
+    rec = kernels[name]
+    rec.update({"f32_rel_err": worst, **{f"f32_{k}": v for k, v in timing[flagship].items()},
+                "f32_shape": flagship, **{f"f32_{k}": v for k, v in extra.items()},
+                "f32_by_shape": {k: {n: (round(x, 6) if isinstance(x, float) else x)
+                                     for n, x in t.items()} for k, t in timing.items()}})
+
+
+def _check_f32_kernels(torch, dev, rng, kernels) -> None:
+    """[f32_kernels]: each kernel's float32 entry against its plain version
+    in float32 (TF32 off) at the archs' shapes, R = N = 196 and an odd H,
+    with its time, the plain time and the bound in float32 bytes (lstm_seq:
+    FLOPs at the FP32 peak); relation_attend with SDPA in float32 beside
+    it; lstm_seq with the plain recurrence under TF32, which misses the
+    tolerance. The readings go into each kernel's record under ``f32_``."""
+    import torch.nn.functional as F
+
+    from vqa_tpu_torch.ops.attention import (glimpse_attend, glimpse_attend_reference,
+                                             glimpse_head, glimpse_head_reference,
+                                             glimpse_plan)
+    from vqa_tpu_torch.ops.gather import gather_rows, gather_rows_reference
+    from vqa_tpu_torch.ops.lstm import launch_geometry_f32, lstm_seq, lstm_seq_reference
+    from vqa_tpu_torch.ops.mfb_pool import mfb_pool, mfb_pool_reference
+    from vqa_tpu_torch.ops.relation import relation_attend, relation_attend_reference
+
+    f32 = torch.float32
+
+    def timed(kernel, plain, iters=20):
+        return _in_turns(torch, lambda t, fn: _median_ms(t, fn, iters=iters), kernel, plain)
+
+    # gather_rows on float32 rows: bit-exact
+    table = torch.randn(N_IMAGES, REGIONS, DIM, device=dev)
+    idx = rng.integers(0, N_IMAGES, BATCH)
+    idx_dev = torch.from_numpy(idx).to(dev)
+    out = gather_rows(table, idx)
+    _require(torch.equal(out, gather_rows_reference(table, idx_dev)),
+             "gather_rows on float32 rows is bit-exact")
+    ms, plain = timed(lambda: gather_rows(table, idx), lambda: gather_rows_reference(table, idx_dev))
+    row = REGIONS * DIM * 4
+    bound, by = _bound(len(np.unique(idx)) * row + BATCH * row + 4 * BATCH)
+    timing = {"B1024": dict(ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by,
+                            library_ms=plain, pct_of_bound=100 * bound / ms)}
+    _phase("f32_kernels", kernel="gather_rows", shape="1024x36x2048[1024] float32",
+           bit_exact=True, **{k: (round(v, 4) if isinstance(v, float) else v)
+                              for k, v in timing["B1024"].items()})
+    _f32_record(kernels, "gather_rows", 0.0, timing, "B1024", tol="exact")
+    del table, out
+
+    # lstm_seq: one persistent launch, h and c float32 between steps
+    worst, timing, tf32_err = 0.0, {}, None
+    for T, B, H in ((26, BATCH, 2400), (7, BATCH, 2400), (7, BATCH, 1024),
+                    (26, SERVE_BATCH, 2400), (5, 37, 41)):
+        xg, mask, wh = _lstm_inputs(torch, dev, rng, T, B, H, f32)
+        h, seq = lstm_seq(xg, mask, wh)
+        again = lstm_seq(xg, mask, wh)
+        ref_h, ref_seq = lstm_seq_reference(xg, mask, wh)
+        torch.cuda.synchronize()
+        err = max(_rel_err(h, ref_h), _rel_err(seq, ref_seq))
+        _require(h.dtype == seq.dtype == f32 and bool(torch.isfinite(seq).all()),
+                 f"lstm_seq float32 {(T, B, H)}: float32 and finite")
+        _require(err <= F32_LSTM_REL, f"lstm_seq float32 {(T, B, H)}: {err} <= {F32_LSTM_REL}")
+        _require(torch.equal(h, again[0]) and torch.equal(seq, again[1]),
+                 f"lstm_seq float32 {(T, B, H)}: two calls bit-equal")
+        worst = max(worst, err)
+        geo = launch_geometry_f32(B, H + H % 2, dev.index or 0)
+        line = dict(T=T, B=B, H=H, rel_err=f"{err:.3e}", tol=F32_LSTM_REL, bit_equal=True,
+                    ctas=geo["ctas"], tiles=geo["tiles"])
+        if (T, B, H) == (26, BATCH, 2400):
+            # the same plain recurrence with its products in TF32 (one pass,
+            # ~3 decimal digits): the tolerance above must catch it
+            torch.backends.cuda.matmul.allow_tf32 = True
+            try:
+                t_h, t_seq = lstm_seq_reference(xg, mask, wh)
+                torch.cuda.synchronize()
+            finally:
+                torch.backends.cuda.matmul.allow_tf32 = False
+            tf32_err = max(_rel_err(t_h, ref_h), _rel_err(t_seq, ref_seq))
+            _require(tf32_err > F32_LSTM_REL, f"the plain recurrence in TF32 misses the float32 "
+                     f"tolerance: {tf32_err} > {F32_LSTM_REL}")
+            line["tf32_plain_rel_err"] = f"{tf32_err:.3e}"
+            del t_h, t_seq
+        if B == BATCH:
+            ms, plain = timed(lambda: lstm_seq(xg, mask, wh),
+                              lambda: lstm_seq_reference(xg, mask, wh), iters=5)
+            bound, by = _lstm_bound(T, B, H, elem=4)
+            key = f"T{T}_B{B}" + ("" if H == 2400 else f"_H{H}")
+            timing[key] = dict(ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by,
+                               library_ms=None, pct_of_bound=100 * bound / ms,
+                               tflops=2.0 * (T - 1) * B * H * 4 * H / ms / 1e9)
+            line.update({k: (round(v, 4) if isinstance(v, float) else v)
+                         for k, v in timing[key].items()})
+        _phase("f32_kernels", kernel="lstm_seq", **line)
+        del xg, mask, wh, h, seq, again, ref_h, ref_seq
+    _f32_record(kernels, "lstm_seq", worst, timing, f"T26_B{BATCH}", tol=F32_LSTM_REL,
+                tf32_plain_rel_err=tf32_err)
+
+    # glimpse_head
+    worst, timing = 0.0, {}
+    for B, R, M, G, D in ((BATCH, REGIONS, 510, 2, DIM), (SERVE_BATCH, REGIONS, 510, 2, DIM),
+                          (BATCH, REGIONS, 512, 2, DIM), (BATCH, REGIONS, 1024, 1, DIM),
+                          (BATCH, REGIONS, 1200, 2, DIM), (SERVE_BATCH, REGIONS, 510, 8, DIM),
+                          (BATCH, GRID, 510, 2, DIM), (37, 36, 45, 2, 72), (5, 7, 33, 3, 75)):
+        joint = torch.tanh(torch.randn(B, R, M, device=dev))
+        w = torch.randn(M, G, device=dev) / M ** 0.5
+        b = 0.1 * torch.randn(G, device=dev)
+        v = torch.randn(B, R, D, device=dev)
+        att, logits = glimpse_head(joint, w, b, v)
+        ref_att, ref_logits = glimpse_head_reference(joint, w, b, v)
+        torch.cuda.synchronize()
+        err = max(_rel_err(att, ref_att), _rel_err(logits, ref_logits))
+        _require(err <= F32_REL, f"glimpse_head float32 {(B, R, M, G, D)}: {err} <= {F32_REL}")
+        worst = max(worst, err)
+        plan = glimpse_plan(B, R, M, G, D, elem=4)
+        line = dict(B=B, R=R, M=M, G=G, D=D, rel_err=f"{err:.3e}", tol=F32_REL,
+                    plan=f"{plan['copy']}_staged{int(plan['staged'])}")
+        if B == BATCH and D == DIM and M in (510, 1200):
+            ms, plain = timed(lambda: glimpse_head(joint, w, b, v),
+                              lambda: glimpse_head_reference(joint, w, b, v))
+            bound, by = _glimpse_head_bound(B, R, M, G, D, elem=4)
+            key = f"B{B}_M{M}" + ("" if R == REGIONS else f"_R{R}")
+            timing[key] = dict(ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by,
+                               library_ms=None, pct_of_bound=100 * bound / ms)
+            line.update({k: (round(x, 4) if isinstance(x, float) else x)
+                         for k, x in timing[key].items()})
+        _phase("f32_kernels", kernel="glimpse_head", **line)
+        del joint, w, b, v, att, logits, ref_att, ref_logits
+    _f32_record(kernels, "glimpse_head", worst, timing, f"B{BATCH}_M510", tol=F32_REL)
+
+    # glimpse_attend, masked at finfo(float32).min
+    worst, timing = 0.0, {}
+    for B, T, G, D in ((BATCH, 7, 2, 1024), (BATCH, 13, 2, 1024), (BATCH, 26, 2, 1024),
+                       (SERVE_BATCH, REGIONS, 8, 1024), (SERVE_BATCH, GRID, 2, 1024),
+                       (5, 9, 3, 75)):
+        logits = _masked_logits(torch, dev, rng, B, T, G, f32)
+        v = torch.randn(B, T, D, device=dev)
+        out = glimpse_attend(logits, v)
+        ref = glimpse_attend_reference(logits, v)
+        torch.cuda.synchronize()
+        err = _rel_err(out, ref)
+        _require(err <= F32_REL, f"glimpse_attend float32 {(B, T, G, D)}: {err} <= {F32_REL}")
+        _require(bool(torch.allclose(out[0], v[0].mean(0).expand(G, D), atol=F32_REL)),
+                 "glimpse_attend float32: a fully masked row gives uniform weights")
+        worst = max(worst, err)
+        line = dict(B=B, T=T, G=G, D=D, rel_err=f"{err:.3e}", tol=F32_REL)
+        if B == BATCH:
+            ms, plain = timed(lambda: glimpse_attend(logits, v),
+                              lambda: glimpse_attend_reference(logits, v))
+            bound, by = _bound(4 * (B * T * G + B * T * D + B * G * D), 2.0 * B * T * G * D,
+                               PEAK_FP32)
+            timing[f"T{T}_B{B}"] = dict(ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by,
+                                        library_ms=None, pct_of_bound=100 * bound / ms)
+            line.update({k: (round(x, 4) if isinstance(x, float) else x)
+                         for k, x in timing[f"T{T}_B{B}"].items()})
+        _phase("f32_kernels", kernel="glimpse_attend", **line)
+        del logits, v, out, ref
+    _f32_record(kernels, "glimpse_attend", worst, timing, f"T7_B{BATCH}", tol=F32_REL)
+
+    # mfb_pool: held against the plain version in float64 (MFB_F32_HOLD)
+    worst, timing = 0.0, {}
+    for n, k, m in ((BATCH * REGIONS, 5, 1000), (BATCH, 5, 1000), (131, 3, 33), (37, 5, 1001)):
+        z = torch.randn(n, k * m, device=dev)
+        out = mfb_pool(z, k)
+        plain_out = mfb_pool_reference(z, k)
+        exact = mfb_pool_reference(z.double(), k)
+        torch.cuda.synchronize()
+        err, plain_err = _rel_err(out, exact), _rel_err(plain_out, exact)
+        vs_plain = _rel_err(out, plain_out)
+        tol = max(F32_REL, 2 * plain_err)
+        _require(out.dtype == f32 and err <= tol,
+                 f"mfb_pool float32 {(n, k, m)}: {err} from float64 <= max({F32_REL}, twice "
+                 f"the plain float32's {plain_err})")
+        worst = max(worst, vs_plain)
+        line = dict(n=n, k=k, m=m, rel_err_vs_f64=f"{err:.3e}",
+                    plain_rel_err_vs_f64=f"{plain_err:.3e}", tol=f"{tol:.3e}",
+                    rel_err_vs_plain=f"{vs_plain:.3e}")
+        if m == 1000:
+            ms, plain = timed(lambda: mfb_pool(z, k), lambda: mfb_pool_reference(z, k))
+            bound, by = _bound(4 * (n * k * m + n * m), n * (k * m + 4 * m), PEAK_FP32)
+            timing[f"n{n}"] = dict(ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by,
+                                   library_ms=None, pct_of_bound=100 * bound / ms,
+                                   rel_err_vs_f64=err, plain_rel_err_vs_f64=plain_err)
+            line.update({k: (round(x, 4) if isinstance(x, float) else x)
+                         for k, x in timing[f"n{n}"].items() if k.endswith(("ms", "by"))})
+        _phase("f32_kernels", kernel="mfb_pool", **line)
+        del z, out, plain_out, exact
+    _f32_record(kernels, "mfb_pool", worst, timing, f"n{BATCH * REGIONS}",
+                tol="float64 hold: max(1e-5, twice the plain float32's own error)")
+
+    # relation_attend: the wide design on the CUDA cores; SDPA beside it
+    worst, timing = 0.0, {}
+    for B, N, D, offset in ((BATCH, REGIONS, 1024, 0), (SERVE_BATCH, GRID, 1024, 0),
+                            (BATCH, GRID, 1024, 0), (5, 7, 33, 0), (3, 65, 40, 0),
+                            (3, 36, 1024, 1)):
+        pg = torch.tanh(torch.randn(B, N, D, device=dev))
+        r = torch.empty(B * N * D + offset, device=dev)[offset:].view(B, N, D)
+        r.copy_(torch.tanh(torch.randn(B, N, D, device=dev)))
+        out = relation_attend(pg, r)
+        ref = relation_attend_reference(pg, r)
+        torch.cuda.synchronize()
+        err = _rel_err(out, ref)
+        _require(err <= F32_REL, f"relation_attend float32 {(B, N, D)}: {err} <= {F32_REL}")
+        worst = max(worst, err)
+        line = dict(B=B, N=N, D=D, offset=offset, rel_err=f"{err:.3e}", tol=F32_REL)
+        if B == BATCH:
+            iters = 5 if N == GRID else 20
+            ms, plain = timed(lambda: relation_attend(pg, r),
+                              lambda: relation_attend_reference(pg, r), iters=iters)
+            # the same function in one PyTorch call, timed here only
+            library = _median_ms(torch, lambda: F.scaled_dot_product_attention(pg, r, r),
+                                 iters=iters)
+            bound, by = _bound(4 * 3 * B * N * D, 2.0 * 2 * B * N * N * D, PEAK_FP32)
+            timing[f"B{B}_N{N}"] = dict(ms=ms, plain_ms=plain, library_ms=library,
+                                        bound_ms=bound, bound_by=by,
+                                        pct_of_bound=100 * bound / ms)
+            line.update({k: (round(x, 4) if isinstance(x, float) else x)
+                         for k, x in timing[f"B{B}_N{N}"].items()})
+        _phase("f32_kernels", kernel="relation_attend", **line)
+        del pg, r, out, ref
+    _f32_record(kernels, "relation_attend", worst, timing, f"B{BATCH}_N{REGIONS}", tol=F32_REL,
+                library="F.scaled_dot_product_attention(pg, r, r) in float32")
 
 
 # --------------------------------------------------------------- main path
@@ -1323,7 +1615,7 @@ def _eval_cli_phase(torch, dev, table: np.ndarray, pooled: np.ndarray) -> dict:
             del model
             argvs[mode] = ["--path_opt", yamls[mode], "-e", "--split", "val"]
             for o in data + [f"model.pretrained_params={npz}", "engine.device_features=true",
-                             "optim.eval_batch_size=1024"]:
+                             "optim.eval_batch_size=1024", "engine.dtype=bfloat16"]:
                 argvs[mode] += ["--opt", o]
         split = val_set.split
         _require(val_set.num_answers == opt.vqa.nans, f"answer vocabulary {val_set.num_answers} "
@@ -1333,20 +1625,33 @@ def _eval_cli_phase(torch, dev, table: np.ndarray, pooled: np.ndarray) -> dict:
         _require(len(split) == CLI_QUESTIONS and len(split) % BATCH, "a padded last batch")
 
         runs = {}
+        # the bf16 runs pass engine.dtype=bfloat16 (argvs); the float32 runs
+        # set it back to the YAML's float32 ([f32_path])
         for label, mode, features_dtype, plain in (("bf16", "att", "bfloat16", False),
                                                    ("plain", "att", "bfloat16", True),
                                                    ("int8", "att", "int8", False),
                                                    ("noatt", "noatt", "bfloat16", False),
-                                                   ("noatt_plain", "noatt", "bfloat16", True)):
+                                                   ("noatt_plain", "noatt", "bfloat16", True),
+                                                   ("f32", "att", "float32", False),
+                                                   ("f32_plain", "att", "float32", True)):
             logs = os.path.join(tmp, "logs", label)
+            dtype = ["--opt", "engine.dtype=float32"] if label.startswith("f32") else []
+            out = io.StringIO()
             _reset_counts()
             t0 = time.perf_counter()
-            with contextlib.redirect_stdout(io.StringIO()), \
+            with contextlib.redirect_stdout(out), \
                     (_plain_ops(torch) if plain else contextlib.nullcontext()):
                 rc = train_cli.main(argvs[mode] + ["--dir_logs", logs, "--opt",
-                                                   f"engine.features_dtype={features_dtype}"])
+                                                   f"engine.features_dtype={features_dtype}"]
+                                    + dtype)
             wall = time.perf_counter() - t0
             counts = _read_counts()
+            model_line = next((line for line in out.getvalue().splitlines()
+                               if line.startswith("model ")), "")
+            want_dtype = "float32" if label.startswith("f32") else "bfloat16"
+            _require(model_line.endswith(f"cuda torch.{want_dtype}"),
+                     f"eval CLI ({label}): the log's model line names cuda torch.{want_dtype}: "
+                     f"{model_line!r}")
             _require(rc == 0, f"eval CLI ({label}) returned {rc}")
             with open(os.path.join(logs, "metrics.jsonl")) as f:
                 metrics = [json.loads(line) for line in f][-1]
@@ -1354,11 +1659,12 @@ def _eval_cli_phase(torch, dev, table: np.ndarray, pooled: np.ndarray) -> dict:
             with open(path) as f:
                 results = {r["question_id"]: r["answer"] for r in json.load(f)}
             runs[label] = dict(counts=counts, metrics=metrics, results=results, path=path,
-                               wall=wall)
+                               wall=wall, model_line=model_line)
 
         want = {"bf16": set(CLI_KERNELS), "plain": set(),
                 "int8": {"gather_rows_dequant", "lstm_seq", "glimpse_head"},
-                "noatt": set(CLI_NOATT_KERNELS), "noatt_plain": set()}
+                "noatt": set(CLI_NOATT_KERNELS), "noatt_plain": set(),
+                "f32": set(CLI_KERNELS), "f32_plain": set()}
         answer_of = dict(zip(split.question_ids.tolist(), split.answers.tolist()))
         ans_to_aid = val_set.vocabs.ans_to_aid
         for label, run in runs.items():
@@ -1386,6 +1692,9 @@ def _eval_cli_phase(torch, dev, table: np.ndarray, pooled: np.ndarray) -> dict:
                  f"eval CLI answers agree with the plain run's on {agree} (noatt: {noatt_agree}) "
                  f">= {PRED_AGREE_FLOOR}")
         int8_agree = agreement("bf16", "int8")
+        f32_agree = agreement("f32", "f32_plain")
+        _require(f32_agree >= F32_AGREE_FLOOR, f"[f32_path] the float32 eval CLI's answers agree "
+                 f"with its plain float32 run's on {f32_agree} >= {F32_AGREE_FLOOR}")
 
         report_path = os.path.join(tmp, "report.json")
         annotations = os.path.join(tmp, "vqa2", "raw", RAW_FILES["val"][1])
@@ -1415,8 +1724,17 @@ def _eval_cli_phase(torch, dev, table: np.ndarray, pooled: np.ndarray) -> dict:
            floor=PRED_AGREE_FLOOR, pred_agree_int8=round(int8_agree, 5),
            **{f"{label}_launches": {k: c for k, c in runs[label]["counts"].items() if c}
               for label in ("bf16", "int8", "noatt")})
-    return {k: sum(runs[label]["counts"][k] for label in ("bf16", "int8", "noatt"))
-            for k in runs["bf16"]["counts"]}
+    f32 = runs["f32"]
+    _phase("f32_path", part="eval_cli", arch="MutanAtt", dtype="float32",
+           questions=len(split), batch=BATCH, log_line=repr(f32["model_line"]),
+           qa_per_sec=round(f32["metrics"]["qa_per_sec"], 1),
+           plain_qa_per_sec=round(runs["f32_plain"]["metrics"]["qa_per_sec"], 1),
+           eval_time=round(f32["metrics"]["eval_time"], 4), cli_s=round(f32["wall"], 3),
+           acc1=f32["metrics"]["acc1"], pred_agree_plain=round(f32_agree, 5),
+           floor=F32_AGREE_FLOOR, pred_agree_bf16=round(agreement("f32", "bf16"), 5),
+           launches={k: c for k, c in f32["counts"].items() if c})
+    return ({k: sum(runs[label]["counts"][k] for label in ("bf16", "int8", "noatt", "f32"))
+             for k in runs["bf16"]["counts"]}, f32["counts"])
 
 
 # ----------------------------------------------------------------- train
@@ -2016,7 +2334,7 @@ def _train_cli_phase(torch, dev, host_table: np.ndarray, card: str, tmp: str):
             "--checkpoint_every_steps", str(TRAIN_CLI_CKPT_EVERY)]
     for o in data + ["engine.device_features=true", "engine.features_dtype=bfloat16",
                      f"engine.train_bucketing={TRAIN_BUCKET_WINDOW}",
-                     "optim.eval_batch_size=1024"]:
+                     "optim.eval_batch_size=1024", "engine.dtype=bfloat16"]:
         base += ["--opt", o]
     logs = {r: os.path.join(tmp, "logs", r) for r in ("A", "B")}
     runs = {}
@@ -2055,7 +2373,7 @@ def _train_cli_phase(torch, dev, host_table: np.ndarray, card: str, tmp: str):
                  "run B resumed returns 0")
         ev = ["--path_opt", yaml, "-e", "--resume", "best", "--dir_logs", logs["A"]]
         for o in data + ["engine.device_features=true", "engine.features_dtype=bfloat16",
-                         "optim.eval_batch_size=1024"]:
+                         "optim.eval_batch_size=1024", "engine.dtype=bfloat16"]:
             ev += ["--opt", o]
         _require(run("eval", ev) == 0, "-e --resume best returns 0")
 
@@ -2174,7 +2492,7 @@ def _train_cli_mfb(torch, train_cli, data, logs, steps_per_epoch, card) -> dict:
     common = []
     for o in data + ["engine.device_features=true", "engine.features_dtype=bfloat16",
                      f"engine.train_bucketing={TRAIN_BUCKET_WINDOW}",
-                     "optim.eval_batch_size=1024"]:
+                     "optim.eval_batch_size=1024", "engine.dtype=bfloat16"]:
         common += ["--opt", o]
     walls, counts = [], dict.fromkeys(_counters(), 0)
     for argv in (["--epochs", "1"], ["-e", "--resume", "best"]):
@@ -2282,7 +2600,8 @@ def _cor_run(torch, tmp: str, data: list) -> str:
     from vqa_tpu_torch.models.factory import factory as model_factory
     from vqa_tpu_torch.weights import init_params
 
-    opt = load_options(os.path.join(_REPO, "options", "vqa2", "cor.yaml"), data)
+    opt = load_options(os.path.join(_REPO, "options", "vqa2", "cor.yaml"),
+                       data + ["engine.dtype=bfloat16"])
     run = os.path.join(tmp, "logs", "cor")
     dump_options(opt, run)
     val_set = data_factory.factory("val", opt)  # the port's prep, for cor.yaml's 3000 answers
@@ -2595,7 +2914,8 @@ def _export_phase(torch, dev, card: str, tmp: str, context: dict) -> dict:
                  f"{want}: {printed}")
         alpha = visu_cli.attention_map(preds[arch], question, image)
         plain = visu_cli.attention_map(
-            Predictor.from_run(runs[arch], resume="best", device="cpu"), question, image)
+            Predictor.from_run(runs[arch], resume="best", device="cpu",
+                               overrides=["engine.dtype=float32"]), question, image)
         err = float(np.abs(alpha - plain).max())
         _require(alpha.shape == plain.shape == (REGIONS, 3 if arch == "CoR" else 2)
                  and err <= LOGITS_ATOL,
@@ -2616,6 +2936,278 @@ def _export_phase(torch, dev, card: str, tmp: str, context: dict) -> dict:
            served_requests=8, visu=visu, dispatch_us=dispatch,
            launches={k: c for k, c in counts.items() if c})
     return counts
+
+
+# ------------------------------------------------------- the float32 path
+
+
+def _f32_batches(torch, dev, questions, lengths, image_index, n_batches, batch, num_answers):
+    """``n_batches`` eval batches of ``batch`` questions, sorted by length
+    and cut at the bucket each needs (as the eval loader buckets them)."""
+    order = np.argsort(lengths[:n_batches * batch], kind="stable")
+    answers = np.random.default_rng(2).integers(0, num_answers, len(order)).astype(np.int64)
+    out = []
+    for i in range(n_batches):
+        sl = order[i * batch:(i + 1) * batch]
+        t_b = next(b for b in BUCKETS if b >= lengths[sl].max())
+        out.append({"question": torch.from_numpy(questions[sl, :t_b]).to(dev),
+                    "length": torch.from_numpy(lengths[sl]).to(dev),
+                    "image_index": image_index[sl],
+                    "answer": torch.from_numpy(answers[sl]).to(dev)})
+    return out
+
+
+def _f32_logits_hold(torch, arch, model, batches, features, kernels) -> dict:
+    """One eval pass of ``model`` (float32) through the kernels, its launch
+    counts, and its logits and answers against the plain float32 path on
+    the same batches: within F32_LOGITS_REL of the max-abs, answers agreeing
+    on F32_AGREE_FLOOR; both passes timed."""
+    from vqa_tpu_torch.engine import steps
+
+    eval_step = steps.make_eval_step()
+
+    def logits_pass():
+        with torch.inference_mode():
+            out = [model(steps._resolve_visual(b, features), b["question"], b["length"])
+                   for b in batches]
+        torch.cuda.synchronize()
+        return out
+
+    def step_pass():
+        out = [eval_step(model, b, features) for b in batches]
+        torch.cuda.synchronize()
+        return out
+
+    _reset_counts()
+    step_pass()
+    counts = _read_counts()
+    _require({k for k, c in counts.items() if c} == set(kernels),
+             f"[f32_path] {arch}: the float32 eval step launched exactly {kernels}: {counts}")
+    got = logits_pass()
+    t0 = time.perf_counter()
+    step_pass()
+    kernel_s = time.perf_counter() - t0
+    with _plain_ops(torch):
+        want = logits_pass()
+        step_pass()
+        t0 = time.perf_counter()
+        step_pass()
+        plain_s = time.perf_counter() - t0
+    got, want = torch.cat(got), torch.cat(want)
+    _require(got.dtype == torch.float32 and bool(torch.isfinite(got).all()),
+             f"[f32_path] {arch}: finite float32 logits")
+    err = _rel_err(got, want)
+    agree = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+    _require(err <= F32_LOGITS_REL and agree >= F32_AGREE_FLOOR,
+             f"[f32_path] {arch}: logits within {F32_LOGITS_REL} of the plain float32 path's "
+             f"max-abs ({err}), answers agreeing on {agree} >= {F32_AGREE_FLOOR}")
+    n = sum(len(b["length"]) for b in batches)
+    return dict(launches={k: c for k, c in counts.items() if c}, logits_rel_err=f"{err:.3e}",
+                tol=F32_LOGITS_REL, pred_agree=round(agree, 5), floor=F32_AGREE_FLOOR,
+                kernel_pass_s=round(kernel_s, 4), plain_pass_s=round(plain_s, 4),
+                kernel_qa_per_s=round(n / kernel_s, 1), plain_qa_per_s=round(n / plain_s, 1),
+                counts=counts)
+
+
+def _f32_eval_phase(torch, dev, eval_data, host_table) -> dict:
+    """[f32_path], eval: MutanAtt as mutan_att.yaml is written (float32) at
+    full width through the eval step over the float32 table on the card,
+    and one CoR eval step in float32 over a 196-region table; returns the
+    launch counts."""
+    from vqa_tpu_torch.flagship import answer_count, build_config
+    from vqa_tpu_torch.weights import random_params
+
+    questions, lengths, image_index = eval_data
+    counts = dict.fromkeys(_counters(), 0)
+    table = torch.from_numpy(host_table).to(dev)  # float32, as features_dtype float32 places it
+    model = build_config("mutan_att", dtype=torch.float32, device=dev)
+    random_params(model, seed=0)
+    batches = _f32_batches(torch, dev, questions, lengths, image_index, F32_EVAL_BATCHES, BATCH,
+                           answer_count("mutan_att"))
+    held = _f32_logits_hold(torch, "MutanAtt", model, batches, table, CLI_KERNELS)
+    for k, c in held.pop("counts").items():
+        counts[k] += c
+    _phase("f32_path", part="eval_step", arch="MutanAtt", dtype="float32", batch=BATCH,
+           batches=F32_EVAL_BATCHES, buckets=[b["question"].shape[1] for b in batches], **held)
+    del model, table
+    torch.cuda.empty_cache()
+
+    # CoR over the 196-region grid, at the serving batch
+    grid = torch.randn(SERVE_BATCH, GRID, DIM, device=dev)
+    model = build_config("cor", dtype=torch.float32, device=dev)
+    random_params(model, seed=0)
+    image_index = np.arange(SERVE_BATCH, dtype=np.int32)
+    batches = _f32_batches(torch, dev, questions, lengths, image_index, 1, SERVE_BATCH,
+                           answer_count("cor"))
+    held = _f32_logits_hold(torch, "CoR", model, batches, grid,
+                            ("gather_rows", "lstm_seq", "relation_attend"))
+    for k, c in held.pop("counts").items():
+        counts[k] += c
+    _phase("f32_path", part="eval_step", arch="CoR", dtype="float32", batch=SERVE_BATCH,
+           regions=GRID, **held)
+    del model, grid
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _f32_train_phase(torch, dev, host_table) -> dict:
+    """[f32_path], train: one float32 train step of MutanAtt and of MFBCoAtt
+    (their YAMLs as written) at full width and batch 128, dropout off,
+    through the kernels against the plain float32 path on the same weights
+    and batch: the loss within F32_LOSS_REL relative, each grad within
+    F32_GRAD_REL (relative, Frobenius; a leaf's norm under 1e-3 of the
+    global norm measured against that floor). A grad past it is held
+    against the plain path in float64 instead, as mfb_pool's entry is: the
+    kernel path's error no more than twice the plain float32 path's (the
+    signed square root's derivative magnifies the rounding of pooled values
+    near 0). Returns the launch counts."""
+    from vqa_tpu_torch.config import compute_dtype, load_options
+    from vqa_tpu_torch.flagship import NUM_WORDS, answer_count, model_options
+    from vqa_tpu_torch.models.factory import factory
+    from vqa_tpu_torch.weights import random_params
+
+    counts = dict.fromkeys(_counters(), 0)
+    table = torch.from_numpy(host_table).to(dev)
+    rng = np.random.default_rng(3)
+    for arch, name in F32_TRAIN_ARCHS.items():
+        opt = load_options(os.path.join(_REPO, "options", "vqa2", f"{name}.yaml"))
+        _require(compute_dtype(opt) == torch.float32 and opt.optim.batch_size == TRAIN_BATCH,
+                 f"{name}.yaml as written trains in float32 at batch {TRAIN_BATCH}")
+        model = factory(model_options(name=name), NUM_WORDS, answer_count(name),
+                        dtype=torch.float32, device=dev, train=True)
+        random_params(model, seed=0)
+        questions, lengths, image_index, _ = _synthetic_eval_arrays(rng, TRAIN_BATCH,
+                                                                    with_table=False)
+        batch = _f32_batches(torch, dev, questions, lengths, image_index, 1, TRAIN_BATCH,
+                             answer_count(name))[0]
+        names = [n for n, p in model.named_parameters() if p.requires_grad]
+        _reset_counts()
+        loss, grads, gnorm = _loss_grads(torch, model, batch, table)
+        torch.cuda.synchronize()
+        step_counts = _read_counts()
+        want = _step_launches(arch)
+        _require({k: c for k, c in step_counts.items() if c} == want,
+                 f"[f32_path] {arch}: a float32 train step launches {want}: {step_counts}")
+        for k, c in step_counts.items():
+            counts[k] += c
+        plain_loss, plain_grads, plain_gnorm = _loss_grads(torch, model, batch, table, plain=True)
+
+        def rel(g, w, floor):
+            return float((g.double() - w.double()).norm()) / max(float(w.double().norm()), floor)
+
+        floor = TRAIN_GRAD_FLOOR * plain_gnorm
+        errs = {n: rel(g, p, floor) for n, g, p in zip(names, grads, plain_grads)
+                if not n.endswith(SOFTMAX_BLIND)}
+        blind = {n: max(float(g.norm()), float(p.norm())) / plain_gnorm
+                 for n, g, p in zip(names, grads, plain_grads) if n.endswith(SOFTMAX_BLIND)}
+        over = {n: e for n, e in errs.items() if e > F32_GRAD_REL}
+        exact_held = {}
+        if over:
+            dtypes = {m: m.dtype for m in model.modules() if hasattr(m, "dtype")}
+            for m in dtypes:
+                m.dtype = torch.float64
+            try:
+                _, f64_grads, f64_gnorm = _loss_grads(torch, model, batch, table, plain=True)
+            finally:
+                for m, dt in dtypes.items():
+                    m.dtype = dt
+            f64_floor = TRAIN_GRAD_FLOOR * f64_gnorm
+            for n, g, p, e in zip(names, grads, plain_grads, f64_grads):
+                if n in over:
+                    exact_held[n] = (over[n], rel(g, e, f64_floor), rel(p, e, f64_floor))
+            _require(all(ke <= max(F32_GRAD_REL, 2 * pe) for _, ke, pe in exact_held.values()),
+                     f"[f32_path] {arch}: grads past {F32_GRAD_REL} of the plain float32 path "
+                     f"are no further from float64 than twice the plain path's own error "
+                     f"(kernel-plain, kernel-f64, plain-f64): {exact_held}")
+        held = {n: e for n, e in errs.items() if n not in exact_held} or {"none": 0.0}
+        worst = max(held, key=held.get)
+        loss_err = abs(loss - plain_loss) / abs(plain_loss)
+        _require(math.isfinite(loss) and loss_err <= F32_LOSS_REL,
+                 f"[f32_path] {arch}: loss {loss} within {F32_LOSS_REL} of the plain "
+                 f"float32 path's {plain_loss}")
+        _require(held[worst] <= F32_GRAD_REL and all(z <= TRAIN_GRAD_FLOOR
+                                                     for z in blind.values()),
+                 f"[f32_path] {arch}: grad {worst} {held[worst]} <= {F32_GRAD_REL}, the "
+                 f"softmax-blind biases' grads under {TRAIN_GRAD_FLOOR} of the norm: {blind}")
+        _require(all(bool(torch.isfinite(g).all()) for g in grads),
+                 f"[f32_path] {arch}: finite grads")
+        args = (model, batch, table)
+        ms, plain_ms = _in_turns(torch, lambda t, fn: _median_ms(t, fn, iters=5),
+                                 lambda: _loss_grads(torch, *args),
+                                 lambda: _loss_grads(torch, *args, plain=True))
+        line = dict(loss=round(loss, 6), plain_loss=round(plain_loss, 6),
+                    loss_rel_err=f"{loss_err:.2e}", loss_tol=F32_LOSS_REL,
+                    grad_worst_leaf=worst, grad_worst_rel_err=f"{held[worst]:.2e}",
+                    grad_tol=F32_GRAD_REL, grads_held=len(held),
+                    gnorm=round(gnorm, 5), plain_gnorm=round(plain_gnorm, 5),
+                    fwd_bwd_ms=round(ms, 3), plain_fwd_bwd_ms=round(plain_ms, 3),
+                    qa_per_s=round(TRAIN_BATCH / ms * 1e3, 1),
+                    plain_qa_per_s=round(TRAIN_BATCH / plain_ms * 1e3, 1),
+                    launches={k: c for k, c in step_counts.items() if c})
+        if exact_held:
+            line["held_against_f64"] = {n: "/".join(f"{x:.2e}" for x in e)
+                                        for n, e in sorted(exact_held.items())}
+        _phase("f32_path", part="train_step", arch=arch, dtype="float32", batch=TRAIN_BATCH,
+               T=batch["question"].shape[1], **line)
+        del model, grads, plain_grads
+        torch.cuda.empty_cache()
+    del table
+    return counts
+
+
+def _f32_export(torch, dev, tmp: str, context: dict) -> dict:
+    """[f32_path], export: MutanAtt from phase 9's run A at its options'
+    engine.dtype set back to float32 (mutan_att.yaml as written), exported
+    on the card by save_export and loaded in a fresh interpreter on the
+    card: the graph's registered ops, the kernels it launched, its logits
+    within F32_EXPORT_REL of the live float32 model's. Returns the launch
+    counts of the loaded program."""
+    from vqa_tpu_torch.export import save_export
+    from vqa_tpu_torch.predictor import Predictor
+
+    pred = Predictor.from_run(context["logs"], resume="best", device=dev,
+                              overrides=["engine.dtype=float32"])
+    q, lengths = pred.encode_questions(context["questions"])
+    visual = pred.table[torch.as_tensor(pred.dataset.index_of(context["images"]))]
+    inputs = os.path.join(tmp, "inputs_f32.npz")
+    np.savez(inputs, names=np.asarray(context["images"]), visual=visual.numpy(),
+             question=q.cpu().numpy(), lengths=lengths.cpu().numpy())
+    with torch.inference_mode():
+        live = pred.model(visual.to(dev), q, lengths)
+    _require(live.dtype == torch.float32, f"the live model computes in float32: {live.dtype}")
+    live = live.cpu().numpy()
+    out = os.path.join(tmp, "exported", "MutanAtt_f32")
+    t = time.perf_counter()
+    meta = save_export(out, pred, batch=EXPORT_BATCH)
+    export_s = time.perf_counter() - t
+    _require(meta["device"] == "cuda" and meta["compute_dtype"] == "float32",
+             f"traced on the card in float32: {meta['device']}, {meta['compute_dtype']}")
+    logits_path = os.path.join(tmp, "logits_f32.npy")
+    proc = subprocess.run([sys.executable, "-c", _LOAD_CHECK, out, inputs, logits_path, "cuda"],
+                          cwd=_REPO, capture_output=True, text=True, timeout=600)
+    _require(proc.returncode == 0, f"the float32 artifact loads and runs in a fresh interpreter: "
+             f"rc {proc.returncode}\n{proc.stderr[-3000:]}")
+    report = json.loads(proc.stdout.strip().splitlines()[-1])
+    got = np.load(logits_path)
+    expected = EXPORT_OPS["MutanAtt"]
+    launched = {k for k, c in report["launches"].items() if c}
+    _require(not report["leaked"] and report["device"].startswith("cuda")
+             and {op.split("::")[-1] for op in report["ops"]} == set(expected)
+             and launched == set(expected),
+             f"the float32 program runs on the card with no model code, calls and launches "
+             f"exactly {expected}: {report}")
+    err = float(np.abs(got - live).max() / max(np.abs(live).max(), 1e-30))
+    _require(got.dtype == np.float32 and err <= F32_EXPORT_REL,
+             f"the loaded float32 program's logits within {F32_EXPORT_REL} of the live model's "
+             f"max-abs: {err}")
+    _phase("f32_path", part="export", arch="MutanAtt", dtype="float32", batch=EXPORT_BATCH,
+           export_s=round(export_s, 3), load_s=round(report["load_s"], 3),
+           forward_s=round(report["forward_s"], 3), bytes=_dir_bytes(out),
+           logits_rel_err=f"{err:.3e}", tol=F32_EXPORT_REL,
+           launches={k: c for k, c in report["launches"].items() if c})
+    del pred
+    torch.cuda.empty_cache()
+    return report["launches"]
 
 
 # --------------------------------------------------------------- extract
@@ -2892,7 +3484,8 @@ def _extract_phase(torch, dev, card: str, kernels: dict) -> dict:
             del model
             argv = ["--path_opt", yaml, "-e", "--split", "val"]
             for o in data + [f"model.pretrained_params={weights}", "engine.device_features=true",
-                             "optim.eval_batch_size=1024", "engine.features_dtype=bfloat16"]:
+                             "optim.eval_batch_size=1024", "engine.features_dtype=bfloat16",
+                             "engine.dtype=bfloat16"]:
                 argv += ["--opt", o]
             runs = {}
             for label, plain in (("kernels", False), ("plain", True)):
@@ -3012,6 +3605,8 @@ def main() -> int:
         "mfb_pool": _check_mfb_pool(torch, dev, rng),
         "relation_attend": _check_relation(torch, dev, rng),
     }
+    # 2b. each kernel's float32 entry against its plain version in float32
+    _check_f32_kernels(torch, dev, rng, kernels)
 
     # 3. eval step (bf16 and int8 tables), 4. serve and 5. grid, each arch at
     # full width, one after another
@@ -3022,10 +3617,24 @@ def main() -> int:
                                     eval_data).items():
             launches[name] += c
     _require(all(c > 0 for c in launches.values()), f"every kernel launched: {launches}")
+    # 12. the float32 path (mutan_att.yaml as written), its parts where their
+    # data lives: the eval step here, the eval CLI in 6, the train step after
+    # 8, export after 10
+    f32_launches = dict.fromkeys(kernels, 0)
+
+    def add_f32(counts):
+        for name, c in counts.items():
+            launches[name] += c
+            f32_launches[name] += c
+
+    add_f32(_f32_eval_phase(torch, dev, eval_data, host_table))
 
     # 6. the eval CLI over a processed split
-    for name, c in _eval_cli_phase(torch, dev, host_table, pooled_table).items():
+    cli_counts, f32_cli_counts = _eval_cli_phase(torch, dev, host_table, pooled_table)
+    for name, c in cli_counts.items():
         launches[name] += c
+    for name, c in f32_cli_counts.items():
+        f32_launches[name] += c
 
     # 7. the train path's two autograd Functions, 8. training
     card = smi.strip().splitlines()[0]
@@ -3033,6 +3642,7 @@ def main() -> int:
     for name, c in _train_phase(torch, dev, host_table, tables["regions"][0],
                                 tables["pooled"][0], card).items():
         launches[name] += c
+    add_f32(_f32_train_phase(torch, dev, host_table))
     # 9. the train CLI: checkpoints, SIGTERM, resume, eval and serve from
     # them; 10. export, serve --exported and visu over its runs
     from vqa_tpu_torch.datasets import factory as data_factory
@@ -3041,6 +3651,7 @@ def main() -> int:
         counts, context = _train_cli_phase(torch, dev, host_table, card, tmp)
         try:
             counts = [counts, _export_phase(torch, dev, card, tmp, context)]
+            add_f32(_f32_export(torch, dev, tmp, context))
         finally:
             del data_factory._STORE_CACHE[context["store_key"]]
     for phase_counts in counts:
@@ -3056,9 +3667,18 @@ def main() -> int:
         kernels[name]["train_plain_fwd_bwd_ms"] = {k: round(t["plain_fwd_bwd_ms"], 4)
                                                    for k, t in by_shape.items()}
 
+    f32_kernels = ("gather_rows", "lstm_seq", "glimpse_head", "glimpse_attend", "mfb_pool",
+                   "relation_attend")
+    _require(all(f32_launches[k] > 0 for k in f32_kernels),
+             f"[f32_path] every float32 entry launched on the float32 path: {f32_launches}")
+    _phase("f32_path", part="total", launches={k: c for k, c in f32_launches.items() if c})
     record = []
     for name, k in kernels.items():
         source, replaces = SOURCES[name]
+        if name in f32_kernels:
+            k["f32_launches"] = f32_launches[name]
+            if name == "lstm_seq":
+                k["f32_source"] = "vqa_tpu_torch/csrc/lstm_f32.cu"
         record.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                        "launches": launches[name],
                        **{key: k.pop(key) for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",

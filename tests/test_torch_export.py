@@ -40,8 +40,8 @@ from vqa_tpu.predictor import Predictor as JaxPredictor
 from vqa_tpu_torch.cli import serve as port_serve
 from vqa_tpu_torch.cli.export import main as export_main
 from vqa_tpu_torch.cli.serve import AnswerService, DynamicBatcher
-from vqa_tpu_torch.export import (_forward_at, dequantize_int8, load_export, model_params,
-                                  quantize_int8, save_export)
+from vqa_tpu_torch.export import (_check_loadable, _forward_at, dequantize_int8, load_export,
+                                  model_params, quantize_int8, save_export)
 from vqa_tpu_torch.predictor import Predictor
 
 torch.set_num_threads(1)
@@ -511,9 +511,10 @@ def _jax_artifact(root, exported):
                                   "float32_program_on_the_card"])
 def test_load_refuses_what_it_cannot_run(exported_run, tmp_path, monkeypatch, case):
     """A JAX artifact (program.jaxexport); the card asked for on a machine
-    without one, for a host-traced program and for a card-traced one; and a
-    program that computes in float32 asked for on the card, whose kernels
-    take bf16: each refused with a message naming what it found."""
+    without one, for a host-traced program and for a card-traced one: each
+    refused with a message naming what it found. A program that computes
+    in float32 is not refused on the card: every kernel has a float32
+    entry, so the load check passes it to the card."""
     _, out, _ = exported_run
     if case == "jax_artifact":
         with pytest.raises(ValueError, match=r"program\.jaxexport.*program\.pt2"):
@@ -525,8 +526,10 @@ def test_load_refuses_what_it_cannot_run(exported_run, tmp_path, monkeypatch, ca
             load_export(out, device="cuda")
     elif case == "float32_program_on_the_card":
         monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-        with pytest.raises(ValueError, match="computes in float32.*take bfloat16"):
-            load_export(out, device="cuda")
+        with open(os.path.join(out, "meta.json")) as f:
+            meta = json.load(f)
+        assert meta["compute_dtype"] == "float32"
+        assert _check_loadable(out, meta, "cuda") == torch.device("cuda")
     else:
         moved = str(tmp_path / "cuda_artifact")
         os.makedirs(moved)

@@ -12,9 +12,9 @@ forward at the fixed serving shape, its five forward kernels kept as the
 registered ops ``torch.ops.vqa_tpu_torch.*``, weights baked in) and
 ``<out>/meta.json`` (vocabs, shapes, tokenizer flavor, the device it was
 traced on, provenance). The program is traced on the card (or, with
-``--platform cpu``, on the host) and serves on either: the card's kernels
-take bf16, so a host-traced program serves on the card only if it computes
-in bf16 (``--opt engine.dtype=bfloat16`` on the run). Serve it with
+``--platform cpu``, on the host) and serves on either, computing in the
+run's ``engine.dtype`` (float32 as ``options/default.yaml`` sets it, or bf16
+under ``--opt engine.dtype=bfloat16``). Serve it with
 
   python -m vqa_tpu_torch.cli.serve --exported exported/ [--coco_dir ...]
 
@@ -61,7 +61,7 @@ def build_argparser() -> argparse.ArgumentParser:
                         "report without failing)")
     p.add_argument("--platform", default=None, metavar="cuda|cpu",
                    help="where to trace (and --validate): the card (default) or, with cpu, "
-                        "the host; the artifact loads on either (on the card in bf16 only)")
+                        "the host; the artifact loads on either")
     return p
 
 

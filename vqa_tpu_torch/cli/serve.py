@@ -31,7 +31,7 @@ port's train CLI writes under ``<dir_logs>/ckpt``. ``--exported`` serves an
 artifact of ``python -m vqa_tpu_torch.cli.export`` instead of a run (no
 model code; its batch is the serving batch; ``--coco_dir`` moves its
 feature table), moved to the device ``--platform`` names, wherever it was
-traced (on the card only a program that computes in bf16).
+traced, in float32 or bf16 alike.
 """
 
 from __future__ import annotations

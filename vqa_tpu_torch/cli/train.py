@@ -23,10 +23,12 @@ float32, bfloat16, or int8 values with per-row scales) and the steps gather
 its rows there. ``metrics.jsonl``, ``steps.jsonl`` and the results json
 land under ``logs.dir_logs`` as the JAX CLI writes them.
 
-It runs on the card, where the model computes in bf16 (the kernels take
-bf16; training keeps float32 master parameters), unless ``--platform cpu``
-asks for the host (then in ``engine.dtype``); without a card it fails and
-says so. Weights start from flax's initial distributions
+It runs on the card unless ``--platform cpu`` asks for the host; without a
+card it fails and says so. On either device the model computes in
+``engine.dtype`` (``config.compute_dtype``: float32 as ``options/default.yaml``
+sets it, or ``--opt engine.dtype=bfloat16``; the card's kernels take both,
+and training keeps float32 master parameters), and the log's model line
+names the device and the dtype. Weights start from flax's initial distributions
 (``weights.init_params``, seeded by ``engine.seed``) with
 ``model.seq2vec.pretrained_emb``, ``pretrained_encoder`` and
 ``model.pretrained_params`` grafted over them, or come from the run's
@@ -50,7 +52,7 @@ from typing import List, Optional
 
 import torch
 
-from vqa_tpu_torch.config import Options, dump_options, load_options
+from vqa_tpu_torch.config import Options, compute_dtype, dump_options, load_options
 from vqa_tpu_torch.datasets.factory import factory as dataset_factory
 from vqa_tpu_torch.datasets.pipeline import BatchIterator, normalize_buckets
 from vqa_tpu_torch.engine import engine as engine_lib
@@ -194,7 +196,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     opt = options_from_args(args)
     _refuse_unported(args, opt)
     device = _device(args.platform)
-    dtype = torch.bfloat16 if device.type == "cuda" else getattr(torch, opt.engine.dtype)
+    dtype = compute_dtype(opt)
+    # the visual input's cast, as vqa_tpu/cli/train.py:270 places it
     input_dtype = None if dtype == torch.float32 else dtype
     run_dir = opt.logs.dir_logs
     dump_options(opt, run_dir)

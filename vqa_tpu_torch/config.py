@@ -348,6 +348,22 @@ def load_options(
     return options_from_dict(merged)
 
 
+COMPUTE_DTYPES = ("float32", "bfloat16")  # engine.dtype's values
+
+
+def compute_dtype(opt: Options):
+    """The torch dtype the model computes in: ``engine.dtype`` on every
+    device, as the JAX CLI, Predictor and export take it. Every kernel of
+    the models has a float32 and a bf16 entry on the card, so the card
+    computes what the config names, as the host does."""
+    import torch
+
+    name = opt.engine.dtype
+    if name not in COMPUTE_DTYPES:
+        raise ValueError(f"engine.dtype must be one of {COMPUTE_DTYPES}, got {name!r}")
+    return getattr(torch, name)
+
+
 def dump_options(opt: Options, run_dir: str, name: str = "options.yaml") -> str:
     """Write the merged config into the run dir for provenance (SURVEY.md 5.6)."""
     import yaml

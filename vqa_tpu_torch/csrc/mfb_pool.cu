@@ -1,27 +1,31 @@
 // mfb_pool: the MFB sum-pool, signed square root and row L2 normalisation.
 //
-//   z [n, k*m] (bf16) -> out [n, m] (bf16)
+//   z [n, k*m] (bf16 or float32) -> out [n, m] (z's dtype)
 //   pooled[d] = sum_j z[j*m + d]        (STRIDED groups: the checkpoint contract)
 //   ss[d]     = sign(pooled[d]) * sqrt(|pooled[d]| + 1e-12)
 //   out[d]    = ss[d] * rsqrt(sum_d ss[d]^2 + 1e-12)
 //
 // Replaces vqa_tpu/ops/mfb_pool.py::_mfb_pool_pallas (_pallas_fwd, _kernel).
 // It follows the Pallas kernel's numerics: the pool, the roots and the norm
-// in fp32, the output rounded once to bf16.
+// in fp32, the output rounded once to z's dtype (bf16; float32 stores the
+// fp32 values as they are). The element type is a template parameter: one
+// entry a dtype (vqa_mfb_pool, vqa_mfb_pool_f32), the same kernel.
 //
 // What bounds it on the H100: memory. At the MFB attention call (B=1024
 // questions x 36 regions = 36,864 rows, k=5, m=1000) it reads 369 MB and
 // writes 74 MB for ~10 FLOP per output element; the floor is 443 MB over the
-// card's 3.35 TB/s, ~0.13 ms (predicted before the first run).
+// card's 3.35 TB/s, ~0.13 ms (predicted before the first run). In float32
+// twice the bytes: ~0.26 ms.
 //
 // What the design does about it: one 128-thread block per row, so any row
 // count works and the whole reduction stays in the block. Threads stride over
-// the m outputs 8 at a time with 16-byte loads of each of the k strided
-// slices (m % 8 == 0 and 16-byte-aligned bases; scalar loads otherwise), so
-// every input byte is read once, coalesced. The signed roots wait in shared
-// memory as fp32 (m floats, each read back by the thread that wrote it)
-// while a warp-shuffle + shared-memory reduction sums their squares; then
-// each thread scales its own values and stores them with 16-byte stores.
+// the m outputs 8 at a time with 16-byte loads (two in float32) of each of
+// the k strided slices (m % 8 == 0 and 16-byte-aligned bases; scalar loads
+// otherwise), so every input byte is read once, coalesced. The signed roots
+// wait in shared memory as fp32 (m floats, each read back by the thread that
+// wrote it) while a warp-shuffle + shared-memory reduction sums their
+// squares; then each thread scales its own values and stores them with
+// 16-byte stores.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -40,6 +44,44 @@ union Pack8 {
   bf16 h[8];
 };
 
+// 8 consecutive elements (16-byte aligned) to and from fp32
+__device__ __forceinline__ void load8(const bf16* p, float (&x)[8]) {
+  Pack8 q;
+  q.u = *reinterpret_cast<const uint4*>(p);
+#pragma unroll
+  for (int e = 0; e < 8; ++e) x[e] = __bfloat162float(q.h[e]);
+}
+
+__device__ __forceinline__ void load8(const float* p, float (&x)[8]) {
+  const float4 a = reinterpret_cast<const float4*>(p)[0];
+  const float4 b = reinterpret_cast<const float4*>(p)[1];
+  x[0] = a.x;
+  x[1] = a.y;
+  x[2] = a.z;
+  x[3] = a.w;
+  x[4] = b.x;
+  x[5] = b.y;
+  x[6] = b.z;
+  x[7] = b.w;
+}
+
+__device__ __forceinline__ void store8(bf16* p, const float (&y)[8]) {
+  Pack8 q;
+#pragma unroll
+  for (int e = 0; e < 8; ++e) q.h[e] = __float2bfloat16(y[e]);
+  *reinterpret_cast<uint4*>(p) = q.u;
+}
+
+__device__ __forceinline__ void store8(float* p, const float (&y)[8]) {
+  reinterpret_cast<float4*>(p)[0] = make_float4(y[0], y[1], y[2], y[3]);
+  reinterpret_cast<float4*>(p)[1] = make_float4(y[4], y[5], y[6], y[7]);
+}
+
+__device__ __forceinline__ float to_float(bf16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ void store1(bf16* p, float x) { *p = __float2bfloat16(x); }
+__device__ __forceinline__ void store1(float* p, float x) { *p = x; }
+
 __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
@@ -52,24 +94,24 @@ __device__ __forceinline__ float signed_sqrt(float p) {
   return s * sqrtf(fabsf(p) + 1e-12f);
 }
 
-template <bool kVec>
+template <typename T, bool kVec>
 __global__ void __launch_bounds__(kThreads)
-mfb_pool_kernel(const bf16* __restrict__ z, bf16* __restrict__ out, int k, int m) {
+mfb_pool_kernel(const T* __restrict__ z, T* __restrict__ out, int k, int m) {
   extern __shared__ float ss_s[];  // [m] signed roots
   __shared__ float part_s[kWarps];
   const int64_t row = blockIdx.x;
-  const bf16* zr = z + row * k * static_cast<int64_t>(m);
-  bf16* orow = out + row * static_cast<int64_t>(m);
+  const T* zr = z + row * k * static_cast<int64_t>(m);
+  T* orow = out + row * static_cast<int64_t>(m);
 
   float sq = 0.f;
   if (kVec) {
     for (int d = threadIdx.x * 8; d < m; d += kThreads * 8) {
       float acc[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
       for (int j = 0; j < k; ++j) {
-        Pack8 x;
-        x.u = *reinterpret_cast<const uint4*>(zr + static_cast<int64_t>(j) * m + d);
+        float x[8];
+        load8(zr + static_cast<int64_t>(j) * m + d, x);
 #pragma unroll
-        for (int e = 0; e < 8; ++e) acc[e] += __bfloat162float(x.h[e]);
+        for (int e = 0; e < 8; ++e) acc[e] += x[e];
       }
 #pragma unroll
       for (int e = 0; e < 8; ++e) {
@@ -81,7 +123,7 @@ mfb_pool_kernel(const bf16* __restrict__ z, bf16* __restrict__ out, int k, int m
   } else {
     for (int d = threadIdx.x; d < m; d += kThreads) {
       float acc = 0.f;
-      for (int j = 0; j < k; ++j) acc += __bfloat162float(zr[static_cast<int64_t>(j) * m + d]);
+      for (int j = 0; j < k; ++j) acc += to_float(zr[static_cast<int64_t>(j) * m + d]);
       const float s = signed_sqrt(acc);
       ss_s[d] = s;
       sq += s * s;
@@ -99,35 +141,45 @@ mfb_pool_kernel(const bf16* __restrict__ z, bf16* __restrict__ out, int k, int m
   // each thread scales the values it wrote itself: no barrier needed on ss_s
   if (kVec) {
     for (int d = threadIdx.x * 8; d < m; d += kThreads * 8) {
-      Pack8 y;
+      float y[8];
 #pragma unroll
-      for (int e = 0; e < 8; ++e) y.h[e] = __float2bfloat16(ss_s[d + e] * scale);
-      *reinterpret_cast<uint4*>(orow + d) = y.u;
+      for (int e = 0; e < 8; ++e) y[e] = ss_s[d + e] * scale;
+      store8(orow + d, y);
     }
   } else {
-    for (int d = threadIdx.x; d < m; d += kThreads) orow[d] = __float2bfloat16(ss_s[d] * scale);
+    for (int d = threadIdx.x; d < m; d += kThreads) store1(orow + d, ss_s[d] * scale);
   }
 }
 
-}  // namespace
-
-// One block per row on `stream`. Needs m floats of shared memory (at most
-// 48 KB, checked by the Python wrapper). Returns the launch's cudaError_t,
-// or 0.
-extern "C" int vqa_mfb_pool(const void* z, void* out, int64_t n, int k, int m, void* stream) {
+template <typename T>
+int launch(const void* z, void* out, int64_t n, int k, int m, void* stream) {
   if (n <= 0 || m <= 0) return 0;
   if (k < 1) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const size_t smem = static_cast<size_t>(m) * sizeof(float);
   const bool vec = m % 8 == 0 &&
                    (reinterpret_cast<uintptr_t>(z) | reinterpret_cast<uintptr_t>(out)) % 16 == 0;
-  const bf16* zp = static_cast<const bf16*>(z);
-  bf16* op = static_cast<bf16*>(out);
+  const T* zp = static_cast<const T*>(z);
+  T* op = static_cast<T*>(out);
   const unsigned grid = static_cast<unsigned>(n);
   if (vec) {
-    mfb_pool_kernel<true><<<grid, kThreads, smem, s>>>(zp, op, k, m);
+    mfb_pool_kernel<T, true><<<grid, kThreads, smem, s>>>(zp, op, k, m);
   } else {
-    mfb_pool_kernel<false><<<grid, kThreads, smem, s>>>(zp, op, k, m);
+    mfb_pool_kernel<T, false><<<grid, kThreads, smem, s>>>(zp, op, k, m);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// One block per row on `stream`, z and out bf16. Needs m floats of shared
+// memory (at most 48 KB, checked by the Python wrapper). Returns the
+// launch's cudaError_t, or 0.
+extern "C" int vqa_mfb_pool(const void* z, void* out, int64_t n, int k, int m, void* stream) {
+  return launch<bf16>(z, out, n, k, m, stream);
+}
+
+// The same with z and out float32.
+extern "C" int vqa_mfb_pool_f32(const void* z, void* out, int64_t n, int k, int m, void* stream) {
+  return launch<float>(z, out, n, k, m, stream);
 }

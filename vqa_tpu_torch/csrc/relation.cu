@@ -58,6 +58,16 @@
 // D % 8 != 0, or a pointer off 16 bytes, takes the same designs with plain
 // copies and plain stores (the element design one CTA an element; the tiled
 // producer warp swizzles by hand).
+//
+// float32 (the entry vqa_relation_attend_f32): the Pallas kernel computes in
+// its input's dtype, so in float32 nothing is rounded: scores, softmax,
+// alpha and the weighted sum in fp32, the output stored as it is. The two
+// tensor-core designs multiply bf16 operands, so float32 takes the wide
+// design with the element type as a template parameter, both products as
+// plain FP32 FMA on the CUDA cores, at every N (16 rows of pg, 64 D bytes,
+// and s^T [N, 16] in shared memory: 77 KB at N=196, D=1024). At N=36 it
+// reads 302 MB and writes 151 MB (0.135 ms at 3.35 TB/s); at N=196 its
+// 161 GFLOP of products bound it (2.4 ms at the 67 TFLOP/s FP32 peak).
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -846,34 +856,89 @@ union Pack8 {
   bf16 h[8];
 };
 
+// the wide design's element access, bf16 or float32 alike: 8 consecutive
+// elements (16-byte aligned) into fp32, 4 (8 or 16 bytes), and one
+__device__ __forceinline__ void load8(const bf16* p, float (&x)[8]) {
+  Pack8 q;
+  q.u = *reinterpret_cast<const uint4*>(p);
+#pragma unroll
+  for (int e = 0; e < 8; ++e) x[e] = __bfloat162float(q.h[e]);
+}
+
+__device__ __forceinline__ void load8(const float* p, float (&x)[8]) {
+  const float4 a = reinterpret_cast<const float4*>(p)[0];
+  const float4 b = reinterpret_cast<const float4*>(p)[1];
+  x[0] = a.x;
+  x[1] = a.y;
+  x[2] = a.z;
+  x[3] = a.w;
+  x[4] = b.x;
+  x[5] = b.y;
+  x[6] = b.z;
+  x[7] = b.w;
+}
+
+__device__ __forceinline__ void load4(const bf16* p, float (&x)[4]) {
+  union {
+    uint2 u;
+    __nv_bfloat162 h[2];
+  } q;
+  q.u = *reinterpret_cast<const uint2*>(p);
+  const float2 lo = __bfloat1622float2(q.h[0]), hi = __bfloat1622float2(q.h[1]);
+  x[0] = lo.x;
+  x[1] = lo.y;
+  x[2] = hi.x;
+  x[3] = hi.y;
+}
+
+__device__ __forceinline__ void load4(const float* p, float (&x)[4]) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  x[0] = a.x;
+  x[1] = a.y;
+  x[2] = a.z;
+  x[3] = a.w;
+}
+
+__device__ __forceinline__ float to_float(bf16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_float(float x) { return x; }
+template <typename T>
+__device__ __forceinline__ T from_float(float x);
+template <>
+__device__ __forceinline__ bf16 from_float<bf16>(float x) { return __float2bfloat16(x); }
+template <>
+__device__ __forceinline__ float from_float<float>(float x) { return x; }
+
+template <typename T>
 size_t wide_smem(int N, int D) {
-  return align16(static_cast<size_t>(kWideRows) * D * 2) +
+  return align16(static_cast<size_t>(kWideRows) * D * sizeof(T)) +
          static_cast<size_t>(N) * kWideRows * sizeof(float);
 }
 
-template <bool kVec>
+template <typename T, bool kVec>
 __global__ void __launch_bounds__(kThreads)
-relation_wide_kernel(const bf16* __restrict__ pg, const bf16* __restrict__ r,
-                      bf16* __restrict__ out, int N, int D) {
+relation_wide_kernel(const T* __restrict__ pg, const T* __restrict__ r,
+                      T* __restrict__ out, int N, int D) {
   extern __shared__ __align__(16) unsigned char smem[];
-  bf16* pg_s = reinterpret_cast<bf16*>(smem);  // [16, D], zero rows past the tile
-  float* a_s = reinterpret_cast<float*>(smem + align16(static_cast<size_t>(kWideRows) * D * 2));
+  T* pg_s = reinterpret_cast<T*>(smem);  // [16, D], zero rows past the tile
+  float* a_s =
+      reinterpret_cast<float*>(smem + align16(static_cast<size_t>(kWideRows) * D * sizeof(T)));
   const int n_tiles = (N + kWideRows - 1) / kWideRows;
   const int64_t b = blockIdx.x / n_tiles;
   const int i0 = (blockIdx.x % n_tiles) * kWideRows;
   const int ni = min(kWideRows, N - i0);
   const int64_t nd = static_cast<int64_t>(N) * D;
-  const bf16* pgb = pg + b * nd + static_cast<int64_t>(i0) * D;
-  const bf16* rb = r + b * nd;
-  bf16* ob = out + b * nd + static_cast<int64_t>(i0) * D;
+  const T* pgb = pg + b * nd + static_cast<int64_t>(i0) * D;
+  const T* rb = r + b * nd;
+  T* ob = out + b * nd + static_cast<int64_t>(i0) * D;
   const int tid = threadIdx.x;
   const int lane = tid % 32;
   const int warp = tid / 32;
 
   if (kVec) {
-    const int n_col = D / 8;
+    constexpr int kPer = 16 / sizeof(T);  // elements of a 16-byte piece
+    const int n_col = D / kPer;
     for (int i = tid; i < kWideRows * n_col; i += kThreads) {
-      const int row = i / n_col, c = (i % n_col) * 8;
+      const int row = i / n_col, c = (i % n_col) * kPer;
       uint4 x = make_uint4(0u, 0u, 0u, 0u);
       if (row < ni) x = *reinterpret_cast<const uint4*>(pgb + static_cast<int64_t>(row) * D + c);
       *reinterpret_cast<uint4*>(pg_s + row * D + c) = x;
@@ -881,36 +946,33 @@ relation_wide_kernel(const bf16* __restrict__ pg, const bf16* __restrict__ r,
   } else {
     for (int i = tid; i < kWideRows * D; i += kThreads) {
       const int row = i / D;
-      pg_s[i] = row < ni ? pgb[static_cast<int64_t>(row) * D + i % D] : __float2bfloat16(0.f);
+      pg_s[i] = row < ni ? pgb[static_cast<int64_t>(row) * D + i % D] : from_float<T>(0.f);
     }
   }
   __syncthreads();
 
   // s^T[j, i] = <pg_i, r_j>, one warp per column j, all 16 rows at once
   for (int j = warp; j < N; j += kWarps) {
-    const bf16* rj = rb + static_cast<int64_t>(j) * D;
+    const T* rj = rb + static_cast<int64_t>(j) * D;
     float acc[kWideRows] = {};
     if (kVec) {
 #pragma unroll 2
       for (int d = lane * 8; d < D; d += 32 * 8) {
-        Pack8 x;
-        x.u = *reinterpret_cast<const uint4*>(rj + d);
         float xf[8];
-#pragma unroll
-        for (int e = 0; e < 8; ++e) xf[e] = __bfloat162float(x.h[e]);
+        load8(rj + d, xf);
 #pragma unroll
         for (int i = 0; i < kWideRows; ++i) {
-          Pack8 q;
-          q.u = *reinterpret_cast<const uint4*>(pg_s + i * D + d);
+          float q[8];
+          load8(pg_s + i * D + d, q);
 #pragma unroll
-          for (int e = 0; e < 8; ++e) acc[i] += __bfloat162float(q.h[e]) * xf[e];
+          for (int e = 0; e < 8; ++e) acc[i] += q[e] * xf[e];
         }
       }
     } else {
       for (int d = lane; d < D; d += 32) {
-        const float x = __bfloat162float(rj[d]);
+        const float x = to_float(rj[d]);
 #pragma unroll
-        for (int i = 0; i < kWideRows; ++i) acc[i] += __bfloat162float(pg_s[i * D + d]) * x;
+        for (int i = 0; i < kWideRows; ++i) acc[i] += to_float(pg_s[i * D + d]) * x;
       }
     }
     float mine = 0.f;  // lane i keeps row i's sum (no register array indexed at run time)
@@ -947,18 +1009,9 @@ relation_wide_kernel(const bf16* __restrict__ pg, const bf16* __restrict__ r,
     for (int j = 0; j < N; ++j) {
       float x[W];
       if constexpr (kVec) {
-        union {
-          uint2 u;
-          __nv_bfloat162 h[2];
-        } p;
-        p.u = *reinterpret_cast<const uint2*>(rb + static_cast<int64_t>(j) * D + d);
-        const float2 lo = __bfloat1622float2(p.h[0]), hi = __bfloat1622float2(p.h[1]);
-        x[0] = lo.x;
-        x[1] = lo.y;
-        x[2] = hi.x;
-        x[3] = hi.y;
+        load4(rb + static_cast<int64_t>(j) * D + d, x);
       } else {
-        x[0] = __bfloat162float(rb[static_cast<int64_t>(j) * D + d]);
+        x[0] = to_float(rb[static_cast<int64_t>(j) * D + d]);
       }
       const float4* al = reinterpret_cast<const float4*>(a_s + j * kWideRows);
 #pragma unroll
@@ -978,7 +1031,7 @@ relation_wide_kernel(const bf16* __restrict__ pg, const bf16* __restrict__ r,
       if (i < ni) {
 #pragma unroll
         for (int e = 0; e < W; ++e) {
-          ob[static_cast<int64_t>(i) * D + d + e] = __float2bfloat16(acc[i][e]);
+          ob[static_cast<int64_t>(i) * D + d + e] = from_float<T>(acc[i][e]);
         }
       }
     }
@@ -1072,7 +1125,7 @@ cudaError_t geometry(int B, int N, int D, int design, int split, int stages, boo
   }
   if (design == kDesignWide) {
     *g = {static_cast<long long>(B) * ceil_div(N, kWideRows), 1, kThreads,
-          static_cast<long long>(wide_smem(N, D))};
+          static_cast<long long>(wide_smem<bf16>(N, D))};
     return cudaSuccess;
   }
   return cudaErrorInvalidValue;
@@ -1113,7 +1166,7 @@ int launch(const void* pg, const void* r, void* out, int B, int N, int D, int de
     cfg.numAttrs = split > 1 ? 1 : 0;
     err = cudaLaunchKernelEx(&cfg, kernel, pp, rp, op, N, D, split);
   } else if (design == kDesignWide) {
-    auto kernel = vec ? relation_wide_kernel<true> : relation_wide_kernel<false>;
+    auto kernel = vec ? relation_wide_kernel<bf16, true> : relation_wide_kernel<bf16, false>;
     err = opt_in(kernel, geo.smem);
     if (err != cudaSuccess) return static_cast<int>(err);
     err = cudaLaunchKernelEx(&cfg, kernel, pp, rp, op, N, D);
@@ -1135,6 +1188,23 @@ int launch(const void* pg, const void* r, void* out, int B, int N, int D, int de
   return static_cast<int>(cudaGetLastError());
 }
 
+// the float32 entry: the wide design on float32 operands, one block an
+// element and 16 rows
+int launch_f32(const void* pg, const void* r, void* out, int B, int N, int D, cudaStream_t s) {
+  const bool vec = D % 8 == 0 && (reinterpret_cast<uintptr_t>(pg) | reinterpret_cast<uintptr_t>(r) |
+                                  reinterpret_cast<uintptr_t>(out)) % 16 == 0;
+  const long long ctas = static_cast<long long>(B) * ceil_div(N, kWideRows);
+  const size_t smem = wide_smem<float>(N, D);
+  auto kernel = vec ? relation_wide_kernel<float, true> : relation_wide_kernel<float, false>;
+  cudaError_t err = opt_in(kernel, static_cast<long long>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (ctas >= (1LL << 31)) return static_cast<int>(cudaErrorInvalidValue);
+  kernel<<<static_cast<unsigned>(ctas), kThreads, smem, s>>>(
+      static_cast<const float*>(pg), static_cast<const float*>(r), static_cast<float*>(out), N,
+      D);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // One launch of `design` (0: element, 1: tiled, 2: wide) with `split` CTAs
@@ -1145,6 +1215,16 @@ extern "C" int vqa_relation_attend(const void* pg, const void* r, void* out, int
                                    int design, int split, int stages, void* stream) {
   if (B <= 0 || N <= 0 || D <= 0) return 0;
   return launch(pg, r, out, B, N, D, design, split, stages, static_cast<cudaStream_t>(stream));
+}
+
+// relation_attend in float32 (pg, r and out float32) on `stream`: the wide
+// design, one block an element and 16 rows, 16 D + 64 N bytes of shared
+// memory (ops/relation.py::relation_plan with 4-byte elements). Returns the
+// launch's cudaError_t, or 0.
+extern "C" int vqa_relation_attend_f32(const void* pg, const void* r, void* out, int B, int N,
+                                       int D, void* stream) {
+  if (B <= 0 || N <= 0 || D <= 0) return 0;
+  return launch_f32(pg, r, out, B, N, D, static_cast<cudaStream_t>(stream));
 }
 
 // What vqa_relation_attend launches for this schedule (its own reckoning):

@@ -1,2 +1,3 @@
-"""Eval step and eval loop of the port, and its experiment logger (the train
-step and loop are not ported yet)."""
+"""The port's engine: the eval and train steps (``steps``), the optimizer
+chain (``optim``), the eval and train loops (``engine``), checkpoints
+(``checkpoint``), meters and the experiment logger."""

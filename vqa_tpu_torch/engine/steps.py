@@ -73,7 +73,8 @@ def quantize_features(table):
     returns (values int8, scales float32 [N, ..., 1]). A copy of
     ``vqa_tpu/engine/steps.py::quantize_features`` (the port imports nothing
     of ``vqa_tpu``), held byte-equal to it in the tests. Place the scales on
-    the card in the compute dtype (bf16), as ``vqa_tpu/cli/train.py`` does."""
+    the card in the compute dtype where it is bf16 (else float32), as
+    ``vqa_tpu/cli/train.py`` does."""
     absmax = np.abs(table).max(axis=-1, keepdims=True)
     scales = (absmax / 127.0 + 1e-12).astype(np.float32)
     values = np.clip(np.round(table / scales), -127, 127).astype(np.int8)

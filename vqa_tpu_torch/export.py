@@ -22,9 +22,10 @@ and device arguments on the host (``torch.export.passes.
 move_to_device_pass``) and moved at load time to the device asked for, so
 a program traced on the card serves on a CPU host and one traced on the
 host serves on the card, as the JAX program lowers for CPU and TPU alike;
-``meta.json``'s ``device`` records where it was traced. The card's kernels
-take bf16: a program serves there only if it computes in bf16 (a
-card-traced one does; on the host, trace with ``engine.dtype=bfloat16``).
+``meta.json``'s ``device`` records where it was traced. The program
+computes in the run's ``engine.dtype`` (``config.compute_dtype``, recorded
+as ``compute_dtype``): float32 or bf16, on either device, since every
+kernel has an entry for each.
 
 Loading imports no model code: ``load_export`` and ``ExportedPredictor``
 import ``torch``, the op registrations (needed before ``torch.export.load``
@@ -44,6 +45,8 @@ from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 import numpy as np
 import torch
 from torch import nn
+
+from vqa_tpu_torch import config
 
 PROGRAM_FILE = "program.pt2"
 META_FILE = "meta.json"
@@ -231,8 +234,8 @@ def save_export(
     traced on the predictor's device.
 
     ``weights_dtype='bfloat16'`` or ``'float32'`` casts the weights (the
-    model still computes in its own dtype: bf16 on the card, the config's
-    ``engine.dtype`` on the host); ``None`` keeps them as they are.
+    model still computes in its own dtype, the config's ``engine.dtype`` on
+    either device); ``None`` keeps them as they are.
     ``'int8'`` (baked only) applies :func:`quantize_int8`, dequantized
     inside the program. ``params_mode='external'`` keeps the program
     weight-free and writes the weights to ``params.npz`` (float32: npz has
@@ -249,7 +252,12 @@ def save_export(
         raise ValueError("save_export needs a Predictor from Predictor.from_run (its options)")
     feature_shape = list(predictor.table.shape[1:])
     params = model_params(predictor.model)
-    compute_dtype = _dtype_name(next(iter(params.values())).dtype)
+    compute_dtype = _dtype_name(config.compute_dtype(opt))
+    held = _dtype_name(next(iter(params.values())).dtype)
+    if held != compute_dtype:
+        raise ValueError(f"the predictor's model holds {held} weights, and its options' "
+                         f"engine.dtype computes in {compute_dtype}: build it with "
+                         f"Predictor.from_run")
     if quantized:
         params = quantize_int8(params)
     elif weights_dtype is not None:
@@ -308,9 +316,8 @@ class _ServingDataset:
 
 def _check_loadable(export_dir: str, meta: dict, device) -> torch.device:
     """The device the artifact will run on: ``device``, else the one it was
-    traced on. Refuses a JAX artifact, the card on a machine without one, and
-    on the card a program that does not compute in bf16 (its kernels take
-    bf16)."""
+    traced on. Refuses a JAX artifact and the card on a machine without one;
+    a program in float32 or bf16 runs on either device."""
     if meta.get("format") != FORMAT:
         jax = os.path.exists(os.path.join(export_dir, JAX_PROGRAM_FILE))
         raise ValueError(
@@ -323,11 +330,6 @@ def _check_loadable(export_dir: str, meta: dict, device) -> torch.device:
     if want.type == "cuda" and not torch.cuda.is_available():
         raise ValueError(f"{export_dir} (traced on {traced.type}) cannot run on cuda: this "
                          "machine has no CUDA card; load it with device='cpu'")
-    if want.type == "cuda" and meta["compute_dtype"] != "bfloat16":
-        raise ValueError(f"{export_dir} (traced on {traced.type}) computes in "
-                         f"{meta['compute_dtype']}, and the card's kernels take bfloat16: "
-                         "export it on the card, or on the host with --opt "
-                         "engine.dtype=bfloat16")
     return want
 
 
@@ -442,8 +444,8 @@ def load_export(
     device=None,
 ) -> ExportedPredictor:
     """Load an export onto ``device`` (default: the device it was traced
-    on; a card-traced program loads on the host, and a host-traced bf16
-    program on the card). ``features`` may be a ready FeatureStore
+    on; a card-traced program loads on the host, and a host-traced one on
+    the card, in float32 or bf16). ``features`` may be a ready FeatureStore
     (``FeatureStore.in_memory`` where there is no h5py); otherwise the
     meta's feature-table coordinates are used (``coco_dir`` overrides the
     recorded directory: the table rarely lives at the training-time path on

@@ -34,6 +34,11 @@ jnp. Most take the grads of their plain version on the saved inputs
 
 import torch
 
+# the dtypes every kernel of the models takes on the card, each through its
+# own entry (bf16, and float32 computed in fp32 with no rounding between
+# steps); a wrapper refuses any other
+KERNEL_DTYPES = (torch.bfloat16, torch.float32)
+
 NAMESPACE = "vqa_tpu_torch"
 # the namespace of the registered ops; each op module defines its op on it
 LIB = torch.library.Library(NAMESPACE, "DEF")

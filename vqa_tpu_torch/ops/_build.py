@@ -44,11 +44,17 @@ _SIGNATURES = {
     "vqa_gather_rows_dequant": [_PTR, _PTR, _PTR, _PTR, _I64, _I64, _I64, _INT, _PTR],
     "vqa_lstm_seq": [*[_PTR] * 9, _I64, *[_INT] * 5, _PTR],
     "vqa_lstm_seq_geometry": [_INT, _INT, _INT, _PTR],
+    "vqa_lstm_seq_f32": [*[_PTR] * 8, *[_INT] * 4, _PTR],
+    "vqa_lstm_seq_f32_geometry": [_INT, _INT, _PTR],
     "vqa_glimpse_head": [*[_PTR] * 6, *[_INT] * 10, _PTR],
     "vqa_glimpse_attend": [*[_PTR] * 3, *[_INT] * 8, _PTR],
+    "vqa_glimpse_head_f32": [*[_PTR] * 6, *[_INT] * 6, _PTR],
+    "vqa_glimpse_attend_f32": [*[_PTR] * 3, *[_INT] * 4, _PTR],
     "vqa_smem_optin": [_PTR],
     "vqa_mfb_pool": [_PTR, _PTR, _I64, _INT, _INT, _PTR],
+    "vqa_mfb_pool_f32": [_PTR, _PTR, _I64, _INT, _INT, _PTR],
     "vqa_relation_attend": [_PTR, _PTR, _PTR, *[_INT] * 6, _PTR],
+    "vqa_relation_attend_f32": [_PTR, _PTR, _PTR, *[_INT] * 3, _PTR],
     "vqa_relation_geometry": [*[_INT] * 7, _PTR],
 }
 
@@ -163,12 +169,16 @@ def check(err: int, kernel: str) -> None:
         raise RuntimeError(f"{kernel}: CUDA error {err} ({msg})")
 
 
-def require(name: str, t, device, dtype, shape: tuple) -> None:
-    """Validate a kernel operand before its pointer crosses into C."""
+def require(name: str, t, device, dtypes, shape: tuple) -> None:
+    """Validate a kernel operand before its pointer crosses into C:
+    ``dtypes`` is the dtype it must have, or the collection of those the
+    kernel has an entry for."""
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} has dtype {t.dtype}, the kernel takes {dtype}")
+    allowed = tuple(dtypes) if isinstance(dtypes, (tuple, list, set, frozenset)) else (dtypes,)
+    if t.dtype not in allowed:
+        names = " or ".join(str(d) for d in allowed)
+        raise TypeError(f"{name} has dtype {t.dtype}, the kernel takes {names}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
     if not t.is_contiguous():

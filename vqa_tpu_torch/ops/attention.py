@@ -8,9 +8,11 @@ glimpse_attend(logits [B, R, G], v [B, R, D]) -> attended [B, G, D]
 logits = joint·w + b (or given), softmax over axis 1, attended = alphaᵀ·v.
 Both forwards are registered ops (``torch.ops.vqa_tpu_torch.glimpse_head``
 and ``.glimpse_attend``): on CUDA tensors they launch the hand-written
-kernel in ``csrc/glimpse_head.cu`` (bf16; glimpse_attend is its
-logits-given entry) with the schedule ``glimpse_plan`` gives; on CPU tensors
-they take the plain version. Each wrapper counts its own launches.
+kernel in ``csrc/glimpse_head.cu`` (glimpse_attend is its logits-given
+entry) with the schedule ``glimpse_plan`` gives: bf16 operands through the
+bf16 designs, float32 operands through the float32 entries (nothing
+rounded, as the Pallas kernels compute in their input's dtype); on CPU
+tensors they take the plain version. Each wrapper counts its own launches.
 
 Where an input asks for grads, each call is a ``torch.autograd.Function``:
 the same forward, and a backward by autograd through the plain version on
@@ -27,7 +29,7 @@ import functools
 
 import torch
 
-from vqa_tpu_torch.ops import _build, recompute_grads, register
+from vqa_tpu_torch.ops import KERNEL_DTYPES, _build, recompute_grads, register
 
 SMS = 132               # streaming multiprocessors of an H100 SXM
 SMEM_LIMIT = 232_448    # shared memory a Hopper block may opt into
@@ -67,13 +69,32 @@ def _smem_bytes(R: int, M: int, G: int, dc: int, split: int, chunk: int, stages:
             + _align16(regions * dc * 2))
 
 
+def _f32_plan(B: int, R: int, M: int, G: int, smem_limit: int) -> dict:
+    """The float32 entries' one design: a block a row, alpha [R, G] in
+    shared memory and w [M, G] beside it where both fit."""
+    alpha, w = R * G * 4, M * G * 4
+    if alpha > smem_limit:
+        raise ValueError(f"glimpse kernels (float32): R={R}, G={G} need {alpha} bytes of shared "
+                         f"memory (alpha [R, G] in fp32), over the {smem_limit} a block may "
+                         f"opt into")
+    staged = M > 0 and alpha + w <= smem_limit
+    return {"copy": "f32", "split": 1, "chunk": R, "stages": 1, "staged": staged,
+            "resident": False, "smem_bytes": alpha + (w if staged else 0), "ctas": B,
+            "design": "float32: one block a row, w in shared memory, v streamed from device "
+                      "memory a group of 4 glimpses at a time"}
+
+
 @functools.lru_cache(maxsize=1024)
 def glimpse_plan(B: int, R: int, M: int, G: int, D: int, vec: bool = True,
                  smem_limit: int = SMEM_LIMIT, sms: int = SMS, copy: str | None = None,
-                 split: int | None = None) -> dict:
+                 split: int | None = None, elem: int = 2) -> dict:
     """The schedule ``csrc/glimpse_head.cu`` runs for B batch rows of R
     regions, M joint features (0 for glimpse_attend), G glimpses and D
-    columns of v. ``copy`` names the design:
+    columns of v, in elements of ``elem`` bytes: 2 (bf16) takes the
+    designs below; 4 (float32) the float32 entries' one design (a block a
+    row, ``copy`` "f32", ``staged``: w in shared memory beside alpha), at
+    any R and G whose alpha [R, G] fits. For bf16, ``copy`` names the
+    design:
 
     - "parent": the one-block-a-row kernel the file held before the ring,
       where it measured fastest on the card (PERF.md, Findings):
@@ -98,6 +119,11 @@ def glimpse_plan(B: int, R: int, M: int, G: int, D: int, vec: bool = True,
     if min(B, R, G, D) < 1 or M < 0:
         raise ValueError(f"glimpse kernels need B, R, G, D >= 1 and M >= 0, got B={B}, R={R}, "
                          f"M={M}, G={G}, D={D}")
+    if elem == 4:
+        return _f32_plan(B, R, M, G, smem_limit)
+    if elem != 2:
+        raise ValueError(f"glimpse kernels take 2-byte (bf16) or 4-byte (float32) elements, "
+                         f"got {elem}")
     row_bytes = R * D * 2
     parent_smem = (M + R) * G * 4
     if copy is None:
@@ -161,8 +187,15 @@ def glimpse_attend_reference(logits: torch.Tensor, v: torch.Tensor) -> torch.Ten
 
 def launch_glimpse_attend(logits: torch.Tensor, v: torch.Tensor, attended: torch.Tensor,
                           plan: dict) -> None:
-    """One launch of the logits-given entry with ``plan``'s schedule."""
+    """One launch of the logits-given entry with ``plan``'s schedule (the
+    float32 entry for a float32 plan)."""
     B, R, G = logits.shape
+    if plan["copy"] == "f32":
+        err = _build.library().vqa_glimpse_attend_f32(
+            logits.data_ptr(), v.data_ptr(), attended.data_ptr(), B, R, G, v.shape[2],
+            _build.current_stream(v.device))
+        _build.check(err, "glimpse_attend")
+        return
     err = _build.library().vqa_glimpse_attend(
         logits.data_ptr(), v.data_ptr(), attended.data_ptr(), B, R, G, v.shape[2],
         plan["split"], plan["chunk"], plan["stages"], _COPY[plan["copy"]],
@@ -198,14 +231,14 @@ def _glimpse_attend_cuda(logits: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
                          f"{tuple(logits.shape)}, {tuple(v.shape)}")
     B, R, G = logits.shape
     D = v.shape[2]
-    dev, dt = logits.device, torch.bfloat16
+    dev, dt = logits.device, v.dtype
+    _build.require("v", v, dev, KERNEL_DTYPES, (B, R, D))
     _build.require("logits", logits, dev, dt, (B, R, G))
-    _build.require("v", v, dev, dt, (B, R, D))
     attended = torch.empty(B, G, D, dtype=dt, device=dev)
     if attended.numel() == 0:
         return attended
     plan = glimpse_plan(B, R, 0, G, D, vec=_vec(D, v, attended),
-                        smem_limit=_build.smem_optin(dev.index or 0))
+                        smem_limit=_build.smem_optin(dev.index or 0), elem=dt.itemsize)
     launch_glimpse_attend(logits, v, attended, plan)
     glimpse_attend.launches += 1
     return attended
@@ -228,8 +261,16 @@ def glimpse_head_reference(joint: torch.Tensor, w: torch.Tensor, b: torch.Tensor
 
 
 def launch_glimpse_head(joint, w, b, v, attended, logits, plan: dict) -> None:
-    """One launch of glimpse_head with ``plan``'s schedule."""
+    """One launch of glimpse_head with ``plan``'s schedule (the float32
+    entry for a float32 plan)."""
     B, R, M = joint.shape
+    if plan["copy"] == "f32":
+        err = _build.library().vqa_glimpse_head_f32(
+            joint.data_ptr(), w.data_ptr(), b.data_ptr(), v.data_ptr(), attended.data_ptr(),
+            logits.data_ptr(), B, R, M, w.shape[1], v.shape[2], int(plan["staged"]),
+            _build.current_stream(v.device))
+        _build.check(err, "glimpse_head")
+        return
     err = _build.library().vqa_glimpse_head(
         joint.data_ptr(), w.data_ptr(), b.data_ptr(), v.data_ptr(), attended.data_ptr(),
         logits.data_ptr(), B, R, M, w.shape[1], v.shape[2], plan["split"],
@@ -269,8 +310,8 @@ def _glimpse_head_cuda(joint: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     B, R, M = joint.shape
     G = w.shape[1]
     D = v.shape[2]
-    dev, dt = joint.device, torch.bfloat16
-    _build.require("joint", joint, dev, dt, (B, R, M))
+    dev, dt = joint.device, joint.dtype
+    _build.require("joint", joint, dev, KERNEL_DTYPES, (B, R, M))
     _build.require("w", w, dev, dt, (M, G))
     _build.require("b", b, dev, dt, (G,))
     _build.require("v", v, dev, dt, (B, R, D))
@@ -279,7 +320,7 @@ def _glimpse_head_cuda(joint: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     if B == 0:
         return attended, logits
     plan = glimpse_plan(B, R, M, G, D, vec=_vec(D, v, attended),
-                        smem_limit=_build.smem_optin(dev.index or 0))
+                        smem_limit=_build.smem_optin(dev.index or 0), elem=dt.itemsize)
     launch_glimpse_head(joint, w, b, v, attended, logits, plan)
     glimpse_head.launches += 1
     return attended, logits

@@ -9,9 +9,12 @@ is 0, h and c stay frozen and ``seq`` is 0, so ``h_last`` is each row's last
 real step whichever side the padding is on.
 
 The forward is the registered op ``torch.ops.vqa_tpu_torch.lstm_seq``: on
-CUDA tensors it launches the hand-written kernel in ``csrc/lstm.cu`` (bf16,
-one persistent launch for all T steps, tiles chosen by ``lstm_plan``); on
-CPU tensors it takes the plain version. Where grads
+CUDA tensors it launches a hand-written kernel, one persistent launch for
+all T steps: ``csrc/lstm.cu`` for bf16 (wgmma, tiles chosen by
+``lstm_plan``; h and c rounded to bf16 between steps) or ``csrc/lstm_f32.cu``
+for float32 (FP32 FMA, h and c float32 between steps, as the Pallas
+kernel's scratch takes xg's dtype); on CPU tensors it takes the plain
+version. Where grads
 are asked for, the call is a ``torch.autograd.Function`` whose backward is
 plain PyTorch, as the JAX package's vjps are jnp:
 
@@ -38,7 +41,7 @@ import math
 
 import torch
 
-from vqa_tpu_torch.ops import _build, recompute_grads, register
+from vqa_tpu_torch.ops import KERNEL_DTYPES, _build, recompute_grads, register
 
 RNN_BWD = ("bigmatmul", "native")  # engine.rnn_bwd
 
@@ -51,10 +54,30 @@ _STAGES = {2: 4, 1: 5}  # by warpgroups, as csrc/lstm.cu instantiates them
 _BK = 64     # K tile
 _UNITS = 64  # hidden units a tile (x 4 gates = 256 columns)
 _MAX_SPLIT = 3  # clusters sharing a tail tile
+# csrc/lstm_f32.cu's tile (128 rows x 32 units of the four gates, K tiles of
+# 16, double-buffered) and the CTAs an SM holds of it
+_F32_BM, _F32_UNITS, _F32_BK, _F32_PER_SM = 128, 32, 16, 2
 
 
-def lstm_plan(B: int, H: int) -> dict:
-    """The class ``csrc/lstm.cu`` runs at batch B and hidden size H, chosen
+def _f32_plan(B: int, H: int) -> dict:
+    """csrc/lstm_f32.cu's reckoning: tiles of 128 rows x 32 units (128
+    product columns), two CTAs an SM, the grid the tiles or the co-resident
+    CTAs, the fewer."""
+    tiles = math.ceil(B / _F32_BM) * math.ceil(H / _F32_UNITS)
+    return {
+        "tiles": tiles, "ctas": min(tiles, _F32_PER_SM * SMS),
+        # h^T's rows padded by 4 floats, and wh's four strips, double-buffered
+        "smem_bytes": 4 * 2 * _F32_BK * (_F32_BM + 4 + 4 * _F32_UNITS),
+        "hp": math.ceil(H / 8) * 8,
+        "design": "float32: persistent, FP32 FMA from shared-memory tiles, grid barrier "
+                  "between steps",
+    }
+
+
+def lstm_plan(B: int, H: int, elem: int = 2) -> dict:
+    """The plan at batch B and hidden size H for elements of ``elem``
+    bytes: 4 (float32) gives ``csrc/lstm_f32.cu``'s one design (its tiles,
+    CTAs and padded H); 2 (bf16) the class ``csrc/lstm.cu`` runs, chosen
     by shape alone, with the numbers it was chosen by: the CTAs and waves
     on 132 SMs (one CTA an SM: its shared memory is over half of it), the
     operand bytes a step pulls through L2 (h re-read once per column tile,
@@ -80,9 +103,13 @@ def lstm_plan(B: int, H: int) -> dict:
     if B < 1 or H < 2:
         raise ValueError(f"lstm_seq needs B >= 1 and H >= 2, got B={B}, H={H}")
     if H % 2:
-        raise ValueError(f"lstm_seq reads xg and writes h, c and seq two units (4 bytes) at a "
-                         f"time, so xg's gate strips must start on 4 bytes: H must be even, "
+        raise ValueError(f"lstm_seq reads xg and writes h, c and seq two units at a time, so "
+                         f"xg's gate strips must start on two elements: H must be even, "
                          f"got H={H}")
+    if elem == 4:
+        return _f32_plan(B, H)
+    if elem != 2:
+        raise ValueError(f"lstm_seq takes 2-byte (bf16) or 4-byte (float32) elements, got {elem}")
     n_u = math.ceil(H / _UNITS)
     wg = 2 if math.ceil(B / 128) * n_u >= 1.8 * SMS else 1
     bm, n = 64 * wg, 4 * _UNITS
@@ -106,6 +133,7 @@ def lstm_plan(B: int, H: int) -> dict:
 
 
 _GEOMETRY = ("ctas", "tail_split", "part_bytes", "tiles", "tail_tiles", "smem_bytes")
+_F32_GEOMETRY = ("ctas", "tiles", "smem_bytes")
 
 
 @functools.lru_cache(maxsize=None)
@@ -119,6 +147,18 @@ def launch_geometry(B: int, H: int, wg: int, device_index: int) -> dict:
         _build.check(_build.library().vqa_lstm_seq_geometry(B, H, wg, geometry),
                      "lstm_seq geometry")
     return dict(zip(_GEOMETRY, geometry))
+
+
+@functools.lru_cache(maxsize=None)
+def launch_geometry_f32(B: int, H: int, device_index: int) -> dict:
+    """What csrc/lstm_f32.cu launches at this shape on this card, from its
+    occupancy: the CTAs, the tiles a step and the shared memory of a CTA
+    (as ``lstm_plan(..., elem=4)`` names them)."""
+    geometry = (ctypes.c_longlong * len(_F32_GEOMETRY))()
+    with torch.cuda.device(device_index):
+        _build.check(_build.library().vqa_lstm_seq_f32_geometry(B, H, geometry),
+                     "lstm_seq geometry (float32)")
+    return dict(zip(_F32_GEOMETRY, geometry))
 
 
 def gate_strips(wh: torch.Tensor):
@@ -279,8 +319,8 @@ def _lstm_seq_cuda(xg: torch.Tensor, mask: torch.Tensor, wh: torch.Tensor):
     H = wh.shape[0]
     if T < 1 or G4 != 4 * H:
         raise ValueError(f"xg {tuple(xg.shape)} does not match wh {tuple(wh.shape)}")
-    dev, dt = xg.device, torch.bfloat16
-    _build.require("xg", xg, dev, dt, (T, B, 4 * H))
+    dev, dt = xg.device, xg.dtype
+    _build.require("xg", xg, dev, KERNEL_DTYPES, (T, B, 4 * H))
     _build.require("mask", mask, dev, dt, (T, B, 1))
     _build.require("wh", wh, dev, dt, (H, 4 * H))
     if H % 2:  # the kernel takes an even H: one zero unit more, sliced off after
@@ -290,6 +330,8 @@ def _lstm_seq_cuda(xg: torch.Tensor, mask: torch.Tensor, wh: torch.Tensor):
     if xg.data_ptr() % 16:
         raise ValueError("lstm_seq reads xg in 16-byte chunks: its storage must start on 16 "
                          "bytes")
+    if dt == torch.float32:
+        return _lstm_seq_f32(xg, mask, wh)
     plan = lstm_plan(B, H)
     wh, gs = gate_strips(wh)
     h_last = torch.empty(B, H, dtype=dt, device=dev)
@@ -306,6 +348,31 @@ def _lstm_seq_cuda(xg: torch.Tensor, mask: torch.Tensor, wh: torch.Tensor):
         xg.data_ptr(), mask.data_ptr(), wh.data_ptr(), h_last.data_ptr(), seq.data_ptr(),
         hbuf.data_ptr(), c.data_ptr(), count.data_ptr(), part.data_ptr(), part.numel(), T, B, H,
         gs, plan["wg"], _build.current_stream(dev),
+    )
+    _build.check(err, "lstm_seq")
+    lstm_seq.launches += 1  # one persistent launch runs all T steps
+    return h_last, seq
+
+
+def _lstm_seq_f32(xg: torch.Tensor, mask: torch.Tensor, wh: torch.Tensor):
+    """The float32 entry (checked operands, even H): one persistent launch
+    of csrc/lstm_f32.cu, h and c kept in float32 scratch between steps."""
+    T, B, _ = xg.shape
+    H = wh.shape[0]
+    dev, dt = xg.device, torch.float32
+    plan = lstm_plan(B, H, elem=4)
+    wh, gs = gate_strips(wh)
+    h_last = torch.empty(B, H, dtype=dt, device=dev)
+    seq = torch.empty(T, B, H, dtype=dt, device=dev)
+    # scratch: the ping-pong h of steps 0..T-2 and c, rows padded to 8
+    # units, and the grid barrier's counter
+    hbuf = torch.empty(2, B, plan["hp"], dtype=dt, device=dev)
+    c = torch.empty(B, plan["hp"], dtype=dt, device=dev)
+    count = torch.empty(1, dtype=torch.int32, device=dev)
+    err = _build.library().vqa_lstm_seq_f32(
+        xg.data_ptr(), mask.data_ptr(), wh.data_ptr(), h_last.data_ptr(), seq.data_ptr(),
+        hbuf.data_ptr(), c.data_ptr(), count.data_ptr(), T, B, H, gs,
+        _build.current_stream(dev),
     )
     _build.check(err, "lstm_seq")
     lstm_seq.launches += 1  # one persistent launch runs all T steps

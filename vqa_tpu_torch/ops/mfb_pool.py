@@ -10,8 +10,9 @@ projection that feeds it (``vqa_tpu/ops/mfb_pool.py:24-29``).
 
 The forward is the registered op ``torch.ops.vqa_tpu_torch.mfb_pool``: on
 CUDA tensors it launches the hand-written kernel in ``csrc/mfb_pool.cu``
-(bf16, one block per row, any row count); on CPU tensors it takes the plain
-version.
+(one block per row, any row count; bf16 or float32, each dtype its own
+entry of the same kernel, the output in z's dtype); on CPU tensors it takes
+the plain version.
 
 Where ``z`` asks for grads, the call is a ``torch.autograd.Function``: the
 same forward, and a backward by autograd through ``mfb_pool_reference`` on
@@ -27,7 +28,7 @@ from __future__ import annotations
 
 import torch
 
-from vqa_tpu_torch.ops import _build, recompute_grads, register
+from vqa_tpu_torch.ops import KERNEL_DTYPES, _build, recompute_grads, register
 
 _SMEM_LIMIT = 48 * 1024  # m fp32 roots per block, default dynamic shared memory
 
@@ -71,11 +72,13 @@ def _mfb_pool_cuda(z: torch.Tensor, k: int) -> torch.Tensor:
     if m * 4 > _SMEM_LIMIT:
         raise ValueError(f"m={m} exceeds the kernel's shared memory")
     lead = tuple(z.shape[:-1])
-    _build.require("z", z, z.device, torch.bfloat16, lead + (k * m,))
+    _build.require("z", z, z.device, KERNEL_DTYPES, lead + (k * m,))
     out = torch.empty(lead + (m,), dtype=z.dtype, device=z.device)
     if out.numel() == 0:
         return out
-    err = _build.library().vqa_mfb_pool(
+    lib = _build.library()
+    entry = lib.vqa_mfb_pool_f32 if z.dtype == torch.float32 else lib.vqa_mfb_pool
+    err = entry(
         z.data_ptr(), out.data_ptr(), out.numel() // m, k, m,
         _build.current_stream(z.device),
     )

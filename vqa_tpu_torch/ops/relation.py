@@ -8,9 +8,11 @@ relation_attend(pg [B, N, D], r [B, N, D]) -> absorbed [B, N, D]
 
 The forward is the registered op ``torch.ops.vqa_tpu_torch.relation_attend``:
 on CUDA tensors it launches the hand-written kernel in
-``csrc/relation.cu`` (bf16 in and out; fp32 scores and softmax; alpha kept
-to ~2^-16 through the second product as two bf16 halves) with the schedule
-``relation_plan`` gives; on CPU tensors it takes the plain version.
+``csrc/relation.cu`` with the schedule ``relation_plan`` gives: bf16 in and
+out (fp32 scores and softmax; alpha kept to ~2^-16 through the second
+product as two bf16 halves), or float32 in and out through its float32
+entry (the wide design, everything in fp32, nothing rounded); on CPU
+tensors it takes the plain version.
 
 Where an input asks for grads, the call is a ``torch.autograd.Function``:
 the same forward, and a backward by autograd through
@@ -25,7 +27,7 @@ import functools
 
 import torch
 
-from vqa_tpu_torch.ops import _build, recompute_grads, register
+from vqa_tpu_torch.ops import KERNEL_DTYPES, _build, recompute_grads, register
 
 SMEM_LIMIT = 232_448    # shared memory a Hopper block may opt into
 MAX_N = 64              # the element design: s at most 4 x 16 rows, 8 x 8 columns
@@ -72,16 +74,32 @@ def _tiled_smem(N: int, stages: int) -> int:
     return 1024 + stages * stage + _TILE_ROWS * (4 * _round_up(N, 16) + 32) + 16 * stages
 
 
-def _wide_smem(N: int, D: int) -> int:
-    """csrc/relation.cu's wide_smem: 16 rows of pg, s^T [N, 16] (fp32)."""
-    return _round_up(_WIDE_ROWS * D * 2, 16) + N * _WIDE_ROWS * 4
+def _wide_smem(N: int, D: int, elem: int = 2) -> int:
+    """csrc/relation.cu's wide_smem: 16 rows of pg (``elem``-byte
+    elements), s^T [N, 16] (fp32)."""
+    return _round_up(_WIDE_ROWS * D * elem, 16) + N * _WIDE_ROWS * 4
+
+
+def _wide_plan(B: int, N: int, D: int, smem_limit: int, elem: int = 2) -> dict:
+    smem = _wide_smem(N, D, elem)
+    if smem > smem_limit:
+        raise ValueError(f"relation_attend: N={N}, D={D} need {smem} bytes of shared "
+                         f"memory (16 rows of pg and 16 x N scores), over the {smem_limit} "
+                         f"a block may opt into")
+    return {"design": "wide", "split": 1, "stages": 1, "rows": _WIDE_ROWS,
+            "smem_bytes": smem, "ctas": B * _ceil(N, _WIDE_ROWS), "cluster": 1,
+            "threads": 256}
 
 
 @functools.lru_cache(maxsize=1024)
 def relation_plan(B: int, N: int, D: int, vec: bool = True, smem_limit: int = SMEM_LIMIT,
-                  design: str | None = None, split: int | None = None) -> dict:
+                  design: str | None = None, split: int | None = None,
+                  elem: int = 2) -> dict:
     """The schedule ``csrc/relation.cu`` runs for B elements of N objects and
-    D features:
+    D features, in elements of ``elem`` bytes. float32 (``elem=4``) has one
+    design: "wide" below, with both products as FP32 FMA (the other two
+    multiply bf16 operands on the tensor cores), at every N whose 16 rows of
+    pg and 16 x N scores fit. bf16 (``elem=2``):
 
     - "element" (N <= 48; forced, up to 64): a cluster of ``split`` CTAs
       of 512 threads an element, each holding its D / split columns of pg
@@ -111,6 +129,14 @@ def relation_plan(B: int, N: int, D: int, vec: bool = True, smem_limit: int = SM
     wrapper asks at every call; the dict is shared, not to be changed."""
     if min(B, N, D) < 1:
         raise ValueError(f"relation_attend needs B, N, D >= 1, got B={B}, N={N}, D={D}")
+    if elem == 4:
+        if design not in (None, "wide"):
+            raise ValueError(f"relation_attend (float32) has only the wide design, not "
+                             f"{design!r}")
+        return _wide_plan(B, N, D, smem_limit, elem)
+    if elem != 2:
+        raise ValueError(f"relation_attend takes 2-byte (bf16) or 4-byte (float32) elements, "
+                         f"got {elem}")
 
     def can_split(s: int) -> bool:
         return vec and s <= _MAX_SPLIT and D % (16 * s) == 0 and D // s >= _MIN_COLS
@@ -142,14 +168,7 @@ def relation_plan(B: int, N: int, D: int, vec: bool = True, smem_limit: int = SM
     if design == "tiled" and _tiled_smem(N, 1) > smem_limit:
         design = "wide"
     if design == "wide":
-        smem = _wide_smem(N, D)
-        if smem > smem_limit:
-            raise ValueError(f"relation_attend: N={N}, D={D} need {smem} bytes of shared "
-                             f"memory (16 rows of pg and 16 x N scores), over the {smem_limit} "
-                             f"a block may opt into")
-        return {"design": design, "split": 1, "stages": 1, "rows": _WIDE_ROWS,
-                "smem_bytes": smem, "ctas": B * _ceil(N, _WIDE_ROWS), "cluster": 1,
-                "threads": 256}
+        return _wide_plan(B, N, D, smem_limit)
     if design != "tiled":
         raise ValueError(f"relation_attend: no design {design!r}")
     stages = _MAX_STAGES
@@ -171,8 +190,15 @@ def relation_attend_reference(pg: torch.Tensor, r: torch.Tensor) -> torch.Tensor
 
 def launch_relation_attend(pg: torch.Tensor, r: torch.Tensor, out: torch.Tensor,
                            plan: dict) -> None:
-    """One launch with ``plan``'s schedule."""
+    """One launch with ``plan``'s schedule (float32 operands through the
+    float32 entry, whose plan is the wide design)."""
     B, N, D = pg.shape
+    if pg.dtype == torch.float32:
+        err = _build.library().vqa_relation_attend_f32(
+            pg.data_ptr(), r.data_ptr(), out.data_ptr(), B, N, D,
+            _build.current_stream(pg.device))
+        _build.check(err, "relation_attend")
+        return
     err = _build.library().vqa_relation_attend(
         pg.data_ptr(), r.data_ptr(), out.data_ptr(), B, N, D, _DESIGNS[plan["design"]],
         plan["split"], plan["stages"], _build.current_stream(pg.device))
@@ -217,14 +243,14 @@ def _relation_attend_cuda(pg: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
     if pg.ndim != 3:
         raise ValueError(f"expected pg and r [B, N, D], got {tuple(pg.shape)}")
     B, N, D = pg.shape
-    dev, dt = pg.device, torch.bfloat16
-    _build.require("pg", pg, dev, dt, (B, N, D))
+    dev, dt = pg.device, pg.dtype
+    _build.require("pg", pg, dev, KERNEL_DTYPES, (B, N, D))
     _build.require("r", r, dev, dt, (B, N, D))
     out = torch.empty(B, N, D, dtype=dt, device=dev)
     if out.numel() == 0:
         return out
     plan = relation_plan(B, N, D, vec=_vec(D, pg, r, out),
-                         smem_limit=_build.smem_optin(dev.index or 0))
+                         smem_limit=_build.smem_optin(dev.index or 0), elem=dt.itemsize)
     launch_relation_attend(pg, r, out, plan)
     relation_attend.launches += 1
     return out

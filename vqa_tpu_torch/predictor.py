@@ -100,11 +100,11 @@ class Predictor:
         ``seq2vec.pretrained_emb`` / ``pretrained_encoder`` grafts, as the
         eval CLI and the JAX ``from_run(resume=None)`` compose them. With no
         ``path_opt`` the run's own options.yaml is used. The model computes in
-        bf16 on CUDA (the kernels take bf16) and in the config's
-        ``engine.dtype`` elsewhere."""
+        the config's ``engine.dtype`` on every device
+        (``config.compute_dtype``)."""
         import os
 
-        from vqa_tpu_torch.config import load_options
+        from vqa_tpu_torch.config import compute_dtype, load_options
         from vqa_tpu_torch.datasets.factory import factory as dataset_factory
         from vqa_tpu_torch.engine.checkpoint import CheckpointManager
 
@@ -123,7 +123,7 @@ class Predictor:
                 "external writes one)"
             )
         device = torch.device(device)
-        dtype = torch.bfloat16 if device.type == "cuda" else opt.engine.dtype
+        dtype = compute_dtype(opt)
         val_set = dataset_factory("val", opt)
         features = val_set.features
         model = model_factory(
