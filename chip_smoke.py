@@ -36,10 +36,16 @@ Phases, each printing one line of what it found:
      (lstm_seq, whose plain recurrence with TF32 products is run beside it
      and must miss that), mfb_pool against its plain version in float64
      (its signed square root is ill-conditioned near 0), gather_rows on
-     float32 rows bit-exact; each timed beside the plain version and its
-     bound in float32 bytes (lstm_seq: FLOPs at the FP32 peak),
-     relation_attend beside SDPA in float32. The readings go into each
-     kernel's record under "f32_";
+     float32 rows bit-exact; lstm_seq and relation_attend also bit-equal
+     across two calls, each with its plan's design named (relation_attend
+     also at N=64, and at N=450, past its tiled design, the wide one;
+     lstm_seq also at T=26, B=64, H=1024); each timed beside the plain
+     version and its bound in float32 bytes (lstm_seq and relation_attend:
+     bound_ms with the products once at the TF32 peak, the least any
+     tensor-core route needs; bound_3xtf32_ms with the three passes their
+     3xTF32 design runs, pct_of_3xtf32 the design's share of its own cost;
+     bound_fp32_ms at the FP32-FMA peak), relation_attend beside SDPA in
+     float32. The readings go into each kernel's record under "f32_";
   3. eval: each arch at the full width of its options/vqa2 YAML (MutanAtt,
      MFBCoAtt, MFHCoAtt, CoR, ConcatAtt, MLBAtt, MutanNoAtt, MLBNoAtt) or
      flagship.VARIANTS entry (ConcatNoAtt; MutanAtt with the skip-thoughts
@@ -285,7 +291,6 @@ F32_LOSS_REL = 1e-5
 F32_GRAD_REL = 1e-3
 F32_EXPORT_REL = 1e-5
 F32_EVAL_BATCHES = 4
-F32_TRAIN_ARCHS = {"MutanAtt": "mutan_att", "MFBCoAtt": "mfb_coatt"}
 # eval logits, kernel path vs plain bf16 path: the plain path rounds every
 # intermediate to bf16 at other places than the kernels (bf16 matmul output,
 # bf16 gate math), through the LSTM, both MUTAN fusions and the classifier;
@@ -301,6 +306,8 @@ PRED_AGREE_FLOOR = 0.9
 # published peaks of one H100 SXM (NVIDIA's data sheet, dense, at 700 W)
 PEAK_BF16 = 989e12   # FLOP/s on the tensor cores
 PEAK_FP32 = 67e12    # FLOP/s outside them
+PEAK_TF32 = 495e12   # FLOP/s on the tensor cores in TF32: the float32 kernels' products run
+                     # there as 3xTF32, three passes each
 HBM = 3.35e12        # bytes/s
 
 BUCKETS = (7, 13, 26)
@@ -354,6 +361,11 @@ CLI_NOATT_KERNELS = ("gather_rows", "lstm_seq")
 # not on the bf16 step losses
 TRAIN_BATCH = 128
 TRAIN_QUESTIONS = 16384
+# [f32_path]'s train steps (arch, YAML, batch): the YAMLs' train batch, and
+# MutanAtt at the eval batch (as --opt optim.batch_size=1024 sets it), where
+# its lstm_seq takes the wg=2 class, whose sum stays in the tensor cores
+F32_TRAIN_CASES = (("MutanAtt", "mutan_att", TRAIN_BATCH), ("MFBCoAtt", "mfb_coatt", TRAIN_BATCH),
+                   ("MutanAtt", "mutan_att", BATCH))
 TRAIN_HELD_BATCHES = 4
 TRAIN_BUCKET_WINDOW = 8
 TRAIN_TIMED_STEPS = 10
@@ -650,12 +662,25 @@ def _lstm_inputs(torch, dev, rng, T, B, H, dtype=None):
     return xg, mask, wh
 
 
-def _lstm_bound(T, B, H, elem=2):
+def _lstm_bound(T, B, H, elem=2, peak=None, passes=1):
     """xg, mask and wh read once, h_last and seq written once, in
     ``elem``-byte elements; the T-1 products h[B,H] x wh[H,4H] (step 0 has
-    none), at the bf16 tensor-core peak or (float32) the FP32 peak."""
+    none), ``passes`` times, at the bf16 tensor-core peak or (float32)
+    ``peak``: the FP32 peak, or the TF32 peak (3xTF32: three passes)."""
+    flops = passes * 2.0 * (T - 1) * B * H * 4 * H
     return _bound(elem * (T * B * 4 * H + T * B + 4 * H * H + B * H + T * B * H),
-                  2.0 * (T - 1) * B * H * 4 * H, PEAK_BF16 if elem == 2 else PEAK_FP32)
+                  flops, PEAK_BF16 if elem == 2 else (peak or PEAK_FP32))
+
+
+def _relation_f32_bounds(B, N, D):
+    """float32 relation_attend: ((bound_ms, bound_by), bound_3xtf32_ms,
+    bound_fp32_ms): its two products once at the TF32 peak (the least any
+    tensor-core route needs), three times there (the cost of its 3xTF32
+    design), and at the FP32-FMA peak of the CUDA cores; pg and r read
+    once, out written once."""
+    nbytes, flops = 4 * 3 * B * N * D, 2.0 * 2 * B * N * N * D
+    return (_bound(nbytes, flops, PEAK_TF32), _bound(nbytes, 3 * flops, PEAK_TF32)[0],
+            _bound(nbytes, flops, PEAK_FP32)[0])
 
 
 def _check_lstm(torch, dev, rng):
@@ -964,10 +989,12 @@ def _f32_record(kernels, name, worst, timing, flagship, **extra):
 def _check_f32_kernels(torch, dev, rng, kernels) -> None:
     """[f32_kernels]: each kernel's float32 entry against its plain version
     in float32 (TF32 off) at the archs' shapes, R = N = 196 and an odd H,
-    with its time, the plain time and the bound in float32 bytes (lstm_seq:
-    FLOPs at the FP32 peak); relation_attend with SDPA in float32 beside
-    it; lstm_seq with the plain recurrence under TF32, which misses the
-    tolerance. The readings go into each kernel's record under ``f32_``."""
+    with its time, the plain time and the bound in float32 bytes (lstm_seq
+    and relation_attend: FLOPs once at the TF32 peak, beside them three
+    times there, the 3xTF32 design's cost, and once at the FP32 peak);
+    relation_attend with SDPA in float32 beside it; lstm_seq
+    with the plain recurrence under TF32, which misses the tolerance. The
+    readings go into each kernel's record under ``f32_``."""
     import torch.nn.functional as F
 
     from vqa_tpu_torch.ops.attention import (glimpse_attend, glimpse_attend_reference,
@@ -976,7 +1003,9 @@ def _check_f32_kernels(torch, dev, rng, kernels) -> None:
     from vqa_tpu_torch.ops.gather import gather_rows, gather_rows_reference
     from vqa_tpu_torch.ops.lstm import launch_geometry_f32, lstm_seq, lstm_seq_reference
     from vqa_tpu_torch.ops.mfb_pool import mfb_pool, mfb_pool_reference
-    from vqa_tpu_torch.ops.relation import relation_attend, relation_attend_reference
+    from vqa_tpu_torch.ops import _build
+    from vqa_tpu_torch.ops.relation import (_vec, launch_geometry, relation_attend,
+                                            relation_attend_reference, relation_plan)
 
     f32 = torch.float32
 
@@ -1001,10 +1030,12 @@ def _check_f32_kernels(torch, dev, rng, kernels) -> None:
     _f32_record(kernels, "gather_rows", 0.0, timing, "B1024", tol="exact")
     del table, out
 
-    # lstm_seq: one persistent launch, h and c float32 between steps
+    # lstm_seq: one persistent launch, h and c float32 between steps, the
+    # products in 3xTF32 on the tensor cores; both classes of its plan (wg=2
+    # at the eval batch and H=2400, wg=1 elsewhere)
     worst, timing, tf32_err = 0.0, {}, None
     for T, B, H in ((26, BATCH, 2400), (7, BATCH, 2400), (7, BATCH, 1024),
-                    (26, SERVE_BATCH, 2400), (5, 37, 41)):
+                    (26, SERVE_BATCH, 2400), (26, SERVE_BATCH, 1024), (5, 37, 41)):
         xg, mask, wh = _lstm_inputs(torch, dev, rng, T, B, H, f32)
         h, seq = lstm_seq(xg, mask, wh)
         again = lstm_seq(xg, mask, wh)
@@ -1018,8 +1049,10 @@ def _check_f32_kernels(torch, dev, rng, kernels) -> None:
                  f"lstm_seq float32 {(T, B, H)}: two calls bit-equal")
         worst = max(worst, err)
         geo = launch_geometry_f32(B, H + H % 2, dev.index or 0)
+        design = (f"3xTF32_wgmma_wg{geo['cluster']}_stages{geo['stages']}_ctas{geo['ctas']}"
+                  f"_tail{geo['tail_split']}")
         line = dict(T=T, B=B, H=H, rel_err=f"{err:.3e}", tol=F32_LSTM_REL, bit_equal=True,
-                    ctas=geo["ctas"], tiles=geo["tiles"])
+                    ctas=geo["ctas"], tiles=geo["tiles"], design=design)
         if (T, B, H) == (26, BATCH, 2400):
             # the same plain recurrence with its products in TF32 (one pass,
             # ~3 decimal digits): the tolerance above must catch it
@@ -1037,17 +1070,24 @@ def _check_f32_kernels(torch, dev, rng, kernels) -> None:
         if B == BATCH:
             ms, plain = timed(lambda: lstm_seq(xg, mask, wh),
                               lambda: lstm_seq_reference(xg, mask, wh), iters=5)
-            bound, by = _lstm_bound(T, B, H, elem=4)
+            bound, by = _lstm_bound(T, B, H, elem=4, peak=PEAK_TF32)
+            bound_3x = _lstm_bound(T, B, H, elem=4, peak=PEAK_TF32, passes=3)[0]
+            bound_fp32 = _lstm_bound(T, B, H, elem=4)[0]
             key = f"T{T}_B{B}" + ("" if H == 2400 else f"_H{H}")
             timing[key] = dict(ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by,
+                               bound_3xtf32_ms=bound_3x, bound_fp32_ms=bound_fp32,
                                library_ms=None, pct_of_bound=100 * bound / ms,
+                               pct_of_3xtf32=100 * bound_3x / ms, design=design,
                                tflops=2.0 * (T - 1) * B * H * 4 * H / ms / 1e9)
             line.update({k: (round(v, 4) if isinstance(v, float) else v)
                          for k, v in timing[key].items()})
         _phase("f32_kernels", kernel="lstm_seq", **line)
         del xg, mask, wh, h, seq, again, ref_h, ref_seq
     _f32_record(kernels, "lstm_seq", worst, timing, f"T26_B{BATCH}", tol=F32_LSTM_REL,
-                tf32_plain_rel_err=tf32_err)
+                tf32_plain_rel_err=tf32_err,
+                bound_note="bound_ms: the products once at the 495 TFLOP/s TF32 peak; "
+                           "bound_3xtf32_ms: three passes there, the 3xTF32 design's cost; "
+                           "bound_fp32_ms: the products at the 67 TFLOP/s FP32-FMA peak")
 
     # glimpse_head
     worst, timing = 0.0, {}
@@ -1141,21 +1181,35 @@ def _check_f32_kernels(torch, dev, rng, kernels) -> None:
     _f32_record(kernels, "mfb_pool", worst, timing, f"n{BATCH * REGIONS}",
                 tol="float64 hold: max(1e-5, twice the plain float32's own error)")
 
-    # relation_attend: the wide design on the CUDA cores; SDPA beside it
+    # relation_attend: the tiled design, both products in 3xTF32 on wgmma,
+    # at N <= 256; the wide one (FP32 FMA) past it (N=450); two calls
+    # bit-equal; SDPA beside it
     worst, timing = 0.0, {}
     for B, N, D, offset in ((BATCH, REGIONS, 1024, 0), (SERVE_BATCH, GRID, 1024, 0),
-                            (BATCH, GRID, 1024, 0), (5, 7, 33, 0), (3, 65, 40, 0),
-                            (3, 36, 1024, 1)):
+                            (BATCH, GRID, 1024, 0), (BATCH, 64, 1024, 0), (5, 7, 33, 0),
+                            (3, 65, 40, 0), (8, 450, 1024, 0), (3, 36, 1024, 1)):
         pg = torch.tanh(torch.randn(B, N, D, device=dev))
         r = torch.empty(B * N * D + offset, device=dev)[offset:].view(B, N, D)
         r.copy_(torch.tanh(torch.randn(B, N, D, device=dev)))
         out = relation_attend(pg, r)
+        again = relation_attend(pg, r)
         ref = relation_attend_reference(pg, r)
         torch.cuda.synchronize()
         err = _rel_err(out, ref)
         _require(err <= F32_REL, f"relation_attend float32 {(B, N, D)}: {err} <= {F32_REL}")
+        _require(torch.equal(out, again),
+                 f"relation_attend float32 {(B, N, D)}: two calls bit-equal")
         worst = max(worst, err)
-        line = dict(B=B, N=N, D=D, offset=offset, rel_err=f"{err:.3e}", tol=F32_REL)
+        vec = _vec(D, pg, r, out)
+        plan = relation_plan(B, N, D, vec=vec, smem_limit=_build.smem_optin(dev.index or 0),
+                             elem=4)
+        card = launch_geometry(B, N, D, plan, vec, dev.index or 0, elem=4)
+        _require(card == {k: plan[k] for k in card},
+                 f"relation_attend float32 {(B, N, D)}: the entry launches the plan's geometry "
+                 f"({card} vs {plan})")
+        design = f"{plan['design']}_stages{plan['stages']}"
+        line = dict(B=B, N=N, D=D, offset=offset, rel_err=f"{err:.3e}", tol=F32_REL,
+                    bit_equal=True, design=design)
         if B == BATCH:
             iters = 5 if N == GRID else 20
             ms, plain = timed(lambda: relation_attend(pg, r),
@@ -1163,16 +1217,20 @@ def _check_f32_kernels(torch, dev, rng, kernels) -> None:
             # the same function in one PyTorch call, timed here only
             library = _median_ms(torch, lambda: F.scaled_dot_product_attention(pg, r, r),
                                  iters=iters)
-            bound, by = _bound(4 * 3 * B * N * D, 2.0 * 2 * B * N * N * D, PEAK_FP32)
+            (bound, by), bound_3x, bound_fp32 = _relation_f32_bounds(B, N, D)
             timing[f"B{B}_N{N}"] = dict(ms=ms, plain_ms=plain, library_ms=library,
-                                        bound_ms=bound, bound_by=by,
-                                        pct_of_bound=100 * bound / ms)
+                                        bound_ms=bound, bound_by=by, bound_3xtf32_ms=bound_3x,
+                                        bound_fp32_ms=bound_fp32, pct_of_bound=100 * bound / ms,
+                                        pct_of_3xtf32=100 * bound_3x / ms, design=design)
             line.update({k: (round(x, 4) if isinstance(x, float) else x)
                          for k, x in timing[f"B{B}_N{N}"].items()})
         _phase("f32_kernels", kernel="relation_attend", **line)
-        del pg, r, out, ref
+        del pg, r, out, again, ref
     _f32_record(kernels, "relation_attend", worst, timing, f"B{BATCH}_N{REGIONS}", tol=F32_REL,
-                library="F.scaled_dot_product_attention(pg, r, r) in float32")
+                library="F.scaled_dot_product_attention(pg, r, r) in float32",
+                bound_note="bound_ms: the products once at the 495 TFLOP/s TF32 peak, or the "
+                           "bytes; bound_3xtf32_ms: three passes there, the 3xTF32 design's "
+                           "cost; bound_fp32_ms: the products at the 67 TFLOP/s FP32 peak")
 
 
 # --------------------------------------------------------------- main path
@@ -3052,7 +3110,8 @@ def _f32_eval_phase(torch, dev, eval_data, host_table) -> dict:
 
 def _f32_train_phase(torch, dev, host_table) -> dict:
     """[f32_path], train: one float32 train step of MutanAtt and of MFBCoAtt
-    (their YAMLs as written) at full width and batch 128, dropout off,
+    (their YAMLs as written) at full width and batch 128, and of MutanAtt
+    at batch 1024 (the shortest questions of 4096: bucket 7), dropout off,
     through the kernels against the plain float32 path on the same weights
     and batch: the loss within F32_LOSS_REL relative, each grad within
     F32_GRAD_REL (relative, Frobenius; a leaf's norm under 1e-3 of the
@@ -3064,22 +3123,27 @@ def _f32_train_phase(torch, dev, host_table) -> dict:
     from vqa_tpu_torch.config import compute_dtype, load_options
     from vqa_tpu_torch.flagship import NUM_WORDS, answer_count, model_options
     from vqa_tpu_torch.models.factory import factory
+    from vqa_tpu_torch.ops.lstm import lstm_plan
     from vqa_tpu_torch.weights import random_params
 
     counts = dict.fromkeys(_counters(), 0)
     table = torch.from_numpy(host_table).to(dev)
     rng = np.random.default_rng(3)
-    for arch, name in F32_TRAIN_ARCHS.items():
+    for arch, name, batch_size in F32_TRAIN_CASES:
         opt = load_options(os.path.join(_REPO, "options", "vqa2", f"{name}.yaml"))
         _require(compute_dtype(opt) == torch.float32 and opt.optim.batch_size == TRAIN_BATCH,
                  f"{name}.yaml as written trains in float32 at batch {TRAIN_BATCH}")
-        model = factory(model_options(name=name), NUM_WORDS, answer_count(name),
-                        dtype=torch.float32, device=dev, train=True)
+        model_opt = model_options(name=name)
+        model = factory(model_opt, NUM_WORDS, answer_count(name), dtype=torch.float32,
+                        device=dev, train=True)
         random_params(model, seed=0)
-        questions, lengths, image_index, _ = _synthetic_eval_arrays(rng, TRAIN_BATCH,
-                                                                    with_table=False)
-        batch = _f32_batches(torch, dev, questions, lengths, image_index, 1, TRAIN_BATCH,
-                             answer_count(name))[0]
+        lstm_wg = lstm_plan(batch_size, model_opt["seq2vec"]["hidden_size"], elem=4)["wg"]
+        _require(lstm_wg == (2 if batch_size == BATCH else 1),
+                 f"[f32_path] {arch} at batch {batch_size}: lstm_seq's class wg={lstm_wg}")
+        pool = batch_size if batch_size == TRAIN_BATCH else 4 * batch_size
+        questions, lengths, image_index, _ = _synthetic_eval_arrays(rng, pool, with_table=False)
+        batch = _f32_batches(torch, dev, questions, lengths, image_index, pool // batch_size,
+                             batch_size, answer_count(name))[0]  # the shortest questions
         names = [n for n, p in model.named_parameters() if p.requires_grad]
         _reset_counts()
         loss, grads, gnorm = _loss_grads(torch, model, batch, table)
@@ -3141,13 +3205,13 @@ def _f32_train_phase(torch, dev, host_table) -> dict:
                     grad_tol=F32_GRAD_REL, grads_held=len(held),
                     gnorm=round(gnorm, 5), plain_gnorm=round(plain_gnorm, 5),
                     fwd_bwd_ms=round(ms, 3), plain_fwd_bwd_ms=round(plain_ms, 3),
-                    qa_per_s=round(TRAIN_BATCH / ms * 1e3, 1),
-                    plain_qa_per_s=round(TRAIN_BATCH / plain_ms * 1e3, 1),
+                    qa_per_s=round(batch_size / ms * 1e3, 1),
+                    plain_qa_per_s=round(batch_size / plain_ms * 1e3, 1), lstm_wg=lstm_wg,
                     launches={k: c for k, c in step_counts.items() if c})
         if exact_held:
             line["held_against_f64"] = {n: "/".join(f"{x:.2e}" for x in e)
                                         for n, e in sorted(exact_held.items())}
-        _phase("f32_path", part="train_step", arch=arch, dtype="float32", batch=TRAIN_BATCH,
+        _phase("f32_path", part="train_step", arch=arch, dtype="float32", batch=batch_size,
                T=batch["question"].shape[1], **line)
         del model, grads, plain_grads
         torch.cuda.empty_cache()

@@ -179,6 +179,12 @@ class _Recorder:
         return entry
 
 
+def _no_f32_scratch(B, H, index):
+    """The float32 lstm_seq's launch geometry, off the card: no scratch
+    (the stand-in libraries need none)."""
+    return dict.fromkeys(lstm._F32_GEOMETRY, 0)
+
+
 @pytest.fixture
 def recorder(monkeypatch):
     """A stand-in library, the card's shared memory and stream, and every
@@ -189,6 +195,7 @@ def recorder(monkeypatch):
     monkeypatch.setattr(_build, "current_stream", lambda device: 0)
     monkeypatch.setattr(lstm, "launch_geometry", lambda B, H, wg, index: dict(
         ctas=1, tail_split=1, part_bytes=0, tiles=1, tail_tiles=0, smem_bytes=0))
+    monkeypatch.setattr(lstm, "launch_geometry_f32", _no_f32_scratch)
     empties = []
     real_empty = torch.empty
 
@@ -297,12 +304,41 @@ def test_the_yamls_shapes_are_the_expected_ones():
 @pytest.mark.parametrize("B", _BATCHES)
 @pytest.mark.parametrize("H", _HIDDEN + [42])
 def test_lstm_plan_takes_float32(B, H):
-    plan = lstm_plan(B, H, elem=4)
-    assert plan["tiles"] == -(-B // 128) * -(-H // 32)
-    assert 1 <= plan["ctas"] <= min(plan["tiles"], 2 * lstm.SMS)
-    assert plan["hp"] % 8 == 0 and plan["hp"] >= H
-    assert plan["smem_bytes"] <= 48 * 1024  # static shared memory
-    assert "float32" in plan["design"]
+    """float32's plan: the bf16 plan's class; wg=2 its tiles (128 rows in
+    CTA pairs), wg=1 64-row tiles; as many stages of K = 32 float32 (h's
+    tile, wh^T's tf32 halves) as the shared memory a block may opt into
+    holds; the products in 3xTF32."""
+    plan, bf16 = lstm_plan(B, H, elem=4), lstm_plan(B, H)
+    wg = bf16["wg"]
+    assert (plan["wg"], plan["cluster"], plan["bm"]) == (wg, wg, 64 * wg)
+    assert plan["tiles"] == -(-(-(-B // (64 * wg))) // wg) * wg * -(-H // 64)
+    if wg == 2:
+        for key in ("tiles", "ctas", "tail_tiles", "tail_split"):
+            assert plan[key] == bf16[key]
+    assert 1 <= plan["ctas"] <= min(plan["tiles"], lstm.SMS)
+    assert plan["hp"] % 8 == 0 and plan["hp"] >= H and plan["hp"] == bf16["hp"]
+    assert plan["stages"] == (2 if wg == 2 else 3)
+    assert plan["smem_per_stage"] == (plan["bm"] + 2 * 256) * 32 * 4
+    assert plan["smem_bytes"] == 1024 + plan["stages"] * plan["smem_per_stage"] + 128
+    assert plan["smem_bytes"] <= lstm.SMEM_LIMIT
+    assert plan["smem_bytes"] + plan["smem_per_stage"] > lstm.SMEM_LIMIT  # one more does not fit
+    assert plan["fixed_scratch_bytes"] == 4 * (2 * B * plan["hp"] + 8 * plan["hp"] ** 2)
+    assert "float32" in plan["design"] and "3xTF32" in plan["design"]
+
+
+def test_lstm_plan_float32_classes():
+    """The eval batch at H=2400 takes CTA pairs of 128-row tiles (2.3 waves)
+    and a K-shared tail, its sum kept in the tensor cores; H=1024 and the
+    train and serving batches 64-row tiles, a stage's sum added in fp32."""
+    big = lstm_plan(1024, 2400, elem=4)
+    assert (big["wg"], big["tail_split"]) == (2, 3) and "tensor cores" in big["design"]
+    for B, H in ((1024, 1024), (128, 1024), (128, 2400), (64, 2400)):
+        plan = lstm_plan(B, H, elem=4)
+        assert plan["wg"] == 1 and "fp32 registers" in plan["design"]
+    with pytest.raises(ValueError, match="4-byte"):
+        lstm_plan(64, 2400, elem=8)
+    with pytest.raises(ValueError, match="H must be even"):
+        lstm_plan(64, 41, elem=4)
 
 
 @pytest.mark.parametrize("B", _BATCHES)
@@ -329,13 +365,48 @@ def test_glimpse_plan_float32_refuses_only_past_shared_memory():
 @pytest.mark.parametrize("B", _BATCHES)
 @pytest.mark.parametrize("N", [36, 48, 64, 196])
 def test_relation_plan_takes_float32(B, N):
-    """CoR's relation core (D=1024) in float32: the wide design, FP32 FMA."""
+    """CoR's relation core (D=1024) in float32: the tiled design (3xTF32 on
+    the tensor cores), one CTA an element and 64 rows, the most stages of
+    128-byte rows that fit beside the region (two buffers of the lo half of
+    a stage's pg box and s in fp32 with rows of 4 Np + 16 bytes; then
+    alpha's halves, 8 KB a 32-column block each)."""
     plan = relation_plan(B, N, 1024, elem=4)
-    assert plan["design"] == "wide" and plan["split"] == 1
-    assert plan["smem_bytes"] == 16 * 1024 * 4 + N * 16 * 4 <= relation.SMEM_LIMIT
-    assert plan["ctas"] == B * -(-N // 16)
-    with pytest.raises(ValueError, match="only the wide design"):
-        relation_plan(B, N, 1024, elem=4, design="tiled")
+    assert plan["design"] == "tiled" and plan["split"] == 1
+    r_rows = -(-N // 8) * 8  # one box: N <= 256
+    stage = 64 * 128 + r_rows * 128
+    lo = 2 * 64 * 128
+    s = 64 * (4 * -(-N // 16) * 16 + 16)
+    region = max(lo + s, 2 * -(-(-(-N // 16) * 16) // 32) * 8192)
+    stages = max(st for st in range(1, 5)
+                 if 1024 + st * stage + region + 16 * st <= relation.SMEM_LIMIT)
+    assert plan["stages"] == stages == (3 if N == 196 else 4)
+    assert plan["smem_bytes"] == 1024 + stages * stage + region + 16 * stages
+    assert plan["ctas"] == B * -(-N // 64) and plan["threads"] == 544
+    with pytest.raises(ValueError, match="no 'element' design"):
+        relation_plan(B, N, 1024, elem=4, design="element")
+    wide = relation_plan(B, N, 1024, elem=4, design="wide")  # forced, as a probe
+    assert (wide["design"], wide["stages"], wide["threads"]) == ("wide", 1, 256)
+    assert wide["smem_bytes"] == 16 * 1024 * 4 + N * 16 * 4
+
+
+@pytest.mark.parametrize("N,stages,design", [(200, 3, "tiled"), (256, 2, "tiled"),
+                                             (257, 1, "wide"), (300, 1, "wide"),
+                                             (784, 1, "wide")])
+def test_relation_plan_float32_takes_the_wide_design_past_n_256(N, stages, design):
+    """The tiled design keeps the most stages that fit, up to N = 256 (its
+    softmax keeps a row in registers); past it float32 takes the wide
+    design, FP32 FMA, whose 16 rows of pg and 16 x N scores fit; a forced
+    tiled design there, or any design past the wide one's shared memory,
+    is refused."""
+    plan = relation_plan(8, N, 1024, elem=4)
+    assert (plan["design"], plan["stages"]) == (design, stages)
+    assert plan["smem_bytes"] <= relation.SMEM_LIMIT
+    if design == "wide":
+        assert plan["smem_bytes"] == 16 * 1024 * 4 + N * 16 * 4 and plan["threads"] == 256
+        with pytest.raises(ValueError, match="takes N <= 256"):
+            relation_plan(8, N, 1024, elem=4, design="tiled")
+    with pytest.raises(ValueError, match="shared memory"):
+        relation_plan(8, N, 1024, elem=4, smem_limit=60_000)
 
 
 # ------------------------------------------ the float32 path through the
@@ -384,7 +455,7 @@ class _PlainLibrary:
         _view(out, (n, m)).copy_(mfb_pool.mfb_pool_reference(_view(z, (n, k * m)), k))
         return 0
 
-    def vqa_relation_attend_f32(self, pg, r, out, B, N, D, stream):
+    def vqa_relation_attend_f32(self, pg, r, out, B, N, D, design, stages, stream):
         self.calls.append("relation_attend")
         _view(out, (B, N, D)).copy_(relation_attend_reference(_view(pg, (B, N, D)),
                                                               _view(r, (B, N, D))))
@@ -399,6 +470,7 @@ def card_dispatch(monkeypatch):
     monkeypatch.setattr(_build, "library", lambda: lib)
     monkeypatch.setattr(_build, "smem_optin", lambda index: attention.SMEM_LIMIT)
     monkeypatch.setattr(_build, "current_stream", lambda device: 0)
+    monkeypatch.setattr(lstm, "launch_geometry_f32", _no_f32_scratch)
     for module, handle, impl in ((lstm, "_LSTM_SEQ_OP", lstm._lstm_seq_cuda),
                                  (attention, "_GLIMPSE_HEAD_OP", attention._glimpse_head_cuda),
                                  (attention, "_GLIMPSE_ATTEND_OP",
@@ -463,7 +535,7 @@ def _rel(got, want) -> float:
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("T,B,H", [(5, 37, 40), (4, 37, 42), (5, 37, 41), (7, 130, 96),
-                                   (7, 64, 1024), (26, 1024, 2400)])
+                                   (7, 64, 1024), (26, 64, 1024), (26, 1024, 2400)])
 def test_lstm_seq_float32_kernel_matches_plain(cuda_device, T, B, H):
     """float32 kernel vs the plain version in float32 (TF32 off): within
     1e-4 of the max-abs, one launch, two calls bit-equal."""
@@ -533,13 +605,18 @@ def test_mfb_pool_float32_kernel_matches_plain(cuda_device, n, k, m):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,N,D", [(1024, 36, 1024), (64, 196, 1024), (5, 7, 33), (3, 65, 40)])
+@pytest.mark.parametrize("B,N,D", [(1024, 36, 1024), (64, 64, 1024), (64, 196, 1024), (5, 7, 33),
+                                   (3, 65, 40), (2, 256, 64), (2, 600, 64)])
 def test_relation_attend_float32_kernel_matches_plain(cuda_device, B, N, D):
+    """Within 1e-5 of the plain output's max-abs, two calls bit-equal (N=256:
+    the tiled design's largest; N=600: the wide one)."""
     pg = torch.tanh(torch.randn(B, N, D, device=cuda_device))
     r = torch.tanh(torch.randn(B, N, D, device=cuda_device))
     got = relation_attend(pg, r)
+    again = relation_attend(pg, r)
     torch.cuda.synchronize()
     assert _rel(got, relation_attend_reference(pg, r)) <= F32_REL
+    assert torch.equal(got, again)
 
 
 @pytest.mark.cuda
@@ -551,9 +628,30 @@ def test_gather_rows_float32_rows_are_bit_exact(cuda_device):
 
 @pytest.mark.cuda
 def test_lstm_plan_float32_matches_the_card(cuda_device):
+    """lstm_plan(..., elem=4) reckons the schedule in Python; the kernel
+    reckons it in C++ from the card's occupancy. On a card with 132 SMs
+    they agree on the CTAs, the tiles, the tail and the shared memory."""
+    if torch.cuda.get_device_properties(cuda_device).multi_processor_count != lstm.SMS:
+        pytest.skip(f"lstm_plan reckons with the {lstm.SMS} SMs of an H100 SXM")
     for B, H in ((1024, 2400), (1024, 1024), (64, 2400), (37, 42)):
         geometry = lstm.launch_geometry_f32(B, H, cuda_device.index or 0)
         plan = lstm_plan(B, H, elem=4)
-        assert {k: geometry[k] for k in ("tiles", "smem_bytes")} == \
-               {k: plan[k] for k in ("tiles", "smem_bytes")}
-        assert geometry["ctas"] == plan["ctas"]
+        keys = ("ctas", "tiles", "smem_bytes", "cluster", "stages", "tail_split", "tail_tiles")
+        assert {k: geometry[k] for k in keys} == {k: plan[k] for k in keys}
+        assert geometry["scratch_bytes"] >= plan["fixed_scratch_bytes"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,N,D,vec,design", [(1024, 36, 1024, True, None),
+                                              (1024, 196, 1024, True, None),
+                                              (1024, 196, 1024, True, "wide"),
+                                              (5, 7, 33, False, None), (8, 300, 64, True, None),
+                                              (8, 784, 1024, True, None)])
+def test_relation_plan_float32_matches_the_card(cuda_device, B, N, D, vec, design):
+    """relation_plan(..., elem=4) reckons the launch in Python; the float32
+    entry reckons it in C++: they agree on the CTAs, the cluster, the
+    threads and the shared memory."""
+    plan = relation_plan(B, N, D, vec=vec, smem_limit=_build.smem_optin(cuda_device.index or 0),
+                         design=design, elem=4)
+    geometry = relation.launch_geometry(B, N, D, plan, vec, cuda_device.index or 0, elem=4)
+    assert geometry == {k: plan[k] for k in ("ctas", "cluster", "threads", "smem_bytes")}

@@ -61,13 +61,42 @@
 //
 // float32 (the entry vqa_relation_attend_f32): the Pallas kernel computes in
 // its input's dtype, so in float32 nothing is rounded: scores, softmax,
-// alpha and the weighted sum in fp32, the output stored as it is. The two
-// tensor-core designs multiply bf16 operands, so float32 takes the wide
-// design with the element type as a template parameter, both products as
-// plain FP32 FMA on the CUDA cores, at every N (16 rows of pg, 64 D bytes,
-// and s^T [N, 16] in shared memory: 77 KB at N=196, D=1024). At N=36 it
-// reads 302 MB and writes 151 MB (0.135 ms at 3.35 TB/s); at N=196 its
-// 161 GFLOP of products bound it (2.4 ms at the 67 TFLOP/s FP32 peak).
+// alpha and the weighted sum in fp32, the output stored as it is. What bounds
+// it on the H100: at N=196, B=1024, D=1024 its 161 GFLOP of products (2.4 ms
+// at the 67 TFLOP/s FP32 peak of the CUDA cores); at N=36 its bytes (302 MB
+// read, 151 MB written: 0.135 ms at 3.35 TB/s). Single-pass TF32 on the
+// tensor cores keeps ~3 decimal digits, so float32 runs both products as
+// 3xTF32: each operand x split into hi = tf32(x) and lo = tf32(x - hi)
+// (cvt.rna), and a.b taken as a_lo.b_hi + a_hi.b_lo + a_hi.b_hi in fp32
+// (the dropped a_lo.b_lo is ~2^-22 relative): three passes at the 495
+// TFLOP/s TF32 peak, 0.976 ms at N=196. mma.sync's tf32 is slow on the H100
+// (with both products on it, and the splits redone by every warp that read a
+// fragment, the design ran no faster than SDPA at N=196), so both products
+// run on wgmma, whose tf32 operands in shared memory must be K-major and
+// whose A may come from registers. The design is "tiled" with the element type a template
+// parameter, up to N = 256: a stage is still 128-byte swizzled rows (32
+// float32 columns), s [64, N] stays fp32, alpha is not rounded.
+//   - scores, transposed: s^T = r . pg^T as m64n64k8, warpgroup q taking r's
+//     rows 64 q.. (A: ldmatrix from the stage, a 16-byte row of an 8 x 8 b16
+//     matrix being four tf32 in mma's tf32 fragment order, split in
+//     registers) against the tile's 64 rows of pg (B, K-major as it lies:
+//     the consumer threads split the stage's pg box once, hi in place and lo
+//     into one of two buffers at the same offset, so the swizzle carries
+//     over); three a k8, one group a k8, A's registers double buffered.
+//   - the softmax keeps each warp's rows in registers (hence N <= 256) and
+//     writes alpha's tf32 halves over s as the weighted sum's B: K-major
+//     blocks of 32 columns, 64 rows x 128 bytes, 128-byte swizzle.
+//   - weighted sum, transposed: out^T = r^T . alpha^T as m64n64k8, M = two
+//     32-column chunks (r's rows are MN-major, so A comes from registers:
+//     4-byte loads of rows t, t + 4 of a column, 16-byte pieces chosen so
+//     that a load's four rows hit 32 banks, split in registers), a
+//     warpgroup a pair of chunks (it keeps the first one's stage until the
+//     second one's has come); the output transposed into the stages' idle pg
+//     boxes and TMA-stored.
+// Past N = 256 (or a stage past the shared memory), the wide design above,
+// FP32 FMA on the CUDA cores. ops/relation.py::relation_plan with 4-byte
+// elements chooses the design and its stages; this entry runs what it is
+// given, and refuses a schedule the design cannot run.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -88,7 +117,8 @@ constexpr int kMaxSplit = 8;        // the portable cluster size
 constexpr int kMinCols = 64;        // columns a split CTA keeps
 constexpr int kDesignElement = 0, kDesignTiled = 1, kDesignWide = 2;
 constexpr int kTileRows = 64;  // tiled design: rows of i a CTA
-constexpr int kChunk = 64;     // columns a stage: one 128-byte swizzled row
+template <typename T>
+constexpr int kChunk = 128 / sizeof(T);  // columns a stage: one 128-byte swizzled row
 constexpr int kBoxRows = 256;  // rows of a TMA box
 constexpr int kMaxStages = 4;
 constexpr int kTW = 16;            // the tiled design's consumer warps (one more produces)
@@ -97,6 +127,8 @@ constexpr int kPairsPerPass = 16;  // tiled scores: pairs of 8-column tiles of s
 constexpr int kPairsPerWarp = kPairsPerPass / kTQ;
 static_assert(kTW / kTQ == kTileRows / 16, "a quarter's warps cover a tile's rows");
 constexpr int kRowRegs = 8;        // tiled softmax: a row's values a lane keeps, up to N = 256
+constexpr int kMaxF32N = 32 * kRowRegs;  // float32's tiled design: its softmax rows in registers
+constexpr int kBlock = kTileRows * 128;  // float32: one K block of alpha's halves (32 columns)
 
 __host__ __device__ constexpr int ceil_div(int a, int b) { return (a + b - 1) / b; }
 __host__ __device__ constexpr int round_up(int x, int m) { return ceil_div(x, m) * m; }
@@ -138,28 +170,40 @@ __host__ __device__ inline Shape shape_of(int N, int D, int split) {
 
 // tiled design: r's boxes a stage (nbox of rb rows, rb % 8 == 0 so every box
 // starts on 1 KB and row j of the stage's r is at j * 128 with swizzle j & 7),
-// nj = N rounded up to 16, the row stride sr (bytes) of s / alpha; the bytes
-// of pg's box and of a stage. Shared memory: 1 KB of alignment slack, the
-// ring, s [64, sr], the barriers (full, empty)
+// nj = N rounded up to 16, the row stride sr (bytes) of s / alpha (bf16:
+// 4 nj + 32, for 8-byte loads of packed words; float32: 4 nj + 16, for
+// ldmatrix); the bytes of pg's box and of a stage (128-byte rows in either
+// type: 64 bf16 or 32 float32 columns). Shared memory: 1 KB of alignment
+// slack, the ring, s [64, sr], the barriers (full, empty)
 struct TiledShape {
-  int nbox, rb, nj, sr;
-  size_t pg_box, stage;
+  int nbox, rb, nj, sr, nblk;
+  size_t pg_box, stage, lo, region;
 };
 
-__host__ __device__ inline TiledShape tiled_shape(int N) {
+__host__ __device__ inline TiledShape tiled_shape(int N, int elem) {
   TiledShape t;
   t.nbox = ceil_div(N, kBoxRows);
   t.rb = round_up(ceil_div(N, t.nbox), 8);
   t.nj = round_up(N, 16);
-  t.sr = 4 * t.nj + 32;
-  t.pg_box = static_cast<size_t>(kTileRows) * kChunk * 2;
-  t.stage = t.pg_box + static_cast<size_t>(t.nbox) * t.rb * kChunk * 2;
+  t.sr = 4 * t.nj + (elem == 2 ? 32 : 16);
+  t.pg_box = static_cast<size_t>(kTileRows) * 128;
+  t.stage = t.pg_box + static_cast<size_t>(t.nbox) * t.rb * 128;
+  // float32: two buffers of the lo half of a stage's pg (the scores' wgmma
+  // B); after the scores, the same region holds alpha's tf32 halves as the
+  // weighted sum's wgmma B: nblk K blocks of 32 columns each, hi then lo
+  t.nblk = ceil_div(t.nj, 32);
+  t.lo = elem == 2 ? 0 : 2 * t.pg_box;
+  const size_t scores = t.lo + static_cast<size_t>(kTileRows) * t.sr;
+  const size_t alpha = elem == 2 ? 0 : 2 * static_cast<size_t>(t.nblk) * kBlock;
+  t.region = scores > alpha ? scores : alpha;
   return t;
 }
 
-size_t tiled_smem(int N, int stages) {
-  const TiledShape t = tiled_shape(N);
-  return 1024 + stages * t.stage + static_cast<size_t>(kTileRows) * t.sr + 16 * stages;
+// the ring, then the region (bf16: s; float32: the lo halves and s, then
+// alpha's halves), the barriers
+size_t tiled_smem(int N, int stages, int elem) {
+  const TiledShape t = tiled_shape(N, elem);
+  return 1024 + stages * t.stage + t.region + 16 * stages;
 }
 
 // ------------------------------------------------------------- primitives
@@ -315,6 +359,30 @@ __device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// x as tf32: to nearest, ties away from zero (ops/_tf32.py::tf32_round)
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  uint32_t y;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(y) : "f"(x));
+  return y;
+}
+
+// the float32 bits x as hi = tf32(x) and lo = tf32(x - hi)
+__device__ __forceinline__ void split_tf32(uint32_t x, uint32_t& hi, uint32_t& lo) {
+  hi = to_tf32(__uint_as_float(x));
+  lo = to_tf32(__uint_as_float(x) - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void split_f32(float x, float& hi, float& lo) {
+  hi = __uint_as_float(to_tf32(x));
+  lo = __uint_as_float(to_tf32(x - hi));
+}
+
+__device__ __forceinline__ uint32_t lds_u32(unsigned addr) {
+  uint32_t v;
+  asm volatile("ld.shared.b32 %0, [%1];\n" : "=r"(v) : "r"(addr));
+  return v;
+}
+
 // alpha as two bf16 halves in one word: hi = bf16(a) low, lo = bf16(a - hi) high
 __device__ __forceinline__ uint32_t pack_alpha(float a) {
   const bf16 hi = __float2bfloat16(a);
@@ -338,11 +406,22 @@ __device__ __forceinline__ void alpha_frag(const unsigned char* a, int stride, i
   }
 }
 
-// out[i, d], out[i, d + 1] from fp32 by plain stores (the paths whose rows
-// are not on 16 bytes), the second where it exists
-__device__ __forceinline__ void store_pair(bf16* p, float x, float y, bool second) {
-  p[0] = __float2bfloat16(x);
-  if (second) p[1] = __float2bfloat16(y);
+// the element types' conversions from and to fp32; out[i, d], out[i, d + 1]
+// from fp32 by plain stores (the paths whose rows are not on 16 bytes), the
+// second where it exists
+__device__ __forceinline__ float to_float(bf16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_float(float x) { return x; }
+template <typename T>
+__device__ __forceinline__ T from_float(float x);
+template <>
+__device__ __forceinline__ bf16 from_float<bf16>(float x) { return __float2bfloat16(x); }
+template <>
+__device__ __forceinline__ float from_float<float>(float x) { return x; }
+
+template <typename T>
+__device__ __forceinline__ void store_pair(T* p, float x, float y, bool second) {
+  p[0] = from_float<T>(x);
+  if (second) p[1] = from_float<T>(y);
 }
 
 // ------------------------------------------------------- element design
@@ -576,9 +655,10 @@ relation_element_kernel(const bf16* __restrict__ pg, const bf16* __restrict__ r,
 
 // --------------------------------------------------------- tiled design
 
-// one 64-column chunk of the scores: this warp's 16 rows (mt) against its
-// pairs of 8-column tiles (p0, p0 + 4, ...; up to 4 of them), from the stage
-// `st` (pg's 64 x 64 box, then r's rows at j * 128, both 128-byte swizzled)
+// bf16: one 64-column chunk of the scores: this warp's 16 rows (mt)
+// against its pairs of 8-column tiles (p0, p0 + 4, ...; up to 4 of them),
+// from the stage `st` (pg's 64 x 64 box, then r's rows at j * 128, both
+// 128-byte swizzled)
 __device__ __forceinline__ void score_chunk(const unsigned char* st, const TiledShape& sh, int mt,
                                             int p0, int pairs, int N, int lane,
                                             float (&acc)[kPairsPerWarp][2][4]) {
@@ -586,7 +666,7 @@ __device__ __forceinline__ void score_chunk(const unsigned char* st, const Tiled
   const unsigned a_base = smem_addr(st) + arow * 128;
   const unsigned r_base = smem_addr(st + sh.pg_box);
 #pragma unroll
-  for (int ks = 0; ks < kChunk / 16; ++ks) {
+  for (int ks = 0; ks < 4; ++ks) {
     uint32_t a[4];
     ldsm_x4(a, a_base + (((2 * ks + lane / 16) ^ (arow & 7)) << 4));
 #pragma unroll
@@ -603,45 +683,170 @@ __device__ __forceinline__ void score_chunk(const unsigned char* st, const Tiled
   }
 }
 
+// float32: a stage's pg box split into tf32 halves by the consumer threads
+// (a 16-byte piece each), hi in place and lo at the same offset of `lo` (so
+// the 128-byte swizzle, a function of the address within 1 KB, carries over)
+__device__ __forceinline__ void split_pg(unsigned char* st, unsigned char* lo, int tid) {
+  static_assert(kTileRows * 128 / 16 == 32 * kTW, "a piece a consumer thread");
+  float4* p = reinterpret_cast<float4*>(st) + tid;
+  const float4 v = *p;
+  float4 h, l;
+  split_f32(v.x, h.x, l.x);
+  split_f32(v.y, h.y, l.y);
+  split_f32(v.z, h.z, l.z);
+  split_f32(v.w, h.w, l.w);
+  *p = h;
+  reinterpret_cast<float4*>(lo)[tid] = l;
+}
+
+// Shared-memory descriptor, K-major with the 128-byte swizzle (LBO unused,
+// SBO = 1024: eight 128-byte rows), as csrc/lstm.cu's probes settled it
+__device__ __forceinline__ uint64_t smem_desc(const void* p) {
+  const uint64_t a = smem_addr(p);
+  return ((a >> 4) & 0x3FFF) | (static_cast<uint64_t>(16 >> 4) << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
 // the producer warp's plain copy of one stage (no TMA: D % 8 != 0 or a
 // pointer off 16 bytes), zero past N and D, in TMA's 128-byte swizzle
+template <typename T>
 __device__ __forceinline__ void copy_chunk_plain(unsigned char* st, const TiledShape& sh,
-                                                 const bf16* pgb, const bf16* rb, int i0, int col0,
+                                                 const T* pgb, const T* rb, int i0, int col0,
                                                  bool scores, int N, int D, int lane) {
-  auto put = [&](unsigned char* box, int row, int cc, bf16 v) {
-    *reinterpret_cast<bf16*>(box + row * 128 + (((cc / 8) ^ (row & 7)) << 4) + (cc % 8) * 2) = v;
+  constexpr int kC = kChunk<T>, kPer = 16 / sizeof(T);  // columns a stage, a 16-byte piece
+  auto put = [&](unsigned char* box, int row, int cc, T v) {
+    *reinterpret_cast<T*>(box + row * 128 + (((cc / kPer) ^ (row & 7)) << 4) +
+                          (cc % kPer) * sizeof(T)) = v;
   };
-  const bf16 zero = __float2bfloat16(0.f);
+  const T zero = from_float<T>(0.f);
   if (scores) {
-    for (int x = lane; x < kTileRows * kChunk; x += 32) {
-      const int row = x / kChunk, cc = x % kChunk, i = i0 + row, col = col0 + cc;
+    for (int x = lane; x < kTileRows * kC; x += 32) {
+      const int row = x / kC, cc = x % kC, i = i0 + row, col = col0 + cc;
       put(st, row, cc, i < N && col < D ? pgb[static_cast<int64_t>(i) * D + col] : zero);
     }
   }
-  for (int x = lane; x < sh.nbox * sh.rb * kChunk; x += 32) {
-    const int j = x / kChunk, cc = x % kChunk, col = col0 + cc;
+  for (int x = lane; x < sh.nbox * sh.rb * kC; x += 32) {
+    const int j = x / kC, cc = x % kC, col = col0 + cc;
     put(st + sh.pg_box, j, cc, j < N && col < D ? rb[static_cast<int64_t>(j) * D + col] : zero);
   }
 }
 
-template <bool kVec>
+// d += A (64x8, registers) * B (8x64, K-major), tf32 in, fp32 accumulate;
+// A's fragment as mma.sync m16n8k8's for each warp's 16 rows (lane 4 g + t:
+// rows g, g + 8 at column t, then at column t + 4)
+__device__ __forceinline__ void wgmma_64x64_tf32_rs(float (&d)[32], const uint32_t (&a)[4],
+                                                    uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db));
+}
+
+// registers that an in-flight wgmma reads or writes, kept in place until here
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[4]) {
+  asm volatile("" : "+r"(r[0]), "+r"(r[1]), "+r"(r[2]), "+r"(r[3])::"memory");
+}
+
+__device__ __forceinline__ void fence_acc(float (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// float32's weighted sum of two 32-column chunks, transposed: out^T[d, i] =
+// sum_j r[j, d] alpha[i, j] as wgmma m64n64k8 (M = the two chunks' columns,
+// N = the tile's 64 rows), three a k8 (lo.hi, hi.lo, hi.hi). B is alpha's
+// halves (K-major blocks written by the softmax); A is r's, from registers:
+// each warp reads rows t, t + 4 of the k8 of its chunk (warps 0, 1 the first,
+// 2, 3 the second; none: zeros) by 4-byte loads and splits them, row m = 16
+// w + g + 8 h of the warp's 16 being its chunk's column 4 (2 (w % 2) + h + 4
+// (g / 4)) + g % 4, so that a load's four rows hit 32 banks. Two k8 a
+// group, A's registers double buffered: a group's loads and split overlap
+// the last group's wgmma.
+__device__ __forceinline__ void weighted_chunk_f32(const unsigned char* alpha_hi,
+                                                   const unsigned char* alpha_lo, int nk8,
+                                                   unsigned r_base, bool has, int N, int half,
+                                                   int lane, float (&acc)[32]) {
+  const int g = lane / 4, t = lane % 4;
+  const int p0 = 2 * half + 4 * (g / 4), p1 = p0 + 1;  // the 16-byte pieces of rows g, g + 8
+  const unsigned col = (g % 4) * 4;
+  uint32_t ah[2][2][4], al[2][2][4];
+  // k8 steps kt and kt + 1 (nk8 is even) in one group
+  auto step = [&](int kt, uint32_t (&h)[2][4], uint32_t (&l)[2][4]) {
+    asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");  // the group before last
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      fence_regs(h[q]);
+      fence_regs(l[q]);
+      uint32_t a[4] = {0u, 0u, 0u, 0u};
+      if (has) {
+        // rows past N (alpha 0 there) clamped to N - 1: the box may end before nj
+        const int j0 = min((kt + q) * 8 + t, N - 1), j1 = min((kt + q) * 8 + 4 + t, N - 1);
+        a[0] = lds_u32(r_base + j0 * 128 + ((p0 ^ (j0 & 7)) << 4) + col);
+        a[1] = lds_u32(r_base + j0 * 128 + ((p1 ^ (j0 & 7)) << 4) + col);
+        a[2] = lds_u32(r_base + j1 * 128 + ((p0 ^ (j1 & 7)) << 4) + col);
+        a[3] = lds_u32(r_base + j1 * 128 + ((p1 ^ (j1 & 7)) << 4) + col);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) split_tf32(a[e], h[q][e], l[q][e]);
+    }
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      const int blk = ((kt + q) / 4) * kBlock + ((kt + q) % 4) * 32;
+      wgmma_64x64_tf32_rs(acc, l[q], smem_desc(alpha_hi + blk));
+      wgmma_64x64_tf32_rs(acc, h[q], smem_desc(alpha_lo + blk));
+      wgmma_64x64_tf32_rs(acc, h[q], smem_desc(alpha_hi + blk));
+    }
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+  };
+  for (int kt = 0; kt < nk8; kt += 4) {
+    step(kt, ah[0], al[0]);
+    if (kt + 2 < nk8) step(kt + 2, ah[1], al[1]);
+  }
+  wgmma_wait_all();
+#pragma unroll
+  for (int q = 0; q < 2; ++q) {
+    fence_regs(ah[0][q]);
+    fence_regs(al[0][q]);
+    fence_regs(ah[1][q]);
+    fence_regs(al[1][q]);
+  }
+  fence_acc(acc);
+}
+
+template <typename T, bool kVec>
 __global__ void __launch_bounds__(32 * kTW + 32, 1)
 relation_tiled_kernel(const __grid_constant__ CUtensorMap pg_map,
                       const __grid_constant__ CUtensorMap r_map,
-                      const __grid_constant__ CUtensorMap out_map, const bf16* __restrict__ pg,
-                      const bf16* __restrict__ r, bf16* __restrict__ out, int N, int D,
-                      int stages) {
+                      const __grid_constant__ CUtensorMap out_map, const T* __restrict__ pg,
+                      const T* __restrict__ r, T* __restrict__ out, int N, int D, int stages) {
+  constexpr bool kF32 = sizeof(T) == 4;
+  constexpr int kC = kChunk<T>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const TiledShape sh = tiled_shape(N);
+  const TiledShape sh = tiled_shape(N, sizeof(T));
   unsigned char* ring = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
-  unsigned char* s_base = ring + stages * sh.stage;
-  uint64_t* full = reinterpret_cast<uint64_t*>(s_base + static_cast<size_t>(kTileRows) * sh.sr);
+  unsigned char* lo_base = ring + stages * sh.stage;  // float32: the lo halves, then alpha's
+  unsigned char* s_base = lo_base + sh.lo;
+  unsigned char* alpha_lo = lo_base + static_cast<size_t>(sh.nblk) * kBlock;
+  uint64_t* full = reinterpret_cast<uint64_t*>(lo_base + sh.region);
   uint64_t* empty = full + stages;
   const int n_tiles = ceil_div(N, kTileRows);
   const int64_t b = blockIdx.x / n_tiles;
   const int i0 = (blockIdx.x % n_tiles) * kTileRows;
   const int rows = min(kTileRows, N - i0);
-  const int kc = ceil_div(D, kChunk);          // chunks of D
+  const int kc = ceil_div(D, kC);              // chunks of D
   const int pairs = sh.nj / 16;                // pairs of 8-column tiles of s
   const int passes = ceil_div(pairs, kPairsPerPass);
   const int n_chunks = (passes + 1) * kc;      // the scores' passes, then the weighted sum
@@ -662,7 +867,7 @@ relation_tiled_kernel(const __grid_constant__ CUtensorMap pg_map,
       if (c >= stages) mbar_wait(empty + s, ((c / stages) - 1) & 1);
       unsigned char* st = ring + s * sh.stage;
       const bool scores = c < passes * kc;
-      const int col0 = (scores ? c % kc : c - passes * kc) * kChunk;
+      const int col0 = (scores ? c % kc : c - passes * kc) * kC;
       if (kVec) {
         if (lane == 0) {
           const unsigned stage_tx =
@@ -670,8 +875,8 @@ relation_tiled_kernel(const __grid_constant__ CUtensorMap pg_map,
           mbar_expect_tx(full + s, stage_tx);
           if (scores) tma_2d(st, &pg_map, full + s, col0, static_cast<int>(b * N + i0));
           for (int q = 0; q < sh.nbox; ++q) {
-            tma_2d(st + sh.pg_box + static_cast<size_t>(q) * sh.rb * kChunk * 2, &r_map, full + s,
-                   col0, static_cast<int>(b * N + q * sh.rb));
+            tma_2d(st + sh.pg_box + static_cast<size_t>(q) * sh.rb * 128, &r_map, full + s, col0,
+                   static_cast<int>(b * N + q * sh.rb));
           }
         }
       } else {
@@ -684,33 +889,97 @@ relation_tiled_kernel(const __grid_constant__ CUtensorMap pg_map,
     return;
   }
 
-  // the scores: warp w owns rows (w % 4) * 16.. and, in each pass, the pairs
-  // of 8-column tiles of s p = pass * 16 + w / 4 + 4 x, kept in registers
-  // over the pass's chunks, then stored to s (fp32)
+  // the scores. bf16: warp w owns rows (w % 4) * 16.. and, in each pass, the
+  // pairs of 8-column tiles of s p = pass * 16 + w / 4 + 4 x, kept in
+  // registers over the pass's chunks, then stored to s (fp32). float32: each chunk is split into tf32 halves in shared
+  // memory by all consumer warps (split_stage), then warpgroup q = w / 4
+  // runs columns pass * 256 + 64 q.. of s over the tile's 64 rows as
+  // wgmma m64n64k8, three a k8 (lo.hi, hi.lo, hi.hi); the lo buffers are
+  // rewritten only once the last chunk's wgmma have retired
   const int g = lane / 4, t = lane % 4;
   const int mt = warp % 4, quarter = warp / 4;
   int c = 0;
   for (int pass = 0; pass < passes; ++pass) {
-    float acc[kPairsPerWarp][2][4] = {};
-    const int p0 = pass * kPairsPerPass + quarter;
-    for (int k = 0; k < kc; ++k, ++c) {
-      const int s = c % stages;
-      mbar_wait(full + s, (c / stages) & 1);
-      score_chunk(ring + s * sh.stage, sh, mt, p0, pairs, N, lane, acc);
-      __syncwarp();
-      if (lane == 0) mbar_arrive(empty + s);
-    }
+    if constexpr (kF32) {
+      float d[32] = {};
+      const int j0 = pass * kPairsPerPass * 16 + quarter * 64;
+      const bool wg_busy = j0 < sh.nj;  // uniform across the warpgroup
+      const int jrow = min(j0 + mt * 16 + lane % 16, N - 1);  // this lane's ldmatrix row of r
+      uint32_t ah[2][4], al[2][4];
+      int prev = -1;
+      for (int k = 0; k < kc; ++k, ++c) {
+        const int s = c % stages;
+        unsigned char* st = ring + s * sh.stage;
+        unsigned char* lo = lo_base + (c & 1) * sh.pg_box;
+        mbar_wait(full + s, (c / stages) & 1);
+        consumers_sync();  // the groups that read lo (chunk c - 2) have retired in every warpgroup
+        split_pg(st, lo, tid);
+        fence_async_smem();
+        consumers_sync();
+        if (wg_busy) {
+          const unsigned r_row = smem_addr(st + sh.pg_box) + jrow * 128;
 #pragma unroll
-    for (int x = 0; x < kPairsPerWarp; ++x) {
-      const int p = p0 + kTQ * x;
-      if (p < pairs) {
+          for (int kk = 0; kk < 4; ++kk) {  // a k8 a group, A's registers double buffered
+            uint32_t (&h)[4] = ah[kk % 2];
+            uint32_t (&l)[4] = al[kk % 2];
+            asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+            fence_regs(h);
+            fence_regs(l);
+            uint32_t x[4];
+            ldsm_x4(x, r_row + (((2 * kk + lane / 16) ^ (jrow & 7)) << 4));
 #pragma unroll
-        for (int q = 0; q < 2; ++q) {
+            for (int e = 0; e < 4; ++e) split_tf32(x[e], h[e], l[e]);
+            asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+            wgmma_64x64_tf32_rs(d, l, smem_desc(st + kk * 32));
+            wgmma_64x64_tf32_rs(d, h, smem_desc(lo + kk * 32));
+            wgmma_64x64_tf32_rs(d, h, smem_desc(st + kk * 32));
+            asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+          }
+        }
+        // at most the last group is in flight: the last chunk's stage is free
+        if (prev >= 0 && lane == 0) mbar_arrive(empty + prev);
+        prev = s;
+      }
+      wgmma_wait_all();
+      fence_regs(ah[0]);
+      fence_regs(al[0]);
+      fence_regs(ah[1]);
+      fence_regs(al[1]);
+      fence_acc(d);
+      if (lane == 0) mbar_arrive(empty + prev);
+      // d[4 x + e] is s^T[j = j0 + 16 mt + g + 8 (e / 2), i = 8 x + 2 t + e % 2]
+      if (wg_busy) {
 #pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const int i = mt * 16 + g + 8 * h, j = p * 16 + q * 8 + 2 * t;
-            *reinterpret_cast<float2*>(s_base + i * sh.sr + j * 4) =
-                make_float2(acc[x][q][2 * h], acc[x][q][2 * h + 1]);
+        for (int x = 0; x < 8; ++x) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int j = j0 + mt * 16 + g + 8 * (e / 2), i = 8 * x + 2 * t + e % 2;
+            if (j < sh.nj) *reinterpret_cast<float*>(s_base + i * sh.sr + j * 4) = d[4 * x + e];
+          }
+        }
+      }
+    } else {
+      float acc[kPairsPerWarp][2][4] = {};
+      const int p0 = pass * kPairsPerPass + quarter;
+      for (int k = 0; k < kc; ++k, ++c) {
+        const int s = c % stages;
+        mbar_wait(full + s, (c / stages) & 1);
+        score_chunk(ring + s * sh.stage, sh, mt, p0, pairs, N, lane, acc);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty + s);
+      }
+#pragma unroll
+      for (int x = 0; x < kPairsPerWarp; ++x) {
+        const int p = p0 + kTQ * x;
+        if (p < pairs) {
+#pragma unroll
+          for (int q = 0; q < 2; ++q) {
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int i = mt * 16 + g + 8 * h, j = p * 16 + q * 8 + 2 * t;
+              *reinterpret_cast<float2*>(s_base + i * sh.sr + j * 4) =
+                  make_float2(acc[x][q][2 * h], acc[x][q][2 * h + 1]);
+            }
           }
         }
       }
@@ -718,70 +987,174 @@ relation_tiled_kernel(const __grid_constant__ CUtensorMap pg_map,
   }
   consumers_sync();
 
-  // alpha = softmax_j(s / sqrt(D)) in fp32, a warp a row, written in place as
-  // packed words (each lane rewrites only the words it read), zero past N;
-  // a row's values stay in registers up to N = 256
+  // alpha = softmax_j(s / sqrt(D)) in fp32, a warp a row, zero past N. bf16:
+  // written in place as packed words (each lane rewrites only the words it
+  // read); a row's values stay in registers up to N = 256. float32 (N <=
+  // 256): each warp's rows i = w + 16 r into registers; once every warp has
+  // read s, alpha's tf32 halves go over it as the weighted sum's B: block e
+  // (columns 32 e..) of 64 rows x 128 bytes, 128-byte swizzle, hi blocks
+  // then lo blocks (rows past the tile's are zero)
   const float scale = rsqrtf(static_cast<float>(D));
   const float neg_inf = __int_as_float(0xff800000);
-  for (int i = warp; i < rows; i += kTW) {  // softmax
-    float* srow = reinterpret_cast<float*>(s_base + i * sh.sr);
-    uint32_t* arow = reinterpret_cast<uint32_t*>(srow);
-    if (N <= 32 * kRowRegs) {
-      float v[kRowRegs];
-      float mx = neg_inf;
+  if constexpr (kF32) {
+    constexpr int kRows = kTileRows / kTW;
+    float v[kRows][kRowRegs];
+#pragma unroll
+    for (int q = 0; q < kRows; ++q) {
+      const int i = warp + kTW * q;
+      const float* srow = reinterpret_cast<const float*>(s_base + i * sh.sr);
+#pragma unroll
+      for (int e = 0; e < kRowRegs; ++e) v[q][e] = 0.f;
+      if (i < rows) {  // uniform across the warp
+        float mx = neg_inf;
+#pragma unroll
+        for (int e = 0; e < kRowRegs; ++e) {
+          const int j = lane + 32 * e;
+          v[q][e] = j < N ? srow[j] * scale : neg_inf;
+          mx = fmaxf(mx, v[q][e]);
+        }
+        mx = warp_max(mx);
+        float sum = 0.f;
+#pragma unroll
+        for (int e = 0; e < kRowRegs; ++e) {
+          v[q][e] = lane + 32 * e < N ? expf(v[q][e] - mx) : 0.f;
+          sum += v[q][e];
+        }
+        const float inv = 1.f / warp_sum(sum);
+#pragma unroll
+        for (int e = 0; e < kRowRegs; ++e) v[q][e] *= inv;
+      }
+    }
+    consumers_sync();
+#pragma unroll
+    for (int q = 0; q < kRows; ++q) {
+      const int i = warp + kTW * q;
 #pragma unroll
       for (int e = 0; e < kRowRegs; ++e) {
-        const int j = lane + 32 * e;
-        v[e] = j < N ? srow[j] * scale : neg_inf;
-        mx = fmaxf(mx, v[e]);
+        if (e < sh.nblk) {
+          const size_t at = static_cast<size_t>(e) * kBlock + i * 128 +
+                            (((lane / 4) ^ (i & 7)) << 4) + (lane % 4) * 4;
+          float hi, lo;
+          split_f32(v[q][e], hi, lo);
+          *reinterpret_cast<float*>(lo_base + at) = hi;
+          *reinterpret_cast<float*>(alpha_lo + at) = lo;
+        }
       }
-      mx = warp_max(mx);
-      float sum = 0.f;
+    }
+    fence_async_smem();  // read next by wgmma (the async proxy)
+  } else {
+    for (int i = warp; i < rows; i += kTW) {
+      float* srow = reinterpret_cast<float*>(s_base + i * sh.sr);
+      uint32_t* arow = reinterpret_cast<uint32_t*>(srow);
+      if (N <= 32 * kRowRegs) {
+        float v[kRowRegs];
+        float mx = neg_inf;
 #pragma unroll
-      for (int e = 0; e < kRowRegs; ++e) {
-        v[e] = lane + 32 * e < N ? expf(v[e] - mx) : 0.f;
-        sum += v[e];
-      }
-      const float inv = 1.f / warp_sum(sum);
+        for (int e = 0; e < kRowRegs; ++e) {
+          const int j = lane + 32 * e;
+          v[e] = j < N ? srow[j] * scale : neg_inf;
+          mx = fmaxf(mx, v[e]);
+        }
+        mx = warp_max(mx);
+        float sum = 0.f;
 #pragma unroll
-      for (int e = 0; e < kRowRegs; ++e) {
-        const int j = lane + 32 * e;
-        if (j < sh.nj) arow[j] = j < N ? pack_alpha(v[e] * inv) : 0u;
-      }
-    } else {
-      float mx = neg_inf;
-      for (int j = lane; j < N; j += 32) mx = fmaxf(mx, srow[j] * scale);
-      mx = warp_max(mx);
-      float sum = 0.f;
-      for (int j = lane; j < N; j += 32) sum += expf(srow[j] * scale - mx);
-      const float inv = 1.f / warp_sum(sum);
-      for (int j = lane; j < sh.nj; j += 32) {
-        arow[j] = j < N ? pack_alpha(expf(srow[j] * scale - mx) * inv) : 0u;
+        for (int e = 0; e < kRowRegs; ++e) {
+          v[e] = lane + 32 * e < N ? expf(v[e] - mx) : 0.f;
+          sum += v[e];
+        }
+        const float inv = 1.f / warp_sum(sum);
+#pragma unroll
+        for (int e = 0; e < kRowRegs; ++e) {
+          const int j = lane + 32 * e;
+          if (j < sh.nj) arow[j] = j < N ? pack_alpha(v[e] * inv) : 0u;
+        }
+      } else {
+        float mx = neg_inf;
+        for (int j = lane; j < N; j += 32) mx = fmaxf(mx, srow[j] * scale);
+        mx = warp_max(mx);
+        float sum = 0.f;
+        for (int j = lane; j < N; j += 32) sum += expf(srow[j] * scale - mx);
+        const float inv = 1.f / warp_sum(sum);
+        for (int j = lane; j < sh.nj; j += 32) {
+          arow[j] = j < N ? pack_alpha(expf(srow[j] * scale - mx) * inv) : 0u;
+        }
       }
     }
   }
   consumers_sync();
 
-  // out[rows, chunk] = alpha . r[:, chunk], a chunk of 64 columns a stage:
-  // chunk k belongs to the kTQ warps of quarter k % kTQ, warp w computing
-  // rows (w % 4) * 16.. over the chunk's 64 columns (alpha's fragments read
-  // once a chunk, four chunks in flight); per 16 rows of j, both halves of
-  // alpha against one ldmatrix.trans of r for each 16-column pair. Every
-  // warp waits for every chunk and releases it (the ring's count).
+  // out[rows, chunk] = alpha . r[:, chunk], a chunk a stage: chunk k belongs
+  // to the kTQ warps of quarter k % kTQ (four chunks in flight). bf16: warp w
+  // computes rows (w % 4) * 16.. over the chunk's 64 columns, alpha's
+  // fragments read once a chunk, per 16 rows of j both halves of alpha
+  // against one ldmatrix.trans of r for each 16-column pair; float32: the
+  // quarter is a warpgroup, weighted_chunk_f32. Every warp waits for every
+  // chunk and releases it (the ring's count).
   const int kts = sh.nj / 16;
-  bf16* ob = out + (b * N + i0) * D;
+  T* ob = out + (b * N + i0) * D;
   for (int k = 0; k < kc; ++k, ++c) {
     const int s = c % stages;
     mbar_wait(full + s, (c / stages) & 1);
-    if (k % kTQ == quarter) {
-      const unsigned r_base = smem_addr(ring + s * sh.stage + sh.pg_box);
-      float acc[kChunk / 16][2][4] = {};
+    const unsigned r_base = smem_addr(ring + s * sh.stage + sh.pg_box);
+    unsigned char* o_s = ring + s * sh.stage;  // the stage's pg box: unused by the weighted sum
+    if constexpr (kF32) {
+      // chunks 2p and 2p + 1 belong to warpgroup p % kTQ, which keeps the
+      // first one's stage until the second one's has come (a last odd chunk
+      // goes alone)
+      const int owner = (k / 2) % kTQ;
+      const bool last_of_pair = k % 2 == 1 || k == kc - 1;
+      if (owner == quarter && last_of_pair) {
+        const bool two = k % 2 == 1;
+        const int s0 = two ? (c - 1) % stages : s;  // the pair's first chunk's stage
+        const bool has = mt < 2 || two;
+        const int mine = mt < 2 ? s0 : s, kw = mt < 2 && two ? k - 1 : k;
+        unsigned char* w_s = ring + mine * sh.stage;  // this warp's chunk
+        float acc[32] = {};
+        weighted_chunk_f32(lo_base, alpha_lo, sh.nj / 8, smem_addr(w_s + sh.pg_box), has, N,
+                           mt % 2, lane, acc);
+        // acc[4 x + e] is out[i = 8 x + 2 t + e % 2, column of A row m = 16
+        // (mt % 2) + g + 8 (e / 2) of this warp's chunk]
+        if (has) {
+#pragma unroll
+          for (int x = 0; x < 8; ++x) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int i = 8 * x + 2 * t + e % 2;
+              const int piece = 2 * (mt % 2) + e / 2 + 4 * (g / 4), col = 4 * piece + g % 4;
+              if (kVec) {
+                *reinterpret_cast<float*>(w_s + i * 128 + ((piece ^ (i & 7)) << 4) +
+                                          (g % 4) * 4) = acc[4 * x + e];
+              } else if (i < rows && kw * kC + col < D) {
+                ob[static_cast<int64_t>(i) * D + kw * kC + col] = acc[4 * x + e];
+              }
+            }
+          }
+        }
+        if (kVec) {  // a TMA store a chunk (rows past N, columns past D clipped)
+          fence_async_smem();
+          group_sync(quarter);
+          if (mt == 0 && lane == 0) {
+            tma_store_3d(&out_map, ring + s0 * sh.stage, (two ? k - 1 : k) * kC, i0,
+                         static_cast<int>(b));
+            if (two) tma_store_3d(&out_map, o_s, k * kC, i0, static_cast<int>(b));
+            bulk_commit_and_wait_read();
+          }
+        }
+        __syncwarp();
+        if (lane == 0 && two) mbar_arrive(empty + s0);
+      }
+      __syncwarp();
+      if (lane == 0 && !(owner == quarter && !last_of_pair)) mbar_arrive(empty + s);
+      continue;
+    } else if (k % kTQ == quarter) {
+      // acc[x][q] is columns 16 x + 8 q + 2 t (+1)
+      float acc[kC / 16][2][4] = {};
       for (int kt = 0; kt < kts; ++kt) {  // weighted sum
         uint32_t hi[4], lo[4];
         alpha_frag(s_base, sh.sr, mt * 16, kt * 16, lane, hi, lo);
         const int j = min(kt * 16 + lane % 8 + ((lane / 8) % 2) * 8, N - 1);
 #pragma unroll
-        for (int x = 0; x < kChunk / 16; ++x) {
+        for (int x = 0; x < kC / 16; ++x) {
           uint32_t bb[4];
           ldsm_x4_trans(bb, r_base + j * 128 + (((2 * x + lane / 16) ^ (j & 7)) << 4));
           mma_16816(acc[x][0], hi, bb[0], bb[1]);
@@ -791,12 +1164,11 @@ relation_tiled_kernel(const __grid_constant__ CUtensorMap pg_map,
         }
       }
       if (kVec) {
-        // the chunk's output into the stage's pg box (unused by the weighted
-        // sum), 128-byte swizzled, then one TMA store of it by the group
-        // (rows past N and columns past D clipped by the map)
-        unsigned char* o_s = ring + s * sh.stage;
+        // the chunk's output into the stage's pg box, 128-byte swizzled,
+        // then one TMA store of it by the group (rows past N and columns
+        // past D clipped by the map)
 #pragma unroll
-        for (int x = 0; x < kChunk / 16; ++x) {
+        for (int x = 0; x < kC / 16; ++x) {
 #pragma unroll
           for (int q = 0; q < 2; ++q) {
 #pragma unroll
@@ -811,17 +1183,17 @@ relation_tiled_kernel(const __grid_constant__ CUtensorMap pg_map,
         fence_async_smem();
         group_sync(quarter);
         if (mt == 0 && lane == 0) {
-          tma_store_3d(&out_map, o_s, k * kChunk, i0, static_cast<int>(b));
+          tma_store_3d(&out_map, o_s, k * kC, i0, static_cast<int>(b));
           bulk_commit_and_wait_read();
         }
       } else {
 #pragma unroll
-        for (int x = 0; x < kChunk / 16; ++x) {
+        for (int x = 0; x < kC / 16; ++x) {
 #pragma unroll
           for (int q = 0; q < 2; ++q) {
 #pragma unroll
             for (int h = 0; h < 2; ++h) {
-              const int i = mt * 16 + g + 8 * h, d = k * kChunk + x * 16 + q * 8 + 2 * t;
+              const int i = mt * 16 + g + 8 * h, d = k * kC + x * 16 + q * 8 + 2 * t;
               const bool store_ok = i < rows && d < D;
               if (store_ok) {
                 store_pair(ob + static_cast<int64_t>(i) * D + d, acc[x][q][2 * h],
@@ -839,9 +1211,9 @@ relation_tiled_kernel(const __grid_constant__ CUtensorMap pg_map,
 
 // ---------------------------------------------------------- wide design
 
-// The parent's N > 64 kernel, kept for N past what the tiled design's
-// shared memory holds (its s [64, N] and a stage of N rows of r: N > ~570
-// at D=1024): one block per (element, 16 rows of i); the tile's pg rows in
+// The parent's N > 64 kernel, kept for N past what the tiled design takes
+// (bf16: its s [64, N] and a stage of N rows of r, N > ~570; float32: N >
+// 256): one block per (element, 16 rows of i); the tile's pg rows in
 // shared memory; one warp per column j computes that column's 16 scores in
 // fp32 (lanes over D, 16-byte loads of r[j] from L2, a shuffle reduction)
 // into s^T [N, 16]; the softmax a warp a row in place; the weighted sum
@@ -899,14 +1271,6 @@ __device__ __forceinline__ void load4(const float* p, float (&x)[4]) {
   x[3] = a.w;
 }
 
-__device__ __forceinline__ float to_float(bf16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ float to_float(float x) { return x; }
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ bf16 from_float<bf16>(float x) { return __float2bfloat16(x); }
-template <>
-__device__ __forceinline__ float from_float<float>(float x) { return x; }
 
 template <typename T>
 size_t wide_smem(int N, int D) {
@@ -1063,53 +1427,59 @@ cudaError_t encode_fn(EncodeFn* fn) {
   return cudaSuccess;
 }
 
-// [B * N rows, D columns] of bf16 in boxes of `rows` x 64 columns, 128-byte
-// swizzle, zero past either end
+// [B * N rows, D columns] of T in boxes of `rows` x one 128-byte row (64
+// bf16 or 32 float32 columns), 128-byte swizzle, zero past either end
+template <typename T>
 cudaError_t encode_rows(CUtensorMap* map, const void* base, int B, int N, int D, int rows) {
   EncodeFn encode;
   const cudaError_t err = encode_fn(&encode);
   if (err != cudaSuccess) return err;
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(D),
                               static_cast<cuuint64_t>(B) * static_cast<cuuint64_t>(N)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(D) * 2};
-  const cuuint32_t box[2] = {kChunk, static_cast<cuuint32_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(D) * sizeof(T)};
+  const cuuint32_t box[2] = {kChunk<T>, static_cast<cuuint32_t>(rows)};
   const cuuint32_t estr[2] = {1, 1};
-  if (encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims, strides, box,
-             estr, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+  if (encode(map, sizeof(T) == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+             2, const_cast<void*>(base), dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
     return cudaErrorInvalidValue;
   return cudaSuccess;
 }
 
-// [B, N, D] of bf16 in boxes of 64 rows x 64 columns of one element,
+// [B, N, D] of T in boxes of 64 rows x one 128-byte row of one element,
 // 128-byte swizzle: a store clips at the element's last row
+template <typename T>
 cudaError_t encode_out(CUtensorMap* map, void* base, int B, int N, int D) {
   EncodeFn encode;
   const cudaError_t err = encode_fn(&encode);
   if (err != cudaSuccess) return err;
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(N),
                               static_cast<cuuint64_t>(B)};
-  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(D) * 2,
-                                 static_cast<cuuint64_t>(N) * static_cast<cuuint64_t>(D) * 2};
-  const cuuint32_t box[3] = {kChunk, kTileRows, 1};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(D) * sizeof(T),
+                                 static_cast<cuuint64_t>(N) * static_cast<cuuint64_t>(D) *
+                                     sizeof(T)};
+  const cuuint32_t box[3] = {kChunk<T>, kTileRows, 1};
   const cuuint32_t estr[3] = {1, 1, 1};
-  if (encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, base, dims, strides, box, estr,
-             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-             CU_TENSOR_MAP_L2_PROMOTION_NONE, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+  if (encode(map, sizeof(T) == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+             3, base, dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_NONE,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
     return cudaErrorInvalidValue;
   return cudaSuccess;
 }
 
-// what a launch of `design` runs: CTAs, cluster size, threads, shared memory
-// of a CTA; cudaErrorInvalidValue for a schedule the design cannot run
+// what a launch of `design` runs in elements of `elem` bytes: CTAs, cluster
+// size, threads, shared memory of a CTA; cudaErrorInvalidValue for a
+// schedule the design cannot run
 struct Geometry {
   long long ctas, cluster, threads, smem;
 };
 
-cudaError_t geometry(int B, int N, int D, int design, int split, int stages, bool vec,
+cudaError_t geometry(int B, int N, int D, int design, int split, int stages, bool vec, int elem,
                      Geometry* g) {
   if (design == kDesignElement) {
-    if (N > kMaxN || split < 1 || split > kMaxSplit) return cudaErrorInvalidValue;
+    if (elem != 2 || N > kMaxN || split < 1 || split > kMaxSplit) return cudaErrorInvalidValue;
     if (split > 1 && (!vec || D % (16 * split) != 0 || D / split < kMinCols))
       return cudaErrorInvalidValue;
     *g = {static_cast<long long>(B) * split, split, 32 * kEW,
@@ -1117,15 +1487,16 @@ cudaError_t geometry(int B, int N, int D, int design, int split, int stages, boo
     return cudaSuccess;
   }
   if (design == kDesignTiled) {
-    if (stages < 1 || stages > kMaxStages || static_cast<long long>(B) * N >= (1LL << 31))
+    if (stages < 1 || stages > kMaxStages || static_cast<long long>(B) * N >= (1LL << 31) ||
+        (elem == 4 && N > kMaxF32N))
       return cudaErrorInvalidValue;
     *g = {static_cast<long long>(B) * ceil_div(N, kTileRows), 1, 32 * kTW + 32,
-          static_cast<long long>(tiled_smem(N, stages))};
+          static_cast<long long>(tiled_smem(N, stages, elem))};
     return cudaSuccess;
   }
   if (design == kDesignWide) {
     *g = {static_cast<long long>(B) * ceil_div(N, kWideRows), 1, kThreads,
-          static_cast<long long>(wide_smem<bf16>(N, D))};
+          static_cast<long long>(elem == 2 ? wide_smem<bf16>(N, D) : wide_smem<float>(N, D))};
     return cudaSuccess;
   }
   return cudaErrorInvalidValue;
@@ -1138,12 +1509,42 @@ cudaError_t opt_in(Kernel kernel, long long smem) {
                               static_cast<int>(smem));
 }
 
+bool vec_of(const void* pg, const void* r, const void* out, int D) {
+  return D % 8 == 0 && (reinterpret_cast<uintptr_t>(pg) | reinterpret_cast<uintptr_t>(r) |
+                        reinterpret_cast<uintptr_t>(out)) % 16 == 0;
+}
+
+template <typename T>
+cudaError_t launch_tiled(const T* pg, const T* r, T* out, int B, int N, int D, int stages,
+                         bool vec, cudaLaunchConfig_t& cfg) {
+  auto kernel = vec ? relation_tiled_kernel<T, true> : relation_tiled_kernel<T, false>;
+  cudaError_t err = opt_in(kernel, static_cast<long long>(cfg.dynamicSmemBytes));
+  if (err != cudaSuccess) return err;
+  CUtensorMap pg_map = {}, r_map = {}, out_map = {};  // unused by the plain copies
+  if (vec) {
+    const TiledShape sh = tiled_shape(N, sizeof(T));
+    err = encode_rows<T>(&pg_map, pg, B, N, D, kTileRows);
+    if (err == cudaSuccess) err = encode_rows<T>(&r_map, r, B, N, D, sh.rb);
+    if (err == cudaSuccess) err = encode_out<T>(&out_map, out, B, N, D);
+    if (err != cudaSuccess) return err;
+  }
+  return cudaLaunchKernelEx(&cfg, kernel, pg_map, r_map, out_map, pg, r, out, N, D, stages);
+}
+
+template <typename T>
+cudaError_t launch_wide(const T* pg, const T* r, T* out, int N, int D, bool vec,
+                        cudaLaunchConfig_t& cfg) {
+  auto kernel = vec ? relation_wide_kernel<T, true> : relation_wide_kernel<T, false>;
+  const cudaError_t err = opt_in(kernel, static_cast<long long>(cfg.dynamicSmemBytes));
+  if (err != cudaSuccess) return err;
+  return cudaLaunchKernelEx(&cfg, kernel, pg, r, out, N, D);
+}
+
 int launch(const void* pg, const void* r, void* out, int B, int N, int D, int design, int split,
            int stages, cudaStream_t s) {
-  const bool vec = D % 8 == 0 && (reinterpret_cast<uintptr_t>(pg) | reinterpret_cast<uintptr_t>(r) |
-                                  reinterpret_cast<uintptr_t>(out)) % 16 == 0;
+  const bool vec = vec_of(pg, r, out, D);
   Geometry geo;
-  cudaError_t err = geometry(B, N, D, design, split, stages, vec, &geo);
+  cudaError_t err = geometry(B, N, D, design, split, stages, vec, 2, &geo);
   if (err != cudaSuccess) return static_cast<int>(err);
   auto* pp = static_cast<const bf16*>(pg);
   auto* rp = static_cast<const bf16*>(r);
@@ -1166,42 +1567,33 @@ int launch(const void* pg, const void* r, void* out, int B, int N, int D, int de
     cfg.numAttrs = split > 1 ? 1 : 0;
     err = cudaLaunchKernelEx(&cfg, kernel, pp, rp, op, N, D, split);
   } else if (design == kDesignWide) {
-    auto kernel = vec ? relation_wide_kernel<bf16, true> : relation_wide_kernel<bf16, false>;
-    err = opt_in(kernel, geo.smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    err = cudaLaunchKernelEx(&cfg, kernel, pp, rp, op, N, D);
+    err = launch_wide(pp, rp, op, N, D, vec, cfg);
   } else {
-    auto kernel = vec ? relation_tiled_kernel<true> : relation_tiled_kernel<false>;
-    err = opt_in(kernel, geo.smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    CUtensorMap pg_map = {}, r_map = {}, out_map = {};  // unused by the plain copies
-    if (vec) {
-      const TiledShape sh = tiled_shape(N);
-      err = encode_rows(&pg_map, pg, B, N, D, kTileRows);
-      if (err == cudaSuccess) err = encode_rows(&r_map, r, B, N, D, sh.rb);
-      if (err == cudaSuccess) err = encode_out(&out_map, out, B, N, D);
-      if (err != cudaSuccess) return static_cast<int>(err);
-    }
-    err = cudaLaunchKernelEx(&cfg, kernel, pg_map, r_map, out_map, pp, rp, op, N, D, stages);
+    err = launch_tiled(pp, rp, op, B, N, D, stages, vec, cfg);
   }
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
-// the float32 entry: the wide design on float32 operands, one block an
-// element and 16 rows
-int launch_f32(const void* pg, const void* r, void* out, int B, int N, int D, cudaStream_t s) {
-  const bool vec = D % 8 == 0 && (reinterpret_cast<uintptr_t>(pg) | reinterpret_cast<uintptr_t>(r) |
-                                  reinterpret_cast<uintptr_t>(out)) % 16 == 0;
-  const long long ctas = static_cast<long long>(B) * ceil_div(N, kWideRows);
-  const size_t smem = wide_smem<float>(N, D);
-  auto kernel = vec ? relation_wide_kernel<float, true> : relation_wide_kernel<float, false>;
-  cudaError_t err = opt_in(kernel, static_cast<long long>(smem));
+// the float32 entry: the tiled or the wide design on float32 operands
+int launch_f32(const void* pg, const void* r, void* out, int B, int N, int D, int design,
+               int stages, cudaStream_t s) {
+  const bool vec = vec_of(pg, r, out, D);
+  Geometry geo;
+  cudaError_t err = geometry(B, N, D, design, 1, stages, vec, 4, &geo);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (ctas >= (1LL << 31)) return static_cast<int>(cudaErrorInvalidValue);
-  kernel<<<static_cast<unsigned>(ctas), kThreads, smem, s>>>(
-      static_cast<const float*>(pg), static_cast<const float*>(r), static_cast<float*>(out), N,
-      D);
+  if (geo.ctas >= (1LL << 31)) return static_cast<int>(cudaErrorInvalidValue);
+  auto* pp = static_cast<const float*>(pg);
+  auto* rp = static_cast<const float*>(r);
+  auto* op = static_cast<float*>(out);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(geo.ctas));
+  cfg.blockDim = dim3(static_cast<unsigned>(geo.threads));
+  cfg.dynamicSmemBytes = static_cast<size_t>(geo.smem);
+  cfg.stream = s;
+  err = design == kDesignTiled ? launch_tiled(pp, rp, op, B, N, D, stages, vec, cfg)
+                               : launch_wide(pp, rp, op, N, D, vec, cfg);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1217,23 +1609,25 @@ extern "C" int vqa_relation_attend(const void* pg, const void* r, void* out, int
   return launch(pg, r, out, B, N, D, design, split, stages, static_cast<cudaStream_t>(stream));
 }
 
-// relation_attend in float32 (pg, r and out float32) on `stream`: the wide
-// design, one block an element and 16 rows, 16 D + 64 N bytes of shared
-// memory (ops/relation.py::relation_plan with 4-byte elements). Returns the
-// launch's cudaError_t, or 0.
+// relation_attend in float32 (pg, r and out float32) on `stream`: `design`
+// 1 (tiled: both products in 3xTF32, N <= 256) with `stages` ring stages,
+// or 2 (wide: FP32 FMA), as ops/relation.py::relation_plan with 4-byte
+// elements gives them. Returns the launch's cudaError_t, or 0.
 extern "C" int vqa_relation_attend_f32(const void* pg, const void* r, void* out, int B, int N,
-                                       int D, void* stream) {
+                                       int D, int design, int stages, void* stream) {
   if (B <= 0 || N <= 0 || D <= 0) return 0;
-  return launch_f32(pg, r, out, B, N, D, static_cast<cudaStream_t>(stream));
+  return launch_f32(pg, r, out, B, N, D, design, stages, static_cast<cudaStream_t>(stream));
 }
 
-// What vqa_relation_attend launches for this schedule (its own reckoning):
-// geometry[0] the CTAs, [1] the cluster size, [2] the threads of a CTA, [3]
-// its shared memory. Returns a cudaError_t.
+// What vqa_relation_attend (`elem` 2) or vqa_relation_attend_f32 (`elem` 4)
+// launches for this schedule (its own reckoning): geometry[0] the CTAs, [1]
+// the cluster size, [2] the threads of a CTA, [3] its shared memory. Returns
+// a cudaError_t.
 extern "C" int vqa_relation_geometry(int B, int N, int D, int design, int split, int stages,
-                                     int vec, long long* geometry_out) {
+                                     int vec, int elem, long long* geometry_out) {
+  if (elem != 2 && elem != 4) return static_cast<int>(cudaErrorInvalidValue);
   Geometry geo;
-  const cudaError_t err = geometry(B, N, D, design, split, stages, vec != 0, &geo);
+  const cudaError_t err = geometry(B, N, D, design, split, stages, vec != 0, elem, &geo);
   if (err != cudaSuccess) return static_cast<int>(err);
   geometry_out[0] = geo.ctas;
   geometry_out[1] = geo.cluster;

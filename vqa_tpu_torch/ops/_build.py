@@ -54,8 +54,8 @@ _SIGNATURES = {
     "vqa_mfb_pool": [_PTR, _PTR, _I64, _INT, _INT, _PTR],
     "vqa_mfb_pool_f32": [_PTR, _PTR, _I64, _INT, _INT, _PTR],
     "vqa_relation_attend": [_PTR, _PTR, _PTR, *[_INT] * 6, _PTR],
-    "vqa_relation_attend_f32": [_PTR, _PTR, _PTR, *[_INT] * 3, _PTR],
-    "vqa_relation_geometry": [*[_INT] * 7, _PTR],
+    "vqa_relation_attend_f32": [_PTR, _PTR, _PTR, *[_INT] * 5, _PTR],
+    "vqa_relation_geometry": [*[_INT] * 8, _PTR],
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -12,9 +12,9 @@ The forward is the registered op ``torch.ops.vqa_tpu_torch.lstm_seq``: on
 CUDA tensors it launches a hand-written kernel, one persistent launch for
 all T steps: ``csrc/lstm.cu`` for bf16 (wgmma, tiles chosen by
 ``lstm_plan``; h and c rounded to bf16 between steps) or ``csrc/lstm_f32.cu``
-for float32 (FP32 FMA, h and c float32 between steps, as the Pallas
-kernel's scratch takes xg's dtype); on CPU tensors it takes the plain
-version. Where grads
+for float32 (the same persistent design with its products in 3xTF32 on the
+tensor cores, h and c float32 between steps, as the Pallas kernel's scratch
+takes xg's dtype); on CPU tensors it takes the plain version. Where grads
 are asked for, the call is a ``torch.autograd.Function`` whose backward is
 plain PyTorch, as the JAX package's vjps are jnp:
 
@@ -54,35 +54,58 @@ _STAGES = {2: 4, 1: 5}  # by warpgroups, as csrc/lstm.cu instantiates them
 _BK = 64     # K tile
 _UNITS = 64  # hidden units a tile (x 4 gates = 256 columns)
 _MAX_SPLIT = 3  # clusters sharing a tail tile
-# csrc/lstm_f32.cu's tile (128 rows x 32 units of the four gates, K tiles of
-# 16, double-buffered) and the CTAs an SM holds of it
-_F32_BM, _F32_UNITS, _F32_BK, _F32_PER_SM = 128, 32, 16, 2
+# csrc/lstm_f32.cu's constants: K a stage (one 128-byte row of float32), and
+# the ring's stages by class
+_F32_BK = 32
+_F32_STAGES = {2: 2, 1: 3}
 
 
 def _f32_plan(B: int, H: int) -> dict:
-    """csrc/lstm_f32.cu's reckoning: tiles of 128 rows x 32 units (128
-    product columns), two CTAs an SM, the grid the tiles or the co-resident
-    CTAs, the fewer."""
-    tiles = math.ceil(B / _F32_BM) * math.ceil(H / _F32_UNITS)
+    """csrc/lstm_f32.cu's reckoning, the class chosen as bf16's: wg=2
+    (B=1024, H=2400) the bf16 tiles (128 rows x 64 units of all four gates,
+    CTA pairs multicasting wh^T), two stages; wg=1 64-row tiles (each of
+    its two warpgroups 32 units), three stages, each stage's products added
+    into fp32 registers. The tensor cores' own fp32 accumulation truncates,
+    and wg=2 has no registers for a fresh sum: its sum stays in them over
+    all of K, so its numerics are weaker (about 20x wg=1's error at K =
+    2400). wg=2 runs where bf16's class does: H=2400 at B >= 769, H=1024 at
+    B >= 1793, in eval and in training alike. A stage is K = 32: h's tile
+    (split in registers) and wh^T's hi and lo strips. Also the scratch ahead
+    of the tail's partial products: h's ping-pong and wh^T's halves."""
+    plan = _bf16_plan(B, H)
+    wg, hp = plan["wg"], plan["hp"]
+    n_u = math.ceil(H / _UNITS)
+    bm = 64 * wg
+    tiles = math.ceil(math.ceil(B / bm) / wg) * wg * n_u
+    clusters = min(tiles, SMS) // wg
+    rounds, rem = divmod(tiles // wg, clusters)
+    split = min(clusters // rem, _MAX_SPLIT, math.ceil(H / _F32_BK)) if rounds and rem else 1
+    stages = _F32_STAGES[wg]
+    stage_bytes = bm * _F32_BK * 4 + 2 * 4 * _UNITS * _F32_BK * 4
     return {
-        "tiles": tiles, "ctas": min(tiles, _F32_PER_SM * SMS),
-        # h^T's rows padded by 4 floats, and wh's four strips, double-buffered
-        "smem_bytes": 4 * 2 * _F32_BK * (_F32_BM + 4 + 4 * _F32_UNITS),
-        "hp": math.ceil(H / 8) * 8,
-        "design": "float32: persistent, FP32 FMA from shared-memory tiles, grid barrier "
-                  "between steps",
+        "wg": wg, "cluster": wg, "bm": bm, "n": 4 * _UNITS, "stages": stages, "tiles": tiles,
+        "full_rounds": rounds, "tail_tiles": rem, "tail_split": split,
+        "ctas": clusters * wg, "waves": tiles / SMS,
+        # h once (float32), wh^T's two halves
+        "l2_bytes_per_step": 4 * H * B * 4 * H * (1 / (bm * wg) + 2 / (4 * _UNITS)),
+        "smem_per_stage": stage_bytes, "smem_bytes": 1024 + stages * stage_bytes + 128,
+        "hp": hp, "fixed_scratch_bytes": 4 * (2 * B * hp + 8 * hp * hp),
+        "design": f"float32: persistent, 3xTF32 wgmma (A = h split in registers; lo.hi + "
+                  f"hi.lo + hi.hi), wg={wg}, K {_F32_BK} a stage x {stages}, "
+                  + ("a stage's sum added in fp32 registers" if wg == 1 else
+                     "the sum kept in the tensor cores over all of K (weaker numerics: their "
+                     "fp32 accumulation truncates)") + ", grid barrier between steps",
     }
 
 
 def lstm_plan(B: int, H: int, elem: int = 2) -> dict:
     """The plan at batch B and hidden size H for elements of ``elem``
-    bytes: 4 (float32) gives ``csrc/lstm_f32.cu``'s one design (its tiles,
-    CTAs and padded H); 2 (bf16) the class ``csrc/lstm.cu`` runs, chosen
-    by shape alone, with the numbers it was chosen by: the CTAs and waves
-    on 132 SMs (one CTA an SM: its shared memory is over half of it), the
-    operand bytes a step pulls through L2 (h re-read once per column tile,
-    wh once per row tile) and the shared memory a stage. Every tile is
-    64 units x 4 gates (N = 256, one 128-byte swizzle row a gate strip);
+    bytes: the class the kernel runs, chosen by shape alone, with the
+    numbers it was chosen by: the CTAs and waves on 132 SMs (one CTA an SM:
+    its shared memory is over half of it), the operand bytes a step pulls
+    through L2 (h re-read once per column tile, wh once per row tile) and
+    the shared memory a stage. Every tile is 64 units x 4 gates (N = 256,
+    one 128-byte swizzle row a gate strip);
 
     - wg=2: 128-row tiles, when they make at least 1.8 waves (B=1024,
       H=2400: 304 tiles, 2.3 waves), in clusters of two CTAs on
@@ -94,10 +117,14 @@ def lstm_plan(B: int, H: int, elem: int = 2) -> dict:
     wg=2), then the tiles left over: each of those is shared by
     ``tail_split`` clusters over K (B=1024, H=2400: 152 pair-tiles on 66
     pairs, two rounds, then 20 tiles x 3), the partial products summed in a
-    fixed order. The wrapper takes only ``wg`` and ``hp`` from here: the
-    grid, the split and the scratch it launches with come from the kernel's
-    own reckoning on the card (``launch_geometry``); the figures here assume
-    132 SMs.
+    fixed order. 2 (bf16): ``csrc/lstm.cu``, K = 64 a stage, 4 or 5 stages.
+    4 (float32): ``csrc/lstm_f32.cu``, the same class, its products in
+    3xTF32 (``_f32_plan``: wg=1 takes 64-row tiles of two half-width
+    warpgroups). The wrapper takes only ``wg`` and ``hp`` from here
+    (float32: only ``hp``; its kernel reckons its class itself): the grid,
+    the split and the scratch it launches with come from the kernel's own
+    reckoning on the card (``launch_geometry``, ``launch_geometry_f32``);
+    the figures here assume 132 SMs.
 
     Raises ValueError for a shape the kernel cannot describe."""
     if B < 1 or H < 2:
@@ -110,6 +137,10 @@ def lstm_plan(B: int, H: int, elem: int = 2) -> dict:
         return _f32_plan(B, H)
     if elem != 2:
         raise ValueError(f"lstm_seq takes 2-byte (bf16) or 4-byte (float32) elements, got {elem}")
+    return _bf16_plan(B, H)
+
+
+def _bf16_plan(B: int, H: int) -> dict:
     n_u = math.ceil(H / _UNITS)
     wg = 2 if math.ceil(B / 128) * n_u >= 1.8 * SMS else 1
     bm, n = 64 * wg, 4 * _UNITS
@@ -133,7 +164,8 @@ def lstm_plan(B: int, H: int, elem: int = 2) -> dict:
 
 
 _GEOMETRY = ("ctas", "tail_split", "part_bytes", "tiles", "tail_tiles", "smem_bytes")
-_F32_GEOMETRY = ("ctas", "tiles", "smem_bytes")
+_F32_GEOMETRY = ("ctas", "tiles", "smem_bytes", "cluster", "tail_split", "tail_tiles",
+                 "scratch_bytes", "stages")
 
 
 @functools.lru_cache(maxsize=None)
@@ -152,8 +184,10 @@ def launch_geometry(B: int, H: int, wg: int, device_index: int) -> dict:
 @functools.lru_cache(maxsize=None)
 def launch_geometry_f32(B: int, H: int, device_index: int) -> dict:
     """What csrc/lstm_f32.cu launches at this shape on this card, from its
-    occupancy: the CTAs, the tiles a step and the shared memory of a CTA
-    (as ``lstm_plan(..., elem=4)`` names them)."""
+    occupancy: the CTAs, the CTA tiles a step, the shared memory of a CTA,
+    the CTAs a cluster, the clusters sharing each tail tile, the tail
+    tiles, the bytes of scratch and the ring's stages (as
+    ``lstm_plan(..., elem=4)`` names them)."""
     geometry = (ctypes.c_longlong * len(_F32_GEOMETRY))()
     with torch.cuda.device(device_index):
         _build.check(_build.library().vqa_lstm_seq_f32_geometry(B, H, geometry),
@@ -364,14 +398,17 @@ def _lstm_seq_f32(xg: torch.Tensor, mask: torch.Tensor, wh: torch.Tensor):
     wh, gs = gate_strips(wh)
     h_last = torch.empty(B, H, dtype=dt, device=dev)
     seq = torch.empty(T, B, H, dtype=dt, device=dev)
-    # scratch: the ping-pong h of steps 0..T-2 and c, rows padded to 8
-    # units, and the grid barrier's counter
-    hbuf = torch.empty(2, B, plan["hp"], dtype=dt, device=dev)
+    # scratch as the kernel reckons it: h's ping-pong and its tf32 halves,
+    # wh^T's halves and the tail tiles' partial products (one float32
+    # buffer); c, rows padded to 8 units; the grid barrier's and the tail
+    # tiles' counters
+    geometry = launch_geometry_f32(B, H, dev.index or 0)
+    scratch = torch.empty(max(geometry["scratch_bytes"] // 4, 4), dtype=dt, device=dev)
     c = torch.empty(B, plan["hp"], dtype=dt, device=dev)
-    count = torch.empty(1, dtype=torch.int32, device=dev)
+    count = torch.empty(1 + geometry["tail_tiles"], dtype=torch.int32, device=dev)
     err = _build.library().vqa_lstm_seq_f32(
         xg.data_ptr(), mask.data_ptr(), wh.data_ptr(), h_last.data_ptr(), seq.data_ptr(),
-        hbuf.data_ptr(), c.data_ptr(), count.data_ptr(), T, B, H, gs,
+        scratch.data_ptr(), c.data_ptr(), count.data_ptr(), T, B, H, gs,
         _build.current_stream(dev),
     )
     _build.check(err, "lstm_seq")

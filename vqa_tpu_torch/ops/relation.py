@@ -11,8 +11,9 @@ on CUDA tensors it launches the hand-written kernel in
 ``csrc/relation.cu`` with the schedule ``relation_plan`` gives: bf16 in and
 out (fp32 scores and softmax; alpha kept to ~2^-16 through the second
 product as two bf16 halves), or float32 in and out through its float32
-entry (the wide design, everything in fp32, nothing rounded); on CPU
-tensors it takes the plain version.
+entry (the tiled design with both products in 3xTF32 on the tensor cores,
+everything else in fp32, nothing rounded); on CPU tensors it takes the
+plain version.
 
 Where an input asks for grads, the call is a ``torch.autograd.Function``:
 the same forward, and a backward by autograd through
@@ -31,13 +32,14 @@ from vqa_tpu_torch.ops import KERNEL_DTYPES, _build, recompute_grads, register
 
 SMEM_LIMIT = 232_448    # shared memory a Hopper block may opt into
 MAX_N = 64              # the element design: s at most 4 x 16 rows, 8 x 8 columns
+MAX_F32_TILED_N = 256   # float32's tiled design: its softmax keeps a row in registers
 _ELEMENT_N = 48         # its N by default: at N=64 the tiled design measured faster
 # csrc/relation.cu's constants, and the plan's targets
 _MAX_SPLIT = 8          # the portable cluster size
 _MIN_COLS = 64          # columns a split CTA keeps
 _PAIR_BYTES = 115_712   # two CTAs of this (and 1 KB reserved each) fill an SM's 228 KB
 _TILE_ROWS = 64         # rows of i a CTA of the tiled design owns
-_CHUNK = 64             # columns of a tiled stage: one 128-byte swizzled row
+_ROW_BYTES = 128        # a tiled stage's rows: one 128-byte swizzled row (64 bf16, 32 float32)
 _BOX_ROWS = 256         # rows one TMA box may hold
 _MAX_STAGES = 4
 _WIDE_ROWS = 16         # rows of i a block of the wide design owns
@@ -65,13 +67,23 @@ def _element_smem(N: int, D: int, split: int) -> int:
     return 32 + 2 * _round_up(N * (dcp + 8) * 2, 16) + part + np_ * (4 * np_ + 32)
 
 
-def _tiled_smem(N: int, stages: int) -> int:
+def _tiled_smem(N: int, stages: int, elem: int = 2) -> int:
     """csrc/relation.cu's tiled_smem: 1 KB to align the ring; the ring (each
-    stage one 64 x 64 box of pg and N rows of r in boxes of up to 256 rows,
-    128-byte swizzled); s / alpha [64, 4 Np + 32 bytes]; the barriers."""
+    stage pg's 64-row box and N rows of r in boxes of up to 256 rows, rows
+    of 128 bytes: 64 bf16 or 32 float32 columns, 128-byte swizzled); the
+    region: bf16 s / alpha [64, 4 Np + 32 bytes] (packed words read 8 bytes
+    at a time); float32 two buffers of the lo half of a stage's pg box and
+    s [64, 4 Np + 16 bytes] during the scores, then alpha's tf32 halves (K
+    blocks of 32 columns, 8 KB each, hi and lo); the barriers."""
     nbox = _ceil(N, _BOX_ROWS)
-    stage = _TILE_ROWS * _CHUNK * 2 + nbox * _round_up(_ceil(N, nbox), 8) * _CHUNK * 2
-    return 1024 + stages * stage + _TILE_ROWS * (4 * _round_up(N, 16) + 32) + 16 * stages
+    r_rows = nbox * _round_up(_ceil(N, nbox), 8)
+    stage = _TILE_ROWS * _ROW_BYTES + r_rows * _ROW_BYTES
+    row = 4 * _round_up(N, 16) + (32 if elem == 2 else 16)
+    region = _TILE_ROWS * row
+    if elem == 4:
+        lo = 2 * _TILE_ROWS * _ROW_BYTES
+        region = max(lo + region, 2 * _ceil(_round_up(N, 16), 32) * _TILE_ROWS * _ROW_BYTES)
+    return 1024 + stages * stage + region + 16 * stages
 
 
 def _wide_smem(N: int, D: int, elem: int = 2) -> int:
@@ -91,15 +103,44 @@ def _wide_plan(B: int, N: int, D: int, smem_limit: int, elem: int = 2) -> dict:
             "threads": 256}
 
 
+def _tiled_plan(B: int, N: int, smem_limit: int, elem: int = 2) -> dict:
+    stages = _MAX_STAGES
+    while _tiled_smem(N, stages, elem) > smem_limit:
+        stages -= 1
+    return {"design": "tiled", "split": 1, "stages": stages, "rows": _TILE_ROWS,
+            "smem_bytes": _tiled_smem(N, stages, elem), "ctas": B * _ceil(N, _TILE_ROWS),
+            "cluster": 1, "threads": 544}
+
+
+def _f32_plan(B: int, N: int, D: int, smem_limit: int, design: str | None) -> dict:
+    """float32's plan: "tiled" up to N = 256 (its softmax keeps a row in
+    registers) where a stage fits, both products in 3xTF32 on the tensor
+    cores; "wide" (FP32 FMA on the CUDA cores) past that, or where forced."""
+    fits = N <= MAX_F32_TILED_N and _tiled_smem(N, 1, elem=4) <= smem_limit
+    if design is None:
+        design = "tiled" if fits else "wide"
+    if design == "wide":
+        return _wide_plan(B, N, D, smem_limit, elem=4)
+    if design != "tiled":
+        raise ValueError(f"relation_attend (float32) has no {design!r} design: it runs the "
+                         f"tiled one, or the wide one")
+    if not fits:
+        raise ValueError(f"relation_attend (float32): the tiled design takes N <= "
+                         f"{MAX_F32_TILED_N} and a stage in shared memory: N={N} needs "
+                         f"{_tiled_smem(N, 1, elem=4)} bytes, {smem_limit} a block may opt into")
+    return _tiled_plan(B, N, smem_limit, elem=4)
+
+
 @functools.lru_cache(maxsize=1024)
 def relation_plan(B: int, N: int, D: int, vec: bool = True, smem_limit: int = SMEM_LIMIT,
                   design: str | None = None, split: int | None = None,
                   elem: int = 2) -> dict:
     """The schedule ``csrc/relation.cu`` runs for B elements of N objects and
-    D features, in elements of ``elem`` bytes. float32 (``elem=4``) has one
-    design: "wide" below, with both products as FP32 FMA (the other two
-    multiply bf16 operands on the tensor cores), at every N whose 16 rows of
-    pg and 16 x N scores fit. bf16 (``elem=2``):
+    D features, in elements of ``elem`` bytes. float32 (``elem=4``): "tiled"
+    below with both products in 3xTF32 (each operand split into two tf32
+    halves, three tensor-core products summed in fp32, on ``wgmma``), up to
+    N = 256; "wide", with both products as FP32 FMA, past that. bf16
+    (``elem=2``):
 
     - "element" (N <= 48; forced, up to 64): a cluster of ``split`` CTAs
       of 512 threads an element, each holding its D / split columns of pg
@@ -114,8 +155,8 @@ def relation_plan(B: int, N: int, D: int, vec: bool = True, smem_limit: int = SM
       split CTA keeps >= 64 columns on a multiple of 16;
     - "tiled" (N > 48: at N=64 it beat every split): one CTA an
       element and 64 rows of i, fed by TMA through a ring of ``stages``
-      stages of 64 columns (pg's tile and all of r for the scores, then r
-      again for the weighted sum), s [64, N] kept in shared memory;
+      stages of 128-byte rows (pg's tile and all of r for the scores, then
+      r again for the weighted sum), s [64, N] kept in shared memory;
     - "wide" (the tiled design's s and one stage over ``smem_limit``: N
       past ~570 at D=1024): the parent's N > 64 kernel, one block an
       element and 16 rows, the scores on the CUDA cores (slow; for shapes
@@ -123,17 +164,15 @@ def relation_plan(B: int, N: int, D: int, vec: bool = True, smem_limit: int = SM
 
     ``vec=False`` (D % 8 != 0, or a pointer off 16 bytes) takes the same
     designs with plain copies (the element design one CTA an element).
-    ``design`` and ``split`` may be forced, to probe other schedules.
+    ``design`` (either type) and ``split`` (bf16) may be forced, to probe
+    other schedules.
     Raises ValueError, naming the limit, where even the wide design exceeds
     ``smem_limit`` (the shared memory a block may opt into). Cached: the
     wrapper asks at every call; the dict is shared, not to be changed."""
     if min(B, N, D) < 1:
         raise ValueError(f"relation_attend needs B, N, D >= 1, got B={B}, N={N}, D={D}")
     if elem == 4:
-        if design not in (None, "wide"):
-            raise ValueError(f"relation_attend (float32) has only the wide design, not "
-                             f"{design!r}")
-        return _wide_plan(B, N, D, smem_limit, elem)
+        return _f32_plan(B, N, D, smem_limit, design)
     if elem != 2:
         raise ValueError(f"relation_attend takes 2-byte (bf16) or 4-byte (float32) elements, "
                          f"got {elem}")
@@ -171,12 +210,7 @@ def relation_plan(B: int, N: int, D: int, vec: bool = True, smem_limit: int = SM
         return _wide_plan(B, N, D, smem_limit)
     if design != "tiled":
         raise ValueError(f"relation_attend: no design {design!r}")
-    stages = _MAX_STAGES
-    while _tiled_smem(N, stages) > smem_limit:
-        stages -= 1
-    return {"design": design, "split": 1, "stages": stages, "rows": _TILE_ROWS,
-            "smem_bytes": _tiled_smem(N, stages), "ctas": B * _ceil(N, _TILE_ROWS),
-            "cluster": 1, "threads": 544}
+    return _tiled_plan(B, N, smem_limit)
 
 
 def _vec(D: int, *tensors) -> bool:
@@ -191,12 +225,12 @@ def relation_attend_reference(pg: torch.Tensor, r: torch.Tensor) -> torch.Tensor
 def launch_relation_attend(pg: torch.Tensor, r: torch.Tensor, out: torch.Tensor,
                            plan: dict) -> None:
     """One launch with ``plan``'s schedule (float32 operands through the
-    float32 entry, whose plan is the wide design)."""
+    float32 entry)."""
     B, N, D = pg.shape
     if pg.dtype == torch.float32:
         err = _build.library().vqa_relation_attend_f32(
-            pg.data_ptr(), r.data_ptr(), out.data_ptr(), B, N, D,
-            _build.current_stream(pg.device))
+            pg.data_ptr(), r.data_ptr(), out.data_ptr(), B, N, D, _DESIGNS[plan["design"]],
+            plan["stages"], _build.current_stream(pg.device))
         _build.check(err, "relation_attend")
         return
     err = _build.library().vqa_relation_attend(
@@ -205,15 +239,16 @@ def launch_relation_attend(pg: torch.Tensor, r: torch.Tensor, out: torch.Tensor,
     _build.check(err, "relation_attend")
 
 
-def launch_geometry(B: int, N: int, D: int, plan: dict, vec: bool, device_index: int) -> dict:
-    """What csrc/relation.cu launches for ``plan`` at this shape (its own
-    reckoning): the CTAs, the cluster size, the threads and the shared
-    memory of a CTA."""
+def launch_geometry(B: int, N: int, D: int, plan: dict, vec: bool, device_index: int,
+                    elem: int = 2) -> dict:
+    """What csrc/relation.cu launches for ``plan`` at this shape in
+    ``elem``-byte elements (its own reckoning): the CTAs, the cluster size,
+    the threads and the shared memory of a CTA."""
     geometry = (ctypes.c_longlong * len(_GEOMETRY))()
     with torch.cuda.device(device_index):
         _build.check(_build.library().vqa_relation_geometry(
-            B, N, D, _DESIGNS[plan["design"]], plan["split"], plan["stages"], int(vec), geometry),
-            "relation_attend geometry")
+            B, N, D, _DESIGNS[plan["design"]], plan["split"], plan["stages"], int(vec), elem,
+            geometry), "relation_attend geometry")
     return dict(zip(_GEOMETRY, geometry))
 
 
