@@ -1,4 +1,4 @@
-"""The port's data layer against the JAX package's, on the JAX fixture
+"""The port's data layer against the JAX package's, on the port fixture
 generator's raw files.
 
 Prep: the port's run_prep writes the same artifacts as vqa_tpu's on copies
@@ -32,7 +32,7 @@ SUBDIR = {"VQA2": "vqa2", "VQA": "vqa1", "COCOQA": "cocoqa", "TDIUC": "tdiuc"}
 @pytest.fixture(scope="module")
 def raw(tmp_path_factory):
     """One fixture per dataset: {dataset: the fixture's root dir}."""
-    from vqa_tpu.datasets.fixtures import generate
+    from vqa_tpu_torch.datasets.fixtures import generate
 
     roots = {}
     for i, dataset in enumerate(SUBDIR):

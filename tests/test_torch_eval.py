@@ -58,9 +58,9 @@ def run(tmp_path_factory):
 
     from vqa_tpu.config import load_options as jax_load_options
     from vqa_tpu.datasets import factory as jax_factory
-    from vqa_tpu.datasets.fixtures import generate
     from vqa_tpu.importers import save_tree_npz
     from vqa_tpu.models import factory as jax_model_factory
+    from vqa_tpu_torch.datasets.fixtures import generate
 
     d = str(tmp_path_factory.mktemp("torch_eval"))
     generate(d, n_images=8, n_questions=44, seed=4)
@@ -247,17 +247,35 @@ def test_eval_cli_writes_what_the_jax_cli_writes(run, tmp_path, split, extra):
     (["--distributed"], NotImplementedError, "queue 1, item 12"),
     (["--opt", "engine.model_parallel=2"], NotImplementedError, "queue 1, item 12"),
     (["--opt", "engine.features_sharded=true"], NotImplementedError, "queue 1, item 12"),
-    (["--profile_dir", "trace"], NotImplementedError, "profile_eval"),
 ])
 def test_eval_cli_refuses_what_is_not_ported(tmp_path, argv, error, match):
     """Each refusal raises before any file is written and names the ROADMAP
-    item that ports it (or the port's own profiler)."""
+    item that ports it."""
     logs = str(tmp_path / "logs")
     args = ["--path_opt", PATH_OPT, "-e", "--platform", "cpu", "--dir_logs", logs,
             "--opt", "model.pretrained_params=params.npz"] + argv
     with pytest.raises(error, match=match):
         port_cli.main(args)
     assert not os.path.exists(logs)
+
+
+@pytest.mark.parametrize("train", [False, True], ids=["eval", "train"])
+def test_cli_profile_dir_writes_a_trace(run, tmp_path, train):
+    """--profile_dir traces the run with torch.profiler (host activity on
+    the CPU), -e runs too: one Chrome trace in TensorBoard's torch-profiler
+    layout lands in the directory, holding the model's ops, and the run's
+    results are written as without it."""
+    logs, trace = str(tmp_path / "logs"), str(tmp_path / "trace")
+    argv = (_train_argv(run, logs) if train else _argv(run, logs)) + ["--profile_dir", trace]
+    assert port_cli.main(argv) == 0
+    files = os.listdir(trace)
+    assert len(files) == 1 and files[0].endswith(".pt.trace.json"), files
+    with open(os.path.join(trace, files[0])) as f:
+        events = json.load(f)["traceEvents"]
+    names = {e.get("name") for e in events}
+    assert {"aten::mm", "aten::tanh"} & names, sorted(n for n in names if n)[:20]
+    assert any("Backward" in n for n in names if n) == train
+    assert os.path.exists(os.path.join(logs, "results", "vqa_OpenEnded_val_epoch0_results.json"))
 
 
 def _eval_rows(run, model, opt):

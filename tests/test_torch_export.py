@@ -30,7 +30,6 @@ import torch
 
 from vqa_tpu.config import load_options
 from vqa_tpu.datasets import factory as dataset_factory
-from vqa_tpu.datasets.fixtures import generate
 from vqa_tpu.export import load_export as jax_load_export
 from vqa_tpu.export import quantize_int8 as jax_quantize_int8
 from vqa_tpu.export import save_export as jax_save_export
@@ -40,6 +39,7 @@ from vqa_tpu.predictor import Predictor as JaxPredictor
 from vqa_tpu_torch.cli import serve as port_serve
 from vqa_tpu_torch.cli.export import main as export_main
 from vqa_tpu_torch.cli.serve import AnswerService, DynamicBatcher
+from vqa_tpu_torch.datasets.fixtures import generate
 from vqa_tpu_torch.export import (_check_loadable, _forward_at, dequantize_int8, load_export,
                                   model_params, quantize_int8, save_export)
 from vqa_tpu_torch.predictor import Predictor

@@ -242,12 +242,12 @@ def test_eval_cli_over_the_extracted_table(tmp_path):
     from vqa_tpu.cli.train import main as jax_main
     from vqa_tpu.config import load_options as jax_load_options
     from vqa_tpu.datasets import factory as jax_factory
-    from vqa_tpu.datasets.fixtures import generate
     from vqa_tpu.importers import save_tree_npz
     from vqa_tpu.models import factory as jax_model_factory
     from vqa_tpu_torch.cli import train as port_cli
     from vqa_tpu_torch.config import load_options
     from vqa_tpu_torch.datasets import factory as port_factory
+    from vqa_tpu_torch.datasets.fixtures import generate
     from vqa_tpu_torch.models.factory import factory as model_factory
     from vqa_tpu_torch.weights import load_params
 

@@ -1,8 +1,9 @@
 """The port stands alone: every vqa_tpu_torch module loads in a fresh
 interpreter (subprocess, so sys.modules starts clean) with nothing of jax,
 flax or optax, and nothing of the JAX package vqa_tpu, in sys.modules;
-Predictor.from_run answers from a fixture run, and the eval CLI prepares and
-evaluates one, in such an interpreter.
+Predictor.from_run answers from a fixture run, the eval CLI prepares and
+evaluates one, and the fixture matrix generates its fixture in memory and
+trains and scores a config, in such an interpreter.
 chip_smoke.py refuses to run without a CUDA card."""
 
 import importlib
@@ -49,7 +50,9 @@ def test_every_port_module_is_listed():
                      "vqa_tpu_torch.export", "vqa_tpu_torch.cli.export",
                      "vqa_tpu_torch.cli.visu", "vqa_tpu_torch.importers",
                      "vqa_tpu_torch.models.convnets", "vqa_tpu_torch.cli.extract",
-                     "vqa_tpu_torch.tools.import_torch"):
+                     "vqa_tpu_torch.tools.import_torch", "vqa_tpu_torch.datasets.fixtures",
+                     "vqa_tpu_torch.tools.fixture_matrix",
+                     "vqa_tpu_torch.tools.convert_butd_tsv"):
         assert expected in mods
 
 
@@ -87,9 +90,9 @@ def fixture_run(tmp_path_factory):
 
     from vqa_tpu.config import load_options
     from vqa_tpu.datasets import factory as dataset_factory
-    from vqa_tpu.datasets.fixtures import generate
     from vqa_tpu.importers import save_tree_npz
     from vqa_tpu.models import factory as jax_factory
+    from vqa_tpu_torch.datasets.fixtures import generate
 
     d = str(tmp_path_factory.mktemp("isolated_run"))
     generate(d, n_images=6, n_questions=24, seed=3)
@@ -204,6 +207,41 @@ def test_import_tool_model_kind_imports_nothing_of_jax(tmp_path):
     with np.load(out) as flat:
         assert "classifier/logits/kernel" in flat.files and flat["fusion/v_proj/kernel"].shape == (
             dv, 7)
+
+
+def test_fixture_matrix_runs_without_jax_or_h5py(tmp_path):
+    """On a machine without h5py (h5py's import refused), the port's
+    generator with in-memory features and one matrix run through the train
+    CLI and the scorer work with nothing of jax, flax, optax, vqa_tpu or
+    h5py in sys.modules; the HDF5 path names h5py when it is refused."""
+    work, logs = str(tmp_path / "work"), str(tmp_path / "logs")
+    code = (
+        "import sys\n"
+        "class NoH5py:\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name.split('.')[0] == 'h5py':\n"
+        "            raise ImportError('no h5py here')\n"
+        "sys.meta_path.insert(0, NoH5py())\n"
+        "import torch\n"
+        "torch.set_num_threads(1)\n"
+        "from vqa_tpu_torch.tools import fixture_matrix as m\n"
+        f"m.make_fixture({work!r}, 'memory', n_images=6, n_questions=40)\n"
+        f"run = m.run_config('mutan_att', m.CONFIGS['mutan_att'], {logs!r}, {work!r}, epochs=1, "
+        "platform='cpu')\n"
+        "assert run['rc'] == 0 and 0 <= run['overall'] <= 100, run\n"
+        "try:\n"
+        f"    m.make_fixture({work!r} + '_h5', 'hdf5', n_images=2, n_questions=4)\n"
+        "    raise SystemExit('the HDF5 fixture was written without h5py')\n"
+        "except ImportError as e:\n"
+        "    assert 'h5py' in str(e), e\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'optax', "
+        "'vqa_tpu', 'h5py'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    proc = _run(code)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().splitlines()[-1] == "ok"
 
 
 def test_chip_smoke_refuses_to_run_without_a_card():

@@ -27,7 +27,6 @@ import torch
 from vqa_tpu.cli import serve as jax_serve
 from vqa_tpu.config import load_options
 from vqa_tpu.datasets import factory as dataset_factory
-from vqa_tpu.datasets.fixtures import generate
 from vqa_tpu.datasets.processed import encode_question_batch as jax_encode_batch
 from vqa_tpu.datasets.tokenizer import get_tokenizer as jax_get_tokenizer
 from vqa_tpu.engine.steps import create_state, make_eval_step as jax_make_eval_step
@@ -37,6 +36,7 @@ from vqa_tpu.predictor import Predictor as JaxPredictor
 from vqa_tpu_torch.cli import serve as port_serve
 from vqa_tpu_torch.cli.serve import AnswerService, DynamicBatcher, build_server
 from vqa_tpu_torch.cli.serve import main as serve_main
+from vqa_tpu_torch.datasets.fixtures import generate
 from vqa_tpu_torch.datasets.processed import encode_question_batch
 from vqa_tpu_torch.datasets.tokenizer import get_tokenizer
 from vqa_tpu_torch.engine.steps import make_eval_step, quantize_features

@@ -22,11 +22,11 @@ import torch
 
 from vqa_tpu.config import load_options
 from vqa_tpu.datasets import factory as dataset_factory
-from vqa_tpu.datasets.fixtures import generate
 from vqa_tpu.engine.steps import create_state, make_eval_step as jax_make_eval_step
 from vqa_tpu.importers import save_tree_npz
 from vqa_tpu.models import factory as jax_factory
 from vqa_tpu.predictor import Predictor as JaxPredictor
+from vqa_tpu_torch.datasets.fixtures import generate
 from vqa_tpu_torch.engine.steps import make_eval_step
 from vqa_tpu_torch.predictor import Predictor
 

@@ -59,7 +59,7 @@ def fix(tmp_path_factory):
     """A fixture of 64 train and 64 val questions over 8 images each (7
     steps an epoch at batch 8: the train split keeps the questions whose
     answer is in the vocabulary), prepared by the JAX factory."""
-    from vqa_tpu.datasets.fixtures import generate
+    from vqa_tpu_torch.datasets.fixtures import generate
 
     d = str(tmp_path_factory.mktemp("train_cli"))
     generate(d, n_images=8, n_questions=64, seed=4, splits=("train", "val"))
@@ -396,6 +396,26 @@ def test_sigterm_checkpoints_returns_75_and_resumes_bit_identical(fix, straight,
                                "--resume", "latest")) == 0
     assert mgr.step_info() is None
     _assert_identical(_arrays(straight, 1), _arrays(b, 1))
+
+
+def test_sigterm_run_still_writes_its_trace(fix, tmp_path, monkeypatch):
+    """--profile_dir on a run preempted by SIGTERM: main returns 75 and the
+    trace, stopped in main's finally, is written all the same."""
+    b, trace = str(tmp_path / "sigtermed"), str(tmp_path / "trace")
+    real_save_step = CheckpointManager.save_step
+
+    def save_then_sigterm(self, state, epoch, next_step):
+        real_save_step(self, state, epoch, next_step)
+        if (epoch, next_step) == (0, 3):
+            os.kill(os.getpid(), signal.SIGTERM)
+
+    monkeypatch.setattr(CheckpointManager, "save_step", save_then_sigterm)
+    rc = port_cli.main(_argv(fix, b, "--epochs", "1", "--checkpoint_every_steps", "3",
+                             "--profile_dir", trace))
+    assert rc == 75
+    (name,) = os.listdir(trace)
+    with open(os.path.join(trace, name)) as f:
+        assert name.endswith(".pt.trace.json") and json.load(f)["traceEvents"]
 
 
 # ------------------------------------------------------------- the rest

@@ -24,7 +24,6 @@ from vqa_tpu.cli.visu import main as jax_visu_main
 from vqa_tpu.config import dump_options as jax_dump_options
 from vqa_tpu.config import load_options
 from vqa_tpu.datasets import factory as dataset_factory
-from vqa_tpu.datasets.fixtures import generate
 from vqa_tpu.engine.checkpoint import CheckpointManager as JaxCheckpointManager
 from vqa_tpu.engine.optim import factory as jax_optim_factory
 from vqa_tpu.engine.steps import create_state as jax_create_state
@@ -32,6 +31,7 @@ from vqa_tpu.importers import save_tree_npz
 from vqa_tpu.models import factory as jax_factory
 from vqa_tpu.predictor import Predictor as JaxPredictor
 from vqa_tpu_torch.cli.visu import attention_map, main as visu_main
+from vqa_tpu_torch.datasets.fixtures import generate
 from vqa_tpu_torch.predictor import Predictor
 
 torch.set_num_threads(1)

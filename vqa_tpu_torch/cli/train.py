@@ -37,8 +37,16 @@ evaluates ``model.pretrained_params`` (with the seq2vec grafts under it; it
 must hold every leaf) or, with no npz at all, the init. Every arch of
 ``options/`` trains, with the ``lstm``, ``gru`` or ``skipthoughts`` encoder.
 What is not ported refuses: multi-process and model-parallel runs and a
-sharded table name their ROADMAP.md item (12), and ``engine.profile_dir``
-names the port's profiler.
+sharded table name their ROADMAP.md item (12).
+
+``--profile_dir`` (``engine.profile_dir``) traces the run with
+``torch.profiler`` where the JAX CLI calls ``jax.profiler.start_trace`` and
+``stop_trace``: from the table's placement to the end of training or of the
+``-e`` evaluation, a preempted run (exit 75) included. Host activity is
+recorded, and on the card CUDA activity too (each kernel under its
+``__global__`` name); the trace lands in that directory in TensorBoard's
+torch-profiler layout (``tensorboard_trace_handler``:
+``<host>_<pid>.<ms>.pt.trace.json``, a Chrome trace).
 """
 
 from __future__ import annotations
@@ -136,10 +144,19 @@ def _refuse_unported(args, opt: Options) -> None:
         if refused:
             raise NotImplementedError(
                 f"{what}: multi-GPU runs are not ported yet (ROADMAP.md queue 1, item 12)")
-    if opt.engine.profile_dir:
-        raise NotImplementedError(
-            "engine.profile_dir traces with jax.profiler; the port's profile is "
-            "python -m vqa_tpu_torch.tools.profile_eval (--train for train steps)")
+
+
+def _start_profile(profile_dir: str, device: torch.device):
+    """A running ``torch.profiler`` whose ``stop()`` writes the trace into
+    ``profile_dir``."""
+    from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    prof = profile(activities=activities, on_trace_ready=tensorboard_trace_handler(profile_dir))
+    prof.start()
+    return prof
 
 
 def _device(platform: Optional[str]) -> torch.device:
@@ -203,6 +220,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     dump_options(opt, run_dir)
     exp = Experiment(run_dir, resume=args.resume is not None)
     prev_sigterm = signal.getsignal(signal.SIGTERM)
+    profiler = None
     try:
         # --- data -----------------------------------------------------------
         visual_mode = "index" if opt.engine.device_features else "gather"
@@ -272,6 +290,8 @@ def main(argv: Optional[List[str]] = None) -> int:
         features = (_device_table(val_set.features, opt, device, input_dtype)
                     if opt.engine.device_features else None)
         eval_step = make_eval_step()
+        if opt.engine.profile_dir:
+            profiler = _start_profile(opt.engine.profile_dir, device)
 
         if args.evaluate:
             if args.split in ("test", "testdev"):
@@ -334,6 +354,8 @@ def main(argv: Optional[List[str]] = None) -> int:
             return 75  # EX_TEMPFAIL: rerun to continue
         return 0
     finally:
+        if profiler is not None:
+            profiler.stop()
         if signal.getsignal(signal.SIGTERM) is not prev_sigterm:
             signal.signal(signal.SIGTERM, prev_sigterm)
         exp.close()

@@ -4,7 +4,8 @@ imports nothing of the JAX package).
 ``factory(split, opt)`` returns a ready VQA2Dataset, running the port's
 raw->interim->processed prep (``processed.run_prep``) on first use. Feature
 stores are cached per (coco dir, arch, mode, cache mode) in ``_STORE_CACHE``;
-a caller without h5py places a ``FeatureStore.in_memory`` there first.
+a caller without h5py stands a ``FeatureStore.in_memory`` there first with
+``place_store`` (and takes it away with ``drop_stores``).
 """
 
 from __future__ import annotations
@@ -21,8 +22,28 @@ from vqa_tpu_torch.datasets.vqa2 import VQA2Dataset
 _STORE_CACHE: Dict[tuple, FeatureStore] = {}
 
 
+def _store_key(coco_dir: str, arch: str, mode: str, cache: str = "ram") -> tuple:
+    return (os.path.normpath(coco_dir), arch, mode, cache)
+
+
+def place_store(coco_dir: str, arch: str, mode: str, store: FeatureStore) -> tuple:
+    """Stand ``store`` where ``factory`` looks for the ``<coco_dir>/extract/
+    <arch>_<mode>.h5`` table (its default ``feature_cache='ram'``), so a
+    dataset reads it in place of the HDF5 file; returns its cache key."""
+    key = _store_key(coco_dir, arch, mode)
+    _STORE_CACHE[key] = store
+    return key
+
+
+def drop_stores(coco_dir: str) -> None:
+    """Forget every store cached for ``coco_dir``, placed or opened."""
+    coco_dir = os.path.normpath(coco_dir)
+    for key in [k for k in _STORE_CACHE if k[0] == coco_dir]:
+        del _STORE_CACHE[key]
+
+
 def _feature_store(opt: Options, cache: str = "ram") -> FeatureStore:
-    key = (opt.coco.dir, opt.coco.arch, opt.coco.mode, cache)
+    key = _store_key(opt.coco.dir, opt.coco.arch, opt.coco.mode, cache)
     if key not in _STORE_CACHE:
         _STORE_CACHE[key] = FeatureStore(opt.coco.dir, opt.coco.arch, opt.coco.mode, cache)
     return _STORE_CACHE[key]

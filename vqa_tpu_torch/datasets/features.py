@@ -61,7 +61,7 @@ class FeatureStore:
         if not os.path.exists(self.h5_path):
             raise FileNotFoundError(
                 f"feature table {self.h5_path} not found; run extract.py or the "
-                "fixture generator (python -m vqa_tpu.datasets.fixtures)"
+                "fixture generator (python -m vqa_tpu_torch.datasets.fixtures)"
             )
         with open(names_path) as f:
             names = json.load(f)
