@@ -237,6 +237,29 @@ Phases, each printing one line of what it found:
      its arch's kernels. Printed: each run's per-epoch train loss and val
      acc1, scorer overall, seconds and launches, beside the port's CPU run
      of the tool and ACCURACY.md's JAX row.
+ 14. parallel: data parallelism across processes (vqa_tpu_torch/parallel/)
+     at mutan_att.yaml's full width, after phase 10 over phase 9's
+     synthetic set. (a) The train CLI for one epoch at batch 128 (bf16, the
+     table on the card) without --distributed, then as a world of one over
+     NCCL (--distributed --num_processes 1 --process_id 0) with the table
+     replicated and row-sharded, then without again: each later run's
+     metrics.jsonl and steps.jsonl (wall-clock fields aside), results json
+     and checkpointed params.npz equal the first run's bit for bit; printed:
+     each run's epoch time, its first print step's time and the median of
+     the later ones (host clock, each ending in a readback). (b) Two ranks sharing the
+     card over gloo, each a spawned process (parallel.initialize(backend=
+     "gloo")), float32 as the YAML writes it, dropout off, sgd at lr 0.1: 3
+     steps at a global batch of 128 (64 a rank) against one process at 128
+     from the same seeded weights; the losses within 1e-5 relative and
+     every parameter within rtol 2e-4, atol 1e-5 (the JAX package's bound
+     for its 8-device step); printed: each rank's step time and the
+     all_reduce's share of it (5 more steps, host clock after a sync).
+     (c) The 1024-image table row-sharded over the same two ranks (512 rows
+     each and a sink row), bf16 and the int8 pair: 2 eval batches of 1024
+     (512 a rank) through the eval step, the gathered rows bit-equal to
+     the replicated table's, pred and correct1 equal, gather_rows (int8:
+     gather_rows_dequant) launched over each rank's shard; printed: each
+     rank's resident table bytes and peak memory, replicated and sharded.
 
 Any failed check raises, and the script exits non-zero. On success the
 second-to-last line is the per-kernel JSON record and the last line is
@@ -1303,6 +1326,7 @@ def _plain_ops(torch):
     from vqa_tpu_torch.ops.lstm import lstm_seq_reference
     from vqa_tpu_torch.ops.mfb_pool import mfb_pool_reference
     from vqa_tpu_torch.ops.relation import relation_attend_reference
+    from vqa_tpu_torch.parallel import mesh
 
     def on_card(idx, device):
         return torch.as_tensor(np.asarray(idx), dtype=torch.long).to(device)
@@ -1318,6 +1342,8 @@ def _plain_ops(torch):
         (att, "glimpse_head", glimpse_head_reference),
         (steps, "gather_rows", plain_gather),
         (steps, "gather_rows_dequant", plain_gather_dequant),
+        (mesh, "gather_rows", plain_gather),
+        (mesh, "gather_rows_dequant", plain_gather_dequant),
         (predictor, "gather_rows", plain_gather),
         (fusion, "mfb_pool", mfb_pool_reference),
         (mfb, "glimpse_attend", glimpse_attend_reference),
@@ -4033,6 +4059,409 @@ def _extract_phase(torch, dev, card: str, kernels: dict) -> dict:
     return launches
 
 
+# -------------------------------------------------------------- parallel
+
+# [parallel]: data parallelism across processes (vqa_tpu_torch/parallel/),
+# at the full width of options/vqa2/mutan_att.yaml. (a) the train CLI as a
+# world of one over NCCL, replicated and row-sharded table, each bit-equal
+# to the run without --distributed; (b) two ranks sharing the card over
+# gloo, each a spawned process, float32, dropout off, sgd (lr 0.1, momentum
+# 0: the JAX package's tests/test_multidevice_training.py setup), 3 steps at
+# a global batch of 128 against one process at 128 from the same weights;
+# (c) the 1024-image table row-sharded over the same two ranks (512 rows
+# each and the sink), bf16 and the int8 pair, against the replicated table.
+PARALLEL_WORLD = 2
+PARALLEL_STEPS = 3
+PARALLEL_TIMED = 5
+PARALLEL_LR = 0.1
+PARALLEL_T = 13
+PARALLEL_LOSS_RTOL = 1e-5
+PARALLEL_PARAM_RTOL, PARALLEL_PARAM_ATOL = 2e-4, 1e-5  # tests/test_multidevice_training.py:79-84
+PARALLEL_EVAL_BATCHES = 2
+PARALLEL_TIMEOUT = 300
+# the wall-clock fields of the logs; every other field is compared bit for bit
+TIMING_KEYS = ("ts", "data_time", "batch_time", "epoch_time", "eval_time", "qa_per_sec")
+
+
+def _parallel_data():
+    """(b)'s and (c)'s inputs, the same in every process: the float32 table
+    [N_IMAGES, 36, 2048], one train batch of TRAIN_BATCH questions cut to
+    PARALLEL_T tokens (bench.py's lengths) and PARALLEL_EVAL_BATCHES eval
+    batches of BATCH."""
+    from vqa_tpu_torch.flagship import NUM_ANSWERS
+
+    rng = np.random.default_rng(7)
+    questions, lengths, image_index, table = _synthetic_eval_arrays(
+        rng, TRAIN_BATCH + PARALLEL_EVAL_BATCHES * BATCH)
+    lengths = np.minimum(lengths, PARALLEL_T)
+    questions = questions[:, :PARALLEL_T] * (np.arange(PARALLEL_T) < lengths[:, None])
+    answers = rng.integers(0, NUM_ANSWERS, len(questions)).astype(np.int32)
+    rows = [slice(0, TRAIN_BATCH)] + [slice(TRAIN_BATCH + i * BATCH, TRAIN_BATCH + (i + 1) * BATCH)
+                                      for i in range(PARALLEL_EVAL_BATCHES)]
+    batches = [dict(question=questions[r], length=lengths[r], answer=answers[r],
+                    image_index=image_index[r]) for r in rows]
+    return table, batches[0], batches[1:]
+
+
+def _parallel_model(torch, dev, train: bool):
+    """MutanAtt at full width, seeded init (the same weights in every
+    process): the float32 training build with every dropout off, or the
+    bf16 eval build."""
+    from vqa_tpu_torch.flagship import NUM_ANSWERS, NUM_WORDS, model_options
+    from vqa_tpu_torch.models.factory import factory
+    from vqa_tpu_torch.weights import init_params
+
+    opt = model_options(name="mutan_att")
+    if train:
+        for section in opt.values():
+            if isinstance(section, dict):
+                section.update({k: 0.0 for k in section if k.startswith("dropout")})
+    model = factory(opt, NUM_WORDS, NUM_ANSWERS, dtype=torch.float32 if train else torch.bfloat16,
+                    device=dev, train=train)
+    init_params(model, 0)
+    return model
+
+
+def _local_batch(torch, dev, batch, mesh):
+    from vqa_tpu_torch.parallel.mesh import local_rows
+
+    lo, hi = local_rows(len(batch["answer"]), mesh)
+    out = {k: torch.from_numpy(np.ascontiguousarray(batch[k][lo:hi])).to(dev)
+           for k in ("question", "length", "answer")}
+    out["image_index"] = batch["image_index"][lo:hi]
+    return out
+
+
+def _parallel_train(torch, dev, mesh, table, batch) -> dict:
+    """(b) in this process: PARALLEL_STEPS held sgd steps of this rank's
+    slice of ``batch`` (all of it in one process), then PARALLEL_TIMED timed
+    ones; returns the held steps' losses, the parameters after them and the
+    timings (each step on the host clock after a sync; the reduction alone
+    between two syncs)."""
+    from vqa_tpu_torch.config import OptimOptions
+    from vqa_tpu_torch.engine import optim, steps
+    from vqa_tpu_torch.parallel.mesh import Mesh
+    from vqa_tpu_torch.weights import export_params
+
+    model = _parallel_model(torch, dev, train=True)
+    state = steps.create_state(model, optim.factory(
+        OptimOptions(optimizer="sgd", lr=PARALLEL_LR, momentum=0.0), 1))
+    step = steps.make_train_step(optim.criterion_factory(), seed=0, mesh=mesh)
+    local = _local_batch(torch, dev, batch, mesh)
+    features = torch.from_numpy(table).to(dev)
+    reduce_ms, real = [], Mesh.all_reduce_mean
+
+    def timed_reduce(self, flat):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = real(self, flat)
+        torch.cuda.synchronize()
+        reduce_ms.append((time.perf_counter() - t) * 1e3)
+        return out
+
+    Mesh.all_reduce_mean = timed_reduce
+    try:
+        losses = []
+        for _ in range(PARALLEL_STEPS):
+            state, metrics = step(state, local, features)
+            losses.append(float(metrics["loss"]))
+        params = export_params(model)
+        step_ms = []
+        del reduce_ms[:]
+        for _ in range(PARALLEL_TIMED):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            state, metrics = step(state, local, features)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t) * 1e3)
+    finally:
+        Mesh.all_reduce_mean = real
+    del state, model, features
+    torch.cuda.empty_cache()
+    return dict(losses=losses, params=params, step_ms=statistics.median(step_ms),
+                reduce_ms=statistics.median(reduce_ms) if reduce_ms else 0.0)
+
+
+def _parallel_sharded(torch, dev, mesh, table, batches) -> dict:
+    """(c) in this rank: the eval step over this rank's slice of each eval
+    batch, over the replicated table and over the row-sharded one, bf16 and
+    the int8 pair (bf16 scales); rows, pred and correct1 compared, the
+    sharded runs' launches counted, each run's peak memory."""
+    from vqa_tpu_torch.engine.steps import make_eval_step, quantize_features
+    from vqa_tpu_torch.ops.gather import gather_rows, gather_rows_dequant
+    from vqa_tpu_torch.parallel.mesh import shard_feature_table
+
+    net, eval_step = _parallel_model(torch, dev, train=False), make_eval_step()
+    local = [_local_batch(torch, dev, b, mesh) for b in batches]
+    values, scales = quantize_features(table)
+    hosts = {"bf16": torch.from_numpy(table).to(torch.bfloat16),
+             "int8": (torch.from_numpy(values), torch.from_numpy(scales).to(torch.bfloat16))}
+    out = {}
+    for kind, host in hosts.items():
+        runs = {}
+        for layout in ("replicated", "sharded"):
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+            features = (shard_feature_table(host, mesh, dev) if layout == "sharded"
+                        else tuple(t.to(dev) for t in host) if kind == "int8" else host.to(dev))
+            resident = (features.nbytes if layout == "sharded"
+                        else sum(t.nbytes for t in features) if kind == "int8"
+                        else features.nbytes)
+            _reset_counts()
+            res = [eval_step(net, b, features) for b in local]
+            torch.cuda.synchronize()
+            counts = _read_counts()
+            peak = torch.cuda.max_memory_allocated(dev)
+            rows = [(features.gather(b["image_index"]) if layout == "sharded"
+                     else gather_rows_dequant(*features, b["image_index"]) if kind == "int8"
+                     else gather_rows(features, b["image_index"])).view(torch.int16).cpu()
+                    for b in local]
+            runs[layout] = dict(pred=[r["pred"].cpu() for r in res],
+                                correct1=[int(r["correct1"]) for r in res], rows=rows,
+                                counts=counts, peak=peak, resident=resident)
+            del features, res
+        rep, shd = runs["replicated"], runs["sharded"]
+        out[kind] = dict(
+            rows_equal=all(torch.equal(a, b) for a, b in zip(rep["rows"], shd["rows"])),
+            pred_equal=all(torch.equal(a, b) for a, b in zip(rep["pred"], shd["pred"])),
+            correct1=[rep["correct1"], shd["correct1"]],
+            sharded_launches={k: c for k, c in shd["counts"].items() if c},
+            replicated_launches={k: c for k, c in rep["counts"].items() if c},
+            peak=[rep["peak"], shd["peak"]], resident=[rep["resident"], shd["resident"]])
+    return out
+
+
+def _parallel_rank(rank: int, world: int, store: str, work: str) -> None:
+    """One of (b) and (c)'s ranks, a process of its own on cuda:0 over gloo:
+    writes ``rank<r>.json`` (and rank 0 its parameters after (b)'s held
+    steps, ``params.npz``) under ``work``."""
+    import hashlib
+
+    import torch
+
+    from vqa_tpu_torch import parallel
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = parallel.initialize(store, world, rank, backend="gloo", device="cuda")
+    try:
+        mesh = parallel.make_mesh()
+        table, train_batch, eval_batches = _parallel_data()
+        _reset_counts()
+        train = _parallel_train(torch, dev, mesh, table, train_batch)
+        train_counts = _read_counts()
+        params = train.pop("params")
+        digest = hashlib.sha256()
+        for key in sorted(params):
+            digest.update(params[key].tobytes())
+        if rank == 0:
+            np.savez(os.path.join(work, "params.npz"), **params)
+        sharded = _parallel_sharded(torch, dev, mesh, table, eval_batches)
+        record = dict(rank=rank, device=str(dev), backend=mesh.backend, params_sha=digest.hexdigest(),
+                      train_counts=train_counts, sharded=sharded, **train)
+    finally:
+        parallel.shutdown()
+    with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
+        json.dump(record, f)
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _log_records(logs: str, name: str) -> list:
+    """A run's JSONL records without their wall-clock fields."""
+    with open(os.path.join(logs, name)) as f:
+        return [{k: v for k, v in json.loads(line).items() if k not in TIMING_KEYS}
+                for line in f]
+
+
+def _parallel_cli(torch, card: str, tmp: str, context: dict) -> dict:
+    """(a): the train CLI over [train_cli]'s synthetic set (its store still
+    in the factory's cache) for one epoch, without --distributed, then as a
+    world of one over NCCL with the table replicated and row-sharded, then
+    without again; each later run's logs (wall-clock fields aside), results
+    and checkpointed parameters equal the first run's bit for bit. Returns
+    the launch counts of the four runs."""
+    import io
+
+    from vqa_tpu_torch.cli import train as train_cli
+
+    base = ["--path_opt", os.path.join(_REPO, "options", "vqa2", "mutan_att.yaml"),
+            "--epochs", "1"]
+    for o in context["data"] + ["engine.device_features=true", "engine.features_dtype=bfloat16",
+                                f"engine.train_bucketing={TRAIN_BUCKET_WINDOW}",
+                                "optim.eval_batch_size=1024", "engine.dtype=bfloat16"]:
+        base += ["--opt", o]
+    runs, counts = {}, dict.fromkeys(_counters(), 0)
+    # in turns (single, NCCL, NCCL sharded, single), so a drift of the
+    # card's or host's state favours neither side of the timings
+    for label, sharded in (("single", None), ("nccl", False), ("nccl_sharded", True),
+                           ("single_again", None)):
+        logs = os.path.join(tmp, "logs", f"parallel_{label}")
+        argv = base + ["--dir_logs", logs]
+        if sharded is not None:
+            argv += ["--distributed", "--coordinator_address", f"localhost:{_free_port()}",
+                     "--num_processes", "1", "--process_id", "0"]
+        if sharded:
+            argv += ["--opt", "engine.features_sharded=true"]
+        _reset_counts()
+        out, t = io.StringIO(), time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = train_cli.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        torch.cuda.empty_cache()
+        _require(rc == 0, f"[parallel] (a) the {label} run returns 0: {rc}\n"
+                 f"{out.getvalue()[-3000:]}")
+        run_counts = _read_counts()
+        for k, c in run_counts.items():
+            counts[k] += c
+        with open(os.path.join(logs, "metrics.jsonl")) as f:
+            (epoch_s,) = [r["epoch_time"] for r in map(json.loads, f) if r.get("split") == "train"]
+        # the print steps' times (host clock, each ending in the metrics'
+        # readback): the first apart, as it sets up the collectives
+        with open(os.path.join(logs, "steps.jsonl")) as f:
+            step_s = {r["step"]: r["batch_time"] for r in map(json.loads, f)}
+        runs[label] = dict(logs=logs, wall=wall, out=out.getvalue(), counts=run_counts,
+                           epoch_s=epoch_s, first_step_ms=step_s[0] * 1e3,
+                           step_ms=statistics.median(v for k, v in step_s.items() if k) * 1e3)
+    single = runs["single"]
+    for label in ("nccl", "nccl_sharded", "single_again"):
+        run = runs[label]
+        _require(("rank 0 of 1 over nccl" in run["out"]) == label.startswith("nccl"),
+                 f"[parallel] (a) the {label} run's model line names its rank, world and backend")
+        for name in ("metrics.jsonl", "steps.jsonl"):
+            _require(_log_records(run["logs"], name) == _log_records(single["logs"], name),
+                     f"[parallel] (a) the {label} run's {name} equals the single run's bit for bit")
+        for rel in (os.path.join("results", "vqa_OpenEnded_val_epoch0_results.json"),
+                    os.path.join("ckpt", "epoch_0000", "params.npz")):
+            with open(os.path.join(run["logs"], rel), "rb") as f, \
+                    open(os.path.join(single["logs"], rel), "rb") as g:
+                _require(f.read() == g.read(),
+                         f"[parallel] (a) the {label} run's {rel} equals the single run's")
+        _require(all(run["counts"][k] for k in TRAIN_CLI_KERNELS)
+                 and run["counts"]["gather_rows"] == single["counts"]["gather_rows"],
+                 f"[parallel] (a) the {label} run launched {TRAIN_CLI_KERNELS}, the gather as "
+                 f"often as the single run: {run['counts']} {single['counts']}")
+    train, val = _log_records(single["logs"], "metrics.jsonl")
+    _phase("parallel", part="a", card=card, config="mutan_att.yaml", dtype="bfloat16",
+           batch=TRAIN_BATCH, epochs=1, train_loss=round(train["loss"], 5), val_acc1=val["acc1"],
+           **{f"{label}_epoch_s": round(run["epoch_s"], 3) for label, run in runs.items()},
+           **{f"{label}_{k}": round(run[k], 3) for label, run in runs.items()
+              for k in ("first_step_ms", "step_ms")},
+           **{f"{label}_wall_s": round(run["wall"], 3) for label, run in runs.items()},
+           bit_equal=True, launches={k: c for k, c in counts.items() if c})
+    return counts
+
+
+def _parallel_phase(torch, dev, card: str, tmp: str, context: dict) -> dict:
+    """The [parallel] phase (see the comment above PARALLEL_WORLD); returns
+    its launch counts, every rank's included."""
+    from vqa_tpu_torch.parallel.mesh import Mesh
+
+    t_phase = time.perf_counter()
+    counts = _parallel_cli(torch, card, tmp, context)
+
+    def add(more):
+        for k, c in more.items():
+            counts[k] += c
+
+    # (b)'s one-process run first, alone on the card
+    table, train_batch, _ = _parallel_data()
+    _reset_counts()
+    ref = _parallel_train(torch, dev, Mesh(), table, train_batch)
+    add(_read_counts())
+    del table
+    work = os.path.join(tmp, "parallel_ranks")
+    os.makedirs(work)
+    store = f"file://{work}/store"
+    logs = [open(os.path.join(work, f"rank{r}.log"), "w") for r in range(PARALLEL_WORLD)]
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", f"import chip_smoke; chip_smoke._parallel_rank({r}, "
+         f"{PARALLEL_WORLD}, {store!r}, {work!r})"],
+        cwd=_REPO, stdout=logs[r], stderr=subprocess.STDOUT) for r in range(PARALLEL_WORLD)]
+    try:
+        deadline = time.monotonic() + PARALLEL_TIMEOUT
+        rcs = [p.wait(timeout=max(1.0, deadline - time.monotonic())) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    for r, rc in enumerate(rcs):
+        if rc != 0:
+            with open(os.path.join(work, f"rank{r}.log")) as f:
+                print(f.read()[-4000:], file=sys.stderr)
+        _require(rc == 0, f"[parallel] rank {r} of (b) and (c) returns 0: {rc}")
+    ranks = []
+    for r in range(PARALLEL_WORLD):
+        with open(os.path.join(work, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    with np.load(os.path.join(work, "params.npz")) as npz:
+        dp = {k: npz[k] for k in npz.files}
+
+    # (b): the ranks hold the global batch's losses and one set of params
+    _require(all(x["losses"] == ranks[0]["losses"] and x["params_sha"] == ranks[0]["params_sha"]
+                 for x in ranks), "[parallel] (b) the ranks agree on the losses and parameters")
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(ranks[0]["losses"], ref["losses"]))
+    _require(loss_rel <= PARALLEL_LOSS_RTOL,
+             f"[parallel] (b) losses within {PARALLEL_LOSS_RTOL} relative of one process's: "
+             f"{ranks[0]['losses']} {ref['losses']}")
+    _require(sorted(dp) == sorted(ref["params"]), "[parallel] (b) the same parameter names")
+    worst_abs, worst_excess = 0.0, -math.inf
+    for key, want in ref["params"].items():
+        diff = np.abs(dp[key].astype(np.float64) - want)
+        worst_abs = max(worst_abs, float(diff.max()))
+        excess = diff - (PARALLEL_PARAM_ATOL + PARALLEL_PARAM_RTOL * np.abs(want))
+        worst_excess = max(worst_excess, float(excess.max()))
+    _require(worst_excess <= 0,
+             f"[parallel] (b) every parameter within rtol {PARALLEL_PARAM_RTOL}, atol "
+             f"{PARALLEL_PARAM_ATOL} of one process's: worst excess {worst_excess}")
+    for x in ranks:
+        add(x["train_counts"])
+        _phase("parallel", part="b", card=card, rank=x["rank"], world=PARALLEL_WORLD,
+               device=x["device"], backend=x["backend"], dtype="float32",
+               global_batch=TRAIN_BATCH, local_batch=TRAIN_BATCH // PARALLEL_WORLD,
+               steps=PARALLEL_STEPS, losses=[round(v, 6) for v in x["losses"]],
+               one_process_losses=[round(v, 6) for v in ref["losses"]],
+               loss_rel_err=loss_rel, param_max_abs_err=worst_abs,
+               param_worst_excess=worst_excess, step_ms=round(x["step_ms"], 3),
+               reduce_ms=round(x["reduce_ms"], 3),
+               reduce_share=round(x["reduce_ms"] / x["step_ms"], 4),
+               one_process_step_ms=round(ref["step_ms"], 3),
+               launches={k: c for k, c in x["train_counts"].items() if c})
+    # (c): the sharded table against the replicated one, in every rank
+    for x in ranks:
+        for kind, c in x["sharded"].items():
+            gather = "gather_rows_dequant" if kind == "int8" else "gather_rows"
+            _require(c["rows_equal"] and c["pred_equal"] and c["correct1"][0] == c["correct1"][1],
+                     f"[parallel] (c) rank {x['rank']} {kind}: rows, pred and correct1 of the "
+                     f"sharded table equal the replicated one's: {c}")
+            _require(c["sharded_launches"].get(gather, 0) > 0,
+                     f"[parallel] (c) rank {x['rank']} {kind}: {gather} launched over the "
+                     f"shard: {c['sharded_launches']}")
+            add(c["sharded_launches"])
+            add(c["replicated_launches"])
+            _phase("parallel", part="c", card=card, rank=x["rank"], table=kind,
+                   rows=N_IMAGES, rows_here=N_IMAGES // PARALLEL_WORLD,
+                   eval_batches=PARALLEL_EVAL_BATCHES, global_batch=BATCH,
+                   rows_bit_equal=True, pred_equal=True, correct1=c["correct1"][1],
+                   resident_bytes_replicated=c["resident"][0],
+                   resident_bytes_sharded=c["resident"][1],
+                   peak_bytes_replicated=c["peak"][0], peak_bytes_sharded=c["peak"][1],
+                   launches=c["sharded_launches"])
+    _phase("parallel", part="total", card=card, s=round(time.perf_counter() - t_phase, 2),
+           launches={k: c for k, c in counts.items() if c})
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -4137,6 +4566,8 @@ def main() -> int:
         try:
             counts = [counts, _export_phase(torch, dev, card, tmp, context)]
             add_f32(_f32_export(torch, dev, tmp, context))
+            # 14. data parallelism across processes, over 9's synthetic set
+            counts.append(_parallel_phase(torch, dev, card, tmp, context))
         finally:
             data_factory.drop_stores(f"{tmp}/coco")
     for phase_counts in counts:

@@ -244,19 +244,34 @@ def test_eval_cli_writes_what_the_jax_cli_writes(run, tmp_path, split, extra):
 
 
 @pytest.mark.parametrize("argv,error,match", [
-    (["--distributed"], NotImplementedError, "queue 1, item 12"),
-    (["--opt", "engine.model_parallel=2"], NotImplementedError, "queue 1, item 12"),
-    (["--opt", "engine.features_sharded=true"], NotImplementedError, "queue 1, item 12"),
+    (["--opt", "engine.model_parallel=2"], NotImplementedError, "queue 1, item 12b"),
 ])
 def test_eval_cli_refuses_what_is_not_ported(tmp_path, argv, error, match):
     """Each refusal raises before any file is written and names the ROADMAP
-    item that ports it."""
+    item that ports it: tensor parallelism (12b) is the one left."""
     logs = str(tmp_path / "logs")
     args = ["--path_opt", PATH_OPT, "-e", "--platform", "cpu", "--dir_logs", logs,
             "--opt", "model.pretrained_params=params.npz"] + argv
     with pytest.raises(error, match=match):
         port_cli.main(args)
     assert not os.path.exists(logs)
+
+
+@pytest.mark.parametrize("case", ["distributed", "features_sharded"])
+def test_eval_cli_runs_distributed_and_sharded(run, tmp_path, case):
+    """What the CLI refused until item 12 was ported now runs: -e as a world
+    of one over gloo (the eval loop's slice and gather over one rank), and
+    over a row-sharded table (one process: the shard is the whole table).
+    Both write the metrics and results of the plain run."""
+    extra = (["--distributed", "--coordinator_address", f"file://{tmp_path}/store",
+              "--num_processes", "1", "--process_id", "0"] if case == "distributed"
+             else ["--opt", "engine.device_features=true", "--opt",
+                   "engine.features_sharded=true"])
+    plain, logs = str(tmp_path / "plain"), str(tmp_path / "logs")
+    assert port_cli.main(_argv(run, plain)) == 0
+    assert port_cli.main(_argv(run, logs) + extra) == 0
+    assert _metrics(logs) == _metrics(plain)
+    assert _results(logs, "val") == _results(plain, "val")
 
 
 @pytest.mark.parametrize("train", [False, True], ids=["eval", "train"])

@@ -36,8 +36,24 @@ checkpoint with ``--resume``. Eval-only (``-e``) without ``--resume``
 evaluates ``model.pretrained_params`` (with the seq2vec grafts under it; it
 must hold every leaf) or, with no npz at all, the init. Every arch of
 ``options/`` trains, with the ``lstm``, ``gru`` or ``skipthoughts`` encoder.
-What is not ported refuses: multi-process and model-parallel runs and a
-sharded table name their ROADMAP.md item (12).
+
+``--distributed`` runs data-parallel across processes, one a card
+(``vqa_tpu_torch/parallel/``): ``torchrun --nproc_per_node N -m
+vqa_tpu_torch.cli.train --distributed ...``, or the JAX CLI's flags
+(``--coordinator_address host:port --num_processes N --process_id i``, one
+command a process; ``file:///path`` also names a shared-file store). NCCL
+carries the card's collectives, gloo the host's (``--platform cpu``). Each
+process trains on its shard of every global batch (``batch_size / N`` rows,
+train bucketing off) and the step averages the grads and metrics over the
+ranks; evaluation is replica-fed (every process reads the whole split and
+runs its slice of each batch), so every rank prints the same metrics. Only
+rank 0 writes ``options.yaml``, the logs, the results and the checkpoints
+(a barrier after each save); checkpoints do not depend on the layout, so a
+run saved by N processes resumes in one and the reverse. SIGTERM → exit 75
+stays single-process. ``engine.features_sharded`` (with
+``engine.device_features``) row-shards the table over the ranks
+(``parallel.mesh.ShardedTable``). What is not ported refuses:
+``engine.model_parallel > 1`` (tensor parallelism) names ROADMAP.md item 12b.
 
 ``--profile_dir`` (``engine.profile_dir``) traces the run with
 ``torch.profiler`` where the JAX CLI calls ``jax.profiler.start_trace`` and
@@ -70,6 +86,9 @@ from vqa_tpu_torch.engine.logger import Experiment
 from vqa_tpu_torch.engine.steps import (create_state, make_eval_step, make_train_step,
                                         quantize_features)
 from vqa_tpu_torch.models.factory import factory as model_factory
+from vqa_tpu_torch.parallel import distributed
+from vqa_tpu_torch.parallel.mesh import (TP_REFUSAL, Mesh, check_batch_divisible, make_mesh,
+                                         shard_feature_table)
 from vqa_tpu_torch.weights import graft_params, init_params, load_params, pretrained_params
 
 
@@ -108,8 +127,10 @@ def build_argparser() -> argparse.ArgumentParser:
         help="override any config leaf, e.g. --opt model.fusion.R=10",
     )
     p.add_argument("--distributed", action="store_true",
-                   help="multi-process run (not ported)")
-    p.add_argument("--coordinator_address", default=None)
+                   help="data-parallel across processes, one a card (torchrun's "
+                        "environment, or the three flags below)")
+    p.add_argument("--coordinator_address", default=None,
+                   help="host:port of rank 0's store (or file:///path)")
     p.add_argument("--num_processes", type=int, default=None)
     p.add_argument("--process_id", type=int, default=None)
     return p
@@ -137,13 +158,9 @@ def options_from_args(args) -> Options:
     return load_options(args.path_opt, overrides)
 
 
-def _refuse_unported(args, opt: Options) -> None:
-    for refused, what in ((args.distributed, "--distributed"),
-                          (opt.engine.model_parallel > 1, "engine.model_parallel > 1"),
-                          (opt.engine.features_sharded, "engine.features_sharded")):
-        if refused:
-            raise NotImplementedError(
-                f"{what}: multi-GPU runs are not ported yet (ROADMAP.md queue 1, item 12)")
+def _refuse_unported(opt: Options) -> None:
+    if opt.engine.model_parallel > 1:
+        raise NotImplementedError(TP_REFUSAL)
 
 
 def _start_profile(profile_dir: str, device: torch.device):
@@ -173,25 +190,30 @@ def _device(platform: Optional[str]) -> torch.device:
 
 
 def _device_table(store, opt: Options, device: torch.device,
-                  input_dtype: Optional[torch.dtype]):
+                  input_dtype: Optional[torch.dtype], mesh: Mesh):
     """The feature table on ``device`` in ``engine.features_dtype``, as
     ``vqa_tpu/cli/train.py`` places it: int8 values with per-row scales
-    (bf16 under a bf16 compute dtype, else float32), bfloat16, or as stored."""
+    (bf16 under a bf16 compute dtype, else float32), bfloat16, or as stored;
+    replicated, or with ``engine.features_sharded`` this rank's rows of it
+    (``parallel.mesh.shard_feature_table``)."""
     table = store.as_array()
     if opt.engine.features_dtype == "int8":
         values, scales = quantize_features(table)
-        features = (torch.from_numpy(values).to(device),
-                    torch.from_numpy(scales).to(input_dtype or torch.float32).to(device))
-        print(f"device feature table: {values.shape} int8+scales "
-              f"({(values.nbytes + scales.nbytes)/1e9:.2f} GB)", flush=True)
+        host = (torch.from_numpy(values),
+                torch.from_numpy(scales).to(input_dtype or torch.float32))
+        what = f"{values.shape} int8+scales ({(values.nbytes + scales.nbytes)/1e9:.2f} GB)"
+    else:
+        host = torch.from_numpy(table)
+        if opt.engine.features_dtype == "bfloat16":
+            host = host.to(torch.bfloat16)
+        what = f"{tuple(host.shape)} {host.dtype} ({host.nbytes/1e9:.2f} GB)"
+    if opt.engine.features_sharded:
+        features = shard_feature_table(host, mesh, device)
+        print(f"device feature table: {what}, row-sharded over {mesh.data} rank(s): "
+              f"{features.nbytes/1e9:.2f} GB on this one", flush=True)
         return features
-    host = torch.from_numpy(table)
-    if opt.engine.features_dtype == "bfloat16":
-        host = host.to(torch.bfloat16)
-    features = host.to(device)
-    print(f"device feature table: {tuple(features.shape)} {features.dtype} "
-          f"({features.nbytes/1e9:.2f} GB)", flush=True)
-    return features
+    print(f"device feature table: {what}", flush=True)
+    return tuple(t.to(device) for t in host) if isinstance(host, tuple) else host.to(device)
 
 
 def _weights(model, opt: Options, evaluate: bool) -> None:
@@ -211,22 +233,44 @@ def _weights(model, opt: Options, evaluate: bool) -> None:
 def main(argv: Optional[List[str]] = None) -> int:
     args = build_argparser().parse_args(argv)
     opt = options_from_args(args)
-    _refuse_unported(args, opt)
+    _refuse_unported(opt)
     device = _device(args.platform)
+    if args.distributed:
+        device = distributed.initialize(args.coordinator_address, args.num_processes,
+                                        args.process_id, device=device)
+    try:
+        return _run(args, opt, device)
+    finally:
+        if args.distributed:
+            distributed.shutdown()
+
+
+def _run(args, opt: Options, device: torch.device) -> int:
+    mesh = make_mesh(opt.engine.model_parallel)
+    # non-primary processes compute but never write run artifacts (logs,
+    # options dump, results, checkpoints); see parallel/distributed.py
+    primary = mesh.index == 0
     dtype = compute_dtype(opt)
     # the visual input's cast, as vqa_tpu/cli/train.py:270 places it
     input_dtype = None if dtype == torch.float32 else dtype
     run_dir = opt.logs.dir_logs
-    dump_options(opt, run_dir)
-    exp = Experiment(run_dir, resume=args.resume is not None)
+    if primary:
+        dump_options(opt, run_dir)
+    exp = Experiment(run_dir, resume=args.resume is not None) if primary else None
     prev_sigterm = signal.getsignal(signal.SIGTERM)
     profiler = None
     try:
         # --- data -----------------------------------------------------------
         visual_mode = "index" if opt.engine.device_features else "gather"
+        # rank 0 prepares the processed splits on first use; the others
+        # wait, then read what it wrote
+        if mesh.distributed and not primary:
+            distributed.barrier()
         train_set = (None if args.evaluate
                      else dataset_factory(opt.vqa.trainsplit, opt, visual_mode=visual_mode))
         val_set = dataset_factory("val", opt, visual_mode=visual_mode)
+        if mesh.distributed and primary:
+            distributed.barrier()
 
         # --- model, weights, optimizer, resume ------------------------------
         model = model_factory(dataclasses.asdict(opt.model), val_set.num_words,
@@ -236,7 +280,9 @@ def main(argv: Optional[List[str]] = None) -> int:
         if args.resume is None:  # a restore overwrites every leaf
             _weights(model, opt, args.evaluate)
         n_params = sum(p.numel() for p in model.parameters())
-        print(f"model {opt.model.arch}: {n_params/1e6:.2f}M params, {device} {dtype}",
+        where = (f", rank {mesh.index} of {mesh.data} over {mesh.backend}"
+                 if mesh.distributed else "")
+        print(f"model {opt.model.arch}: {n_params/1e6:.2f}M params, {device} {dtype}{where}",
               flush=True)
         ckpt = CheckpointManager(os.path.join(run_dir, "ckpt"), args.save_all_from)
         state = None
@@ -248,6 +294,7 @@ def main(argv: Optional[List[str]] = None) -> int:
                 print(f"resumed from epoch {resumed_epoch} (best acc {ckpt.best_acc})",
                       flush=True)
         else:
+            check_batch_divisible(opt.optim.batch_size, mesh)
             steps_per_epoch = len(train_set) // opt.optim.batch_size
             state = create_state(model, optim_lib.factory(opt.optim, steps_per_epoch))
             if args.resume is not None:
@@ -270,8 +317,12 @@ def main(argv: Optional[List[str]] = None) -> int:
             resume_step = 0
 
         # --- pipelines --------------------------------------------------------
-        transform = engine_lib.make_device_transform(device, input_dtype)
+        # evaluation is replica-fed: every process reads the whole split and
+        # its transform keeps its slice of each batch; training reads this
+        # process's shard of the split, whole
+        transform = engine_lib.make_device_transform(device, input_dtype, mesh)
         eval_bs = opt.optim.eval_batch_size or opt.optim.batch_size
+        check_batch_divisible(eval_bs, mesh)
         # eval-time length bucketing (right-pad only); the default ladder
         # {7, maxlength/2, maxlength} is the JAX CLI's
         eval_buckets = normalize_buckets(
@@ -287,7 +338,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         val_loader = BatchIterator(val_set, eval_bs, shuffle=False, pad_last=True,
                                    transform=transform, **bucketing)
         # one table on the card: the feature store the splits share
-        features = (_device_table(val_set.features, opt, device, input_dtype)
+        features = (_device_table(val_set.features, opt, device, input_dtype, mesh)
                     if opt.engine.device_features else None)
         eval_step = make_eval_step()
         if opt.engine.profile_dir:
@@ -300,12 +351,12 @@ def main(argv: Optional[List[str]] = None) -> int:
                                             transform=transform, **bucketing)
                 results = engine_lib.test(test_loader, model, eval_step,
                                           test_set.vocabs.aid_to_ans, exp, start_epoch,
-                                          split=args.split, features=features)
+                                          split=args.split, features=features, mesh=mesh)
                 print(f"{args.split}: {len(results)} answers emitted", flush=True)
                 return 0
             acc1, _ = engine_lib.validate(val_loader, model, eval_step,
                                           val_set.vocabs.aid_to_ans, exp, start_epoch,
-                                          features=features)
+                                          features=features, mesh=mesh)
             print(f"val acc1: {acc1*100:.2f}", flush=True)
             return 0
 
@@ -319,22 +370,37 @@ def main(argv: Optional[List[str]] = None) -> int:
             if opt.engine.train_bucketing and opt.vqa.pad == "right"
             else {}
         )
-        train_loader = BatchIterator(train_set, opt.optim.batch_size, shuffle=True,
-                                     seed=opt.engine.seed, drop_last=True, transform=transform,
-                                     **train_bucketing)
+        n_proc = mesh.data
+        if n_proc > 1 and train_bucketing:
+            # per-process bucket truncation would give the ranks different
+            # question shapes for the same global step; the JAX CLI runs its
+            # multi-process training unbucketed too
+            print("distributed: train length-bucketing disabled", flush=True)
+            train_bucketing = {}
+        train_loader = BatchIterator(train_set, opt.optim.batch_size // n_proc, shuffle=True,
+                                     seed=opt.engine.seed, drop_last=True,
+                                     transform=engine_lib.make_device_transform(device,
+                                                                                input_dtype),
+                                     shard_index=mesh.index, shard_count=n_proc,
+                                     shard_even=n_proc > 1, **train_bucketing)
         train_step = make_train_step(optim_lib.criterion_factory(), opt.engine.seed,
-                                     nan_check=opt.engine.nan_check)
+                                     nan_check=opt.engine.nan_check, mesh=mesh)
 
         def step_checkpoint(s, epoch, next_step):
-            ckpt.save_step(s, epoch, next_step)
+            if primary:
+                ckpt.save_step(s, epoch, next_step)
+            distributed.barrier()
 
-        # SIGTERM -> a step checkpoint at the next step boundary and exit 75
-        if args.save_model:
+        # SIGTERM -> a step checkpoint at the next step boundary and exit 75;
+        # single-process only, as in the JAX CLI: a signal to one process
+        # would stop it alone, mid-collective
+        if args.save_model and n_proc == 1:
             engine_lib.install_preemption_handler()
         try:
             for epoch in range(start_epoch, opt.optim.epochs):
                 state, _ = engine_lib.train(
-                    train_loader, state, train_step, exp, epoch, opt.engine.print_freq,
+                    train_loader, state, train_step, exp, epoch,
+                    opt.engine.print_freq if primary else 0,
                     features=features,
                     start_step=resume_step if epoch == start_epoch else 0,
                     checkpoint_every=opt.engine.checkpoint_steps if args.save_model else 0,
@@ -342,12 +408,15 @@ def main(argv: Optional[List[str]] = None) -> int:
                 )
                 acc1, _ = engine_lib.validate(val_loader, state.model, eval_step,
                                               val_set.vocabs.aid_to_ans, exp, epoch,
-                                              features=features)
+                                              features=features, mesh=mesh)
                 if args.save_model:
-                    is_best = ckpt.save(state, epoch, acc1)
-                    ckpt.clear_step()  # the full-epoch save supersedes it
-                    if is_best:
-                        print(f"new best acc1 {acc1*100:.2f} @ epoch {epoch}", flush=True)
+                    if primary:
+                        is_best = ckpt.save(state, epoch, acc1)
+                        ckpt.clear_step()  # the full-epoch save supersedes it
+                        if is_best:
+                            print(f"new best acc1 {acc1*100:.2f} @ epoch {epoch}",
+                                  flush=True)
+                    distributed.barrier()
         except engine_lib.Preempted as p:
             print(f"preempted: checkpoint saved at epoch {p.epoch} step {p.next_step}; "
                   "continue with --resume latest", flush=True)
@@ -358,7 +427,8 @@ def main(argv: Optional[List[str]] = None) -> int:
             profiler.stop()
         if signal.getsignal(signal.SIGTERM) is not prev_sigterm:
             signal.signal(signal.SIGTERM, prev_sigterm)
-        exp.close()
+        if exp is not None:
+            exp.close()
 
 
 if __name__ == "__main__":

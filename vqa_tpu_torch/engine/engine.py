@@ -13,6 +13,15 @@ so the step that reads them is ordered after the copy; image indices,
 question ids and a host copy of ``valid`` stay on the host. The loop
 dispatches the whole epoch, then stacks the outputs on the card and copies
 them back once.
+
+Across processes (``parallel/``) evaluation is replica-fed: every rank
+iterates the whole split, its transform keeps its slice of each global
+batch (``make_device_transform(..., mesh=...)``), and after the epoch's
+dispatch the loop gathers every rank's packed outputs once over the host
+group, so every rank holds the whole epoch's metrics and results. No
+collective runs in the loader's producer thread: one there would race the
+main thread's, the gloo crash that ``vqa_tpu/engine/engine.py:75-81``
+records.
 """
 
 from __future__ import annotations
@@ -27,6 +36,7 @@ import torch
 
 from vqa_tpu_torch.engine.logger import Experiment
 from vqa_tpu_torch.engine.meters import MeterBank
+from vqa_tpu_torch.parallel.mesh import local_rows
 
 # the batch keys the step reads on the card. ``image_index`` is not among
 # them: the gather range-checks it on the host and carries it in the
@@ -66,23 +76,33 @@ def install_preemption_handler() -> bool:
     return True
 
 
-def make_device_transform(device, dtype: Optional[torch.dtype] = None):
+def make_device_transform(device, dtype: Optional[torch.dtype] = None, mesh=None):
     """Pipeline transform: copy the compute keys to ``device``, float32
     ``visual`` cast to ``dtype`` first (as the JAX transform casts on the
     host); keep ``image_index``, ``question_id`` and ``valid_host`` (the
-    results filter's copy of ``valid``) on the host."""
+    results filter's copy of ``valid``) on the host. Over a distributed
+    ``mesh`` (replica-fed evaluation) the compute keys and ``image_index``
+    are this rank's slice of the batch; ``question_id`` and ``valid_host``
+    stay whole, for the results of the gathered outputs."""
     device = torch.device(device)
+    sliced = mesh is not None and mesh.distributed
+
+    def rows(array: np.ndarray) -> np.ndarray:
+        if not sliced:
+            return array
+        start, stop = local_rows(array.shape[0], mesh)
+        return array[start:stop]
 
     def transform(batch: Dict[str, np.ndarray]) -> Dict[str, Any]:
         out: Dict[str, Any] = {}
         for key in DEVICE_KEYS:
             if key in batch:
-                t = torch.from_numpy(batch[key])
+                t = torch.from_numpy(rows(batch[key]))
                 if dtype is not None and t.dtype == torch.float32:
                     t = t.to(dtype)
                 out[key] = t.to(device)
         if "image_index" in batch:
-            out["image_index"] = batch["image_index"]
+            out["image_index"] = rows(batch["image_index"])
         out["question_id"] = batch["question_id"]
         if "valid" in batch:
             out["valid_host"] = batch["valid"]
@@ -91,19 +111,32 @@ def make_device_transform(device, dtype: Optional[torch.dtype] = None):
     return transform
 
 
-def _readback_stacked(outs: List[Dict[str, torch.Tensor]]) -> Dict[str, np.ndarray]:
+def _readback_stacked(outs: List[Dict[str, torch.Tensor]], mesh=None) -> Dict[str, np.ndarray]:
     """The per-batch eval outputs as host arrays [n_batches, ...]: packed into
     one int64 tensor on their device, then copied to the host in one
     transfer (the epoch's only sync). Batches must share their shapes, as
-    they do with ``pad_last``."""
+    they do with ``pad_last``. Over a distributed ``mesh`` the ranks' packed
+    outputs are gathered once: the per-row outputs (``pred``) concatenated
+    in rank order, the global batch's order, the sums added."""
     keys = list(outs[0])
     sizes = [outs[0][k].numel() for k in keys]
     packed = torch.stack([torch.cat([o[k].reshape(-1).to(torch.int64) for k in keys])
                           for o in outs])
     host = packed.cpu().numpy()
     bounds = np.cumsum([0] + sizes)
-    return {k: host[:, a:b].reshape((len(outs),) + tuple(outs[0][k].shape))
-            for k, a, b in zip(keys, bounds[:-1], bounds[1:])}
+    n = len(outs)
+    if mesh is None or not mesh.distributed:
+        return {k: host[:, a:b].reshape((n,) + tuple(outs[0][k].shape))
+                for k, a, b in zip(keys, bounds[:-1], bounds[1:])}
+    every = mesh.all_gather_host(host)                       # [ranks, n, packed]
+    out = {}
+    for k, a, b in zip(keys, bounds[:-1], bounds[1:]):
+        part, shape = every[:, :, a:b], tuple(outs[0][k].shape)
+        if shape:
+            out[k] = part.transpose(1, 0, 2).reshape((n, mesh.data * shape[0]) + shape[1:])
+        else:
+            out[k] = part.sum(axis=0).reshape(n)
+    return out
 
 
 def _split_batch(batch):
@@ -181,10 +214,13 @@ def train(
 
 
 def _eval_loop(
-    loader, model, eval_step, aid_to_ans: List[str], epoch: int, features=None
+    loader, model, eval_step, aid_to_ans: List[str], epoch: int, features=None, mesh=None
 ) -> Tuple[Dict[str, float], List[Dict[str, Any]]]:
     """Dispatch the whole epoch, then ONE device->host readback: a sync per
-    batch would leave the card idle while the host reads each result."""
+    batch would leave the card idle while the host reads each result. Over a
+    distributed ``mesh`` the loader's transform hands this rank its slice of
+    each batch and the readback gathers every rank's; ``qa_per_sec`` counts
+    the global batch's questions."""
     total = {"n": 0, "n_labeled": 0, "correct1": 0, "correct5": 0}
     results: List[Dict[str, Any]] = []
     outs: List[Dict[str, torch.Tensor]] = []
@@ -196,7 +232,7 @@ def _eval_loop(
         metas.append((question_ids, valid_host))
     if not outs:
         return {"n": 0, "eval_time": 0.0, "qa_per_sec": 0.0}, []
-    stacked = _readback_stacked(outs)
+    stacked = _readback_stacked(outs, mesh)
     n_seen = 0
     for i, (question_ids, valid_host) in enumerate(metas):
         pred = stacked["pred"][i]
@@ -232,9 +268,9 @@ def _eval_loop(
 
 def validate(
     loader, model, eval_step, aid_to_ans: List[str],
-    exp: Optional[Experiment], epoch: int, split: str = "val", features=None,
+    exp: Optional[Experiment], epoch: int, split: str = "val", features=None, mesh=None,
 ) -> Tuple[float, List[Dict[str, Any]]]:
-    metrics, results = _eval_loop(loader, model, eval_step, aid_to_ans, epoch, features)
+    metrics, results = _eval_loop(loader, model, eval_step, aid_to_ans, epoch, features, mesh)
     if exp is not None:
         exp.log_epoch(epoch, split, metrics)
         exp.write_results(results, epoch, split)
@@ -250,9 +286,9 @@ def validate(
 
 def test(
     loader, model, eval_step, aid_to_ans: List[str],
-    exp: Optional[Experiment], epoch: int, split: str = "test", features=None,
+    exp: Optional[Experiment], epoch: int, split: str = "test", features=None, mesh=None,
 ) -> List[Dict[str, Any]]:
-    metrics, results = _eval_loop(loader, model, eval_step, aid_to_ans, epoch, features)
+    metrics, results = _eval_loop(loader, model, eval_step, aid_to_ans, epoch, features, mesh)
     if exp is not None:
         exp.log_epoch(epoch, split, metrics)
         exp.write_results(results, epoch, split)

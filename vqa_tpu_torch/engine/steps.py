@@ -16,12 +16,20 @@ The table may be an int8 ``(values, scales)`` pair from
 ``quantize_features`` (the JAX package's ``engine.features_dtype=int8``,
 which halves the table's bytes and the gather's reads); its rows are
 gathered and dequantized by one kernel (``ops.gather.gather_rows_dequant``).
+It may also be row-sharded over the data ranks
+(``parallel.mesh.ShardedTable``, ``engine.features_sharded``), whose gather
+exchanges the ranks' indices and rows.
+
+Data parallelism (``make_train_step(..., mesh=...)`` over a mesh of several
+processes): each rank runs its shard of the global batch, then ONE
+``all_reduce`` averages the grads and the metric scalars over the ranks
+before the optimizer, as the JAX step's psum over the 'data' axis does.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, List
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -29,6 +37,7 @@ from torch import nn
 
 from vqa_tpu_torch.engine import optim
 from vqa_tpu_torch.ops.gather import gather_rows, gather_rows_dequant
+from vqa_tpu_torch.parallel.mesh import Mesh, ShardedTable
 
 
 @dataclasses.dataclass
@@ -55,11 +64,14 @@ def create_state(model: nn.Module, tx: optim.Transform) -> TrainState:
     return state
 
 
-def dropout_generator(seed: int, step: int, device) -> torch.Generator:
+def dropout_generator(seed: int, step: int, device, rank: int = 0) -> torch.Generator:
     """The dropout stream of one step, a pure function of (seed, step), as
     ``jax.random.fold_in(rng, state.step)`` is in the JAX step (the streams
-    themselves differ from flax's)."""
-    state = np.random.SeedSequence([seed, step]).generate_state(1, np.uint64)[0]
+    themselves differ from flax's). A data rank past the first draws its own
+    stream (``rank`` folded in), so the ranks' shards get independent masks;
+    rank 0 draws the single process's."""
+    entropy = [seed, step] + ([rank] if rank else [])
+    state = np.random.SeedSequence(entropy).generate_state(1, np.uint64)[0]
     return torch.Generator(device=device).manual_seed(int(state) & (2 ** 63 - 1))
 
 
@@ -86,6 +98,8 @@ def _resolve_visual(batch: Dict[str, torch.Tensor], features) -> torch.Tensor:
         return batch["visual"]
     if features is None:
         raise ValueError("batch has image_index but no feature table was passed")
+    if isinstance(features, ShardedTable):
+        return features.gather(batch["image_index"])
     if isinstance(features, (tuple, list)):
         # int8 rows dequantized after the gather, in the scales' dtype
         values, scales = features
@@ -114,31 +128,56 @@ def _check_finite(model: nn.Module, loss: torch.Tensor, grads) -> None:
         raise FloatingPointError(f"non-finite grads of {bad} (engine.nan_check)")
 
 
-def make_train_step(criterion: Callable, seed: int, nan_check: bool = False):
+def _all_reduce_mean(mesh: Mesh, grads, metrics: Dict[str, torch.Tensor]):
+    """The grads and the metric scalars averaged over the data ranks by ONE
+    ``all_reduce`` of a flat float32 buffer (the step is host-bound: one
+    collective a step, not one a tensor). The ranks' shards are equal, so
+    the mean of their means is the global batch's mean."""
+    keys = list(metrics)
+    flat = torch.cat([g.reshape(-1).float() for g in grads]
+                     + [metrics[k].float().reshape(1) for k in keys])
+    mesh.all_reduce_mean(flat)
+    out, start = [], 0
+    for g in grads:
+        out.append(flat[start:start + g.numel()].view(g.shape).to(g.dtype))
+        start += g.numel()
+    return out, {k: flat[start + i] for i, k in enumerate(keys)}
+
+
+def make_train_step(criterion: Callable, seed: int, nan_check: bool = False,
+                    mesh: Optional[Mesh] = None):
     """Returns (state, batch, features=None) -> (state, metrics): ``loss``,
     ``acc1``, ``acc5`` and ``gnorm`` (the global norm of the raw grads,
     before any clip) as tensors on the step's device. ``nan_check`` raises
-    before the update on a non-finite loss or grad."""
+    before the update on a non-finite loss or grad. Over a ``mesh`` of
+    several processes the grads and the metrics are those of the global
+    batch: averaged over the ranks before the check, the norm and the
+    update (DDP's reducer does not fire under ``torch.autograd.grad``, so
+    the reduction is written out)."""
+    distributed = mesh is not None and mesh.distributed
+    rank = mesh.index if distributed else 0
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor], features=None):
         with torch.no_grad():
             visual = _resolve_visual(batch, features)
-        rng = dropout_generator(seed, state.step, visual.device)
+        rng = dropout_generator(seed, state.step, visual.device, rank)
         params = state.params
         loss, logits, grads = loss_and_grads(state.model, params, batch, visual, criterion, rng)
-        if nan_check:
-            _check_finite(state.model, loss, grads)
-        updates, state.opt_state = state.tx.update(list(grads), state.opt_state,
-                                                   [p.detach() for p in params])
-        optim.apply_updates(params, updates)
-        state.step += 1
         logits = logits.detach()
         metrics = {
             "loss": loss.detach(),
             "acc1": _topk_acc(logits, batch["answer"], 1).float().mean(),
             "acc5": _topk_acc(logits, batch["answer"], 5).float().mean(),
-            "gnorm": optim.global_norm(grads),
         }
+        if distributed:
+            grads, metrics = _all_reduce_mean(mesh, grads, metrics)
+        if nan_check:
+            _check_finite(state.model, metrics["loss"], grads)
+        updates, state.opt_state = state.tx.update(list(grads), state.opt_state,
+                                                   [p.detach() for p in params])
+        optim.apply_updates(params, updates)
+        state.step += 1
+        metrics["gnorm"] = optim.global_norm(grads)
         return state, metrics
 
     return train_step

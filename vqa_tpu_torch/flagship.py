@@ -5,7 +5,8 @@ beside it the model sections of the other configs under ``options/vqa2``
 co-attention, CoR), each with its answer count, and two variants no YAML
 holds (``VARIANTS``): ConcatNoAtt (MLBNoAtt's model with a concat fusion)
 and MutanAtt with the skip-thoughts encoder (a 620 -> 2400 GRU, the MUTAN
-paper's question encoder).
+paper's question encoder). ``dryrun_multigpu`` is the counterpart of
+``__graft_entry__.dryrun_multichip`` without tensor parallelism.
 
 The model sections are kept here as dicts so the GPU path builds the
 models without a YAML parser; tests/test_torch_weights.py holds each equal
@@ -17,6 +18,10 @@ overrides it names.
 from __future__ import annotations
 
 import copy
+import queue
+import tempfile
+import time
+import traceback
 
 import numpy as np
 import torch
@@ -185,3 +190,111 @@ def example_batch(batch: int = 64, seq: int = 26, regions: int = 36, dim: int = 
         "question": rng.integers(1, num_words, (batch, seq)).astype(np.int32),
         "length": np.full((batch,), seq, np.int32),
     }
+
+
+def _dryrun_rank(rank: int, n: int, store: str, platform: str, results) -> None:
+    """One rank of ``dryrun_multigpu``: puts ``(rank, record)`` or ``(rank,
+    traceback)`` on ``results``."""
+    try:
+        from vqa_tpu_torch import parallel
+        from vqa_tpu_torch.config import OptimOptions
+        from vqa_tpu_torch.engine import optim, steps
+        from vqa_tpu_torch.parallel.mesh import local_rows
+        from vqa_tpu_torch.weights import init_params
+
+        if platform == "cpu":
+            torch.set_num_threads(1)  # n ranks share the host's cores
+        device = parallel.initialize(store, n, rank, device=platform)
+        try:
+            mesh = parallel.make_mesh()
+            num_words, num_answers = 50, 17
+            batch, seq, regions, dim, n_images = 4 * n, 8, 6, 32, 10
+            rng = np.random.default_rng(0)
+            question = rng.integers(1, num_words, (batch, seq)).astype(np.int32)
+            lengths = rng.integers(1, seq + 1, batch).astype(np.int32)
+            table = rng.standard_normal((n_images, regions, dim)).astype(np.float32)
+            image_index = rng.integers(0, n_images, batch).astype(np.int32)
+            answers = rng.integers(0, num_answers, batch).astype(np.int32)
+            lo, hi = local_rows(batch, mesh)
+            local = {"question": torch.from_numpy(question[lo:hi]).to(device),
+                     "length": torch.from_numpy(lengths[lo:hi]).to(device),
+                     "answer": torch.from_numpy(answers[lo:hi]).to(device),
+                     "image_index": image_index[lo:hi]}
+            model = factory(model_options(tiny=True), num_words, num_answers, device=device,
+                            dim_v=dim, train=True)
+            init_params(model, 0)
+            # the tiny dims and a visible lr, as the JAX dryrun's: the fixed
+            # batch's loss falls past the dropout's noise
+            state = steps.create_state(model, optim.factory(OptimOptions(lr=0.01), 1))
+            features = parallel.shard_feature_table(torch.from_numpy(table), mesh, device)
+            train_step = steps.make_train_step(optim.criterion_factory(), seed=1, mesh=mesh)
+            losses = []
+            for _ in range(5):  # the same batch each step: the loss must fall
+                state, metrics = train_step(state, local, features)
+                losses.append(float(metrics["loss"]))
+            out = steps.make_eval_step()(state.model, local, features)
+            record = dict(losses=losses, steps=state.step, pred=out["pred"].cpu().tolist(),
+                          n=int(out["n"]), mesh=dict(data=mesh.data, index=mesh.index,
+                                                     backend=mesh.backend))
+        finally:
+            parallel.shutdown()
+        results.put((rank, record))
+    except Exception:  # the boundary of a worker process: report, then exit
+        results.put((rank, traceback.format_exc()))
+
+
+def dryrun_multigpu(n_processes: int, platform: str = "cuda", timeout: float = 600.0) -> dict:
+    """Data-parallel training over ``n_processes`` spawned ranks at tiny
+    MutanAtt dims: 5 steps on one fixed batch of ``4 * n`` rows (each rank
+    its slice) over a row-sharded feature table, adam at lr 0.01 with the
+    YAML's dropout, then one eval step over the sharded table. Holds: every
+    rank reports the same (globally reduced) losses, finite and lower after
+    the 5 steps, and the ranks' eval slices cover the batch with answers in
+    range. ``platform`` is where the ranks run (``"cpu"``: over gloo on the
+    host; the card: over NCCL, one card a rank). Returns rank 0's record."""
+    ctx = torch.multiprocessing.get_context("spawn")
+    with tempfile.TemporaryDirectory(prefix="dryrun_multigpu_") as tmp:
+        results = ctx.Queue()
+        procs = [ctx.Process(target=_dryrun_rank,
+                             args=(r, n_processes, f"file://{tmp}/store", platform, results))
+                 for r in range(n_processes)]
+        for p in procs:
+            p.start()
+        records = {}
+        deadline = time.monotonic() + timeout
+        try:
+            while len(records) < n_processes:
+                try:
+                    rank, record = results.get(timeout=1.0)
+                    records[rank] = record
+                except queue.Empty:
+                    dead = [p.exitcode for p in procs if p.exitcode not in (None, 0)]
+                    if dead or time.monotonic() > deadline:
+                        raise RuntimeError(f"dryrun_multigpu({n_processes}): ranks ended "
+                                           f"{dead} or timed out with {sorted(records)} done")
+            for p in procs:
+                p.join(timeout=60)
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.terminate()
+                    p.join(timeout=10)
+    failed = {r: rec for r, rec in records.items() if isinstance(rec, str)}
+    if failed:
+        raise RuntimeError(f"dryrun_multigpu({n_processes}): ranks failed:\n"
+                           + "\n".join(f"[rank {r}]\n{tb}" for r, tb in sorted(failed.items())))
+    first = records[0]
+    losses = first["losses"]
+    if any(rec["losses"] != losses for rec in records.values()):
+        raise AssertionError(f"the ranks disagree on the global losses: {records}")
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"the loss did not fall over 5 steps on a fixed batch: {losses}")
+    pred = [a for r in sorted(records) for a in records[r]["pred"]]
+    if sum(rec["n"] for rec in records.values()) != 4 * n_processes or \
+            not all(0 <= a < 17 for a in pred) or first["steps"] != 5:
+        raise AssertionError(f"the sharded eval step's slices: {records}")
+    print(f"dryrun_multigpu({n_processes}): ok, loss {losses[0]:.4f} -> {losses[-1]:.4f} "
+          f"over 5 steps + one sharded eval step, {n_processes} ranks over "
+          f"{first['mesh']['backend']}, batch sharded over the ranks, feature table "
+          "row-sharded over them", flush=True)
+    return first
