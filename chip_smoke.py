@@ -242,7 +242,10 @@ Phases, each printing one line of what it found:
      synthetic set. (a) The train CLI for one epoch at batch 128 (bf16, the
      table on the card) without --distributed, then as a world of one over
      NCCL (--distributed --num_processes 1 --process_id 0) with the table
-     replicated and row-sharded, then without again: each later run's
+     replicated and row-sharded (the train step's all_reduce over the
+     world of one's NCCL group every step, and the sharded gather's
+     reduce_scatter over NCCL, counted and required), then without
+     again: each later run's
      metrics.jsonl and steps.jsonl (wall-clock fields aside), results json
      and checkpointed params.npz equal the first run's bit for bit; printed:
      each run's epoch time, its first print step's time and the median of
@@ -260,6 +263,25 @@ Phases, each printing one line of what it found:
      the replicated table's, pred and correct1 equal, gather_rows (int8:
      gather_rows_dequant) launched over each rank's shard; printed: each
      rank's resident table bytes and peak memory, replicated and sharded.
+     Tensor parallelism (vqa_tpu_torch/parallel/partition.py: the optimizer
+     state of the large 2-D leaves sharded over the mesh's model axis, the
+     updated slices all-gathered): (d) two gloo ranks on the card as a
+     1 x 2 mesh (model_parallel=2), float32, dropout off, 3 steps at a
+     global batch of 128 against one process from the same weights, with
+     (b)'s sgd (the same bounds) and with the YAML's adam (lr 1e-4: the
+     ranks' parameters bit-equal to each other, each leaf within 1e-5 of
+     its scale of one process's, the softmax-blind glimpse bias within lr
+     x steps); printed: each rank's optimizer-state bytes beside one
+     process's, peak memory, step time and the all-gather's and the
+     all-reduce's shares of it (5 more steps); (e) the same as a 2 x 2 mesh
+     (four ranks), sgd, the same bounds, adam's moments laid out at (d)'s
+     split; (f) the train CLI with --distributed as a 1 x 2 world over gloo
+     (engine.model_parallel=2, a step save every 2 steps, stopped after 4
+     with the preemption save), resumed in one process without
+     --distributed: its checkpoint holds adam's moments whole, and the
+     resumed run's parameters are within rtol 2e-4, atol 1e-5 of (a)'s
+     uninterrupted one; (g) the table row-sharded over (d)'s world, as
+     (c).
 
 Any failed check raises, and the script exits non-zero. On success the
 second-to-last line is the per-kernel JSON record and the last line is
@@ -2342,6 +2364,18 @@ def _dir_bytes(path: str) -> int:
     return sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
 
 
+def _cli_store(host_table: np.ndarray):
+    """Phase 9's one store for every split, as the factory keeps it: the val
+    images' rows (phase 6's table) and the train images' rows after them."""
+    from vqa_tpu_torch.datasets.features import FeatureStore
+    from vqa_tpu_torch.datasets.interim import image_name
+
+    names = ([image_name("val2014", i) for i in range(N_IMAGES)]
+             + [image_name("train2014", i) for i in range(N_IMAGES)])
+    train_rows = np.random.default_rng(1).standard_normal(host_table.shape, np.float32)
+    return FeatureStore.in_memory(names, np.concatenate([host_table, train_rows]))
+
+
 def _train_cli_phase(torch, dev, host_table: np.ndarray, card: str, tmp: str):
     """Phase 9 (the docstring): the port's train CLI, straight and preempted
     then resumed, its eval-only resume and the Predictor from its
@@ -2355,8 +2389,7 @@ def _train_cli_phase(torch, dev, host_table: np.ndarray, card: str, tmp: str):
     from vqa_tpu_torch.cli import train as train_cli
     from vqa_tpu_torch.config import load_options
     from vqa_tpu_torch.datasets import factory as data_factory
-    from vqa_tpu_torch.datasets.features import FeatureStore
-    from vqa_tpu_torch.datasets.interim import RAW_FILES, image_name
+    from vqa_tpu_torch.datasets.interim import RAW_FILES
     from vqa_tpu_torch.engine import engine as engine_lib
     from vqa_tpu_torch.engine.checkpoint import CheckpointManager
     from vqa_tpu_torch.engine.steps import make_eval_step
@@ -2428,15 +2461,8 @@ def _train_cli_phase(torch, dev, host_table: np.ndarray, card: str, tmp: str):
     _write_raw_vqa2(os.path.join(tmp, "vqa2", "raw"), np.random.default_rng(0))
     data = [f"vqa.dir={tmp}/vqa2", f"coco.dir={tmp}/coco"]
     opt = load_options(yaml, data)
-    # one store for every split, as the factory keeps it: the val images'
-    # rows (phase 6's table) and the train images' rows after them
-    names = ([image_name("val2014", i) for i in range(N_IMAGES)]
-             + [image_name("train2014", i) for i in range(N_IMAGES)])
-    train_rows = np.random.default_rng(1).standard_normal(host_table.shape, np.float32)
     key = data_factory.place_store(opt.coco.dir, opt.coco.arch, opt.coco.mode,
-                                   FeatureStore.in_memory(
-                                       names, np.concatenate([host_table, train_rows])))
-    del train_rows
+                                   _cli_store(host_table))
     train_set = data_factory.factory("train", opt, visual_mode="index")
     val_set = data_factory.factory("val", opt, visual_mode="index")
     setup_s = time.perf_counter() - t0
@@ -4064,7 +4090,8 @@ def _extract_phase(torch, dev, card: str, kernels: dict) -> dict:
 # [parallel]: data parallelism across processes (vqa_tpu_torch/parallel/),
 # at the full width of options/vqa2/mutan_att.yaml. (a) the train CLI as a
 # world of one over NCCL, replicated and row-sharded table, each bit-equal
-# to the run without --distributed; (b) two ranks sharing the card over
+# to the run without --distributed (the grads' all_reduce and the table's
+# reduce_scatter run over NCCL there); (b) two ranks sharing the card over
 # gloo, each a spawned process, float32, dropout off, sgd (lr 0.1, momentum
 # 0: the JAX package's tests/test_multidevice_training.py setup), 3 steps at
 # a global batch of 128 against one process at 128 from the same weights;
@@ -4074,11 +4101,25 @@ PARALLEL_WORLD = 2
 PARALLEL_STEPS = 3
 PARALLEL_TIMED = 5
 PARALLEL_LR = 0.1
+PARALLEL_SGD = dict(optimizer="sgd", lr=PARALLEL_LR, momentum=0.0)
 PARALLEL_T = 13
 PARALLEL_LOSS_RTOL = 1e-5
 PARALLEL_PARAM_RTOL, PARALLEL_PARAM_ATOL = 2e-4, 1e-5  # tests/test_multidevice_training.py:79-84
 PARALLEL_EVAL_BATCHES = 2
 PARALLEL_TIMEOUT = 300
+# (d)-(g): tensor parallelism (vqa_tpu_torch/parallel/partition.py), the
+# optimizer state of the large 2-D leaves sharded over the mesh's model
+# axis, at the same width: (d) two gloo ranks on the card as a 1 x 2 mesh,
+# float32, dropout off, 3 steps at a global batch of 128, with (b)'s sgd
+# and with the YAML's adam, against one process; (e) four ranks as a 2 x 2
+# mesh, sgd; (f) the train CLI --distributed as a 1 x 2 world (gloo),
+# stopped after a step save, resumed in one process, against (a)'s single
+# run; (g) the table row-sharded over (d)'s world.
+TP_MODEL_PARALLEL = 2
+TP_ADAM = dict(optimizer="adam", lr=1e-4)  # options/vqa2/mutan_att.yaml's optim
+TP_PARAM_REL = 1e-5  # tests/test_torch_train.py's adam hold: of each leaf's scale
+TP_CLI_CKPT_EVERY = 2
+TP_CLI_PREEMPT_AT = 4
 # the wall-clock fields of the logs; every other field is compared bit for bit
 TIMING_KEYS = ("ts", "data_time", "batch_time", "epoch_time", "eval_time", "qa_per_sec")
 
@@ -4132,54 +4173,73 @@ def _local_batch(torch, dev, batch, mesh):
     return out
 
 
-def _parallel_train(torch, dev, mesh, table, batch) -> dict:
-    """(b) in this process: PARALLEL_STEPS held sgd steps of this rank's
-    slice of ``batch`` (all of it in one process), then PARALLEL_TIMED timed
-    ones; returns the held steps' losses, the parameters after them and the
-    timings (each step on the host clock after a sync; the reduction alone
-    between two syncs)."""
+def _parallel_train(torch, dev, mesh, table, batch, knobs=None) -> dict:
+    """(b), (d) and (e) in this process: PARALLEL_STEPS held steps of this
+    rank's slice of ``batch`` (all of it in one process) with the optimizer
+    of ``knobs`` (default ``PARALLEL_SGD``), the state laid out over the
+    mesh's model axis (``shard_state_tp``; nothing to do at 1), then
+    PARALLEL_TIMED timed ones; returns the held steps' losses, the
+    parameters after them, the optimizer state's bytes here, the peak memory
+    of the steps above what the process held before the run, and the
+    timings (each step on the host clock after a sync;
+    the data axis' all-reduce and the model axis' all-gather alone between
+    two syncs)."""
     from vqa_tpu_torch.config import OptimOptions
     from vqa_tpu_torch.engine import optim, steps
-    from vqa_tpu_torch.parallel.mesh import Mesh
+    from vqa_tpu_torch.parallel import Mesh, shard_state_tp, state_bytes
     from vqa_tpu_torch.weights import export_params
 
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
     model = _parallel_model(torch, dev, train=True)
-    state = steps.create_state(model, optim.factory(
-        OptimOptions(optimizer="sgd", lr=PARALLEL_LR, momentum=0.0), 1))
+    state = shard_state_tp(steps.create_state(model, optim.factory(
+        OptimOptions(**(knobs or PARALLEL_SGD)), 1)), mesh)
     step = steps.make_train_step(optim.criterion_factory(), seed=0, mesh=mesh)
     local = _local_batch(torch, dev, batch, mesh)
     features = torch.from_numpy(table).to(dev)
-    reduce_ms, real = [], Mesh.all_reduce_mean
+    timed = {"all_reduce_mean": [], "all_gather_model": []}
+    real = {name: getattr(Mesh, name) for name in timed}
 
-    def timed_reduce(self, flat):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        out = real(self, flat)
-        torch.cuda.synchronize()
-        reduce_ms.append((time.perf_counter() - t) * 1e3)
-        return out
+    def timer(name):
+        def collective(self, flat):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = real[name](self, flat)
+            torch.cuda.synchronize()
+            timed[name].append((time.perf_counter() - t) * 1e3)
+            return out
+        return collective
 
-    Mesh.all_reduce_mean = timed_reduce
+    for name in timed:
+        setattr(Mesh, name, timer(name))
     try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
         losses = []
         for _ in range(PARALLEL_STEPS):
             state, metrics = step(state, local, features)
             losses.append(float(metrics["loss"]))
         params = export_params(model)
         step_ms = []
-        del reduce_ms[:]
+        for ms in timed.values():
+            del ms[:]
         for _ in range(PARALLEL_TIMED):
             torch.cuda.synchronize()
             t = time.perf_counter()
             state, metrics = step(state, local, features)
             torch.cuda.synchronize()
             step_ms.append((time.perf_counter() - t) * 1e3)
+        peak = torch.cuda.max_memory_allocated(dev) - base
     finally:
-        Mesh.all_reduce_mean = real
+        for name, fn in real.items():
+            setattr(Mesh, name, fn)
+    opt_bytes = state_bytes(state.opt_state)
     del state, model, features
     torch.cuda.empty_cache()
     return dict(losses=losses, params=params, step_ms=statistics.median(step_ms),
-                reduce_ms=statistics.median(reduce_ms) if reduce_ms else 0.0)
+                reduce_ms=statistics.median(timed["all_reduce_mean"] or [0.0]),
+                gather_ms=statistics.median(timed["all_gather_model"] or [0.0]),
+                state_bytes=opt_bytes, peak=peak)
 
 
 def _parallel_sharded(torch, dev, mesh, table, batches) -> dict:
@@ -4231,38 +4291,167 @@ def _parallel_sharded(torch, dev, mesh, table, batches) -> dict:
     return out
 
 
-def _parallel_rank(rank: int, world: int, store: str, work: str) -> None:
-    """One of (b) and (c)'s ranks, a process of its own on cuda:0 over gloo:
-    writes ``rank<r>.json`` (and rank 0 its parameters after (b)'s held
-    steps, ``params.npz``) under ``work``."""
+def _train_record(torch, dev, mesh, table, batch, knobs, rank: int, npz: str) -> dict:
+    """``_parallel_train`` in a rank, with its launches and a digest of its
+    parameters (rank 0 also writes them to ``npz``)."""
     import hashlib
 
+    _reset_counts()
+    train = _parallel_train(torch, dev, mesh, table, batch, knobs)
+    train["train_counts"] = _read_counts()
+    params = train.pop("params")
+    digest = hashlib.sha256()
+    for key in sorted(params):
+        digest.update(params[key].tobytes())
+    if rank == 0:
+        np.savez(npz, **params)
+    train["params_sha"] = digest.hexdigest()
+    return train
+
+
+def _rank_setup(rank: int, world: int, store: str):
+    """A rank's process on cuda:0 over gloo, TF32 off as in the main
+    process: (torch, parallel, its device)."""
     import torch
 
     from vqa_tpu_torch import parallel
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    dev = parallel.initialize(store, world, rank, backend="gloo", device="cuda")
+    return torch, parallel, parallel.initialize(store, world, rank, backend="gloo", device="cuda")
+
+
+def _parallel_rank(rank: int, world: int, store: str, work: str) -> None:
+    """One of (b) and (c)'s ranks, a process of its own on cuda:0 over gloo:
+    writes ``rank<r>.json`` (and rank 0 its parameters after (b)'s held
+    steps, ``params.npz``) under ``work``."""
+    torch, parallel, dev = _rank_setup(rank, world, store)
     try:
         mesh = parallel.make_mesh()
         table, train_batch, eval_batches = _parallel_data()
-        _reset_counts()
-        train = _parallel_train(torch, dev, mesh, table, train_batch)
-        train_counts = _read_counts()
-        params = train.pop("params")
-        digest = hashlib.sha256()
-        for key in sorted(params):
-            digest.update(params[key].tobytes())
-        if rank == 0:
-            np.savez(os.path.join(work, "params.npz"), **params)
+        train = _train_record(torch, dev, mesh, table, train_batch, None, rank,
+                              os.path.join(work, "params.npz"))
         sharded = _parallel_sharded(torch, dev, mesh, table, eval_batches)
-        record = dict(rank=rank, device=str(dev), backend=mesh.backend, params_sha=digest.hexdigest(),
-                      train_counts=train_counts, sharded=sharded, **train)
+        record = dict(rank=rank, device=str(dev), backend=mesh.backend, sharded=sharded, **train)
     finally:
         parallel.shutdown()
     with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
         json.dump(record, f)
+
+
+def _tp_rank(rank: int, world: int, store: str, work: str) -> None:
+    """One rank of (d) and (g) (a world of 2: the 1 x 2 mesh) or of (e) (a
+    world of 4: 2 x 2), on cuda:0 over gloo: PARALLEL_SGD's steps, and in
+    (d) TP_ADAM's too, with the optimizer state sharded over the model
+    axis; then (d) the table row-sharded over the world, (e) the bytes of
+    adam's moments laid out on its mesh. Writes ``rank<r>.json`` (rank 0
+    the parameters of each run, ``<optimizer>.npz``) under ``work``."""
+    from vqa_tpu_torch.config import OptimOptions
+    from vqa_tpu_torch.engine import optim, steps
+
+    torch, parallel, dev = _rank_setup(rank, world, store)
+    try:
+        mesh = parallel.make_mesh(TP_MODEL_PARALLEL)
+        table, train_batch, eval_batches = _parallel_data()
+        record = dict(rank=rank, device=str(dev), backend=mesh.backend,
+                      mesh=[mesh.data, mesh.model, mesh.data_index, mesh.model_index])
+        runs = {"sgd": PARALLEL_SGD, "adam": TP_ADAM} if world == 2 else {"sgd": PARALLEL_SGD}
+        for name, knobs in runs.items():
+            record[name] = _train_record(torch, dev, mesh, table, train_batch, knobs, rank,
+                                         os.path.join(work, f"{name}.npz"))
+        if world == 2:  # (g)
+            record["sharded"] = _parallel_sharded(torch, dev, mesh, table, eval_batches)
+        else:
+            state = parallel.shard_state_tp(steps.create_state(
+                _parallel_model(torch, dev, train=True),
+                optim.factory(OptimOptions(**TP_ADAM), 1)), mesh)
+            record["adam_state_bytes"] = parallel.state_bytes(state.opt_state)
+            del state
+    finally:
+        parallel.shutdown()
+    with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
+        json.dump(record, f)
+
+
+def _tp_cli_rank(rank: int, world: int, store: str, work: str) -> None:
+    """One rank of (f): the train CLI with ``--distributed`` over gloo on
+    cuda:0 (``initialize``'s backend forced: NCCL refuses two ranks on one
+    card) over phase 9's set (its store rebuilt here from the same seeds),
+    asked to stop after TP_CLI_PREEMPT_AT steps as SIGTERM asks a single
+    process (the flag set in every rank after the same step, so the ranks
+    save the preemption checkpoint together). Reads ``cli.json`` beside
+    ``work``; writes ``rank<r>.json``: the CLI's return code and the
+    launches."""
+    from vqa_tpu_torch.cli import train as train_cli
+    from vqa_tpu_torch.config import load_options
+    from vqa_tpu_torch.datasets import factory as data_factory
+    from vqa_tpu_torch.engine import engine as engine_lib
+    from vqa_tpu_torch.parallel import distributed
+
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with open(os.path.join(os.path.dirname(work), "cli.json")) as f:
+        spec = json.load(f)
+    opt = load_options(os.path.join(_REPO, "options", "vqa2", "mutan_att.yaml"), spec["data"])
+    host_table = _synthetic_eval_arrays(np.random.default_rng(0), BATCH * N_BATCHES)[-1]
+    data_factory.place_store(opt.coco.dir, opt.coco.arch, opt.coco.mode, _cli_store(host_table))
+    del host_table
+    initialize, make_train_step = distributed.initialize, train_cli.make_train_step
+
+    def preempting_make_train_step(*args, **kwargs):
+        step, done = make_train_step(*args, **kwargs), [0]
+
+        def counted(state, batch, features=None):
+            out = step(state, batch, features)
+            done[0] += 1
+            if done[0] == TP_CLI_PREEMPT_AT:
+                engine_lib.request_preemption()
+            return out
+        return counted
+
+    distributed.initialize = lambda *a, **k: initialize(*a, **k, backend="gloo")
+    train_cli.make_train_step = preempting_make_train_step
+    _reset_counts()
+    rc = train_cli.main(spec["argv"] + ["--coordinator_address", store, "--num_processes",
+                                        str(world), "--process_id", str(rank)])
+    with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
+        json.dump(dict(rank=rank, rc=rc, counts=_read_counts()), f)
+
+
+def _spawn_ranks(work: str, world: int, what: str, call: str) -> list:
+    """Run ``world`` processes, each ``chip_smoke.<call>`` with ``r``,
+    ``world``, ``store`` (a ``file://`` store under ``work``) and ``work``
+    filled in, all at once; require each to return 0 (printing a failed
+    rank's log) and return each rank's ``rank<r>.json``."""
+    os.makedirs(work)
+    store = f"file://{work}/store"
+    logs = [open(os.path.join(work, f"rank{r}.log"), "w") for r in range(world)]
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", "import chip_smoke; chip_smoke."
+         + call.format(r=r, world=world, store=store, work=work)],
+        cwd=_REPO, stdout=logs[r], stderr=subprocess.STDOUT) for r in range(world)]
+    try:
+        deadline = time.monotonic() + PARALLEL_TIMEOUT
+        rcs = [p.wait(timeout=max(1.0, deadline - time.monotonic())) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    for r, rc in enumerate(rcs):
+        if rc != 0:
+            with open(os.path.join(work, f"rank{r}.log")) as f:
+                print(f.read()[-4000:], file=sys.stderr)
+        _require(rc == 0, f"[parallel] rank {r} of {what} returns 0: {rc}")
+    ranks = []
+    for r in range(world):
+        with open(os.path.join(work, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    return ranks
 
 
 def _free_port() -> int:
@@ -4285,11 +4474,25 @@ def _parallel_cli(torch, card: str, tmp: str, context: dict) -> dict:
     in the factory's cache) for one epoch, without --distributed, then as a
     world of one over NCCL with the table replicated and row-sharded, then
     without again; each later run's logs (wall-clock fields aside), results
-    and checkpointed parameters equal the first run's bit for bit. Returns
-    the launch counts of the four runs."""
+    and checkpointed parameters equal the first run's bit for bit. The
+    world of one runs the train step's all_reduce over its NCCL group
+    every step, and the sharded run the table's reduce_scatter over NCCL:
+    each counted, with its backend, and required. Returns the launch
+    counts of the four runs."""
     import io
 
     from vqa_tpu_torch.cli import train as train_cli
+    from vqa_tpu_torch.parallel import Mesh
+
+    collectives = ("all_reduce_mean", "reduce_scatter_sum")
+    real = {name: getattr(Mesh, name) for name in collectives}
+    calls: dict = {}
+
+    def counted(name):
+        def collective(self, *args):
+            calls.setdefault((name, self.backend), []).append(1)
+            return real[name](self, *args)
+        return collective
 
     base = ["--path_opt", os.path.join(_REPO, "options", "vqa2", "mutan_att.yaml"),
             "--epochs", "1"]
@@ -4310,9 +4513,16 @@ def _parallel_cli(torch, card: str, tmp: str, context: dict) -> dict:
         if sharded:
             argv += ["--opt", "engine.features_sharded=true"]
         _reset_counts()
+        calls.clear()
+        for name in collectives:
+            setattr(Mesh, name, counted(name))
         out, t = io.StringIO(), time.perf_counter()
-        with contextlib.redirect_stdout(out):
-            rc = train_cli.main(argv)
+        try:
+            with contextlib.redirect_stdout(out):
+                rc = train_cli.main(argv)
+        finally:
+            for name, fn in real.items():
+                setattr(Mesh, name, fn)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
         torch.cuda.empty_cache()
@@ -4328,9 +4538,18 @@ def _parallel_cli(torch, card: str, tmp: str, context: dict) -> dict:
         with open(os.path.join(logs, "steps.jsonl")) as f:
             step_s = {r["step"]: r["batch_time"] for r in map(json.loads, f)}
         runs[label] = dict(logs=logs, wall=wall, out=out.getvalue(), counts=run_counts,
+                           calls={f"{n}:{b}": len(c) for (n, b), c in calls.items()},
                            epoch_s=epoch_s, first_step_ms=step_s[0] * 1e3,
                            step_ms=statistics.median(v for k, v in step_s.items() if k) * 1e3)
     single = runs["single"]
+    for label in ("single", "nccl", "nccl_sharded", "single_again"):
+        run, want = runs[label], set()
+        if label.startswith("nccl"):
+            want = {"all_reduce_mean:nccl"} | ({"reduce_scatter_sum:nccl"} if label.endswith(
+                "sharded") else set())
+        _require(set(run["calls"]) == want and all(run["calls"].values()),
+                 f"[parallel] (a) the {label} run's collectives are {sorted(want)}: "
+                 f"{run['calls']}")
     for label in ("nccl", "nccl_sharded", "single_again"):
         run = runs[label]
         _require(("rank 0 of 1 over nccl" in run["out"]) == label.startswith("nccl"),
@@ -4355,8 +4574,224 @@ def _parallel_cli(torch, card: str, tmp: str, context: dict) -> dict:
            **{f"{label}_{k}": round(run[k], 3) for label, run in runs.items()
               for k in ("first_step_ms", "step_ms")},
            **{f"{label}_wall_s": round(run["wall"], 3) for label, run in runs.items()},
+           **{f"{label}_collectives": runs[label]["calls"] for label in ("nccl", "nccl_sharded")},
            bit_equal=True, launches={k: c for k, c in counts.items() if c})
     return counts
+
+
+def _hold_train(part: str, ranks: list, run, params: dict, ref: dict,
+                adam_lr: float = 0.0) -> dict:
+    """Hold ``part``'s ranks (``run(rank record)``: one train run's record)
+    against one process's run ``ref``: the ranks' losses and parameters
+    equal to each other's; the losses within PARALLEL_LOSS_RTOL relative;
+    ``params`` (rank 0's) within rtol PARALLEL_PARAM_RTOL, atol
+    PARALLEL_PARAM_ATOL (sgd), or, under adam (``adam_lr``), each leaf
+    within TP_PARAM_REL of its scale and a leaf the softmax does not see
+    (its grad 0 but for rounding, which adam scales up to +-lr a step)
+    moved by at most lr x steps from the start on both sides, as
+    tests/test_torch_train.py holds adam. Returns the readings."""
+    _require(all(run(x)["losses"] == run(ranks[0])["losses"]
+                 and run(x)["params_sha"] == run(ranks[0])["params_sha"] for x in ranks),
+             f"[parallel] ({part}) the ranks agree on the losses and parameters bit for bit")
+    losses = run(ranks[0])["losses"]
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses, ref["losses"]))
+    _require(loss_rel <= PARALLEL_LOSS_RTOL,
+             f"[parallel] ({part}) losses within {PARALLEL_LOSS_RTOL} relative of one "
+             f"process's: {losses} {ref['losses']}")
+    _require(sorted(params) == sorted(ref["params"]),
+             f"[parallel] ({part}) the same parameter names")
+    blind = tuple(name.replace(".", "/") for name in SOFTMAX_BLIND)
+    start = _start_params() if adam_lr else {}
+    worst_abs, worst_excess, bit_equal = 0.0, -math.inf, True
+    for key, want in ref["params"].items():
+        bit_equal &= np.array_equal(params[key], want)
+        diff = np.abs(params[key].astype(np.float64) - want)
+        worst_abs = max(worst_abs, float(diff.max()))
+        if adam_lr and key.endswith(blind):
+            moved = max(float(np.abs(x - start[key]).max()) for x in (params[key], want))
+            excess = np.asarray(moved - adam_lr * PARALLEL_STEPS * 1.001)
+        elif adam_lr:
+            excess = diff - TP_PARAM_REL * max(float(np.abs(want).max()), 1e-3)
+        else:
+            excess = diff - (PARALLEL_PARAM_ATOL + PARALLEL_PARAM_RTOL * np.abs(want))
+        worst_excess = max(worst_excess, float(excess.max()))
+    bound = (f"{TP_PARAM_REL} of each leaf's scale (the softmax-blind biases: lr x steps)"
+             if adam_lr else f"rtol {PARALLEL_PARAM_RTOL}, atol {PARALLEL_PARAM_ATOL}")
+    _require(worst_excess <= 0, f"[parallel] ({part}) every parameter within {bound} of one "
+             f"process's: worst excess {worst_excess}")
+    return dict(loss_rel_err=loss_rel, param_max_abs_err=worst_abs,
+                param_worst_excess=worst_excess, params_bit_equal_one_process=bit_equal)
+
+
+def _start_params() -> dict:
+    """The seeded weights every (b)-(e) run starts from, on the host."""
+    import torch
+
+    from vqa_tpu_torch.weights import export_params
+
+    return export_params(_parallel_model(torch, "cpu", train=True))
+
+
+def _hold_sharded(part: str, ranks: list, card: str, add) -> None:
+    """(c) and (g): each rank's eval over the row-sharded table against the
+    replicated one (``_parallel_sharded``'s records)."""
+    for x in ranks:
+        for kind, c in x["sharded"].items():
+            gather = "gather_rows_dequant" if kind == "int8" else "gather_rows"
+            _require(c["rows_equal"] and c["pred_equal"] and c["correct1"][0] == c["correct1"][1],
+                     f"[parallel] ({part}) rank {x['rank']} {kind}: rows, pred and correct1 of "
+                     f"the sharded table equal the replicated one's: {c}")
+            _require(c["sharded_launches"].get(gather, 0) > 0,
+                     f"[parallel] ({part}) rank {x['rank']} {kind}: {gather} launched over the "
+                     f"shard: {c['sharded_launches']}")
+            add(c["sharded_launches"])
+            add(c["replicated_launches"])
+            _phase("parallel", part=part, card=card, rank=x["rank"], table=kind,
+                   rows=N_IMAGES, rows_here=-(-N_IMAGES // len(ranks)),
+                   eval_batches=PARALLEL_EVAL_BATCHES, global_batch=BATCH,
+                   rows_bit_equal=True, pred_equal=True, correct1=c["correct1"][1],
+                   resident_bytes_replicated=c["resident"][0],
+                   resident_bytes_sharded=c["resident"][1],
+                   peak_bytes_replicated=c["peak"][0], peak_bytes_sharded=c["peak"][1],
+                   launches=c["sharded_launches"])
+
+
+def _tensor_parallel_parts(torch, dev, card: str, tmp: str, context: dict, ref: dict,
+                           ref_adam: dict, add) -> None:
+    """(d)-(g) of the [parallel] phase (see the comment above TP_MODEL_PARALLEL)."""
+    # (d) and (g): the 1 x 2 mesh, two ranks sharing the card
+    work, t = os.path.join(tmp, "tp_ranks"), time.perf_counter()
+    ranks = _spawn_ranks(work, 2, "(d) and (g)", "_tp_rank({r}, {world}, {store!r}, {work!r})")
+    wall = time.perf_counter() - t
+    for name, one, lr in (("sgd", ref, 0.0), ("adam", ref_adam, TP_ADAM["lr"])):
+        with np.load(os.path.join(work, f"{name}.npz")) as npz:
+            params = {k: npz[k] for k in npz.files}
+        held = _hold_train("d", ranks, lambda x: x[name], params, one, lr)
+        for x in ranks:
+            run = x[name]
+            add(run["train_counts"])
+            _require(x["mesh"] == [1, TP_MODEL_PARALLEL, 0, x["rank"]],
+                     f"[parallel] (d) rank {x['rank']} sits on the 1 x 2 mesh: {x['mesh']}")
+            _phase("parallel", part="d", card=card, rank=x["rank"], optimizer=name,
+                   mesh="1x2", backend=x["backend"], dtype="float32", global_batch=TRAIN_BATCH,
+                   local_batch=TRAIN_BATCH, steps=PARALLEL_STEPS,
+                   losses=[round(v, 6) for v in run["losses"]],
+                   one_process_losses=[round(v, 6) for v in one["losses"]], **held,
+                   state_bytes=run["state_bytes"], one_process_state_bytes=one["state_bytes"],
+                   peak_bytes=run["peak"], one_process_peak_bytes=one["peak"],
+                   step_ms=round(run["step_ms"], 3), gather_ms=round(run["gather_ms"], 3),
+                   gather_share=round(run["gather_ms"] / run["step_ms"], 4),
+                   reduce_ms=round(run["reduce_ms"], 3),
+                   reduce_share=round(run["reduce_ms"] / run["step_ms"], 4),
+                   one_process_step_ms=round(one["step_ms"], 3), ranks_wall_s=round(wall, 3),
+                   launches={k: c for k, c in run["train_counts"].items() if c})
+    adam_bytes = ranks[0]["adam"]["state_bytes"]
+    _require(all(x["adam"]["state_bytes"] == adam_bytes for x in ranks)
+             and adam_bytes < 0.51 * ref_adam["state_bytes"],
+             f"[parallel] (d) each rank holds about half of adam's moments: {adam_bytes} of "
+             f"{ref_adam['state_bytes']}")
+    _hold_sharded("g", ranks, card, add)
+
+    # (e): the 2 x 2 mesh, four ranks sharing the card, sgd
+    work, t = os.path.join(tmp, "tp_ranks_2x2"), time.perf_counter()
+    ranks = _spawn_ranks(work, 4, "(e)", "_tp_rank({r}, {world}, {store!r}, {work!r})")
+    wall = time.perf_counter() - t
+    with np.load(os.path.join(work, "sgd.npz")) as npz:
+        params = {k: npz[k] for k in npz.files}
+    held = _hold_train("e", ranks, lambda x: x["sgd"], params, ref)
+    _require([x["mesh"] for x in ranks] == [[2, 2, r // 2, r % 2] for r in range(4)],
+             f"[parallel] (e) the ranks sit on the 2 x 2 grid: {[x['mesh'] for x in ranks]}")
+    _require(all(x["adam_state_bytes"] == adam_bytes for x in ranks),
+             f"[parallel] (e) adam's moments laid out at the model_parallel=2 split, as in (d): "
+             f"{[x['adam_state_bytes'] for x in ranks]} {adam_bytes}")
+    for x in ranks:
+        run = x["sgd"]
+        add(run["train_counts"])
+        _phase("parallel", part="e", card=card, rank=x["rank"], optimizer="sgd", mesh="2x2",
+               backend=x["backend"], dtype="float32", global_batch=TRAIN_BATCH,
+               local_batch=TRAIN_BATCH // 2, steps=PARALLEL_STEPS,
+               losses=[round(v, 6) for v in run["losses"]], **held,
+               adam_state_bytes=x["adam_state_bytes"], peak_bytes=run["peak"],
+               step_ms=round(run["step_ms"], 3), gather_ms=round(run["gather_ms"], 3),
+               gather_share=round(run["gather_ms"] / run["step_ms"], 4),
+               reduce_ms=round(run["reduce_ms"], 3),
+               reduce_share=round(run["reduce_ms"] / run["step_ms"], 4),
+               ranks_wall_s=round(wall, 3),
+               launches={k: c for k, c in run["train_counts"].items() if c})
+
+    # (f): the train CLI as a 1 x 2 world, preempted after a step save, then
+    # resumed in one process, against (a)'s single run
+    import io
+
+    from vqa_tpu_torch.cli import train as train_cli
+
+    logs = os.path.join(tmp, "logs", "tp_cli")
+    argv = ["--path_opt", os.path.join(_REPO, "options", "vqa2", "mutan_att.yaml"),
+            "--epochs", "1", "--dir_logs", logs]
+    for o in context["data"] + ["engine.device_features=true", "engine.features_dtype=bfloat16",
+                                f"engine.train_bucketing={TRAIN_BUCKET_WINDOW}",
+                                "optim.eval_batch_size=1024", "engine.dtype=bfloat16"]:
+        argv += ["--opt", o]
+    work = os.path.join(tmp, "tp_cli_ranks")
+    os.makedirs(work)
+    with open(os.path.join(work, "cli.json"), "w") as f:
+        json.dump(dict(data=context["data"], argv=argv + [
+            "--checkpoint_every_steps", str(TP_CLI_CKPT_EVERY), "--distributed",
+            "--opt", f"engine.model_parallel={TP_MODEL_PARALLEL}"]), f)
+    t = time.perf_counter()
+    ranks = _spawn_ranks(os.path.join(work, "ranks"), 2, "(f)",
+                         "_tp_cli_rank({r}, {world}, {store!r}, {work!r})")
+    tp_wall = time.perf_counter() - t
+    _require([x["rc"] for x in ranks] == [75, 75],
+             f"[parallel] (f) both ranks of the 1 x 2 run return 75, preempted: {ranks}")
+    for x in ranks:
+        add(x["counts"])
+    with open(os.path.join(logs, "ckpt", "info.json")) as f:
+        info = json.load(f)
+    _require(info.get("step_latest") == [0, TP_CLI_PREEMPT_AT] and info.get("latest") is None,
+             f"[parallel] (f) the 1 x 2 run left its preemption checkpoint: {info}")
+    step_dir = os.path.join(logs, "ckpt", f"inepoch_0000_{TP_CLI_PREEMPT_AT:08d}")
+    with np.load(os.path.join(step_dir, "params.npz")) as npz:
+        shapes = {k: npz[k].shape for k in npz.files}
+    with np.load(os.path.join(step_dir, "opt_state.npz")) as npz:
+        moments = {k: npz[k].shape for k in npz.files if k.startswith(("0/mu/", "0/nu/"))}
+    _require(moments == {f"0/{m}/{k}": s for m in ("mu", "nu") for k, s in shapes.items()},
+             "[parallel] (f) the step checkpoint holds adam's moments whole")
+    _reset_counts()
+    out, t = io.StringIO(), time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = train_cli.main(argv + ["--resume", "latest"])
+    torch.cuda.synchronize()
+    resume_wall = time.perf_counter() - t
+    counts = _read_counts()
+    add(counts)
+    _require(rc == 0 and f"resumed mid-epoch 0 at step {TP_CLI_PREEMPT_AT}" in out.getvalue(),
+             f"[parallel] (f) the one-process resume returns 0 from the 1 x 2 run's step "
+             f"checkpoint: {rc}\n{out.getvalue()[-3000:]}")
+    single = os.path.join(tmp, "logs", "parallel_single", "ckpt", "epoch_0000", "params.npz")
+    with np.load(os.path.join(logs, "ckpt", "epoch_0000", "params.npz")) as got, \
+            np.load(single) as want:
+        _require(sorted(got.files) == sorted(want.files), "[parallel] (f) the same leaves")
+        worst_abs, worst_excess = 0.0, -math.inf
+        for key in want.files:
+            diff = np.abs(got[key].astype(np.float64) - want[key])
+            worst_abs = max(worst_abs, float(diff.max()))
+            worst_excess = max(worst_excess, float((diff - (
+                PARALLEL_PARAM_ATOL + PARALLEL_PARAM_RTOL * np.abs(want[key]))).max()))
+    _require(worst_excess <= 0,
+             f"[parallel] (f) resumed in one process, every parameter within rtol "
+             f"{PARALLEL_PARAM_RTOL}, atol {PARALLEL_PARAM_ATOL} of (a)'s uninterrupted run: "
+             f"worst excess {worst_excess}")
+    _require(all(counts[k] for k in TRAIN_CLI_KERNELS)
+             and all(x["counts"][k] for x in ranks for k in TRAIN_CLI_KERNELS),
+             f"[parallel] (f) each run launched {TRAIN_CLI_KERNELS}: "
+             f"{[x['counts'] for x in ranks]} {counts}")
+    _phase("parallel", part="f", card=card, config="mutan_att.yaml", dtype="bfloat16",
+           mesh="1x2", backend="gloo", batch=TRAIN_BATCH, preempted_at=TP_CLI_PREEMPT_AT,
+           step_saves_every=TP_CLI_CKPT_EVERY, rcs=[x["rc"] for x in ranks],
+           tp_wall_s=round(tp_wall, 3), resume_wall_s=round(resume_wall, 3),
+           param_max_abs_err=worst_abs, param_worst_excess=worst_excess,
+           launches={k: c for k, c in counts.items() if c})
 
 
 def _parallel_phase(torch, dev, card: str, tmp: str, context: dict) -> dict:
@@ -4375,88 +4810,32 @@ def _parallel_phase(torch, dev, card: str, tmp: str, context: dict) -> dict:
     table, train_batch, _ = _parallel_data()
     _reset_counts()
     ref = _parallel_train(torch, dev, Mesh(), table, train_batch)
+    ref_adam = _parallel_train(torch, dev, Mesh(), table, train_batch, TP_ADAM)
     add(_read_counts())
     del table
     work = os.path.join(tmp, "parallel_ranks")
-    os.makedirs(work)
-    store = f"file://{work}/store"
-    logs = [open(os.path.join(work, f"rank{r}.log"), "w") for r in range(PARALLEL_WORLD)]
-    procs = [subprocess.Popen(
-        [sys.executable, "-c", f"import chip_smoke; chip_smoke._parallel_rank({r}, "
-         f"{PARALLEL_WORLD}, {store!r}, {work!r})"],
-        cwd=_REPO, stdout=logs[r], stderr=subprocess.STDOUT) for r in range(PARALLEL_WORLD)]
-    try:
-        deadline = time.monotonic() + PARALLEL_TIMEOUT
-        rcs = [p.wait(timeout=max(1.0, deadline - time.monotonic())) for p in procs]
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-        for f in logs:
-            f.close()
-    for r, rc in enumerate(rcs):
-        if rc != 0:
-            with open(os.path.join(work, f"rank{r}.log")) as f:
-                print(f.read()[-4000:], file=sys.stderr)
-        _require(rc == 0, f"[parallel] rank {r} of (b) and (c) returns 0: {rc}")
-    ranks = []
-    for r in range(PARALLEL_WORLD):
-        with open(os.path.join(work, f"rank{r}.json")) as f:
-            ranks.append(json.load(f))
+    ranks = _spawn_ranks(work, PARALLEL_WORLD, "(b) and (c)", "_parallel_rank({r}, {world}, "
+                         "{store!r}, {work!r})")
     with np.load(os.path.join(work, "params.npz")) as npz:
         dp = {k: npz[k] for k in npz.files}
 
     # (b): the ranks hold the global batch's losses and one set of params
-    _require(all(x["losses"] == ranks[0]["losses"] and x["params_sha"] == ranks[0]["params_sha"]
-                 for x in ranks), "[parallel] (b) the ranks agree on the losses and parameters")
-    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(ranks[0]["losses"], ref["losses"]))
-    _require(loss_rel <= PARALLEL_LOSS_RTOL,
-             f"[parallel] (b) losses within {PARALLEL_LOSS_RTOL} relative of one process's: "
-             f"{ranks[0]['losses']} {ref['losses']}")
-    _require(sorted(dp) == sorted(ref["params"]), "[parallel] (b) the same parameter names")
-    worst_abs, worst_excess = 0.0, -math.inf
-    for key, want in ref["params"].items():
-        diff = np.abs(dp[key].astype(np.float64) - want)
-        worst_abs = max(worst_abs, float(diff.max()))
-        excess = diff - (PARALLEL_PARAM_ATOL + PARALLEL_PARAM_RTOL * np.abs(want))
-        worst_excess = max(worst_excess, float(excess.max()))
-    _require(worst_excess <= 0,
-             f"[parallel] (b) every parameter within rtol {PARALLEL_PARAM_RTOL}, atol "
-             f"{PARALLEL_PARAM_ATOL} of one process's: worst excess {worst_excess}")
+    held = _hold_train("b", ranks, lambda x: x, dp, ref)
     for x in ranks:
         add(x["train_counts"])
         _phase("parallel", part="b", card=card, rank=x["rank"], world=PARALLEL_WORLD,
                device=x["device"], backend=x["backend"], dtype="float32",
                global_batch=TRAIN_BATCH, local_batch=TRAIN_BATCH // PARALLEL_WORLD,
                steps=PARALLEL_STEPS, losses=[round(v, 6) for v in x["losses"]],
-               one_process_losses=[round(v, 6) for v in ref["losses"]],
-               loss_rel_err=loss_rel, param_max_abs_err=worst_abs,
-               param_worst_excess=worst_excess, step_ms=round(x["step_ms"], 3),
-               reduce_ms=round(x["reduce_ms"], 3),
+               one_process_losses=[round(v, 6) for v in ref["losses"]], **held,
+               step_ms=round(x["step_ms"], 3), reduce_ms=round(x["reduce_ms"], 3),
                reduce_share=round(x["reduce_ms"] / x["step_ms"], 4),
                one_process_step_ms=round(ref["step_ms"], 3),
                launches={k: c for k, c in x["train_counts"].items() if c})
     # (c): the sharded table against the replicated one, in every rank
-    for x in ranks:
-        for kind, c in x["sharded"].items():
-            gather = "gather_rows_dequant" if kind == "int8" else "gather_rows"
-            _require(c["rows_equal"] and c["pred_equal"] and c["correct1"][0] == c["correct1"][1],
-                     f"[parallel] (c) rank {x['rank']} {kind}: rows, pred and correct1 of the "
-                     f"sharded table equal the replicated one's: {c}")
-            _require(c["sharded_launches"].get(gather, 0) > 0,
-                     f"[parallel] (c) rank {x['rank']} {kind}: {gather} launched over the "
-                     f"shard: {c['sharded_launches']}")
-            add(c["sharded_launches"])
-            add(c["replicated_launches"])
-            _phase("parallel", part="c", card=card, rank=x["rank"], table=kind,
-                   rows=N_IMAGES, rows_here=N_IMAGES // PARALLEL_WORLD,
-                   eval_batches=PARALLEL_EVAL_BATCHES, global_batch=BATCH,
-                   rows_bit_equal=True, pred_equal=True, correct1=c["correct1"][1],
-                   resident_bytes_replicated=c["resident"][0],
-                   resident_bytes_sharded=c["resident"][1],
-                   peak_bytes_replicated=c["peak"][0], peak_bytes_sharded=c["peak"][1],
-                   launches=c["sharded_launches"])
+    _hold_sharded("c", ranks, card, add)
+    # (d)-(g): tensor parallelism
+    _tensor_parallel_parts(torch, dev, card, tmp, context, ref, ref_adam, add)
     _phase("parallel", part="total", card=card, s=round(time.perf_counter() - t_phase, 2),
            launches={k: c for k, c in counts.items() if c})
     return counts

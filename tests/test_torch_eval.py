@@ -244,11 +244,13 @@ def test_eval_cli_writes_what_the_jax_cli_writes(run, tmp_path, split, extra):
 
 
 @pytest.mark.parametrize("argv,error,match", [
-    (["--opt", "engine.model_parallel=2"], NotImplementedError, "queue 1, item 12b"),
+    (["--opt", "engine.model_parallel=2"], ValueError, "not divisible by model_parallel=2"),
 ])
 def test_eval_cli_refuses_what_is_not_ported(tmp_path, argv, error, match):
-    """Each refusal raises before any file is written and names the ROADMAP
-    item that ports it: tensor parallelism (12b) is the one left."""
+    """Each refusal raises before any file is written. Every ROADMAP item of
+    the CLI is ported; what is left is a mesh the world cannot lay out: one
+    process with ``engine.model_parallel=2``, as the JAX CLI's ``make_mesh``
+    refuses it."""
     logs = str(tmp_path / "logs")
     args = ["--path_opt", PATH_OPT, "-e", "--platform", "cpu", "--dir_logs", logs,
             "--opt", "model.pretrained_params=params.npz"] + argv

@@ -295,13 +295,17 @@ def test_sharded_table_matches_the_replicated_one(tmp_path):
 
 @pytest.mark.parametrize("n", [2, 4])
 def test_dryrun_multigpu_on_the_host(n, capsys):
-    """flagship.dryrun_multigpu over n gloo ranks on the host: the ranks
-    agree on the global losses, which fall over 5 steps on a fixed batch,
-    then one sharded eval step."""
+    """flagship.dryrun_multigpu over n gloo ranks on the host, on its default
+    mesh (2 ranks: 2x1; 4 ranks: 2x2, as __graft_entry__.dryrun_multichip
+    lays out an even world of at least 4): the ranks agree on the global
+    losses, which fall over 5 steps on a fixed batch, then one sharded eval
+    step."""
     record = flagship.dryrun_multigpu(n, platform="cpu", timeout=RANK_TIMEOUT)
-    assert record["mesh"] == {"data": n, "index": 0, "backend": "gloo"}
+    mp = 2 if n == 4 else 1
+    assert record["mesh"] == {"data": n // mp, "model": mp, "data_index": 0, "model_index": 0,
+                              "backend": "gloo"}
     assert record["steps"] == 5 and record["losses"][-1] < record["losses"][0]
-    assert f"dryrun_multigpu({n}): ok" in capsys.readouterr().out
+    assert f"dryrun_multigpu({n}, tp={mp}): ok" in capsys.readouterr().out
 
 
 def test_one_process_mesh_and_shard():
@@ -324,7 +328,9 @@ def test_one_process_mesh_and_shard():
 
 
 def test_mesh_refuses_tensor_parallelism_and_odd_batches():
-    with pytest.raises(NotImplementedError, match="item 12b"):
+    """A world that model_parallel does not divide (one process here), as
+    the JAX make_mesh refuses it; a batch the data axis does not divide."""
+    with pytest.raises(ValueError, match="1 process\\(es\\) not divisible by model_parallel=2"):
         parallel.make_mesh(model_parallel=2)
     with pytest.raises(ValueError, match="divisible by data-parallel size 3"):
         parallel.check_batch_divisible(16, Mesh(data=3))

@@ -37,23 +37,28 @@ evaluates ``model.pretrained_params`` (with the seq2vec grafts under it; it
 must hold every leaf) or, with no npz at all, the init. Every arch of
 ``options/`` trains, with the ``lstm``, ``gru`` or ``skipthoughts`` encoder.
 
-``--distributed`` runs data-parallel across processes, one a card
+``--distributed`` runs across processes, one a card
 (``vqa_tpu_torch/parallel/``): ``torchrun --nproc_per_node N -m
 vqa_tpu_torch.cli.train --distributed ...``, or the JAX CLI's flags
 (``--coordinator_address host:port --num_processes N --process_id i``, one
 command a process; ``file:///path`` also names a shared-file store). NCCL
-carries the card's collectives, gloo the host's (``--platform cpu``). Each
-process trains on its shard of every global batch (``batch_size / N`` rows,
-train bucketing off) and the step averages the grads and metrics over the
-ranks; evaluation is replica-fed (every process reads the whole split and
-runs its slice of each batch), so every rank prints the same metrics. Only
-rank 0 writes ``options.yaml``, the logs, the results and the checkpoints
-(a barrier after each save); checkpoints do not depend on the layout, so a
-run saved by N processes resumes in one and the reverse. SIGTERM → exit 75
-stays single-process. ``engine.features_sharded`` (with
-``engine.device_features``) row-shards the table over the ranks
-(``parallel.mesh.ShardedTable``). What is not ported refuses:
-``engine.model_parallel > 1`` (tensor parallelism) names ROADMAP.md item 12b.
+carries the card's collectives, gloo the host's (``--platform cpu``). The N
+processes form the mesh ``N / M × M`` of ``engine.model_parallel`` = M
+(``parallel.mesh.make_mesh``; a world that M does not divide raises
+``ValueError`` before any file is written). Each data index trains on its
+shard of every global batch (``batch_size / (N / M)`` rows; train bucketing
+off over more than one data index) and the step averages the grads and
+metrics over the data axis; with
+M > 1 the optimizer state of the large 2-D leaves is sharded over the ranks
+of each row (``parallel.partition.shard_state_tp``). Evaluation is
+replica-fed (every process reads the whole split and runs its data index's
+slice of each batch), so every rank prints the same metrics. Only rank 0
+writes ``options.yaml``, the logs, the results and the checkpoints (every
+rank gathers the sharded state first; a barrier after each save);
+checkpoints hold whole arrays, so a run saved under one layout resumes under
+any other, one process included. SIGTERM → exit 75 stays single-process.
+``engine.features_sharded`` (with ``engine.device_features``) row-shards the
+table over every rank (``parallel.mesh.ShardedTable``).
 
 ``--profile_dir`` (``engine.profile_dir``) traces the run with
 ``torch.profiler`` where the JAX CLI calls ``jax.profiler.start_trace`` and
@@ -87,8 +92,8 @@ from vqa_tpu_torch.engine.steps import (create_state, make_eval_step, make_train
                                         quantize_features)
 from vqa_tpu_torch.models.factory import factory as model_factory
 from vqa_tpu_torch.parallel import distributed
-from vqa_tpu_torch.parallel.mesh import (TP_REFUSAL, Mesh, check_batch_divisible, make_mesh,
-                                         shard_feature_table)
+from vqa_tpu_torch.parallel.mesh import Mesh, check_batch_divisible, make_mesh, shard_feature_table
+from vqa_tpu_torch.parallel.partition import gather_state, shard_state_tp
 from vqa_tpu_torch.weights import graft_params, init_params, load_params, pretrained_params
 
 
@@ -127,8 +132,9 @@ def build_argparser() -> argparse.ArgumentParser:
         help="override any config leaf, e.g. --opt model.fusion.R=10",
     )
     p.add_argument("--distributed", action="store_true",
-                   help="data-parallel across processes, one a card (torchrun's "
-                        "environment, or the three flags below)")
+                   help="across processes, one a card, on the mesh of "
+                        "engine.model_parallel (torchrun's environment, or the three "
+                        "flags below)")
     p.add_argument("--coordinator_address", default=None,
                    help="host:port of rank 0's store (or file:///path)")
     p.add_argument("--num_processes", type=int, default=None)
@@ -156,11 +162,6 @@ def options_from_args(args) -> Options:
             overrides.append((key, val))
     overrides.extend(args.opt)
     return load_options(args.path_opt, overrides)
-
-
-def _refuse_unported(opt: Options) -> None:
-    if opt.engine.model_parallel > 1:
-        raise NotImplementedError(TP_REFUSAL)
 
 
 def _start_profile(profile_dir: str, device: torch.device):
@@ -209,7 +210,7 @@ def _device_table(store, opt: Options, device: torch.device,
         what = f"{tuple(host.shape)} {host.dtype} ({host.nbytes/1e9:.2f} GB)"
     if opt.engine.features_sharded:
         features = shard_feature_table(host, mesh, device)
-        print(f"device feature table: {what}, row-sharded over {mesh.data} rank(s): "
+        print(f"device feature table: {what}, row-sharded over {mesh.size} rank(s): "
               f"{features.nbytes/1e9:.2f} GB on this one", flush=True)
         return features
     print(f"device feature table: {what}", flush=True)
@@ -233,7 +234,6 @@ def _weights(model, opt: Options, evaluate: bool) -> None:
 def main(argv: Optional[List[str]] = None) -> int:
     args = build_argparser().parse_args(argv)
     opt = options_from_args(args)
-    _refuse_unported(opt)
     device = _device(args.platform)
     if args.distributed:
         device = distributed.initialize(args.coordinator_address, args.num_processes,
@@ -249,7 +249,7 @@ def _run(args, opt: Options, device: torch.device) -> int:
     mesh = make_mesh(opt.engine.model_parallel)
     # non-primary processes compute but never write run artifacts (logs,
     # options dump, results, checkpoints); see parallel/distributed.py
-    primary = mesh.index == 0
+    primary = mesh.rank == 0
     dtype = compute_dtype(opt)
     # the visual input's cast, as vqa_tpu/cli/train.py:270 places it
     input_dtype = None if dtype == torch.float32 else dtype
@@ -280,8 +280,8 @@ def _run(args, opt: Options, device: torch.device) -> int:
         if args.resume is None:  # a restore overwrites every leaf
             _weights(model, opt, args.evaluate)
         n_params = sum(p.numel() for p in model.parameters())
-        where = (f", rank {mesh.index} of {mesh.data} over {mesh.backend}"
-                 if mesh.distributed else "")
+        where = (f", rank {mesh.rank} of {mesh.size} over {mesh.backend}, mesh "
+                 f"{mesh.data} x {mesh.model} (data x model)" if mesh.distributed else "")
         print(f"model {opt.model.arch}: {n_params/1e6:.2f}M params, {device} {dtype}{where}",
               flush=True)
         ckpt = CheckpointManager(os.path.join(run_dir, "ckpt"), args.save_all_from)
@@ -296,7 +296,9 @@ def _run(args, opt: Options, device: torch.device) -> int:
         else:
             check_batch_divisible(opt.optim.batch_size, mesh)
             steps_per_epoch = len(train_set) // opt.optim.batch_size
-            state = create_state(model, optim_lib.factory(opt.optim, steps_per_epoch))
+            state = shard_state_tp(create_state(model, optim_lib.factory(opt.optim,
+                                                                          steps_per_epoch)),
+                                   mesh)
             if args.resume is not None:
                 # a live mid-epoch checkpoint outranks the per-epoch saves for
                 # a training '--resume latest': it is strictly newer (clear_step
@@ -372,29 +374,31 @@ def _run(args, opt: Options, device: torch.device) -> int:
         )
         n_proc = mesh.data
         if n_proc > 1 and train_bucketing:
-            # per-process bucket truncation would give the ranks different
-            # question shapes for the same global step; the JAX CLI runs its
-            # multi-process training unbucketed too
+            # per-shard bucket truncation would give the data ranks different
+            # question shapes for the same global step (the ranks of one row
+            # read the same shard); the JAX CLI runs its multi-process
+            # training unbucketed too
             print("distributed: train length-bucketing disabled", flush=True)
             train_bucketing = {}
         train_loader = BatchIterator(train_set, opt.optim.batch_size // n_proc, shuffle=True,
                                      seed=opt.engine.seed, drop_last=True,
                                      transform=engine_lib.make_device_transform(device,
                                                                                 input_dtype),
-                                     shard_index=mesh.index, shard_count=n_proc,
+                                     shard_index=mesh.data_index, shard_count=n_proc,
                                      shard_even=n_proc > 1, **train_bucketing)
         train_step = make_train_step(optim_lib.criterion_factory(), opt.engine.seed,
                                      nan_check=opt.engine.nan_check, mesh=mesh)
 
         def step_checkpoint(s, epoch, next_step):
+            whole = gather_state(s)  # a collective of every rank's row
             if primary:
-                ckpt.save_step(s, epoch, next_step)
+                ckpt.save_step(whole, epoch, next_step)
             distributed.barrier()
 
         # SIGTERM -> a step checkpoint at the next step boundary and exit 75;
         # single-process only, as in the JAX CLI: a signal to one process
         # would stop it alone, mid-collective
-        if args.save_model and n_proc == 1:
+        if args.save_model and mesh.size == 1:
             engine_lib.install_preemption_handler()
         try:
             for epoch in range(start_epoch, opt.optim.epochs):
@@ -410,8 +414,9 @@ def _run(args, opt: Options, device: torch.device) -> int:
                                               val_set.vocabs.aid_to_ans, exp, epoch,
                                               features=features, mesh=mesh)
                 if args.save_model:
+                    whole = gather_state(state)
                     if primary:
-                        is_best = ckpt.save(state, epoch, acc1)
+                        is_best = ckpt.save(whole, epoch, acc1)
                         ckpt.clear_step()  # the full-epoch save supersedes it
                         if is_best:
                             print(f"new best acc1 {acc1*100:.2f} @ epoch {epoch}",

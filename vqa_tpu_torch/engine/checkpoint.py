@@ -19,6 +19,13 @@ Each directory is written under a temporary name and renamed into place once
 complete, so a half-written one is never read; ``info.json`` is replaced
 atomically (tmp + ``os.replace``) after the directory it names is in place,
 and a superseded directory is deleted only after that.
+
+The arrays are whole whatever the layout the run trained under: a state
+whose optimizer state is sharded over the mesh's model axis is gathered
+first (``parallel.partition.gather_state``, a collective every rank of the
+row calls before rank 0 saves), and a restore into a sharded state keeps
+each rank's slice (``Layout.view``). A run saved by one process, under data
+or tensor parallelism, resumes under any of them.
 """
 
 from __future__ import annotations
@@ -89,8 +96,12 @@ class CheckpointManager:
     # -- one directory -------------------------------------------------------
 
     def _write_dir(self, path: str, state) -> None:
-        """Write ``state`` (a ``steps.TrainState``) to ``path`` through a
-        temporary directory renamed into place once complete."""
+        """Write ``state`` (a ``steps.TrainState`` whose optimizer state is
+        whole) to ``path`` through a temporary directory renamed into place
+        once complete."""
+        if state.layout is not None:
+            raise ValueError("a sharded optimizer state: gather it on every rank first "
+                             "(parallel.partition.gather_state)")
         tmp = path + ".tmp"
         if os.path.exists(tmp):  # left by a crash mid-write
             shutil.rmtree(tmp)
@@ -112,7 +123,8 @@ class CheckpointManager:
 
     def _read_dir(self, path: str, state) -> None:
         """Fill ``state`` in place from ``path``: every parameter and
-        optimizer array must be there with the template's shape."""
+        optimizer array must be there with the template's shape (a sharded
+        state's: this rank's slice of the whole array)."""
         if not os.path.isdir(path):
             raise FileNotFoundError(f"checkpoint directory {path} is missing")
         with np.load(os.path.join(path, PARAMS)) as npz:
@@ -123,8 +135,9 @@ class CheckpointManager:
             step = json.load(f)["step"]
         try:
             load_params(state.model, flat)
-            opt_state = optim.state_from_arrays(state.opt_state, arrays,
-                                                param_keys(state.model))
+            opt_state = optim.state_from_arrays(
+                state.opt_state, arrays, param_keys(state.model),
+                view=state.layout.view if state.layout is not None else None)
         except (KeyError, ValueError) as e:
             raise _core_bias_hint(e) from e
         state.opt_state, state.step = opt_state, int(step)

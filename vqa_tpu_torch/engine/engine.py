@@ -15,10 +15,12 @@ dispatches the whole epoch, then stacks the outputs on the card and copies
 them back once.
 
 Across processes (``parallel/``) evaluation is replica-fed: every rank
-iterates the whole split, its transform keeps its slice of each global
-batch (``make_device_transform(..., mesh=...)``), and after the epoch's
-dispatch the loop gathers every rank's packed outputs once over the host
-group, so every rank holds the whole epoch's metrics and results. No
+iterates the whole split, its transform keeps its data index's slice of
+each global batch (``make_device_transform(..., mesh=...)``; the ranks of
+one row run the same slice), and after the epoch's dispatch the loop
+gathers every rank's packed outputs once over the host group and keeps one
+rank a data index, so every rank holds the whole epoch's metrics and
+results. No
 collective runs in the loader's producer thread: one there would race the
 main thread's, the gloo crash that ``vqa_tpu/engine/engine.py:75-81``
 records.
@@ -82,7 +84,7 @@ def make_device_transform(device, dtype: Optional[torch.dtype] = None, mesh=None
     host); keep ``image_index``, ``question_id`` and ``valid_host`` (the
     results filter's copy of ``valid``) on the host. Over a distributed
     ``mesh`` (replica-fed evaluation) the compute keys and ``image_index``
-    are this rank's slice of the batch; ``question_id`` and ``valid_host``
+    are this rank's data slice of the batch; ``question_id`` and ``valid_host``
     stay whole, for the results of the gathered outputs."""
     device = torch.device(device)
     sliced = mesh is not None and mesh.distributed
@@ -116,8 +118,9 @@ def _readback_stacked(outs: List[Dict[str, torch.Tensor]], mesh=None) -> Dict[st
     one int64 tensor on their device, then copied to the host in one
     transfer (the epoch's only sync). Batches must share their shapes, as
     they do with ``pad_last``. Over a distributed ``mesh`` the ranks' packed
-    outputs are gathered once: the per-row outputs (``pred``) concatenated
-    in rank order, the global batch's order, the sums added."""
+    outputs are gathered once and the first rank of each row kept (the
+    others ran the same slices): the per-row outputs (``pred``) concatenated
+    in data-index order, the global batch's order, the sums added."""
     keys = list(outs[0])
     sizes = [outs[0][k].numel() for k in keys]
     packed = torch.stack([torch.cat([o[k].reshape(-1).to(torch.int64) for k in keys])
@@ -128,7 +131,7 @@ def _readback_stacked(outs: List[Dict[str, torch.Tensor]], mesh=None) -> Dict[st
     if mesh is None or not mesh.distributed:
         return {k: host[:, a:b].reshape((n,) + tuple(outs[0][k].shape))
                 for k, a, b in zip(keys, bounds[:-1], bounds[1:])}
-    every = mesh.all_gather_host(host)                       # [ranks, n, packed]
+    every = mesh.all_gather_host(host)[::mesh.model]          # [data, n, packed]
     out = {}
     for k, a, b in zip(keys, bounds[:-1], bounds[1:]):
         part, shape = every[:, :, a:b], tuple(outs[0][k].shape)

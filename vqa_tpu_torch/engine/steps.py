@@ -22,14 +22,19 @@ exchanges the ranks' indices and rows.
 
 Data parallelism (``make_train_step(..., mesh=...)`` over a mesh of several
 processes): each rank runs its shard of the global batch, then ONE
-``all_reduce`` averages the grads and the metric scalars over the ranks
-before the optimizer, as the JAX step's psum over the 'data' axis does.
+``all_reduce`` over its column (the data axis) averages the grads and the
+metric scalars before the optimizer, as the JAX step's psum over the 'data'
+axis does. Tensor parallelism (a state laid out by
+``parallel.partition.shard_state_tp``): the ranks of one row run the same
+batch shard with the whole parameters; after the reduction the optimizer
+runs over each rank's slices of the sharded leaves and one all-gather over
+the row makes them whole (``Layout.apply``).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -44,12 +49,15 @@ from vqa_tpu_torch.parallel.mesh import Mesh, ShardedTable
 class TrainState:
     """The counterpart of flax's TrainState: the model (its parameters are
     the ones trained), the optimizer and its state, and the count of train
-    steps taken (micro-steps under ``grad_accum``), which seeds dropout."""
+    steps taken (micro-steps under ``grad_accum``), which seeds dropout;
+    ``layout`` is a ``parallel.partition.Layout`` where the optimizer state
+    is sharded over the mesh's model axis, else None."""
 
     model: nn.Module
     tx: optim.Transform
     opt_state: object
     step: int = 0
+    layout: Optional[Any] = None
 
     @property
     def params(self) -> List[nn.Parameter]:
@@ -68,8 +76,9 @@ def dropout_generator(seed: int, step: int, device, rank: int = 0) -> torch.Gene
     """The dropout stream of one step, a pure function of (seed, step), as
     ``jax.random.fold_in(rng, state.step)`` is in the JAX step (the streams
     themselves differ from flax's). A data rank past the first draws its own
-    stream (``rank`` folded in), so the ranks' shards get independent masks;
-    rank 0 draws the single process's."""
+    stream (``rank``, the data index, folded in), so the data shards get
+    independent masks while the ranks of one row draw the same; data index 0
+    draws the single process's."""
     entropy = [seed, step] + ([rank] if rank else [])
     state = np.random.SeedSequence(entropy).generate_state(1, np.uint64)[0]
     return torch.Generator(device=device).manual_seed(int(state) & (2 ** 63 - 1))
@@ -129,7 +138,7 @@ def _check_finite(model: nn.Module, loss: torch.Tensor, grads) -> None:
 
 
 def _all_reduce_mean(mesh: Mesh, grads, metrics: Dict[str, torch.Tensor]):
-    """The grads and the metric scalars averaged over the data ranks by ONE
+    """The grads and the metric scalars averaged over the data axis by ONE
     ``all_reduce`` of a flat float32 buffer (the step is host-bound: one
     collective a step, not one a tensor). The ranks' shards are equal, so
     the mean of their means is the global batch's mean."""
@@ -151,11 +160,15 @@ def make_train_step(criterion: Callable, seed: int, nan_check: bool = False,
     before any clip) as tensors on the step's device. ``nan_check`` raises
     before the update on a non-finite loss or grad. Over a ``mesh`` of
     several processes the grads and the metrics are those of the global
-    batch: averaged over the ranks before the check, the norm and the
+    batch: averaged over the data axis before the check, the norm and the
     update (DDP's reducer does not fire under ``torch.autograd.grad``, so
-    the reduction is written out)."""
+    the reduction is written out). A state laid out over the mesh's model
+    axis is updated by its layout; ``gnorm`` is the whole grads' norm."""
     distributed = mesh is not None and mesh.distributed
-    rank = mesh.index if distributed else 0
+    # a column of one rank has no group (a 1 x M mesh); a world of one
+    # reduces over its own group, so the step's collective runs there too
+    reduce = distributed and mesh.data_group is not None
+    rank = mesh.data_index if distributed else 0
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor], features=None):
         with torch.no_grad():
@@ -169,15 +182,18 @@ def make_train_step(criterion: Callable, seed: int, nan_check: bool = False,
             "acc1": _topk_acc(logits, batch["answer"], 1).float().mean(),
             "acc5": _topk_acc(logits, batch["answer"], 5).float().mean(),
         }
-        if distributed:
+        if reduce:
             grads, metrics = _all_reduce_mean(mesh, grads, metrics)
         if nan_check:
             _check_finite(state.model, metrics["loss"], grads)
-        updates, state.opt_state = state.tx.update(list(grads), state.opt_state,
-                                                   [p.detach() for p in params])
-        optim.apply_updates(params, updates)
-        state.step += 1
         metrics["gnorm"] = optim.global_norm(grads)
+        if state.layout is not None:
+            state.layout.apply(state, grads)
+        else:
+            updates, state.opt_state = state.tx.update(list(grads), state.opt_state,
+                                                       [p.detach() for p in params])
+            optim.apply_updates(params, updates)
+        state.step += 1
         return state, metrics
 
     return train_step

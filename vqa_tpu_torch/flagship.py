@@ -22,6 +22,7 @@ import queue
 import tempfile
 import time
 import traceback
+from typing import Optional
 
 import numpy as np
 import torch
@@ -192,7 +193,8 @@ def example_batch(batch: int = 64, seq: int = 26, regions: int = 36, dim: int = 
     }
 
 
-def _dryrun_rank(rank: int, n: int, store: str, platform: str, results) -> None:
+def _dryrun_rank(rank: int, n: int, model_parallel: int, store: str, platform: str,
+                 results) -> None:
     """One rank of ``dryrun_multigpu``: puts ``(rank, record)`` or ``(rank,
     traceback)`` on ``results``."""
     try:
@@ -200,13 +202,14 @@ def _dryrun_rank(rank: int, n: int, store: str, platform: str, results) -> None:
         from vqa_tpu_torch.config import OptimOptions
         from vqa_tpu_torch.engine import optim, steps
         from vqa_tpu_torch.parallel.mesh import local_rows
+        from vqa_tpu_torch.parallel.partition import shard_state_tp
         from vqa_tpu_torch.weights import init_params
 
         if platform == "cpu":
             torch.set_num_threads(1)  # n ranks share the host's cores
         device = parallel.initialize(store, n, rank, device=platform)
         try:
-            mesh = parallel.make_mesh()
+            mesh = parallel.make_mesh(model_parallel)
             num_words, num_answers = 50, 17
             batch, seq, regions, dim, n_images = 4 * n, 8, 6, 32, 10
             rng = np.random.default_rng(0)
@@ -224,8 +227,11 @@ def _dryrun_rank(rank: int, n: int, store: str, platform: str, results) -> None:
                             dim_v=dim, train=True)
             init_params(model, 0)
             # the tiny dims and a visible lr, as the JAX dryrun's: the fixed
-            # batch's loss falls past the dropout's noise
-            state = steps.create_state(model, optim.factory(OptimOptions(lr=0.01), 1))
+            # batch's loss falls past the dropout's noise; its min_size, so
+            # the tiny leaves shard over the model axis
+            state = shard_state_tp(
+                steps.create_state(model, optim.factory(OptimOptions(lr=0.01), 1)), mesh,
+                min_size=64)
             features = parallel.shard_feature_table(torch.from_numpy(table), mesh, device)
             train_step = steps.make_train_step(optim.criterion_factory(), seed=1, mesh=mesh)
             losses = []
@@ -234,8 +240,11 @@ def _dryrun_rank(rank: int, n: int, store: str, platform: str, results) -> None:
                 losses.append(float(metrics["loss"]))
             out = steps.make_eval_step()(state.model, local, features)
             record = dict(losses=losses, steps=state.step, pred=out["pred"].cpu().tolist(),
-                          n=int(out["n"]), mesh=dict(data=mesh.data, index=mesh.index,
-                                                     backend=mesh.backend))
+                          n=int(out["n"]), sharded_leaves=len(state.layout.sharded)
+                          if state.layout is not None else 0,
+                          mesh=dict(data=mesh.data, model=mesh.model,
+                                    data_index=mesh.data_index, model_index=mesh.model_index,
+                                    backend=mesh.backend))
         finally:
             parallel.shutdown()
         results.put((rank, record))
@@ -243,20 +252,29 @@ def _dryrun_rank(rank: int, n: int, store: str, platform: str, results) -> None:
         results.put((rank, traceback.format_exc()))
 
 
-def dryrun_multigpu(n_processes: int, platform: str = "cuda", timeout: float = 600.0) -> dict:
-    """Data-parallel training over ``n_processes`` spawned ranks at tiny
-    MutanAtt dims: 5 steps on one fixed batch of ``4 * n`` rows (each rank
-    its slice) over a row-sharded feature table, adam at lr 0.01 with the
-    YAML's dropout, then one eval step over the sharded table. Holds: every
-    rank reports the same (globally reduced) losses, finite and lower after
-    the 5 steps, and the ranks' eval slices cover the batch with answers in
-    range. ``platform`` is where the ranks run (``"cpu"``: over gloo on the
-    host; the card: over NCCL, one card a rank). Returns rank 0's record."""
+def dryrun_multigpu(n_processes: int, platform: str = "cuda", timeout: float = 600.0,
+                    model_parallel: Optional[int] = None) -> dict:
+    """Training over ``n_processes`` spawned ranks on the mesh
+    ``n / model_parallel × model_parallel`` (default: 2 on an even world of
+    at least 4, else 1, as ``__graft_entry__.dryrun_multichip``) at tiny
+    MutanAtt dims: 5 steps on one fixed batch of ``4 * n`` rows (each data
+    index its slice), the optimizer state sharded over the model axis
+    (``min_size`` 64, the JAX dryrun's), over a feature table row-sharded
+    over every rank, adam at lr 0.01 with the YAML's dropout, then one eval
+    step over the sharded table. Holds: every rank reports the same
+    (globally reduced) losses, finite and lower after the 5 steps, the ranks
+    of a row the same eval slice, and the data indices' slices cover the
+    batch with answers in range. ``platform`` is where the ranks run
+    (``"cpu"``: over gloo on the host; the card: over NCCL, one card a
+    rank). Returns rank 0's record."""
+    if model_parallel is None:
+        model_parallel = 2 if n_processes % 2 == 0 and n_processes >= 4 else 1
     ctx = torch.multiprocessing.get_context("spawn")
     with tempfile.TemporaryDirectory(prefix="dryrun_multigpu_") as tmp:
         results = ctx.Queue()
         procs = [ctx.Process(target=_dryrun_rank,
-                             args=(r, n_processes, f"file://{tmp}/store", platform, results))
+                             args=(r, n_processes, model_parallel, f"file://{tmp}/store",
+                                   platform, results))
                  for r in range(n_processes)]
         for p in procs:
             p.start()
@@ -289,12 +307,17 @@ def dryrun_multigpu(n_processes: int, platform: str = "cuda", timeout: float = 6
         raise AssertionError(f"the ranks disagree on the global losses: {records}")
     if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
         raise AssertionError(f"the loss did not fall over 5 steps on a fixed batch: {losses}")
-    pred = [a for r in sorted(records) for a in records[r]["pred"]]
-    if sum(rec["n"] for rec in records.values()) != 4 * n_processes or \
-            not all(0 <= a < 17 for a in pred) or first["steps"] != 5:
-        raise AssertionError(f"the sharded eval step's slices: {records}")
-    print(f"dryrun_multigpu({n_processes}): ok, loss {losses[0]:.4f} -> {losses[-1]:.4f} "
-          f"over 5 steps + one sharded eval step, {n_processes} ranks over "
-          f"{first['mesh']['backend']}, batch sharded over the ranks, feature table "
-          "row-sharded over them", flush=True)
+    rows = [records[r] for r in range(0, n_processes, model_parallel)]  # model index 0
+    pred = [a for rec in rows for a in rec["pred"]]
+    if any(rec["pred"] != records[r - r % model_parallel]["pred"] for r, rec in records.items()) \
+            or sum(rec["n"] for rec in rows) != 4 * n_processes \
+            or not all(0 <= a < 17 for a in pred) or first["steps"] != 5 \
+            or (model_parallel > 1) != (first["sharded_leaves"] > 0):
+        raise AssertionError(f"the sharded eval step's slices or the layout: {records}")
+    mesh = first["mesh"]
+    print(f"dryrun_multigpu({n_processes}, tp={model_parallel}): ok, loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f} over 5 steps + one sharded eval step, mesh {mesh['data']} x "
+          f"{mesh['model']} (data x model) over {mesh['backend']}, batch sharded over "
+          f"'data', {first['sharded_leaves']} leaves' optimizer state over 'model', feature "
+          "table row-sharded over every rank", flush=True)
     return first
