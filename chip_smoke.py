@@ -283,6 +283,32 @@ Phases, each printing one line of what it found:
      uninterrupted one; (g) the table row-sharded over (d)'s world, as
      (c).
 
+ 15. data (after phase 6): (a) phase 6's synthetic raw VQA v2 set prepared
+     twice by the port's run_prep, through the native C++ encoder
+     (vqa_tpu_torch/native/, built with g++) and with it forced to Python
+     (native.available patched): each prep's splits counted under its
+     encoder, every array of both splits and vocab.json byte-equal, each
+     prep's seconds and its encode_split's questions/s printed, and the two
+     encoders alone over all 48,750 questions, in turns; (b) MutanAtt's eval
+     step at mutan_att.yaml's full width, bf16, the table on the card
+     (visual_mode "index"), fed 8 batches of 1024 by item_loader (the
+     per-item loader of datasets/vqa2.py, shuffled, seed 0) with 0 and with
+     2 worker processes: each batch equal to dataset.batch's at the
+     sampler's indices, logits and preds bit-equal to the eval of those
+     batches (two forwards a batch: the logits, then the eval step, whose
+     preds are their argmax), exactly gather_rows, lstm_seq and
+     glimpse_head launched, the 2-worker stream equal to the in-process one
+     batch for batch; (c) the per-item IO path (visual_mode "gather"): 2
+     batches of 256 through 2 workers, every visual row byte-equal to
+     FeatureStore.get at the same rows and each batch equal to
+     BatchIterator's over the same rows, the loader's rows/s printed beside
+     BatchIterator's. The loader's workers are spawned (a fresh interpreter
+     each, the dataset pickled to it), so each stream's worker start is
+     printed apart from its rate. At the end of the run, every prep of every phase but
+     (a)'s forced one must have encoded natively
+     (datasets/processed.py's ENCODERS; the ranks of phase 14 read phase
+     9's processed files and prepare nothing).
+
 Any failed check raises, and the script exits non-zero. On success the
 second-to-last line is the per-kernel JSON record and the last line is
 {"ok": true, "device": {...}}. Imports nothing of jax and nothing of the
@@ -421,6 +447,15 @@ CLI_TRAIN_QUESTIONS = CLI_QUESTIONS // 2
 CLI_ANSWERS = 3_000
 CLI_KERNELS = ("gather_rows", "lstm_seq", "glimpse_head")
 CLI_NOATT_KERNELS = ("gather_rows", "lstm_seq")
+# the data path ([data]): the item loader (datasets/vqa2.py::item_loader)
+# feeding MutanAtt's eval step, N_BATCHES batches of BATCH with each worker
+# count; the per-item IO part gathers float32 rows in DATA_IO_WORKERS
+# workers, DATA_IO_BATCHES batches of DATA_IO_BATCH
+DATA_WORKERS = (0, 2)
+DATA_IO_WORKERS = 2
+DATA_IO_BATCH = 256
+DATA_IO_BATCHES = 2
+DATA_KERNELS = ("gather_rows", "lstm_seq", "glimpse_head")
 # the train phases (7, 8): mutan_att.yaml's batch, a synthetic train split of
 # 16384 questions (128 steps of 128 with drop_last), bucketed shuffling over
 # windows of 8 batches into the {7, 13, 26} ladder. From random weights at
@@ -1872,6 +1907,274 @@ def _eval_cli_phase(torch, dev, table: np.ndarray, pooled: np.ndarray) -> dict:
            launches={k: c for k, c in f32["counts"].items() if c})
     return ({k: sum(runs[label]["counts"][k] for label in ("bf16", "int8", "noatt", "f32"))
              for k in runs["bf16"]["counts"]}, f32["counts"])
+
+
+# ------------------------------------------------------------------ data
+
+
+def _timed_encode_split(processed, log: list):
+    """A stand-in for ``processed.encode_split`` that appends (questions,
+    seconds) of each call to ``log``."""
+    real = processed.encode_split
+
+    def timed(examples, *args, **kwargs):
+        t0 = time.perf_counter()
+        out = real(examples, *args, **kwargs)
+        log.append((len(out), time.perf_counter() - t0))
+        return out
+
+    return timed
+
+
+def _native_prep(tmp: str) -> dict:
+    """(a): phase 6's synthetic raw VQA v2 set through the port's run_prep
+    twice, as shipped (the native encoder) and with the encoder forced to
+    Python (``native.available`` patched); every array of every split and
+    vocab.json byte-equal. Returns the options of the native prep's set and
+    what was measured."""
+    import shutil
+
+    from vqa_tpu_torch import native
+    from vqa_tpu_torch.config import load_options
+    from vqa_tpu_torch.datasets import processed
+    from vqa_tpu_torch.datasets.tokenizer import tokenize_mcb
+
+    raw = os.path.join(tmp, "native", "raw")
+    t0 = time.perf_counter()
+    _write_raw_vqa2(raw, np.random.default_rng(0))
+    raw_s = time.perf_counter() - t0
+    shutil.copytree(raw, os.path.join(tmp, "python", "raw"))
+    yaml = os.path.join(_REPO, "options", "vqa2", "mutan_att.yaml")
+    _require(native.available(), f"the native encoder builds here: {native.build_error()}")
+    runs, opt = {}, None
+    for encoder in ("native", "python"):
+        options = load_options(yaml, [f"vqa.dir={tmp}/{encoder}", f"coco.dir={tmp}/coco"])
+        _require(options.vqa.nlp == "mcb", f"{yaml} tokenizes with mcb")
+        before = dict(processed.ENCODERS)
+        log, saved = [], (processed.encode_split, native.available)
+        processed.encode_split = _timed_encode_split(processed, log)
+        if encoder == "python":
+            native.available = lambda: False
+        try:
+            t0 = time.perf_counter()
+            out_dir = processed.run_prep(options.vqa.dir, options.vqa, ("train", "val"))
+            prep_s = time.perf_counter() - t0
+        finally:
+            processed.encode_split, native.available = saved
+        counted = {k: v - before.get(k, 0) for k, v in processed.ENCODERS.items()
+                   if v != before.get(k, 0)}
+        _require(counted == {encoder: 2}, f"the {encoder} prep encoded its 2 splits with the "
+                 f"{encoder} encoder: {counted}")
+        questions, encode_s = sum(n for n, _ in log), sum(t for _, t in log)
+        runs[encoder] = dict(dir=out_dir, prep_s=prep_s, encode_s=encode_s, questions=questions)
+        if encoder == "native":
+            opt = options
+    for name in ("train", "val"):
+        got, want = (processed.load_split(runs[e]["dir"], name) for e in ("native", "python"))
+        for field in ("question_ids", "questions", "lengths", "image_names", "answers",
+                      "answer_pool"):
+            a, b = getattr(got, field), getattr(want, field)
+            _require(a.dtype == b.dtype and a.shape == b.shape and a.tobytes() == b.tobytes(),
+                     f"{name}.{field} byte-equal from the native and the Python encoder")
+    with open(os.path.join(runs["native"]["dir"], "vocab.json"), "rb") as a, \
+            open(os.path.join(runs["python"]["dir"], "vocab.json"), "rb") as b:
+        _require(a.read() == b.read(), "vocab.json byte-equal from both preps")
+
+    # the encoders alone over every question of the set, native in turns
+    vocabs = processed.load_vocabs(runs["native"]["dir"])
+    texts = []
+    for name in ("train", "val"):
+        with open(os.path.join(tmp, "native", "interim", f"{name}_interim.json")) as f:
+            texts += [ex["question"] for ex in json.load(f)]
+    enc = native.NativeEncoder(vocabs.wid_to_word)
+
+    def native_encode():
+        return enc.encode_batch(texts, opt.vqa.maxlength, opt.vqa.pad)
+
+    def python_encode():
+        return processed.encode_question_batch(texts, tokenize_mcb, vocabs.word_to_wid,
+                                               opt.vqa.maxlength, opt.vqa.pad)
+
+    times, outs = {"native": [], "python": []}, {}
+    for encoder in ("native", "python", "python", "native"):
+        fn = native_encode if encoder == "native" else python_encode
+        t0 = time.perf_counter()
+        outs[encoder] = fn()
+        times[encoder].append(time.perf_counter() - t0)
+    _require(all(a.tobytes() == b.tobytes() for a, b in zip(outs["native"], outs["python"])),
+             "the encoders' ids and lengths byte-equal over every question")
+    encoder_s = {e: statistics.median(times[e]) for e in times}
+    return dict(opt=opt, raw_s=raw_s, runs=runs, encoder_s=encoder_s, texts=len(texts))
+
+
+def _host_equal(a: dict, b: dict) -> bool:
+    return sorted(a) == sorted(b) and all(
+        a[k].dtype == b[k].dtype and a[k].shape == b[k].shape and a[k].tobytes() == b[k].tobytes()
+        for k in a)
+
+
+def _item_loader_eval(torch, dev, val_set, table, opt) -> dict:
+    """(b): MutanAtt's eval step at full width (bf16, the table on the card)
+    fed N_BATCHES batches of BATCH from item_loader with each of
+    DATA_WORKERS, against the same batches built by ``dataset.batch`` at
+    the loader's indices: logits and preds bit-equal, the streams equal
+    batch for batch."""
+    import dataclasses
+    import itertools
+
+    from vqa_tpu_torch.datasets.index_shuffle import epoch_permutation
+    from vqa_tpu_torch.datasets.vqa2 import item_loader
+    from vqa_tpu_torch.engine import steps
+    from vqa_tpu_torch.engine.engine import make_device_transform
+    from vqa_tpu_torch.models.factory import factory as model_factory
+    from vqa_tpu_torch.weights import random_params
+
+    model = model_factory(dataclasses.asdict(opt.model), val_set.num_words, val_set.num_answers,
+                          dtype=torch.bfloat16, device=dev, dim_v=DIM)
+    random_params(model, seed=0)
+    transform = make_device_transform(dev, torch.bfloat16)
+    eval_step = steps.make_eval_step()
+
+    @torch.inference_mode()
+    def forward(batch):
+        # the logits (the eval step's forward, called as it calls it), then
+        # the eval step itself: two forwards a batch
+        b = transform(batch)
+        logits = model(steps._resolve_visual(b, table), b["question"], b["length"])
+        pred = eval_step(model, b, table)["pred"]
+        _require(torch.equal(pred, logits.argmax(dim=-1).to(torch.int32)),
+                 "[data] the eval step's preds are its logits' argmax")
+        return logits, pred
+
+    seed = 0
+    sampler_seed = int(np.random.SeedSequence([seed, 0]).generate_state(1)[0] & 0x7FFFFFFF)
+    order = epoch_permutation(len(val_set), sampler_seed, 0)
+    want_batches = [val_set.batch(order[i * BATCH:(i + 1) * BATCH]) for i in range(N_BATCHES)]
+    want = [forward(b) for b in want_batches]
+    streams, counts, load_s, start_s = {}, {}, {}, {}
+    for workers in DATA_WORKERS:
+        loader = item_loader(val_set, BATCH, shuffle=True, seed=seed, worker_count=workers)
+        _reset_counts()
+        t0 = time.perf_counter()
+        batch_iter = iter(loader)  # starts the workers (spawned: a fresh interpreter each)
+        start_s[workers] = time.perf_counter() - t0
+        batches, outs = [], []
+        for batch in itertools.islice(batch_iter, N_BATCHES):
+            batches.append(batch)
+            outs.append(forward(batch))
+        torch.cuda.synchronize()
+        load_s[workers] = time.perf_counter() - t0
+        del batch_iter  # stops the workers
+        counts[workers] = _read_counts()
+        _require({k for k, c in counts[workers].items() if c} == set(DATA_KERNELS),
+                 f"[data] the eval step fed by item_loader (workers={workers}) launched exactly "
+                 f"{DATA_KERNELS}: {counts[workers]}")
+        _require(len(batches) == N_BATCHES, f"{N_BATCHES} batches from the loader")
+        for i, (batch, (logits, pred), (want_logits, want_pred)) in enumerate(
+                zip(batches, outs, want)):
+            _require(np.array_equal(batch["question_id"],
+                                    val_set.split.question_ids[order[i * BATCH:(i + 1) * BATCH]]),
+                     f"[data] batch {i} (workers={workers}) reads the sampler's records")
+            _require(_host_equal(batch, want_batches[i]),
+                     f"[data] batch {i} (workers={workers}) equals dataset.batch's")
+            _require(bool(torch.isfinite(logits).all())
+                     and tuple(logits.shape) == (BATCH, val_set.num_answers),
+                     f"[data] finite logits of shape ({BATCH}, {val_set.num_answers})")
+            _require(torch.equal(logits, want_logits) and torch.equal(pred, want_pred),
+                     f"[data] batch {i} (workers={workers}): logits and preds bit-equal to "
+                     "dataset.batch's")
+        streams[workers] = batches
+    base = streams[DATA_WORKERS[0]]
+    for workers in DATA_WORKERS[1:]:
+        _require(all(_host_equal(a, b) for a, b in zip(streams[workers], base)),
+                 f"[data] the {workers}-worker stream equals the in-process one batch for batch")
+    return dict(counts=counts, load_s=load_s, start_s=start_s, answers=val_set.num_answers)
+
+
+def _item_loader_io(val_set, store) -> dict:
+    """(c): the per-item IO path, visual_mode="gather": DATA_IO_BATCHES
+    batches of DATA_IO_BATCH through DATA_IO_WORKERS workers, every
+    ``visual`` byte-equal to FeatureStore.get at the same rows; the
+    loader's rows/s beside BatchIterator's over the same batches (in order:
+    the first DATA_IO_BATCHES * DATA_IO_BATCH rows)."""
+    import itertools
+
+    from vqa_tpu_torch.datasets.pipeline import BatchIterator
+    from vqa_tpu_torch.datasets.vqa2 import item_loader
+
+    rows = DATA_IO_BATCH * DATA_IO_BATCHES
+    t0 = time.perf_counter()
+    batch_iter = iter(item_loader(val_set, DATA_IO_BATCH, worker_count=DATA_IO_WORKERS))
+    start_s = time.perf_counter() - t0
+    got = list(itertools.islice(batch_iter, DATA_IO_BATCHES))
+    loader_s = time.perf_counter() - t0
+    del batch_iter
+    t0 = time.perf_counter()
+    want = list(itertools.islice(BatchIterator(val_set, DATA_IO_BATCH).epoch(0), DATA_IO_BATCHES))
+    iterator_s = time.perf_counter() - t0
+    for i, (g, w) in enumerate(zip(got, want)):
+        idx = np.arange(i * DATA_IO_BATCH, (i + 1) * DATA_IO_BATCH)
+        rows_want = store.get(val_set.image_index[idx])
+        _require(g["visual"].dtype == rows_want.dtype and g["visual"].shape == rows_want.shape
+                 and g["visual"].tobytes() == rows_want.tobytes(),
+                 f"[data] io batch {i}: visual byte-equal to FeatureStore.get")
+        _require(_host_equal(g, w), f"[data] io batch {i} equals BatchIterator's")
+    return dict(rows=rows, loader_s=loader_s, start_s=start_s, iterator_s=iterator_s,
+                visual_bytes=int(sum(b["visual"].nbytes for b in got)))
+
+
+def _data_phase(torch, dev, host_table: np.ndarray, table, card: str) -> dict:
+    """[data]: (a) the native prep against the Python one, (b) item_loader
+    feeding MutanAtt's eval step, (c) the per-item IO path; returns the
+    launch counts of (b) and the splits (a) forced to Python."""
+    from vqa_tpu_torch.datasets import factory as data_factory
+    from vqa_tpu_torch.datasets.features import FeatureStore
+    from vqa_tpu_torch.datasets.interim import image_name
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_data_") as tmp:
+        prep = _native_prep(tmp)
+        opt, runs, encoder_s = prep["opt"], prep["runs"], prep["encoder_s"]
+        for encoder, run in runs.items():
+            _phase("data", part="prep", encoder=encoder, questions=run["questions"],
+                   prep_s=round(run["prep_s"], 4), encode_s=round(run["encode_s"], 4),
+                   encode_qps=round(run["questions"] / run["encode_s"], 1),
+                   raw_s=round(prep["raw_s"], 3), card=repr(card))
+        _phase("data", part="encoder", questions=prep["texts"],
+               native_s=round(encoder_s["native"], 4), python_s=round(encoder_s["python"], 4),
+               native_qps=round(prep["texts"] / encoder_s["native"], 1),
+               python_qps=round(prep["texts"] / encoder_s["python"], 1),
+               speedup=round(encoder_s["python"] / encoder_s["native"], 2), bytes_equal=True)
+
+        names = [image_name("val2014", i) for i in range(N_IMAGES)]
+        store = FeatureStore.in_memory(names, host_table)
+        data_factory.place_store(opt.coco.dir, opt.coco.arch, opt.coco.mode, store)
+        try:
+            val_index = data_factory.factory("val", opt, visual_mode="index")
+            val_gather = data_factory.factory("val", opt, visual_mode="gather")
+            loader = _item_loader_eval(torch, dev, val_index, table, opt)
+            io = _item_loader_io(val_gather, store)
+        finally:
+            data_factory.drop_stores(f"{tmp}/coco")
+    n = BATCH * N_BATCHES
+    _phase("data", part="item_loader", arch="MutanAtt", batch=BATCH, batches=N_BATCHES,
+           answers=loader["answers"], logits_bit_equal=True, preds_bit_equal=True,
+           **{f"workers{w}_s": round(s, 4) for w, s in loader["load_s"].items()},
+           **{f"workers{w}_start_s": round(s, 4) for w, s in loader["start_s"].items()},
+           **{f"workers{w}_qa_per_s": round(n / s, 1) for w, s in loader["load_s"].items()},
+           **{f"workers{w}_qa_per_s_after_start": round(n / (s - loader["start_s"][w]), 1)
+              for w, s in loader["load_s"].items()},
+           launches={k: c for k, c in loader["counts"][DATA_WORKERS[0]].items() if c})
+    _phase("data", part="io", workers=DATA_IO_WORKERS, batch=DATA_IO_BATCH,
+           batches=DATA_IO_BATCHES, visual_bytes=io["visual_bytes"],
+           loader_s=round(io["loader_s"], 4), loader_start_s=round(io["start_s"], 4),
+           loader_rows_per_s=round(io["rows"] / io["loader_s"], 1),
+           loader_rows_per_s_after_start=round(io["rows"] / (io["loader_s"] - io["start_s"]), 1),
+           batch_iterator_s=round(io["iterator_s"], 4),
+           batch_iterator_rows_per_s=round(io["rows"] / io["iterator_s"], 1), card=repr(card))
+    _phase("data", part="total", wall_s=round(time.perf_counter() - t_phase, 2))
+    counts = {k: sum(c[k] for c in loader["counts"].values()) for k in loader["counts"][0]}
+    return counts, 2
 
 
 # ----------------------------------------------------------------- train
@@ -4928,9 +5231,14 @@ def main() -> int:
         launches[name] += c
     for name, c in f32_cli_counts.items():
         f32_launches[name] += c
+    # 15. the data path: the native prep against the Python one, item_loader
+    # feeding the eval step, the per-item IO path
+    card = smi.strip().splitlines()[0]
+    data_counts, forced_python = _data_phase(torch, dev, host_table, tables["regions"][0], card)
+    for name, c in data_counts.items():
+        launches[name] += c
 
     # 7. the train path's two autograd Functions, 8. training
-    card = smi.strip().splitlines()[0]
     train_ops = _check_train_ops(torch, dev, rng, card)
     for name, c in _train_phase(torch, dev, host_table, tables["regions"][0],
                                 tables["pooled"][0], card).items():
@@ -4968,6 +5276,14 @@ def main() -> int:
         kernels[name]["train_plain_fwd_bwd_ms"] = {k: round(t["plain_fwd_bwd_ms"], 4)
                                                    for k, t in by_shape.items()}
 
+    # every prep of the run but [data]'s forced one went through the native
+    # encoder (the ranks of [parallel] read [train_cli]'s processed files)
+    from vqa_tpu_torch.datasets.processed import ENCODERS
+
+    _require(ENCODERS["python"] == forced_python and ENCODERS["native"] > 0,
+             f"[data] every prep but the forced one encoded natively: {dict(ENCODERS)}")
+    _phase("data", part="encoders", native_splits=ENCODERS["native"],
+           python_splits=ENCODERS["python"], forced_python=forced_python)
     f32_kernels = ("gather_rows", "lstm_seq", "glimpse_head", "glimpse_attend", "mfb_pool",
                    "relation_attend")
     _require(all(f32_launches[k] > 0 for k in f32_kernels),

@@ -2,8 +2,9 @@
 interpreter (subprocess, so sys.modules starts clean) with nothing of jax,
 flax or optax, and nothing of the JAX package vqa_tpu, in sys.modules;
 Predictor.from_run answers from a fixture run, the eval CLI prepares and
-evaluates one, and the fixture matrix generates its fixture in memory and
-trains and scores a config, in such an interpreter.
+evaluates one, the prep encodes natively and item_loader runs a worker, and
+the fixture matrix generates its fixture in memory and trains and scores a
+config, in such an interpreter (nor grain, whose import loads jax).
 chip_smoke.py refuses to run without a CUDA card."""
 
 import importlib
@@ -52,7 +53,8 @@ def test_every_port_module_is_listed():
                      "vqa_tpu_torch.models.convnets", "vqa_tpu_torch.cli.extract",
                      "vqa_tpu_torch.tools.import_torch", "vqa_tpu_torch.datasets.fixtures",
                      "vqa_tpu_torch.tools.fixture_matrix",
-                     "vqa_tpu_torch.tools.convert_butd_tsv"):
+                     "vqa_tpu_torch.tools.convert_butd_tsv", "vqa_tpu_torch.native",
+                     "vqa_tpu_torch.datasets.index_shuffle"):
         assert expected in mods
 
 
@@ -65,7 +67,7 @@ def test_port_imports_no_jax():
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'optax', "
-        "'vqa_tpu'))\n"
+        "'grain', 'vqa_tpu'))\n"
         "assert not bad, bad\n"
         "heavy = sorted(m for m in ('yaml', 'h5py') if m in sys.modules)\n"
         "assert not heavy, f'imported at module level: {heavy}'\n"
@@ -176,6 +178,42 @@ def test_eval_cli_imports_nothing_of_jax(fixture_run, tmp_path):
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip().splitlines()[-1] == "ok"
     assert os.path.exists(tmp_path / "vqa2" / "processed")
+
+
+def test_native_prep_and_item_loader_import_nothing_of_jax_or_grain(tmp_path):
+    """The port's prep through its native encoder, then item_loader with a
+    worker process consumed to its end: nothing of jax, flax, optax, grain or
+    vqa_tpu in sys.modules afterwards."""
+    from vqa_tpu_torch.datasets.fixtures import generate
+
+    generate(str(tmp_path), n_images=4, n_questions=20, seed=4)
+    overrides = [f"vqa.dir={tmp_path}/vqa2", f"coco.dir={tmp_path}/coco", "vqa.nans=10"]
+    path_opt = os.path.join(REPO, "options", "vqa2", "mutan_att.yaml")
+    code = (
+        "import sys\n"
+        "import torch\n"
+        "torch.set_num_threads(1)\n"
+        "from vqa_tpu_torch import native\n"
+        "from vqa_tpu_torch.config import load_options\n"
+        "from vqa_tpu_torch.datasets import factory, processed\n"
+        "from vqa_tpu_torch.datasets.index_shuffle import epoch_permutation\n"
+        "from vqa_tpu_torch.datasets.vqa2 import item_loader\n"
+        f"opt = load_options({path_opt!r}, {overrides!r})\n"
+        "val = factory.factory('val', opt)\n"
+        "assert native.available() and set(processed.ENCODERS) == {'native'}, "
+        "processed.ENCODERS\n"
+        "batches = list(item_loader(val, 8, shuffle=True, seed=1, worker_count=1))\n"
+        "qids = [q for b in batches for q in b['question_id'].tolist()]\n"
+        "assert sorted(qids) == sorted(val.split.question_ids.tolist()), qids\n"
+        "assert len(epoch_permutation(20, 3, 0)) == 20\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'optax', "
+        "'grain', 'vqa_tpu'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    proc = _run(code)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().splitlines()[-1] == "ok"
 
 
 def test_import_tool_model_kind_imports_nothing_of_jax(tmp_path):

@@ -7,7 +7,9 @@
 
 The argument parser is the JAX CLI's, flag for flag, so one command line
 runs against either package. The raw VQA files under ``vqa.dir`` are
-prepared on first use (``datasets.factory``). Training runs the epoch loop
+prepared on first use (``datasets.factory``), and the log then names the
+question encoder of each split it prepared (``prep: splits by question
+encoder {'native': 2}``). Training runs the epoch loop
 of the JAX CLI: the train split through the loader (shuffled from
 ``engine.seed``, ``drop_last``, with ``engine.train_bucketing`` bucketed
 shuffling into the ``{7, maxlength/2, maxlength}`` ladder), the train step,
@@ -73,6 +75,7 @@ torch-profiler layout (``tensorboard_trace_handler``:
 from __future__ import annotations
 
 import argparse
+import collections
 import dataclasses
 import os
 import signal
@@ -84,6 +87,7 @@ import torch
 from vqa_tpu_torch.config import Options, compute_dtype, dump_options, load_options
 from vqa_tpu_torch.datasets.factory import factory as dataset_factory
 from vqa_tpu_torch.datasets.pipeline import BatchIterator, normalize_buckets
+from vqa_tpu_torch.datasets.processed import ENCODERS
 from vqa_tpu_torch.engine import engine as engine_lib
 from vqa_tpu_torch.engine import optim as optim_lib
 from vqa_tpu_torch.engine.checkpoint import CheckpointManager
@@ -266,9 +270,12 @@ def _run(args, opt: Options, device: torch.device) -> int:
         # wait, then read what it wrote
         if mesh.distributed and not primary:
             distributed.barrier()
+        encoded = collections.Counter(ENCODERS)
         train_set = (None if args.evaluate
                      else dataset_factory(opt.vqa.trainsplit, opt, visual_mode=visual_mode))
         val_set = dataset_factory("val", opt, visual_mode=visual_mode)
+        if ENCODERS != encoded:  # this run prepared the processed splits
+            print(f"prep: splits by question encoder {dict(ENCODERS - encoded)}", flush=True)
         if mesh.distributed and primary:
             distributed.barrier()
 

@@ -21,9 +21,12 @@ Semantics, as the original's:
   * ``answer_pool`` holds the 10 annotator answers as aids (-1 where OOV),
     feeding train-time answer sampling (``samplingans``).
 
-The original encodes mcb questions with its native C++ encoder where it is
-built (``vqa_tpu/native/``, byte-identical to the Python path); the port
-encodes with the Python tokenizer only.
+mcb questions are encoded by the port's native C++ encoder
+(``vqa_tpu_torch/native/``, byte-identical to the Python path) when every
+question of the split is ASCII, as the original's ``vqa_tpu/native/`` does;
+other splits, and every split where the encoder did not build, go through
+the Python tokenizer. ``ENCODERS`` counts which encoder encoded each split,
+and the train CLI logs it.
 """
 
 from __future__ import annotations
@@ -136,6 +139,11 @@ def encode_question_batch(
     return np.stack(rows), np.asarray(lengths, np.int32)
 
 
+# splits encoded since the process started, by the encoder that encoded
+# them: "native" (vqa_tpu_torch/native/) or "python"
+ENCODERS: collections.Counter = collections.Counter()
+
+
 def encode_split(
     examples: Sequence[Dict[str, Any]],
     vocabs: Vocabs,
@@ -159,11 +167,28 @@ def encode_split(
     answer_pool = (
         np.full((n, N_ANNOTATORS), -1, dtype=np.int32) if has_answers else None
     )
+
+    # native C++ batch tokenizer+encoder for the mcb flavor (vqa_tpu_torch.
+    # native), byte-identical to the Python path (tests/test_torch_native.py).
+    # ASCII only: the C++ core lowercases bytewise, so a split with any
+    # non-ASCII question is encoded in Python, as the original's is
+    encoder = "python"
+    if opt.nlp == "mcb" and n:
+        from vqa_tpu_torch import native
+
+        texts = [ex["question"] for ex in examples]
+        if native.available() and all(t.isascii() for t in texts):
+            enc = native.NativeEncoder(vocabs.wid_to_word)
+            questions, lengths = enc.encode_batch(texts, opt.maxlength, opt.pad)
+            encoder = "native"
+    ENCODERS[encoder] += 1
+
     for i, ex in enumerate(examples):
         question_ids[i] = ex["question_id"]
-        questions[i], lengths[i] = encode_question(
-            tok(ex["question"]), word_to_wid, opt.maxlength, opt.pad
-        )
+        if encoder == "python":
+            questions[i], lengths[i] = encode_question(
+                tok(ex["question"]), word_to_wid, opt.maxlength, opt.pad
+            )
         image_names[i] = ex["image_name"]
         if has_answers:
             answers[i] = ans_to_aid.get(ex["answer"], -1)
