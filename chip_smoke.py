@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch + CUDA port (vqa_tpu_torch) on one CUDA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --only multicard   # phase 16 alone, on four cards
 
 Phases, each printing one line of what it found:
   1. device: refuse to run without a card; print the card's name and power
@@ -308,6 +309,14 @@ Phases, each printing one line of what it found:
      (a)'s forced one must have encoded natively
      (datasets/processed.py's ENCODERS; the ranks of phase 14 read phase
      9's processed files and prepare nothing).
+
+ 16. multicard, with --only multicard alone, on a host of four cards (fewer:
+     exit 1 before any phase; a run with no argument prints that it did not
+     run it): [parallel]'s paths over NCCL, one rank a card, as the comment
+     above MULTICARD_WORLD sets out: three meshes against one process, each
+     rank's placement, the table sharded over the four, train QA/s on four
+     cards against one, the train and eval CLIs under torchrun, and
+     flagship.dryrun_multigpu(4).
 
 Any failed check raises, and the script exits non-zero. On success the
 second-to-last line is the per-kernel JSON record and the last line is
@@ -2696,6 +2705,7 @@ def _train_cli_phase(torch, dev, host_table: np.ndarray, card: str, tmp: str):
     from vqa_tpu_torch.engine import engine as engine_lib
     from vqa_tpu_torch.engine.checkpoint import CheckpointManager
     from vqa_tpu_torch.engine.steps import make_eval_step
+    from vqa_tpu_torch.ops.gather import gather_rows
     from vqa_tpu_torch.predictor import Predictor
 
     yaml = os.path.join(_REPO, "options", "vqa2", "mutan_att.yaml")
@@ -2838,6 +2848,14 @@ def _train_cli_phase(torch, dev, host_table: np.ndarray, card: str, tmp: str):
                                {"question": q, "length": lengths,
                                 "image_index": val_set.image_index[rows]}, table)
         stepped = [val_set.vocabs.aid_to_ans[a] for a in out["pred"].cpu().tolist()]
+        # the answers at each row's top logit: where bf16 logits tie, the
+        # step's argmax takes the first and the Predictor's argsort of the
+        # probabilities (utils/decode.py, as vqa_tpu's) any of them
+        with torch.inference_mode():
+            logits = predictor.model(gather_rows(table, val_set.image_index[rows]), q,
+                                     lengths).float().cpu()
+        tops = [{val_set.vocabs.aid_to_ans[a] for a in torch.nonzero(row == row.max()).flatten()
+                 .tolist()} for row in logits]
         del predictor, table
         counts = _read_counts()
     finally:
@@ -2878,8 +2896,10 @@ def _train_cli_phase(torch, dev, host_table: np.ndarray, card: str, tmp: str):
     evaluated = val_a[-1]
     _require(len(val_a) == TRAIN_CLI_EPOCHS + 1 and evaluated["acc1"] == best_acc,
              f"-e --resume best reports A's best acc1 {best_acc}: {evaluated['acc1']}")
-    _require(served == stepped, f"the Predictor from A's best checkpoint answers "
-             f"{TRAIN_CLI_SERVED} questions as the eval step does: "
+    ties = sum(len(top) > 1 for top in tops)
+    _require(all(x in top and y in top for x, y, top in zip(served, stepped, tops)),
+             f"the Predictor from A's best checkpoint answers {TRAIN_CLI_SERVED} questions as "
+             f"the eval step does (an answer of the row's top logit, {ties} rows tied): "
              f"{sum(x != y for x, y in zip(served, stepped))} differ")
     losses = [r["loss"] for label in ("A", "B") for r in metrics(label, "train")]
     _require(all(math.isfinite(x) for x in losses), f"finite train losses: {losses}")
@@ -2919,7 +2939,7 @@ def _train_cli_phase(torch, dev, host_table: np.ndarray, card: str, tmp: str):
            epoch_save_s=[round(x[1], 3) for x in epoch_saves],
            save_bytes=sorted({x[2] for x in saves}),
            restore_s=[round(x, 3) for x in restores], predictor_load_s=round(load_s, 3),
-           served=TRAIN_CLI_SERVED, served_equal_eval_step=True,
+           served=TRAIN_CLI_SERVED, served_equal_eval_step=True, served_tied_rows=ties,
            launches={k: c for k, c in counts.items() if c})
     context = dict(logs=logs["A"], mfb=os.path.join(tmp, "logs", "mfb"), data=data,
                    store_key=key, questions=questions, images=images)
@@ -4483,10 +4503,10 @@ def _parallel_train(torch, dev, mesh, table, batch, knobs=None) -> dict:
     mesh's model axis (``shard_state_tp``; nothing to do at 1), then
     PARALLEL_TIMED timed ones; returns the held steps' losses, the
     parameters after them, the optimizer state's bytes here, the peak memory
-    of the steps above what the process held before the run, and the
-    timings (each step on the host clock after a sync;
-    the data axis' all-reduce and the model axis' all-gather alone between
-    two syncs)."""
+    of the steps above what the process held before the run, the timings
+    (each step on the host clock after a sync; the data axis' all-reduce and
+    the model axis' all-gather alone between two syncs) and the devices of
+    the parameters, the optimizer state and the table."""
     from vqa_tpu_torch.config import OptimOptions
     from vqa_tpu_torch.engine import optim, steps
     from vqa_tpu_torch.parallel import Mesh, shard_state_tp, state_bytes
@@ -4500,6 +4520,8 @@ def _parallel_train(torch, dev, mesh, table, batch, knobs=None) -> dict:
     step = steps.make_train_step(optim.criterion_factory(), seed=0, mesh=mesh)
     local = _local_batch(torch, dev, batch, mesh)
     features = torch.from_numpy(table).to(dev)
+    devices = {str(p.device) for p in model.parameters()} | {str(features.device)}
+    optim.map_param_tensors(state.opt_state, lambda i, t: devices.add(str(t.device)) or t)
     timed = {"all_reduce_mean": [], "all_gather_model": []}
     real = {name: getattr(Mesh, name) for name in timed}
 
@@ -4542,14 +4564,16 @@ def _parallel_train(torch, dev, mesh, table, batch, knobs=None) -> dict:
     return dict(losses=losses, params=params, step_ms=statistics.median(step_ms),
                 reduce_ms=statistics.median(timed["all_reduce_mean"] or [0.0]),
                 gather_ms=statistics.median(timed["all_gather_model"] or [0.0]),
-                state_bytes=opt_bytes, peak=peak)
+                state_bytes=opt_bytes, peak=peak, devices=sorted(devices))
 
 
-def _parallel_sharded(torch, dev, mesh, table, batches) -> dict:
+def _parallel_sharded(torch, dev, mesh, table, batches, timed: bool = False) -> dict:
     """(c) in this rank: the eval step over this rank's slice of each eval
     batch, over the replicated table and over the row-sharded one, bf16 and
     the int8 pair (bf16 scales); rows, pred and correct1 compared, the
-    sharded runs' launches counted, each run's peak memory."""
+    sharded runs' launches counted, each run's peak memory, the -0.0 values
+    among the rows, the devices of the tables; ``timed``: the sharded
+    gather's parts on the first batch (``_sharded_gather_ms``)."""
     from vqa_tpu_torch.engine.steps import make_eval_step, quantize_features
     from vqa_tpu_torch.ops.gather import gather_rows, gather_rows_dequant
     from vqa_tpu_torch.parallel.mesh import shard_feature_table
@@ -4567,9 +4591,9 @@ def _parallel_sharded(torch, dev, mesh, table, batches) -> dict:
             torch.cuda.reset_peak_memory_stats(dev)
             features = (shard_feature_table(host, mesh, dev) if layout == "sharded"
                         else tuple(t.to(dev) for t in host) if kind == "int8" else host.to(dev))
-            resident = (features.nbytes if layout == "sharded"
-                        else sum(t.nbytes for t in features) if kind == "int8"
-                        else features.nbytes)
+            parts = (features.local if layout == "sharded" else features)
+            parts = parts if isinstance(parts, tuple) else (parts,)
+            resident = sum(t.nbytes for t in parts)
             _reset_counts()
             res = [eval_step(net, b, features) for b in local]
             torch.cuda.synchronize()
@@ -4581,17 +4605,65 @@ def _parallel_sharded(torch, dev, mesh, table, batches) -> dict:
                     for b in local]
             runs[layout] = dict(pred=[r["pred"].cpu() for r in res],
                                 correct1=[int(r["correct1"]) for r in res], rows=rows,
-                                counts=counts, peak=peak, resident=resident)
+                                counts=counts, peak=peak, resident=resident,
+                                devices=sorted({str(t.device) for t in parts}))
+            if timed and layout == "sharded":
+                runs[layout]["ms"] = _sharded_gather_ms(torch, features, local[0]["image_index"])
             del features, res
         rep, shd = runs["replicated"], runs["sharded"]
         out[kind] = dict(
             rows_equal=all(torch.equal(a, b) for a, b in zip(rep["rows"], shd["rows"])),
             pred_equal=all(torch.equal(a, b) for a, b in zip(rep["pred"], shd["pred"])),
             correct1=[rep["correct1"], shd["correct1"]],
+            # bf16's -0.0 is the int16 -32768 (the sign bit alone)
+            negative_zeros=[sum(int((r == -32768).sum()) for r in run["rows"])
+                            for run in (rep, shd)],
             sharded_launches={k: c for k, c in shd["counts"].items() if c},
             replicated_launches={k: c for k, c in rep["counts"].items() if c},
-            peak=[rep["peak"], shd["peak"]], resident=[rep["resident"], shd["resident"]])
+            peak=[rep["peak"], shd["peak"]], resident=[rep["resident"], shd["resident"]],
+            devices=sorted(set(rep["devices"]) | set(shd["devices"])), ms=shd.get("ms"))
     return out
+
+
+def _sharded_gather_ms(torch, features, idx) -> dict:
+    """The host-clock medians, over MULTICARD_TIMED calls of the sharded
+    gather of ``idx`` (every rank makes them all), of the whole gather and of
+    its two parts on the card, the local ``gather_rows`` (or
+    ``gather_rows_dequant``) over this rank's shard and the
+    ``reduce_scatter``, each between two syncs."""
+    from vqa_tpu_torch.parallel import mesh as mesh_lib
+
+    times = {"gather": [], "local_gather": [], "reduce_scatter": []}
+    real = {"gather_rows": mesh_lib.gather_rows,
+            "gather_rows_dequant": mesh_lib.gather_rows_dequant,
+            "reduce_scatter_sum": mesh_lib.Mesh.reduce_scatter_sum}
+
+    def timer(fn, name):
+        def call(*args):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            times[name].append((time.perf_counter() - t) * 1e3)
+            return out
+        return call
+
+    mesh_lib.gather_rows = timer(real["gather_rows"], "local_gather")
+    mesh_lib.gather_rows_dequant = timer(real["gather_rows_dequant"], "local_gather")
+    mesh_lib.Mesh.reduce_scatter_sum = timer(real["reduce_scatter_sum"], "reduce_scatter")
+    try:
+        gather = timer(features.gather, "gather")
+        for _ in range(3):
+            gather(idx)
+        for values in times.values():
+            del values[:]
+        for _ in range(MULTICARD_TIMED):
+            gather(idx)
+    finally:
+        mesh_lib.gather_rows = real["gather_rows"]
+        mesh_lib.gather_rows_dequant = real["gather_rows_dequant"]
+        mesh_lib.Mesh.reduce_scatter_sum = real["reduce_scatter_sum"]
+    return {name: round(statistics.median(v), 4) for name, v in times.items()}
 
 
 def _train_record(torch, dev, mesh, table, batch, knobs, rank: int, npz: str) -> dict:
@@ -4612,16 +4684,19 @@ def _train_record(torch, dev, mesh, table, batch, knobs, rank: int, npz: str) ->
     return train
 
 
-def _rank_setup(rank: int, world: int, store: str):
-    """A rank's process on cuda:0 over gloo, TF32 off as in the main
-    process: (torch, parallel, its device)."""
+def _rank_setup(rank: int, world: int, store: str, backend: str = "gloo"):
+    """A rank's process joining the world, TF32 off as in the main process:
+    (torch, parallel, its device). Over gloo every rank runs on cuda:0 (the
+    ranks of [parallel] share one card); over NCCL ([multicard])
+    ``parallel.initialize`` gives rank r its own card, cuda:r."""
     import torch
 
     from vqa_tpu_torch import parallel
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    return torch, parallel, parallel.initialize(store, world, rank, backend="gloo", device="cuda")
+    card = "cuda:0" if backend == "gloo" else "cuda"
+    return torch, parallel, parallel.initialize(store, world, rank, backend=backend, device=card)
 
 
 def _parallel_rank(rank: int, world: int, store: str, work: str) -> None:
@@ -4677,17 +4752,17 @@ def _tp_rank(rank: int, world: int, store: str, work: str) -> None:
 
 
 def _tp_cli_rank(rank: int, world: int, store: str, work: str) -> None:
-    """One rank of (f): the train CLI with ``--distributed`` over gloo on
-    cuda:0 (``initialize``'s backend forced: NCCL refuses two ranks on one
-    card) over phase 9's set (its store rebuilt here from the same seeds),
-    asked to stop after TP_CLI_PREEMPT_AT steps as SIGTERM asks a single
-    process (the flag set in every rank after the same step, so the ranks
-    save the preemption checkpoint together). Reads ``cli.json`` beside
-    ``work``; writes ``rank<r>.json``: the CLI's return code and the
-    launches."""
+    """One rank of [parallel] (f) and [multicard] (d)'s preempted runs: the
+    train CLI with ``--distributed`` over phase 9's set (its store rebuilt
+    here from the same seeds), asked to stop after TP_CLI_PREEMPT_AT steps
+    as SIGTERM asks a single process (the flag set in every rank after the
+    same step, so the ranks save the preemption checkpoint together). Reads
+    ``cli.json`` beside ``work`` (its ``backend``: gloo, the default, puts
+    every rank on cuda:0, ``initialize``'s backend forced as NCCL refuses
+    two ranks on one card; nccl gives each rank its own card); writes
+    ``rank<r>.json``: the CLI's return code, the launches and the rank's
+    card."""
     from vqa_tpu_torch.cli import train as train_cli
-    from vqa_tpu_torch.config import load_options
-    from vqa_tpu_torch.datasets import factory as data_factory
     from vqa_tpu_torch.engine import engine as engine_lib
     from vqa_tpu_torch.parallel import distributed
 
@@ -4697,10 +4772,7 @@ def _tp_cli_rank(rank: int, world: int, store: str, work: str) -> None:
     torch.backends.cudnn.allow_tf32 = False
     with open(os.path.join(os.path.dirname(work), "cli.json")) as f:
         spec = json.load(f)
-    opt = load_options(os.path.join(_REPO, "options", "vqa2", "mutan_att.yaml"), spec["data"])
-    host_table = _synthetic_eval_arrays(np.random.default_rng(0), BATCH * N_BATCHES)[-1]
-    data_factory.place_store(opt.coco.dir, opt.coco.arch, opt.coco.mode, _cli_store(host_table))
-    del host_table
+    _place_cli_store(spec["data"])
     initialize, make_train_step = distributed.initialize, train_cli.make_train_step
 
     def preempting_make_train_step(*args, **kwargs):
@@ -4714,27 +4786,37 @@ def _tp_cli_rank(rank: int, world: int, store: str, work: str) -> None:
             return out
         return counted
 
-    distributed.initialize = lambda *a, **k: initialize(*a, **k, backend="gloo")
+    if spec.get("backend", "gloo") == "gloo":
+        distributed.initialize = lambda *a, **k: initialize(
+            *a, **dict(k, backend="gloo", device="cuda:0"))
     train_cli.make_train_step = preempting_make_train_step
     _reset_counts()
     rc = train_cli.main(spec["argv"] + ["--coordinator_address", store, "--num_processes",
                                         str(world), "--process_id", str(rank)])
     with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
-        json.dump(dict(rank=rank, rc=rc, counts=_read_counts()), f)
+        json.dump(dict(rank=rank, rc=rc, counts=_read_counts(),
+                       current_device=torch.cuda.current_device(), contexts=_contexts(torch)), f)
 
 
-def _spawn_ranks(work: str, world: int, what: str, call: str) -> list:
+def _rank_command(call: str) -> list:
+    """The command of a process that runs ``chip_smoke.<call>``."""
+    return [sys.executable, "-c", "import chip_smoke; chip_smoke." + call]
+
+
+def _spawn_ranks(work: str, world: int, what: str, call: str, tag: str = "parallel",
+                 env=None) -> list:
     """Run ``world`` processes, each ``chip_smoke.<call>`` with ``r``,
     ``world``, ``store`` (a ``file://`` store under ``work``) and ``work``
-    filled in, all at once; require each to return 0 (printing a failed
-    rank's log) and return each rank's ``rank<r>.json``."""
+    filled in, all at once (``env``: variables added to their environment);
+    require each to return 0 (printing a failed rank's log) and return each
+    rank's ``rank<r>.json``."""
     os.makedirs(work)
     store = f"file://{work}/store"
     logs = [open(os.path.join(work, f"rank{r}.log"), "w") for r in range(world)]
     procs = [subprocess.Popen(
-        [sys.executable, "-c", "import chip_smoke; chip_smoke."
-         + call.format(r=r, world=world, store=store, work=work)],
-        cwd=_REPO, stdout=logs[r], stderr=subprocess.STDOUT) for r in range(world)]
+        _rank_command(call.format(r=r, world=world, store=store, work=work)),
+        cwd=_REPO, stdout=logs[r], stderr=subprocess.STDOUT,
+        env=dict(os.environ, **(env or {}))) for r in range(world)]
     try:
         deadline = time.monotonic() + PARALLEL_TIMEOUT
         rcs = [p.wait(timeout=max(1.0, deadline - time.monotonic())) for p in procs]
@@ -4749,7 +4831,7 @@ def _spawn_ranks(work: str, world: int, what: str, call: str) -> list:
         if rc != 0:
             with open(os.path.join(work, f"rank{r}.log")) as f:
                 print(f.read()[-4000:], file=sys.stderr)
-        _require(rc == 0, f"[parallel] rank {r} of {what} returns 0: {rc}")
+        _require(rc == 0, f"[{tag}] rank {r} of {what} returns 0: {rc}")
     ranks = []
     for r in range(world):
         with open(os.path.join(work, f"rank{r}.json")) as f:
@@ -4883,7 +4965,7 @@ def _parallel_cli(torch, card: str, tmp: str, context: dict) -> dict:
 
 
 def _hold_train(part: str, ranks: list, run, params: dict, ref: dict,
-                adam_lr: float = 0.0) -> dict:
+                adam_lr: float = 0.0, tag: str = "parallel", data_axis: int = 1) -> dict:
     """Hold ``part``'s ranks (``run(rank record)``: one train run's record)
     against one process's run ``ref``: the ranks' losses and parameters
     equal to each other's; the losses within PARALLEL_LOSS_RTOL relative;
@@ -4892,38 +4974,77 @@ def _hold_train(part: str, ranks: list, run, params: dict, ref: dict,
     within TP_PARAM_REL of its scale and a leaf the softmax does not see
     (its grad 0 but for rounding, which adam scales up to +-lr a step)
     moved by at most lr x steps from the start on both sides, as
-    tests/test_torch_train.py holds adam. Returns the readings."""
+    tests/test_torch_train.py holds adam. Over a data axis of more than one
+    rank the grads are summed in another order than one process's, and adam
+    turns that rounding, in every element whose grad is 0 but for rounding,
+    into steps of up to lr: there adam's leaves are held to sgd's bound (the
+    JAX package's for its data-parallel step), the softmax-blind ones still
+    by lr x steps, and the of-scale excess is a reading. Returns the
+    readings."""
     _require(all(run(x)["losses"] == run(ranks[0])["losses"]
                  and run(x)["params_sha"] == run(ranks[0])["params_sha"] for x in ranks),
-             f"[parallel] ({part}) the ranks agree on the losses and parameters bit for bit")
+             f"[{tag}] ({part}) the ranks agree on the losses and parameters bit for bit")
     losses = run(ranks[0])["losses"]
     loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses, ref["losses"]))
     _require(loss_rel <= PARALLEL_LOSS_RTOL,
-             f"[parallel] ({part}) losses within {PARALLEL_LOSS_RTOL} relative of one "
+             f"[{tag}] ({part}) losses within {PARALLEL_LOSS_RTOL} relative of one "
              f"process's: {losses} {ref['losses']}")
     _require(sorted(params) == sorted(ref["params"]),
-             f"[parallel] ({part}) the same parameter names")
+             f"[{tag}] ({part}) the same parameter names")
     blind = tuple(name.replace(".", "/") for name in SOFTMAX_BLIND)
     start = _start_params() if adam_lr else {}
-    worst_abs, worst_excess, bit_equal = 0.0, -math.inf, True
+    worst_abs, worst_excess, of_scale, bit_equal = 0.0, -math.inf, -math.inf, True
     for key, want in ref["params"].items():
         bit_equal &= np.array_equal(params[key], want)
         diff = np.abs(params[key].astype(np.float64) - want)
         worst_abs = max(worst_abs, float(diff.max()))
+        tolerance = PARALLEL_PARAM_ATOL + PARALLEL_PARAM_RTOL * np.abs(want)
         if adam_lr and key.endswith(blind):
             moved = max(float(np.abs(x - start[key]).max()) for x in (params[key], want))
             excess = np.asarray(moved - adam_lr * PARALLEL_STEPS * 1.001)
         elif adam_lr:
-            excess = diff - TP_PARAM_REL * max(float(np.abs(want).max()), 1e-3)
+            scaled = diff - TP_PARAM_REL * max(float(np.abs(want).max()), 1e-3)
+            of_scale = max(of_scale, float(scaled.max()))
+            excess = scaled if data_axis == 1 else diff - tolerance
         else:
-            excess = diff - (PARALLEL_PARAM_ATOL + PARALLEL_PARAM_RTOL * np.abs(want))
+            excess = diff - tolerance
         worst_excess = max(worst_excess, float(excess.max()))
-    bound = (f"{TP_PARAM_REL} of each leaf's scale (the softmax-blind biases: lr x steps)"
-             if adam_lr else f"rtol {PARALLEL_PARAM_RTOL}, atol {PARALLEL_PARAM_ATOL}")
-    _require(worst_excess <= 0, f"[parallel] ({part}) every parameter within {bound} of one "
+    bound = (f"rtol {PARALLEL_PARAM_RTOL}, atol {PARALLEL_PARAM_ATOL}"
+             if not adam_lr or data_axis > 1 else f"{TP_PARAM_REL} of each leaf's scale")
+    if adam_lr:
+        bound += " (the softmax-blind biases: lr x steps)"
+    _require(worst_excess <= 0, f"[{tag}] ({part}) every parameter within {bound} of one "
              f"process's: worst excess {worst_excess}")
-    return dict(loss_rel_err=loss_rel, param_max_abs_err=worst_abs,
-                param_worst_excess=worst_excess, params_bit_equal_one_process=bit_equal)
+    readings = dict(loss_rel_err=loss_rel, param_max_abs_err=worst_abs,
+                    param_worst_excess=worst_excess, params_bit_equal_one_process=bit_equal)
+    if adam_lr:
+        readings["param_worst_excess_of_scale"] = of_scale
+    return readings
+
+
+def _epoch_params_excess(logs: str, ref_logs: str, what: str, adam_lr: float = 0.0):
+    """(worst |difference|, worst excess over rtol PARALLEL_PARAM_RTOL, atol
+    PARALLEL_PARAM_ATOL) of the epoch-0 checkpointed parameters of the run in
+    ``logs`` against those of the run in ``ref_logs``, leaf by leaf. With
+    ``adam_lr``, a leaf the softmax does not see (its grad 0 but for
+    rounding, which adam scales up to +-lr a step) is held as
+    ``_hold_train`` holds it: each run moves it by at most lr a step, so the
+    two differ by at most twice lr x steps."""
+    rel = os.path.join("ckpt", "epoch_0000")
+    blind = tuple(name.replace(".", "/") for name in SOFTMAX_BLIND)
+    with open(os.path.join(ref_logs, rel, "state.json")) as f:
+        steps = json.load(f)["step"]
+    with np.load(os.path.join(logs, rel, "params.npz")) as got, \
+            np.load(os.path.join(ref_logs, rel, "params.npz")) as want:
+        _require(sorted(got.files) == sorted(want.files), f"{what} the same leaves")
+        worst_abs, worst_excess = 0.0, -math.inf
+        for key in want.files:
+            diff = np.abs(got[key].astype(np.float64) - want[key])
+            worst_abs = max(worst_abs, float(diff.max()))
+            bound = (2 * adam_lr * steps * 1.001 if adam_lr and key.endswith(blind)
+                     else PARALLEL_PARAM_ATOL + PARALLEL_PARAM_RTOL * np.abs(want[key]))
+            worst_excess = max(worst_excess, float((diff - bound).max()))
+    return worst_abs, worst_excess
 
 
 def _start_params() -> dict:
@@ -4935,27 +5056,29 @@ def _start_params() -> dict:
     return export_params(_parallel_model(torch, "cpu", train=True))
 
 
-def _hold_sharded(part: str, ranks: list, card: str, add) -> None:
+def _hold_sharded(part: str, ranks: list, card: str, add, tag: str = "parallel") -> None:
     """(c) and (g): each rank's eval over the row-sharded table against the
     replicated one (``_parallel_sharded``'s records)."""
     for x in ranks:
         for kind, c in x["sharded"].items():
             gather = "gather_rows_dequant" if kind == "int8" else "gather_rows"
             _require(c["rows_equal"] and c["pred_equal"] and c["correct1"][0] == c["correct1"][1],
-                     f"[parallel] ({part}) rank {x['rank']} {kind}: rows, pred and correct1 of "
+                     f"[{tag}] ({part}) rank {x['rank']} {kind}: rows, pred and correct1 of "
                      f"the sharded table equal the replicated one's: {c}")
             _require(c["sharded_launches"].get(gather, 0) > 0,
-                     f"[parallel] ({part}) rank {x['rank']} {kind}: {gather} launched over the "
+                     f"[{tag}] ({part}) rank {x['rank']} {kind}: {gather} launched over the "
                      f"shard: {c['sharded_launches']}")
             add(c["sharded_launches"])
             add(c["replicated_launches"])
-            _phase("parallel", part=part, card=card, rank=x["rank"], table=kind,
+            _phase(tag, part=part, card=card, rank=x["rank"], table=kind,
                    rows=N_IMAGES, rows_here=-(-N_IMAGES // len(ranks)),
                    eval_batches=PARALLEL_EVAL_BATCHES, global_batch=BATCH,
                    rows_bit_equal=True, pred_equal=True, correct1=c["correct1"][1],
                    resident_bytes_replicated=c["resident"][0],
                    resident_bytes_sharded=c["resident"][1],
                    peak_bytes_replicated=c["peak"][0], peak_bytes_sharded=c["peak"][1],
+                   negative_zeros=c["negative_zeros"][1],
+                   **({"gather_ms": c["ms"]} if c["ms"] else {}),
                    launches=c["sharded_launches"])
 
 
@@ -5071,16 +5194,8 @@ def _tensor_parallel_parts(torch, dev, card: str, tmp: str, context: dict, ref: 
     _require(rc == 0 and f"resumed mid-epoch 0 at step {TP_CLI_PREEMPT_AT}" in out.getvalue(),
              f"[parallel] (f) the one-process resume returns 0 from the 1 x 2 run's step "
              f"checkpoint: {rc}\n{out.getvalue()[-3000:]}")
-    single = os.path.join(tmp, "logs", "parallel_single", "ckpt", "epoch_0000", "params.npz")
-    with np.load(os.path.join(logs, "ckpt", "epoch_0000", "params.npz")) as got, \
-            np.load(single) as want:
-        _require(sorted(got.files) == sorted(want.files), "[parallel] (f) the same leaves")
-        worst_abs, worst_excess = 0.0, -math.inf
-        for key in want.files:
-            diff = np.abs(got[key].astype(np.float64) - want[key])
-            worst_abs = max(worst_abs, float(diff.max()))
-            worst_excess = max(worst_excess, float((diff - (
-                PARALLEL_PARAM_ATOL + PARALLEL_PARAM_RTOL * np.abs(want[key]))).max()))
+    worst_abs, worst_excess = _epoch_params_excess(
+        logs, os.path.join(tmp, "logs", "parallel_single"), "[parallel] (f)")
     _require(worst_excess <= 0,
              f"[parallel] (f) resumed in one process, every parameter within rtol "
              f"{PARALLEL_PARAM_RTOL}, atol {PARALLEL_PARAM_ATOL} of (a)'s uninterrupted run: "
@@ -5144,18 +5259,759 @@ def _parallel_phase(torch, dev, card: str, tmp: str, context: dict) -> dict:
     return counts
 
 
-def main() -> int:
+# ------------------------------------------------------------- multicard
+
+# [multicard] (``python3 chip_smoke.py --only multicard``, on a host of four
+# cards): [parallel]'s paths over NCCL, one rank a card, at mutan_att.yaml's
+# full width. (a) One world of four ranks lays out the 4 x 1, 2 x 2 and
+# 1 x 4 meshes in turn and runs [parallel] (b)'s float32 steps on each, with
+# PARALLEL_SGD and with TP_ADAM, against one process on cuda:0 ([parallel]'s
+# bounds; 1 x 4, whose data axis has no reduce, bit-equal to one process);
+# (b) each rank's device, tensors, current card and CUDA contexts on its own
+# card alone, and the cards' process list read while the ranks live; (c)
+# the 1024-image table row-sharded over the four (256 rows each and the
+# sink), -0.0 planted in it, bf16 and the int8 pair, bit-equal to the
+# replicated table, with NCCL's transports and algorithms from the rank
+# logs; (f) train QA/s of MutanAtt as [train] trains it over the four as a
+# 4 x 1 mesh at 4 x 128 rows (weak scaling) and at 128 (strong), against one
+# card at 128; (d) the train CLI under torchrun as 1 x 4 (the YAML's
+# dropout) and as 4 x 1 (no dropout, no answer sampling, no train
+# bucketing: a global batch of 128 then holds the same rows as one
+# process's), each against one process, each preempted over the four and
+# resumed in one process, and the eval CLI over the four against one card;
+# (e) flagship.dryrun_multigpu(4) over NCCL.
+MULTICARD_WORLD = 4
+MULTICARD_MESHES = (1, 2, 4)  # engine.model_parallel of the 4 x 1, 2 x 2 and 1 x 4 meshes
+MULTICARD_WARMUP = 3
+MULTICARD_TIMED = 20
+# NCCL's account of each communicator's transports and each collective's
+# algorithm, in the rank logs of (a)-(c)
+MULTICARD_NCCL_ENV = {"NCCL_DEBUG": "INFO", "NCCL_DEBUG_SUBSYS": "INIT,ENV,TUNING"}
+
+
+def _contexts(torch) -> list:
+    """Whether this process holds a CUDA context on each card: the
+    driver's primary context, which PyTorch, NCCL and the kernel library
+    share. Reading it makes none."""
+    return [bool(torch._C._cuda_hasPrimaryContext(i)) for i in range(torch.cuda.device_count())]
+
+
+def _placement(torch, dev, devices) -> dict:
+    """(b) in a rank: its pid, device and current card, its tensors'
+    devices, its contexts, and the bytes its allocator ever handed out on
+    each card."""
+    contexts = _contexts(torch)
+    return dict(pid=os.getpid(), device=str(dev), current_device=torch.cuda.current_device(),
+                tensor_devices=sorted(devices), contexts=contexts,
+                allocated=[torch.cuda.memory_stats(i).get("allocated_bytes.all.allocated", 0)
+                           for i in range(len(contexts))])
+
+
+def _compute_apps() -> list:
+    """The cards' process list from nvidia-smi: a [pid, card index] entry
+    for each context."""
+    def query(what):
+        out = subprocess.run(["nvidia-smi", f"--query-{what}", "--format=csv,noheader"],
+                             capture_output=True, text=True, check=True, timeout=60).stdout
+        return [[c.strip() for c in line.split(",")] for line in out.splitlines() if line.strip()]
+
+    index = {uuid: int(i) for i, uuid in query("gpu=index,uuid")}
+    return [[int(pid), index[uuid]] for pid, uuid in query("compute-apps=pid,gpu_uuid")
+            if pid.isdigit() and uuid in index]
+
+
+def _signed_zeros(table: np.ndarray) -> np.ndarray:
+    """``table`` with every 7th value of each row set to -0.0 and every 11th
+    to +0.0 (the sharded gather must keep both signs)."""
+    out = table.copy()
+    flat = out.reshape(len(out), -1)
+    flat[:, ::7] = -0.0
+    flat[:, 5::11] = 0.0
+    return out
+
+
+def _throughput(torch, dev, mesh, table, global_batch: int) -> dict:
+    """(f) in this process: MutanAtt as [train] trains it (bf16 compute over
+    float32 parameters, the YAML's adam and dropout) on this rank's slice of
+    a global batch of ``global_batch`` rows of PARALLEL_T tokens over
+    ``table`` in bf16 on the card: MULTICARD_WARMUP steps, MULTICARD_TIMED
+    each between two syncs (the median), then MULTICARD_TIMED back to back
+    ending in one sync (the QA/s: global rows over that wall time)."""
+    from vqa_tpu_torch.config import OptimOptions
+    from vqa_tpu_torch.engine import optim, steps
+    from vqa_tpu_torch.flagship import NUM_ANSWERS
+
+    rng = np.random.default_rng(11)
+    questions, lengths, image_index, _ = _synthetic_eval_arrays(rng, global_batch,
+                                                                 with_table=False)
+    lengths = np.minimum(lengths, PARALLEL_T)
+    questions = questions[:, :PARALLEL_T] * (np.arange(PARALLEL_T) < lengths[:, None])
+    batch = dict(question=questions, length=lengths, image_index=image_index,
+                 answer=rng.integers(0, NUM_ANSWERS, global_batch).astype(np.int32))
+    local = _local_batch(torch, dev, batch, mesh)
+    features = torch.from_numpy(table).to(dev, torch.bfloat16)
+    state = steps.create_state(_train_model(torch, dev, "mutan_att"),
+                               optim.factory(OptimOptions(**TP_ADAM), 1))
+    step = steps.make_train_step(optim.criterion_factory(), seed=0, mesh=mesh)
+    for _ in range(MULTICARD_WARMUP):
+        state, _ = step(state, local, features)
+    step_ms = []
+    for _ in range(MULTICARD_TIMED):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, _ = step(state, local, features)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+    t = time.perf_counter()
+    for _ in range(MULTICARD_TIMED):
+        state, metrics = step(state, local, features)
+    loss = float(metrics["loss"])
+    wall = time.perf_counter() - t
+    del state, features
+    torch.cuda.empty_cache()
+    return dict(global_batch=global_batch, local_batch=len(local["answer"]),
+                step_ms=round(statistics.median(step_ms), 3),
+                qa_per_s=round(global_batch * MULTICARD_TIMED / wall, 1), loss=loss)
+
+
+def _multicard_rank(rank: int, world: int, store: str, work: str) -> None:
+    """One rank of (a)-(c) and (f), a process of its own on cuda:<rank> over
+    NCCL: writes ``rank<r>.json`` (rank 0 also each run's parameters,
+    ``<mesh>_<optimizer>.npz``) under ``work``."""
+    torch, parallel, dev = _rank_setup(rank, world, store, backend="nccl")
+    try:
+        table, train_batch, eval_batches = _parallel_data()
+        record, devices, meshes = dict(rank=rank), set(), {}
+        for model_parallel in MULTICARD_MESHES:
+            mesh = meshes[model_parallel] = parallel.make_mesh(model_parallel)
+            name = f"{mesh.data}x{mesh.model}"
+            record[name] = dict(mesh=[mesh.data, mesh.model, mesh.data_index, mesh.model_index],
+                                backend=mesh.backend)
+            for opt_name, knobs in (("sgd", PARALLEL_SGD), ("adam", TP_ADAM)):
+                run = _train_record(torch, dev, mesh, table, train_batch, knobs, rank,
+                                    os.path.join(work, f"{name}_{opt_name}.npz"))
+                devices.update(run["devices"])
+                record[name][opt_name] = run
+        # (c): the whole world shards the table, whatever the mesh
+        record["sharded"] = _parallel_sharded(torch, dev, meshes[1], _signed_zeros(table),
+                                              eval_batches, timed=True)
+        for c in record["sharded"].values():
+            devices.update(c["devices"])
+        # (f): one card alone (rank 0, the others waiting), then the four
+        record["throughput"] = {}
+        if rank == 0:
+            record["throughput"]["one"] = _throughput(torch, dev, parallel.Mesh(), table,
+                                                      TRAIN_BATCH)
+        parallel.barrier()
+        for kind, n in (("weak", MULTICARD_WORLD * TRAIN_BATCH), ("strong", TRAIN_BATCH)):
+            record["throughput"][kind] = _throughput(torch, dev, meshes[1], table, n)
+        record["placement"] = _placement(torch, dev, devices)
+        parallel.barrier()
+        if rank == 0:
+            record["compute_apps"] = _compute_apps()
+        parallel.barrier()  # every rank lives while rank 0 reads the process list
+    finally:
+        parallel.shutdown()
+    with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
+        json.dump(record, f)
+
+
+def _hold_meshes(ranks: list, ref: dict, card: str, work: str, add, wall: float) -> None:
+    """(a): each mesh's ranks against the one-process runs ``ref``."""
+    for model_parallel in MULTICARD_MESHES:
+        data = MULTICARD_WORLD // model_parallel
+        name = f"{data}x{model_parallel}"
+        _require([x[name]["mesh"] for x in ranks]
+                 == [[data, model_parallel, r // model_parallel, r % model_parallel]
+                     for r in range(MULTICARD_WORLD)] and
+                 all(x[name]["backend"] == "nccl" for x in ranks),
+                 f"[multicard] (a) the ranks sit on the {name} grid over nccl: "
+                 f"{[(x[name]['mesh'], x[name]['backend']) for x in ranks]}")
+        for opt_name, lr in (("sgd", 0.0), ("adam", TP_ADAM["lr"])):
+            one = ref[opt_name]
+            with np.load(os.path.join(work, f"{name}_{opt_name}.npz")) as npz:
+                params = {k: npz[k] for k in npz.files}
+            held = _hold_train("a", ranks, lambda x: x[name][opt_name], params, one, lr,
+                               tag="multicard", data_axis=data)
+            runs = [x[name][opt_name] for x in ranks]
+            if model_parallel == MULTICARD_WORLD:
+                _require(held["params_bit_equal_one_process"]
+                         and runs[0]["losses"] == one["losses"],
+                         f"[multicard] (a) {name} {opt_name}: bit-equal to one process (its data "
+                         f"axis has no reduce): {held}")
+            # the collectives each axis runs, over NCCL: the data axis' all-reduce
+            # wherever it has more than one rank, the model axis' all-gather likewise
+            _require(all((run["reduce_ms"] > 0) == (data > 1)
+                         and (run["gather_ms"] > 0) == (model_parallel > 1) for run in runs),
+                     f"[multicard] (a) {name} {opt_name}: the all-reduce ran over the data axis "
+                     f"and the all-gather over the model axis: "
+                     f"{[(run['reduce_ms'], run['gather_ms']) for run in runs]}")
+            state = [run["state_bytes"] for run in runs]
+            if opt_name == "adam":
+                rule = _adam_bytes(one["params"], model_parallel)
+                _require(state == [rule] * MULTICARD_WORLD
+                         and _adam_bytes(one["params"], 1) == one["state_bytes"],
+                         f"[multicard] (a) {name}: each rank holds the leaf rule's share of "
+                         f"adam's moments, {rule} bytes: {state} of {one['state_bytes']}")
+            for run in runs:
+                add(run["train_counts"])
+            r0 = runs[0]
+            _phase("multicard", part="a", card=card, mesh=name, optimizer=opt_name,
+                   backend="nccl", dtype="float32", global_batch=TRAIN_BATCH,
+                   local_batch=TRAIN_BATCH // data, steps=PARALLEL_STEPS,
+                   losses=[round(v, 6) for v in r0["losses"]],
+                   one_process_losses=[round(v, 6) for v in one["losses"]], **held,
+                   step_ms=[round(run["step_ms"], 3) for run in runs],
+                   reduce_ms=[round(run["reduce_ms"], 3) for run in runs],
+                   reduce_share=round(r0["reduce_ms"] / r0["step_ms"], 4),
+                   gather_ms=[round(run["gather_ms"], 3) for run in runs],
+                   gather_share=round(r0["gather_ms"] / r0["step_ms"], 4),
+                   one_process_step_ms=round(one["step_ms"], 3), state_bytes=state[0],
+                   one_process_state_bytes=one["state_bytes"],
+                   peak_bytes=[run["peak"] for run in runs], one_process_peak_bytes=one["peak"],
+                   ranks_wall_s=round(wall, 3),
+                   launches={k: c for k, c in r0["train_counts"].items() if c})
+
+
+def _adam_bytes(params: dict, model_parallel: int) -> int:
+    """The bytes of adam's two float32 moments on a rank of a row of
+    ``model_parallel``, by the leaf rule (``partition.leaf_dim``): a sharded
+    leaf's ``1 / model_parallel`` slice, a replicated leaf whole."""
+    from vqa_tpu_torch.parallel.partition import leaf_dim
+
+    return sum(8 * (a.size // model_parallel if leaf_dim(a.shape, model_parallel) is not None
+                    else a.size) for a in params.values())
+
+
+def _hold_placement(torch, ranks: list, card: str) -> None:
+    """(b): every rank on its own card alone; the main process (the
+    one-process runs) on card 0 alone."""
+    n = torch.cuda.device_count()
+    main_contexts = _contexts(torch)
+    _require(main_contexts == [i == 0 for i in range(n)],
+             f"[multicard] (b) the main process holds a context on card 0 alone: {main_contexts}")
+    for x in ranks:
+        p, r = x["placement"], x["rank"]
+        own = f"cuda:{r}"
+        _require(p["device"] == own and p["current_device"] == r
+                 and p["tensor_devices"] == [own],
+                 f"[multicard] (b) rank {r} runs on {own} and every tensor it made is there: {p}")
+        _require(p["contexts"] == [i == r for i in range(n)],
+                 f"[multicard] (b) rank {r} holds a CUDA context on card {r} alone: "
+                 f"{p['contexts']}")
+        _require([b > 0 for b in p["allocated"]] == [i == r for i in range(n)],
+                 f"[multicard] (b) rank {r} allocated on card {r} alone: {p['allocated']}")
+    # the process list, read by rank 0 while every rank lived: the count of
+    # processes a card (the main process and rank 0 on card 0, a rank on each
+    # other); where it shows this run's pids (a container may show others),
+    # each on its own card alone
+    apps = ranks[0]["compute_apps"]
+    pids = {x["placement"]["pid"]: x["rank"] for x in ranks}
+    pids[os.getpid()] = 0
+    per_card = [sum(card == i for _, card in apps) for i in range(n)]
+    if apps:
+        _require(per_card == [2] + [1] * (n - 1),
+                 f"[multicard] (b) the process list shows two processes on card 0 (the main "
+                 f"process and rank 0) and one on each other card: {apps}")
+    visible = sorted({pid for pid, _ in apps} & set(pids))
+    for pid in visible:
+        _require({card for p, card in apps if p == pid} == {pids[pid]},
+                 f"[multicard] (b) process {pid} is listed on card {pids[pid]} alone: {apps}")
+    _phase("multicard", part="b", card=card, ranks=len(ranks),
+           devices=[x["placement"]["device"] for x in ranks],
+           current_devices=[x["placement"]["current_device"] for x in ranks],
+           contexts=[[i for i, c in enumerate(x["placement"]["contexts"]) if c] for x in ranks],
+           main_contexts=[i for i, c in enumerate(main_contexts) if c],
+           allocated_bytes=[x["placement"]["allocated"][x["rank"]] for x in ranks],
+           process_list=apps, processes_a_card=per_card,
+           pids_listed=f"{len(visible)} of {len(pids)}")
+
+
+def _nccl_summary(log: str) -> dict:
+    """What NCCL_DEBUG=INFO printed in a rank's log: its version, the
+    transports its channels connected over, its NVLS (NVLink SHARP) lines
+    and each collective's algorithm and protocol, each kind deduplicated
+    with the numbers masked."""
+    import re
+
+    version, transports, nvls, algos, connected = None, set(), {}, {}, set()
+    with open(log, errors="replace") as f:
+        for line in f:
+            if "NCCL INFO" not in line:
+                continue
+            text = line.split("NCCL INFO", 1)[1].strip()
+            masked = re.sub(r"0x[0-9a-f]+|\d+", "#", text)
+            found = re.search(r"NCCL version (\S+)", text)
+            version = found.group(1) if found else version
+            found = re.search(r" via (\S+)", text)
+            if found:
+                transports.add(found.group(1))
+            if text.startswith("NVLS") or "nvls channels" in text:
+                nvls.setdefault(masked, text)
+            if " -> Algo " in text:
+                algos.setdefault(masked, text)
+            if text.startswith("Connected"):
+                connected.add(masked)
+    return dict(version=version, transports=sorted(transports), nvls=list(nvls.values())[:6],
+                algorithms=list(algos.values())[:8], connected=sorted(connected))
+
+
+def _hold_sharded_multicard(ranks: list, card: str, work: str, add) -> None:
+    """(c): [parallel]'s hold of the sharded table, the planted -0.0 kept,
+    each rank's share of the table, the gather's parts timed, and NCCL's
+    transports and algorithms."""
+    _hold_sharded("c", ranks, card, add, tag="multicard")
+    for x in ranks:
+        c = x["sharded"]["bf16"]
+        _require(c["negative_zeros"][1] > 0,
+                 f"[multicard] (c) rank {x['rank']}: the planted -0.0 values reach the rows "
+                 f"through the sharded gather: {c['negative_zeros']}")
+        for kind, c in x["sharded"].items():
+            _require(c["resident"][1] < 0.26 * c["resident"][0],
+                     f"[multicard] (c) rank {x['rank']} {kind}: a quarter of the table and its "
+                     f"sink row here: {c['resident']}")
+    _phase("multicard", part="c_nccl", card=card,
+           **_nccl_summary(os.path.join(work, "rank0.log")))
+
+
+def _hold_throughput(ranks: list, card: str) -> None:
+    """(f): reported, not held, beyond finite losses."""
+    one_card = ranks[0]["throughput"]["one"]
+    _require(all(math.isfinite(run["loss"]) for x in ranks for run in x["throughput"].values()),
+             "[multicard] (f) finite losses")
+    for kind in ("weak", "strong"):
+        runs = [x["throughput"][kind] for x in ranks]
+        qa = min(run["qa_per_s"] for run in runs)
+        _phase("multicard", part="f", card=card, scaling=kind, arch="MutanAtt", dtype="bfloat16",
+               optimizer="adam", dropout="yaml", cards=MULTICARD_WORLD,
+               global_batch=runs[0]["global_batch"], local_batch=runs[0]["local_batch"],
+               step_ms=[run["step_ms"] for run in runs], qa_per_s=qa,
+               qa_per_s_by_rank=[run["qa_per_s"] for run in runs],
+               one_card_step_ms=one_card["step_ms"], one_card_qa_per_s=one_card["qa_per_s"],
+               one_card_batch=one_card["global_batch"],
+               speedup=round(qa / one_card["qa_per_s"], 3))
+
+
+@contextlib.contextmanager
+def _track_writes(root: str):
+    """Record every file under ``root`` that this process opens for writing
+    or renames into place, as paths relative to ``root``."""
+    import builtins
+    import io
+
+    root = os.path.realpath(root)
+    seen: list = []
+    real = {"open": builtins.open, "replace": os.replace, "rename": os.rename}
+
+    def note(path):
+        if isinstance(path, (str, bytes, os.PathLike)):
+            path = os.path.realpath(os.fsdecode(path))
+            if path.startswith(root + os.sep):
+                seen.append(os.path.relpath(path, root))
+
+    def tracked_open(file, mode="r", *args, **kwargs):
+        if any(c in mode for c in "wax+"):
+            note(file)
+        return real["open"](file, mode, *args, **kwargs)
+
+    def tracked_move(name):
+        def move(src, dst, *args, **kwargs):
+            note(dst)
+            return real[name](src, dst, *args, **kwargs)
+        return move
+
+    builtins.open = io.open = tracked_open
+    os.replace, os.rename = tracked_move("replace"), tracked_move("rename")
+    try:
+        yield seen
+    finally:
+        builtins.open = io.open = real["open"]
+        os.replace, os.rename = real["replace"], real["rename"]
+
+
+def _place_cli_store(data: list):
+    """Phase 9's store in the dataset factory's cache (rebuilt from its
+    seeds), for the options ``data``."""
+    from vqa_tpu_torch.config import load_options
+    from vqa_tpu_torch.datasets import factory as data_factory
+
+    opt = load_options(os.path.join(_REPO, "options", "vqa2", "mutan_att.yaml"), data)
+    host_table = _synthetic_eval_arrays(np.random.default_rng(0), BATCH * N_BATCHES)[-1]
+    data_factory.place_store(opt.coco.dir, opt.coco.arch, opt.coco.mode, _cli_store(host_table))
+
+
+def _torchrun_rank(spec_path: str) -> None:
+    """A torchrun worker of (d): phase 9's store placed, then the train CLI's
+    main with the spec's ``argv`` (``--distributed`` with no address: the
+    cluster from torchrun's environment), the files it writes under the
+    run's logs recorded; writes ``rank<RANK>.json`` beside the spec and
+    exits with the CLI's code."""
     import torch
 
+    from vqa_tpu_torch.cli import train as train_cli
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with open(spec_path) as f:
+        spec = json.load(f)
+    _place_cli_store(spec["data"])
+    _reset_counts()
+    with _track_writes(spec["logs"]) as writes:
+        rc = train_cli.main(spec["argv"])
+    rank = int(os.environ["RANK"])
+    with open(os.path.join(os.path.dirname(spec_path), f"rank{rank}.json"), "w") as f:
+        json.dump(dict(rank=rank, local_rank=int(os.environ["LOCAL_RANK"]), rc=rc,
+                       counts=_read_counts(), writes=sorted(set(writes)),
+                       current_device=torch.cuda.current_device(), contexts=_contexts(torch)), f)
+    sys.exit(rc)
+
+
+def _torchrun(work: str, data: list, argv: list, logs: str) -> tuple:
+    """The train CLI under ``python -m torch.distributed.run --standalone
+    --nproc_per_node MULTICARD_WORLD``, each worker ``_torchrun_rank``;
+    requires torchrun to return 0 within PARALLEL_TIMEOUT (printing its log
+    otherwise); returns (its output, each rank's record)."""
+    import signal
+
+    os.makedirs(work)
+    spec = os.path.join(work, "spec.json")
+    with open(spec, "w") as f:
+        json.dump(dict(data=data, argv=argv, logs=logs), f)
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+           str(MULTICARD_WORLD), "--no-python", *_rank_command(f"_torchrun_rank({spec!r})")]
+    log = os.path.join(work, "torchrun.log")
+    with open(log, "w") as f:
+        proc = subprocess.Popen(cmd, cwd=_REPO, stdout=f, stderr=subprocess.STDOUT,
+                                start_new_session=True)
+        try:
+            rc = proc.wait(timeout=PARALLEL_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            rc = "timeout"
+        finally:
+            if proc.poll() is None:  # torchrun stops its workers on SIGTERM
+                proc.terminate()
+                try:
+                    proc.wait(timeout=30)
+                except subprocess.TimeoutExpired:
+                    os.killpg(proc.pid, signal.SIGKILL)
+                    proc.wait()
+    with open(log, errors="replace") as f:
+        out = f.read()
+    if rc != 0:
+        print(out[-6000:], file=sys.stderr)
+    _require(rc == 0, f"[multicard] (d) torchrun returns 0: {rc}")
+    ranks = []
+    for r in range(MULTICARD_WORLD):
+        with open(os.path.join(work, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    return out, ranks
+
+
+def _cli_main(torch, argv: list) -> tuple:
+    """The train CLI's main in this process: (return code, output, seconds,
+    launch counts)."""
+    import io
+
+    from vqa_tpu_torch.cli import train as train_cli
+
+    _reset_counts()
+    out, t = io.StringIO(), time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = train_cli.main(argv)
+    torch.cuda.synchronize()
+    return rc, out.getvalue(), time.perf_counter() - t, _read_counts()
+
+
+def _val_record(logs: str) -> dict:
+    with open(os.path.join(logs, "metrics.jsonl")) as f:
+        return [r for r in map(json.loads, f) if r.get("split") == "val"][-1]
+
+
+def _answers(logs: str) -> dict:
+    """The run's one results json: question_id -> answer."""
+    (name,) = os.listdir(os.path.join(logs, "results"))
+    with open(os.path.join(logs, "results", name)) as f:
+        return {r["question_id"]: r["answer"] for r in json.load(f)}
+
+
+def _hold_world_ranks(what: str, ranks: list, out: str, data: int, model: int) -> None:
+    """(d): each torchrun rank on its own card (LOCAL_RANK), named in the
+    CLI's model line, with exactly the path's kernels launched; rank 0 alone
+    wrote the run's files."""
+    for x in ranks:
+        r = x["rank"]
+        _require(x["rc"] == 0 and x["local_rank"] == r and x["current_device"] == r
+                 and x["contexts"] == [i == r for i in range(MULTICARD_WORLD)],
+                 f"[multicard] (d) {what}: rank {r} returned 0 on cuda:{r} (LOCAL_RANK) alone: "
+                 f"{x['rc']} {x['local_rank']} {x['current_device']} {x['contexts']}")
+        _require(f"rank {r} of {MULTICARD_WORLD} over nccl, mesh {data} x {model}" in out,
+                 f"[multicard] (d) {what}: rank {r}'s model line names its place")
+        _require({k for k, c in x["counts"].items() if c} == set(TRAIN_CLI_KERNELS),
+                 f"[multicard] (d) {what}: rank {r} launched {TRAIN_CLI_KERNELS}: {x['counts']}")
+        _require(bool(x["writes"]) == (r == 0),
+                 f"[multicard] (d) {what}: rank 0 alone wrote the run's files; rank {r} wrote "
+                 f"{x['writes'][:8]}")
+
+
+def _multicard_cli(torch, card: str, tmp: str, add) -> None:
+    """(d) (see the comment above MULTICARD_WORLD)."""
+    from vqa_tpu_torch.datasets import factory as data_factory
+
+    yaml = os.path.join(_REPO, "options", "vqa2", "mutan_att.yaml")
+    _write_raw_vqa2(os.path.join(tmp, "vqa2", "raw"), np.random.default_rng(0))
+    data = [f"vqa.dir={tmp}/vqa2", f"coco.dir={tmp}/coco"]
+    common = data + ["engine.device_features=true", "optim.eval_batch_size=1024"]
+    bf16 = ["engine.features_dtype=bfloat16", "engine.dtype=bfloat16"]
+
+    def flags(opts):
+        return [a for o in opts for a in ("--opt", o)]
+
+    def logs(label):
+        return os.path.join(tmp, "logs", label)
+
+    _place_cli_store(data)
+    try:
+        # (name, options of the world and of its one-process run, data axis,
+        # model axis, adam's lr where the softmax-blind leaves are held as
+        # _hold_train holds them). 4 x 1 runs float32, the YAML's dtype: in
+        # bf16 a rank's 32 rows take other GEMM plans than one process's
+        # 128, whose rounding adam carries past the bound within steps
+        worlds = (("1x4", bf16 + [f"engine.train_bucketing={TRAIN_BUCKET_WINDOW}"], 1,
+                   MULTICARD_WORLD, 0.0),
+                  ("4x1", ["engine.dtype=float32", "engine.features_dtype=float32",
+                           "engine.train_bucketing=0", "vqa.samplingans=false"]
+                   + _no_dropout("mutan_att"), MULTICARD_WORLD, 1, TP_ADAM["lr"]))
+        for name, opts, data_axis, model_axis, adam_lr in worlds:
+            argv = ["--path_opt", yaml, "--epochs", "1"] + flags(common + opts)
+            distributed = ["--distributed", "--opt", f"engine.model_parallel={model_axis}"]
+            # one process on cuda:0, the reference
+            rc, out, single_s, counts = _cli_main(torch, argv + ["--dir_logs", logs(f"{name}_one")])
+            add(counts)
+            _require(rc == 0, f"[multicard] (d) {name}: the one-process run returns 0: {rc}\n"
+                     f"{out[-3000:]}")
+            # the same under torchrun over the four cards, with step saves
+            t = time.perf_counter()
+            out, ranks = _torchrun(os.path.join(tmp, f"torchrun_{name}"), data, argv + [
+                "--dir_logs", logs(f"{name}_torchrun"), "--checkpoint_every_steps",
+                str(TRAIN_CLI_CKPT_EVERY)] + distributed, logs(f"{name}_torchrun"))
+            world_s = time.perf_counter() - t
+            _hold_world_ranks(f"{name} train", ranks, out, data_axis, model_axis)
+            for x in ranks:
+                add(x["counts"])
+            writes = ranks[0]["writes"]
+            _require(all(any(w.startswith(p) for w in writes)
+                         for p in ("metrics.jsonl", "steps.jsonl", "results/", "ckpt/epoch_0000",
+                                   "ckpt/info.json")),
+                     f"[multicard] (d) {name}: rank 0 wrote the logs, results and checkpoints: "
+                     f"{writes}")
+            world_abs, world_excess = _epoch_params_excess(
+                logs(f"{name}_torchrun"), logs(f"{name}_one"), f"[multicard] (d) {name}", adam_lr)
+            _require(world_excess <= 0,
+                     f"[multicard] (d) {name} under torchrun: every parameter within rtol "
+                     f"{PARALLEL_PARAM_RTOL}, atol {PARALLEL_PARAM_ATOL} of one process's: worst "
+                     f"excess {world_excess} (worst difference {world_abs})")
+            # preempted over the four after TP_CLI_PREEMPT_AT steps, resumed in one process
+            work = os.path.join(tmp, f"preempt_{name}")
+            os.makedirs(work)
+            with open(os.path.join(work, "cli.json"), "w") as f:
+                json.dump(dict(data=data, backend="nccl", argv=argv + [
+                    "--dir_logs", logs(f"{name}_preempted"), "--checkpoint_every_steps",
+                    str(TP_CLI_CKPT_EVERY)] + distributed), f)
+            t = time.perf_counter()
+            pre = _spawn_ranks(os.path.join(work, "ranks"), MULTICARD_WORLD, f"(d) {name}",
+                               "_tp_cli_rank({r}, {world}, {store!r}, {work!r})", tag="multicard")
+            preempt_s = time.perf_counter() - t
+            _require([x["rc"] for x in pre] == [75] * MULTICARD_WORLD
+                     and [x["current_device"] for x in pre] == list(range(MULTICARD_WORLD)),
+                     f"[multicard] (d) {name}: every rank, each on its own card, returns 75: "
+                     f"{[(x['rc'], x['current_device']) for x in pre]}")
+            for x in pre:
+                add(x["counts"])
+            with open(os.path.join(logs(f"{name}_preempted"), "ckpt", "info.json")) as f:
+                info = json.load(f)
+            _require(info.get("step_latest") == [0, TP_CLI_PREEMPT_AT],
+                     f"[multicard] (d) {name}: the preemption checkpoint is there: {info}")
+            rc, out, resume_s, counts = _cli_main(
+                torch, argv + ["--dir_logs", logs(f"{name}_preempted"), "--resume", "latest"])
+            add(counts)
+            _require(rc == 0 and f"resumed mid-epoch 0 at step {TP_CLI_PREEMPT_AT}" in out,
+                     f"[multicard] (d) {name}: the one-process resume returns 0 from the step "
+                     f"checkpoint: {rc}\n{out[-3000:]}")
+            resume_abs, resume_excess = _epoch_params_excess(
+                logs(f"{name}_preempted"), logs(f"{name}_one"), f"[multicard] (d) {name}",
+                adam_lr)
+            _require(resume_excess <= 0,
+                     f"[multicard] (d) {name} preempted and resumed in one process: every "
+                     f"parameter within rtol {PARALLEL_PARAM_RTOL}, atol {PARALLEL_PARAM_ATOL} of "
+                     f"the uninterrupted one-process run: worst excess {resume_excess}")
+            _phase("multicard", part="d", card=card, config="mutan_att.yaml", world=name,
+                   dtype="bfloat16" if adam_lr == 0 else "float32", batch=TRAIN_BATCH,
+                   dropout="yaml" if adam_lr == 0 else "off",
+                   one_process_s=round(single_s, 3), torchrun_s=round(world_s, 3),
+                   param_max_abs_err=world_abs, param_worst_excess=world_excess,
+                   rank0_writes=len(writes), preempted_at=TP_CLI_PREEMPT_AT,
+                   preempted_rcs=[x["rc"] for x in pre], preempt_s=round(preempt_s, 3),
+                   resume_s=round(resume_s, 3), resumed_param_max_abs_err=resume_abs,
+                   resumed_param_worst_excess=resume_excess,
+                   val_acc1=[_val_record(logs(f"{name}{s}"))["acc1"]
+                             for s in ("_one", "_torchrun", "_preempted")])
+        # the eval CLI over the four cards (replica-fed, 256 rows a rank of
+        # each batch of 1024) against one card, on the 1 x 4 reference's weights
+        params = os.path.join(logs("1x4_one"), "ckpt", "epoch_0000", "params.npz")
+        argv = ["--path_opt", yaml, "-e"] + flags(common + bf16
+                                                  + [f"model.pretrained_params={params}"])
+        rc, out, one_s, counts = _cli_main(torch, argv + ["--dir_logs", logs("eval_one")])
+        add(counts)
+        _require(rc == 0, f"[multicard] (d) the one-card eval returns 0: {rc}\n{out[-3000:]}")
+        out, ranks = _torchrun(os.path.join(tmp, "torchrun_eval"), data,
+                               argv + ["--dir_logs", logs("eval_four"), "--distributed"],
+                               logs("eval_four"))
+        _hold_world_ranks("eval", ranks, out, MULTICARD_WORLD, 1)
+        for x in ranks:
+            add(x["counts"])
+        one, four = _answers(logs("eval_one")), _answers(logs("eval_four"))
+        _require(sorted(one) == sorted(four) and len(one) == CLI_QUESTIONS,
+                 f"[multicard] (d) the four-card eval answers every val question once: "
+                 f"{len(four)} of {len(one)}")
+        agree = sum(one[q] == four[q] for q in one) / len(one)
+        _require(agree >= PRED_AGREE_FLOOR,
+                 f"[multicard] (d) the four-card eval's answers agree with one card's on at "
+                 f"least {PRED_AGREE_FLOOR}: {agree}")
+        val = {k: _val_record(logs(k)) for k in ("eval_one", "eval_four")}
+        _phase("multicard", part="d_eval", card=card, config="mutan_att.yaml", dtype="bfloat16",
+               questions=len(one), batch=BATCH, rows_a_rank=BATCH // MULTICARD_WORLD,
+               agreement=round(agree, 6), floor=PRED_AGREE_FLOOR,
+               acc1_one_card=val["eval_one"]["acc1"], acc1_four_cards=val["eval_four"]["acc1"],
+               qa_per_sec_one_card=val["eval_one"]["qa_per_sec"],
+               qa_per_sec_four_cards=val["eval_four"]["qa_per_sec"], one_card_s=round(one_s, 3))
+    finally:
+        data_factory.drop_stores(f"{tmp}/coco")
+
+
+def _multicard_phase(torch, dev, card: str, tmp: str) -> dict:
+    """The [multicard] phase (see the comment above MULTICARD_WORLD);
+    returns its launch counts, every rank's included."""
+    import io
+
+    from vqa_tpu_torch import flagship
+    from vqa_tpu_torch.parallel import Mesh
+
+    t_phase = time.perf_counter()
+    counts = dict.fromkeys(_counters(), 0)
+
+    def add(more):
+        for k, c in more.items():
+            counts[k] += c
+
+    # the one-process runs on cuda:0, alone on the cards
+    table, train_batch, _ = _parallel_data()
+    _reset_counts()
+    ref = {"sgd": _parallel_train(torch, dev, Mesh(), table, train_batch),
+           "adam": _parallel_train(torch, dev, Mesh(), table, train_batch, TP_ADAM)}
+    add(_read_counts())
+    del table
+    # (a)-(c) and (f): one world of four NCCL ranks, one a card
+    work, t = os.path.join(tmp, "ranks"), time.perf_counter()
+    ranks = _spawn_ranks(work, MULTICARD_WORLD, "(a)-(c) and (f)",
+                         "_multicard_rank({r}, {world}, {store!r}, {work!r})", tag="multicard",
+                         env=MULTICARD_NCCL_ENV)
+    wall = time.perf_counter() - t
+    _hold_meshes(ranks, ref, card, work, add, wall)
+    _hold_placement(torch, ranks, card)
+    _hold_sharded_multicard(ranks, card, work, add)
+    _hold_throughput(ranks, card)
+    del ref
+    # (d): the CLIs under torchrun
+    _multicard_cli(torch, card, tmp, add)
+    # (e): the port's counterpart of __graft_entry__.dryrun_multichip
+    out, t = io.StringIO(), time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        first = flagship.dryrun_multigpu(MULTICARD_WORLD, platform="cuda",
+                                         timeout=PARALLEL_TIMEOUT)
+    mesh = first["mesh"]
+    _require((mesh["data"], mesh["model"], mesh["backend"]) == (2, 2, "nccl"),
+             f"[multicard] (e) dryrun_multigpu(4) ran the 2 x 2 mesh over nccl: {mesh}")
+    _phase("multicard", part="e", card=card, mesh="2x2", backend=mesh["backend"],
+           losses=[round(v, 5) for v in first["losses"]], sharded_leaves=first["sharded_leaves"],
+           s=round(time.perf_counter() - t, 2), said=out.getvalue().strip().splitlines()[-1])
+    _phase("multicard", part="total", card=card, s=round(time.perf_counter() - t_phase, 2),
+           launches={k: c for k, c in counts.items() if c})
+    return counts
+
+
+def _multicard_main(torch, t_start: float) -> int:
+    """``--only multicard``: the device lines of every card and their
+    topology, the kernels built once here, then the [multicard] phase."""
+    from vqa_tpu_torch.ops import _build
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True, timeout=60).stdout
+    lines = smi.strip().splitlines()
+    for line in lines:
+        print(line, flush=True)
+    # the links between the cards (a container may refuse the topology query;
+    # NCCL's transports in [multicard] (c) name them too)
+    for cmd in (["nvidia-smi", "topo", "-m"], ["nvidia-smi", "nvlink", "--status", "-i", "0"]):
+        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=60)
+        print(f"$ {' '.join(cmd)}: exit {proc.returncode}\n"
+              + (proc.stdout + proc.stderr).rstrip()[:3000], flush=True)
+    t0 = time.perf_counter()
+    log = _build.build()  # here, before any rank loads the library
+    _build.library()
+    _phase("device", name=torch.cuda.get_device_name(0), count=torch.cuda.device_count(),
+           torch=torch.__version__, cuda=torch.version.cuda,
+           build_s=round(time.perf_counter() - t0, 2), built=bool(log))
+    dev = torch.device("cuda:0")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_multicard_") as tmp:
+        _multicard_phase(torch, dev, lines[0], tmp)
+    _phase("total", wall_s=round(time.perf_counter() - t_start, 2))
+    print(lines[0], flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+# the phases of a run with no argument, in the order they run (one card);
+# --only multicard runs the device phase and [multicard] alone
+PHASES = ("device", "kernels", "f32_kernels", "eval", "serve", "grid", "f32_path", "eval_cli",
+          "data", "train_ops", "train", "train_cli", "export", "parallel", "fixture_matrix",
+          "extract")
+ONLY = {"multicard": ("device", "multicard")}
+
+
+def _phases(argv) -> tuple:
+    """The phases the command line asks for: PHASES, or with ``--only
+    NAME`` those of ONLY[NAME]; argparse refuses any other name."""
+    import argparse
+
+    parser = argparse.ArgumentParser(description="Smoke run of vqa_tpu_torch on CUDA cards.")
+    parser.add_argument("--only", choices=sorted(ONLY),
+                        help="run this phase alone (multicard: four cards of one host)")
+    args = parser.parse_args(argv)
+    return ONLY[args.only] if args.only else PHASES
+
+
+def main(argv=None) -> int:
+    import torch
+
+    phases = _phases(argv)
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke run needs a CUDA "
               "card and has no CPU path", file=sys.stderr)
         return 1
-    from vqa_tpu_torch.ops import _build
-
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if "multicard" in phases:
+        count = torch.cuda.device_count()
+        if count < MULTICARD_WORLD:
+            print(f"chip_smoke: --only multicard runs {MULTICARD_WORLD} ranks, one a card, and "
+                  f"this host has {count} card(s); it does not run fewer", file=sys.stderr)
+            return 1
+        return _multicard_main(torch, t_start)
+    from vqa_tpu_torch.ops import _build
+
     dev = torch.device("cuda:0")
     torch.manual_seed(0)
 
@@ -5300,6 +6156,8 @@ def main() -> int:
                        "launches": launches[name],
                        **{key: k.pop(key) for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                                       "bound_by", "library_ms")}, **k})
+    _phase("multicard", run=False, why="needs four cards of one host",
+           command="python3 chip_smoke.py --only multicard")
     _phase("total", wall_s=round(time.perf_counter() - t_start, 2))
     print(json.dumps({"kernels": record}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -59,10 +59,13 @@ def initialize(
     store), with ``num_processes`` and ``process_id`` beside it.
 
     ``device`` says where the process runs: the card (``"cuda"``: rank r
-    takes ``cuda:<LOCAL_RANK>``, else ``cuda:<r % device_count>``) or the
-    host (``"cpu"``). The backend is NCCL on the card and gloo on the host;
-    ``backend="gloo"`` on the card puts several ranks on one card, which
-    NCCL refuses. A card without NCCL fails here, with no other route."""
+    takes ``cuda:<LOCAL_RANK>``, else ``cuda:<r % device_count>``; ``"cuda:i"``
+    card i) or the host (``"cpu"``). The card is made current before the
+    process group exists, so nothing of this process touches another card.
+    The backend is NCCL on the card and gloo on the host;
+    ``backend="gloo"`` on the card puts several ranks on one card (each
+    passing the same ``"cuda:i"``), which NCCL refuses. A card without NCCL
+    fails here, with no other route."""
     global _HOST_GROUP
     if dist.is_initialized():
         raise RuntimeError("torch.distributed is already initialized in this process")
@@ -89,8 +92,9 @@ def initialize(
     if on_card:
         if not torch.cuda.is_available():
             raise RuntimeError("no CUDA card: torch.cuda.is_available() is false")
-        index = int(local) if local is not None else rank % torch.cuda.device_count()
-        device = torch.device("cuda", index)
+        if device.index is None:
+            index = int(local) if local is not None else rank % torch.cuda.device_count()
+            device = torch.device("cuda", index)
         torch.cuda.set_device(device)
     dist.init_process_group(backend, init_method=init_method, **kwargs)
     # NCCL cannot move host tensors: the gather's indices and the eval

@@ -88,6 +88,13 @@ def _lecun_normal(shape, gen: torch.Generator) -> torch.Tensor:
     return value * (fan_in ** -0.5 / _TRUNCATED_STD)
 
 
+# LAPACK's blocked QR sums in an order set by its thread count, so the QR
+# runs on this many threads whatever the process's own count (torchrun, for
+# one, starts its workers with OMP_NUM_THREADS=1): a seed then gives every
+# process of a run the same ``wh``
+QR_THREADS = 4
+
+
 def _orthogonal(shape, gen: torch.Generator) -> torch.Tensor:
     """flax ``orthogonal`` (column axis -1): QR of a normal
     [max(n, m), min(n, m)] draw, the columns' signs set by R's diagonal,
@@ -95,7 +102,12 @@ def _orthogonal(shape, gen: torch.Generator) -> torch.Tensor:
     n_cols = shape[-1]
     n_rows = int(np.prod(shape)) // n_cols
     z = torch.randn((max(n_rows, n_cols), min(n_rows, n_cols)), generator=gen)
-    q, r = torch.linalg.qr(z)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(QR_THREADS)
+    try:
+        q, r = torch.linalg.qr(z)
+    finally:
+        torch.set_num_threads(threads)
     q = q * torch.sign(torch.diagonal(r))[None, :]
     if n_rows < n_cols:
         q = q.T
