@@ -310,6 +310,30 @@ Phases, each printing one line of what it found:
      (datasets/processed.py's ENCODERS; the ranks of phase 14 read phase
      9's processed files and prepare nothing).
 
+ 17. large_shapes (after 11): the designs for the shapes past the other
+     designs' shared memory, each against its plain version on the card in
+     bf16 and float32 at B=2, timed in turns with it (CUDA events) beside
+     its bound: relation_attend's split design
+     (r's rows in chunks merged by their log-sum-exp) at N=3136 and 4096,
+     D=1024 (and SDPA; at N=2048 the wide design timed against the split
+     one); glimpse_head's and glimpse_attend's split design at R=196,
+     G=512 (glimpse groups) and R=16,384, G=4 (region chunks), M=510,
+     D=2048, the attend logits masked past a row's middle and one row
+     whole; mfb_pool at m=20,000 (opted-in shared memory) and 70,000 (the
+     roots in the output row), k=5; lstm_seq over an xg off 16 bytes
+     bit-equal to the aligned call. Then the path: phase 11's ResNet-152
+     checkpoint through the import tool, the extract CLI's function over
+     64 seeded 1792x1792 images ([64, 3136, 2048], bf16), the eval CLI at
+     the full width of cor.yaml and mutan_att.yaml (bf16, eval batch 64)
+     over a synthetic raw VQA v2 set of 301 val questions on those images,
+     through the kernels and the plain path: exactly each arch's kernels
+     launched, every CoR relation_attend call the split design, one
+     results row per question, answers agreeing on 0.9; one forward of
+     each at batch 64 with logits within 0.05 of the plain path's; CoR in
+     float32 (16 questions over 8 rows) within 1e-4 of the plain float32
+     path's max-abs; MutanAtt with 24 glimpses (alpha [3136, 24] past
+     shared memory: glimpse_head's split design) within 0.05. Each design's
+     record goes into its kernel's in the kernels line, under "designs";
  16. multicard, with --only multicard alone, on a host of four cards (fewer:
      exit 1 before any phase; a run with no argument prints that it did not
      run it): [parallel]'s paths over NCCL, one rank a card, as the comment
@@ -1374,6 +1398,8 @@ def _counters():
 def _reset_counts() -> None:
     for fn in _counters().values():
         fn.launches = 0
+        for design in getattr(fn, "design_launches", {}):
+            fn.design_launches[design] = 0
 
 
 def _read_counts() -> dict:
@@ -1703,11 +1729,12 @@ def _arch_phases(torch, dev, arch, features, int8_features, eval_data) -> dict:
     return {k: counts[k] + int8_counts[k] + serve[k] + grid[k] for k in counts}
 
 
-def _write_raw_vqa2(dir_raw: str, rng: np.random.Generator) -> None:
+def _write_raw_vqa2(dir_raw: str, rng: np.random.Generator, n_images: int = N_IMAGES,
+                    n_train: int = CLI_TRAIN_QUESTIONS, n_val: int = CLI_QUESTIONS) -> None:
     """A synthetic raw VQA v2 set in the official schema
-    (vqa_tpu_torch/datasets/interim.py): CLI_TRAIN_QUESTIONS train and
-    CLI_QUESTIONS val questions over
-    N_IMAGES images, bench.py:39-58's question lengths over NUM_WORDS - 2
+    (vqa_tpu_torch/datasets/interim.py): ``n_train`` train and ``n_val``
+    val questions (CLI_TRAIN_QUESTIONS and CLI_QUESTIONS) over ``n_images``
+    images (N_IMAGES), bench.py:39-58's question lengths over NUM_WORDS - 2
     words, 10 annotators a question who give the consensus answer 7 times in
     10, answers drawn from CLI_ANSWERS with weights 1 / (rank + 10)."""
     from vqa_tpu_torch.datasets.interim import RAW_FILES
@@ -1720,11 +1747,10 @@ def _write_raw_vqa2(dir_raw: str, rng: np.random.Generator) -> None:
     kinds = (("what color", "other"), ("how many", "number"), ("is the", "yes/no"),
              ("what is", "other"))
     os.makedirs(dir_raw, exist_ok=True)
-    for split, n, first_qid in (("train", CLI_TRAIN_QUESTIONS, 1),
-                                ("val", CLI_QUESTIONS, 10_000_000)):
+    for split, n, first_qid in (("train", n_train, 1), ("val", n_val, 10_000_000)):
         lengths = np.clip(np.round(rng.normal(6.2, 2.2, n)), 3, SEQ).astype(int).tolist()
         tokens = rng.integers(0, len(words), (n, SEQ)).tolist()
-        image_ids = rng.integers(0, N_IMAGES, n).tolist()
+        image_ids = rng.integers(0, n_images, n).tolist()
         consensus = rng.choice(CLI_ANSWERS, n, p=weights)
         pool = np.where(rng.random((n, 10)) < 0.7, consensus[:, None],
                         rng.choice(CLI_ANSWERS, (n, 10), p=weights)).tolist()
@@ -4408,6 +4434,501 @@ def _extract_phase(torch, dev, card: str, kernels: dict) -> dict:
     return launches
 
 
+# ---------------------------------------------------------- large shapes
+
+# [large_shapes]: the designs for the shapes past the others' shared memory
+# (every shape the JAX package computes), each against its plain version on
+# the card in both dtypes, timed; then the path that needs one: the extract
+# CLI's function at --size 1792 (a 56 x 56 grid, N = R = 3136) and the eval
+# CLI over that table, CoR (each relation core call the split design) and
+# MutanAtt, at a batch that fits; and one forward each, held on its logits
+# against the plain path, of CoR in bf16 and float32 and of MutanAtt with
+# 24 glimpses (model.attention.nb_glimpses, past alpha [3136, 18] in
+# shared memory: glimpse_head's split design)
+LARGE_SIZE = 1792
+LARGE_GRID = (LARGE_SIZE // 32) ** 2  # 3136 regions
+LARGE_IMAGES = 64
+LARGE_BATCH = 64                      # [64, 3136, 1024] pg and r: 411 MB each in bf16
+LARGE_VAL_QUESTIONS = 5 * LARGE_BATCH - 19  # the last batch padded
+LARGE_TRAIN_QUESTIONS = 4 * LARGE_VAL_QUESTIONS
+LARGE_KERNEL_B = 2
+LARGE_F32_BATCH = 16                     # the CoR float32 forward's batch
+# bf16 holds at these shapes: an output here is a softmax mean over
+# thousands of rows (|out| ~ 0.01 at R=16,384), so besides each kernel's
+# absolute bound (above) the error stays within 1% of the plain output's
+# max-abs: a kernel rounds its output once (<= 2^-8 of it, 0.4%; mfb_pool's
+# global design twice, its roots waiting in the bf16 output row: 0.8%),
+# and its fp32 sums in another order add far less
+BF16_LARGE_REL = 0.01
+LARGE_RELATION_N = (LARGE_GRID, 4096)    # D=1024: the split design (r's rows in chunks)
+LARGE_RELATION_WIDE_N = 2048             # the wide design's, timed against the split one
+LARGE_GLIMPSE = ((196, 512), (16_384, 4))  # (R, G) at M=510, D=2048: glimpse groups; chunks
+LARGE_MFB = ((64, 5, 20_000), (64, 5, 70_000))  # (n, k, m): opted-in shared memory; global
+LARGE_GLIMPSES = 24
+LARGE_EVAL = {"CoR": ("cor", ("gather_rows", "lstm_seq", "relation_attend")),
+              "MutanAtt": ("mutan_att", ("gather_rows", "lstm_seq", "glimpse_head"))}
+
+
+def _design_counters():
+    from vqa_tpu_torch.ops.attention import glimpse_attend, glimpse_head
+    from vqa_tpu_torch.ops.mfb_pool import mfb_pool
+    from vqa_tpu_torch.ops.relation import relation_attend
+
+    return {"relation_attend": relation_attend, "glimpse_head": glimpse_head,
+            "glimpse_attend": glimpse_attend, "mfb_pool": mfb_pool}
+
+
+def _read_design_counts() -> dict:
+    return {name: dict(fn.design_launches) for name, fn in _design_counters().items()}
+
+
+def _large_record(name, design, err, tol, ms, plain_ms, bound, library_ms, shape, **extra):
+    return dict(name=f"{name}/{design}", max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound[0], bound_by=bound[1], pct_of_bound=100 * bound[0] / ms,
+                library_ms=library_ms, shape=shape, **extra)
+
+
+def _large_err(torch, got, want, dtype, tol_bf16, tol_f32=F32_REL):
+    """(err, tol): bf16 the max-abs error, within ``tol_bf16`` and within
+    BF16_LARGE_REL of the plain output's max-abs; float32 relative to the
+    plain output's max-abs."""
+    if dtype == torch.bfloat16:
+        want = want.float()
+        return ((got.float() - want).abs().max().item(),
+                min(tol_bf16, BF16_LARGE_REL * want.abs().max().item()))
+    return _rel_err(got, want), tol_f32
+
+
+def _large_kernels(torch, dev, card: str) -> list:
+    """[large_shapes], kernels: each new design against its plain version on
+    the card, in bf16 and float32, timed in turns with it (CUDA events),
+    beside its bound; returns their records."""
+    import torch.nn.functional as F
+
+    from vqa_tpu_torch.ops import lstm
+    from vqa_tpu_torch.ops.attention import (glimpse_attend, glimpse_attend_reference,
+                                             glimpse_head, glimpse_head_reference, glimpse_plan)
+    from vqa_tpu_torch.ops.mfb_pool import mfb_plan, mfb_pool, mfb_pool_reference
+    from vqa_tpu_torch.ops.relation import (launch_relation_attend, relation_attend,
+                                            relation_attend_reference, relation_plan)
+
+    def timed(kernel, plain, iters=5):
+        return _in_turns(torch, lambda t, fn: _median_ms(t, fn, iters=iters, warmup=1),
+                         kernel, plain)
+
+    records = []
+    D = 1024
+    for dtype in (torch.bfloat16, torch.float32):
+        elem, tag = dtype.itemsize, "bf16" if dtype == torch.bfloat16 else "float32"
+        path_b = LARGE_BATCH if elem == 2 else LARGE_F32_BATCH  # the path's batch this type
+        # relation_attend: the split design at N = 3136 and 4096, and at the
+        # path's [B, 3136, 1024]
+        relation_shapes = [(LARGE_KERNEL_B, N) for N in LARGE_RELATION_N] + [(path_b, LARGE_GRID)]
+        for B, N in relation_shapes:
+            pg = torch.tanh(torch.randn(B, N, D, device=dev)).to(dtype)
+            r = torch.tanh(torch.randn(B, N, D, device=dev)).to(dtype)
+            plan = relation_plan(B, N, D, elem=elem)
+            out = relation_attend(pg, r)
+            again = relation_attend(pg, r)
+            want = relation_attend_reference(pg.float(), r.float())
+            torch.cuda.synchronize()
+            err, tol = _large_err(torch, out, want, dtype, RELATION_ATOL)
+            _require(plan["design"] == "split" and err <= tol and torch.equal(out, again),
+                     f"[large_shapes] relation_attend {(B, N, D)} {tag}: the split design "
+                     f"({plan['design']}), err {err} <= {tol}, bit-equal across two calls")
+            ms, plain = timed(lambda: relation_attend(pg, r),
+                              lambda: relation_attend_reference(pg, r))
+            library = _median_ms(torch, lambda: F.scaled_dot_product_attention(pg, r, r),
+                                 iters=5, warmup=1)
+            bound = (_bound(2 * 3 * B * N * D, 2.0 * 2 * B * N * N * D) if elem == 2
+                     else _relation_f32_bounds(B, N, D)[0])
+            fp32_fma = _bound(elem * 3 * B * N * D, 2.0 * 2 * B * N * N * D, PEAK_FP32)[0]
+            rec = _large_record("relation_attend", "split", err, tol, ms, plain, bound, library,
+                                f"B={B} N={N} D={D} {tag}", chunks=plan.get("chunks"),
+                                bound_fp32_fma_ms=fp32_fma, bit_equal=True)
+            records.append(rec)
+            _phase("large_shapes", kernel="relation_attend", card=card,
+                   **{k: (round(x, 6) if isinstance(x, float) else x) for k, x in rec.items()})
+            del pg, r, out, again, want
+        # the wide design against the split one where both fit (N = 2048)
+        B, N = LARGE_KERNEL_B, LARGE_RELATION_WIDE_N
+        pg = torch.tanh(torch.randn(B, N, D, device=dev)).to(dtype)
+        r = torch.tanh(torch.randn(B, N, D, device=dev)).to(dtype)
+        want = relation_attend_reference(pg.float(), r.float())
+        outs, plans = {}, {"wide": relation_plan(B, N, D, elem=elem),
+                           "split": relation_plan(B, N, D, elem=elem, design="split", split=2)}
+        for design, plan in plans.items():
+            outs[design] = torch.empty_like(pg)
+            launch_relation_attend(pg, r, outs[design], plan)
+        torch.cuda.synchronize()
+        errs = {d: _large_err(torch, o, want, dtype, RELATION_ATOL)[0] for d, o in outs.items()}
+        tol = _large_err(torch, want, want, dtype, RELATION_ATOL)[1]
+        _require(plans["wide"]["design"] == "wide" and max(errs.values()) <= tol,
+                 f"[large_shapes] relation_attend N={N} {tag}: the wide and the split design "
+                 f"within {tol}: {errs}")
+        split_ms, wide_ms = timed(lambda: launch_relation_attend(pg, r, outs["split"],
+                                                                 plans["split"]),
+                                  lambda: launch_relation_attend(pg, r, outs["wide"],
+                                                                 plans["wide"]))
+        _phase("large_shapes", kernel="relation_attend", card=card, part="wide_vs_split",
+               shape=f"B={B} N={N} D={D} {tag}", wide_ms=round(wide_ms, 4),
+               split_ms=round(split_ms, 4), split_chunks=2, wide_err=round(errs["wide"], 8),
+               split_err=round(errs["split"], 8), tol=tol)
+        for rec in records[-len(relation_shapes):]:  # this type's relation records
+            rec[f"wide_vs_split_n{N}"] = dict(wide_ms=wide_ms, split_ms=split_ms)
+        del pg, r, outs, want
+
+        # glimpse_head and glimpse_attend: glimpse groups (R=196, G=512),
+        # region chunks merged by their log-sum-exp (R=16,384, G=4), and the
+        # path's MutanAtt with LARGE_GLIMPSES glimpses over the grid
+        M, Dv = 510, DIM
+        glimpse_shapes = ([(LARGE_KERNEL_B, R, G) for R, G in LARGE_GLIMPSE]
+                          + [(path_b, LARGE_GRID, LARGE_GLIMPSES)])
+        for B, R, G in glimpse_shapes:
+            joint = torch.tanh(torch.randn(B, R, M, device=dev)).to(dtype)
+            w = (torch.randn(M, G, device=dev) / M ** 0.5).to(dtype)
+            b = (0.1 * torch.randn(G, device=dev)).to(dtype)
+            v = torch.randn(B, R, Dv, device=dev).to(dtype)
+            plan = glimpse_plan(B, R, M, G, Dv, elem=elem)
+            att, logits = glimpse_head(joint, w, b, v)
+            masked = logits.clone()
+            masked[0, R // 2:] = torch.finfo(dtype).min  # MFB's padding, and a row masked whole
+            masked[1] = torch.finfo(dtype).min
+            got = glimpse_attend(masked, v)
+            again = glimpse_attend(masked, v)
+            ref_att, ref_logits = glimpse_head_reference(joint.float(), w.float(), b.float(),
+                                                         v.float())
+            want = glimpse_attend_reference(masked.float(), v.float())
+            torch.cuda.synchronize()
+            head_err, head_tol = _large_err(torch, att, ref_att, dtype, GLIMPSE_ATOL)
+            logits_err, logits_tol = _large_err(torch, logits, ref_logits, dtype, GLIMPSE_ATOL)
+            att_err, tol = _large_err(torch, got, want, dtype, GLIMPSE_ATOL)
+            _require(plan["copy"] == "split" and head_err <= head_tol
+                     and logits_err <= logits_tol and att_err <= tol
+                     and bool(torch.isfinite(got).all()) and torch.equal(got, again),
+                     f"[large_shapes] glimpse kernels {(B, R, M, G, Dv)} {tag}: the split design "
+                     f"({plan['copy']}), head attended err {head_err} <= {head_tol}, logits err "
+                     f"{logits_err} <= {logits_tol}, attend err {att_err} <= {tol}, bit-equal "
+                     f"across two calls")
+            groups, chunks = plan.get("groups", G), plan.get("chunks", 1)
+            shape = (f"B={B} R={R} M={M} G={G} D={Dv} {tag}: {-(-G // groups)} glimpse "
+                     f"group(s) of {groups}, {chunks} region chunk(s)")
+            ms, plain = timed(lambda: glimpse_head(joint, w, b, v),
+                              lambda: glimpse_head_reference(joint, w, b, v))
+            rec = _large_record("glimpse_head", "split", head_err, head_tol, ms, plain,
+                                _glimpse_head_bound(B, R, M, G, Dv, elem), None, shape,
+                                logits_err=logits_err, logits_tol=logits_tol, groups=groups,
+                                chunks=chunks)
+            records.append(rec)
+            _phase("large_shapes", kernel="glimpse_head", card=card,
+                   **{k: (round(x, 6) if isinstance(x, float) else x) for k, x in rec.items()})
+            ms, plain = timed(lambda: glimpse_attend(masked, v),
+                              lambda: glimpse_attend_reference(masked, v))
+            bound = _bound(elem * (B * R * G + B * R * Dv + B * G * Dv), 2.0 * B * R * G * Dv,
+                           PEAK_BF16 if elem == 2 else PEAK_FP32)
+            rec = _large_record("glimpse_attend", "split", att_err, tol, ms, plain, bound, None,
+                                shape + ", a row masked past its middle and one whole",
+                                groups=groups, chunks=chunks)
+            records.append(rec)
+            _phase("large_shapes", kernel="glimpse_attend", card=card,
+                   **{k: (round(x, 6) if isinstance(x, float) else x) for k, x in rec.items()})
+            del joint, w, b, v, att, logits, masked, got, again, ref_att, ref_logits, want
+
+        # mfb_pool: the roots in opted-in shared memory (m = 20,000), and in
+        # the output row past it (m = 70,000)
+        for n, k, m in LARGE_MFB:
+            z = torch.randn(n, k * m, device=dev).to(dtype)
+            design = mfb_plan(m)["design"]
+            out = mfb_pool(z, k)
+            torch.cuda.synchronize()
+            if elem == 2:
+                err, tol = _large_err(torch, out, mfb_pool_reference(z.float(), k), dtype,
+                                      MFB_POOL_ATOL)
+            else:  # against float64: the signed square root is ill-conditioned near 0
+                exact = mfb_pool_reference(z.double(), k)
+                err, tol = _rel_err(out, exact), max(F32_REL, 2 * _rel_err(
+                    mfb_pool_reference(z, k), exact))
+                del exact
+            _require(err <= tol, f"[large_shapes] mfb_pool {(n, k, m)} {tag} ({design}): err "
+                                 f"{err} <= {tol}")
+            ms, plain = timed(lambda: mfb_pool(z, k), lambda: mfb_pool_reference(z, k), iters=10)
+            bound = _bound(elem * (n * k * m + n * m), n * (k * m + 4 * m), PEAK_FP32)
+            rec = _large_record("mfb_pool", design, err, tol, ms, plain, bound, None,
+                                f"z {n}x{k * m} -> {n}x{m} {tag}, k={k}")
+            records.append(rec)
+            _phase("large_shapes", kernel="mfb_pool", card=card,
+                   **{k_: (round(x, 8) if isinstance(x, float) else x) for k_, x in rec.items()})
+            del z, out
+
+    # lstm_seq over an xg view off 16 bytes (an aligned copy), against the
+    # same values aligned: bit-equal
+    T, Bq, H = 7, SERVE_BATCH, 1024
+    base = torch.randn(T * Bq * 4 * H + 1, device=dev).to(torch.bfloat16)
+    xg = base[1:].view(T, Bq, 4 * H)
+    mask = torch.ones(T, Bq, 1, device=dev, dtype=torch.bfloat16)
+    wh = (torch.randn(H, 4 * H, device=dev) / H ** 0.5).to(torch.bfloat16)
+    got, want = lstm.lstm_seq(xg, mask, wh), lstm.lstm_seq(xg.clone(), mask, wh)
+    torch.cuda.synchronize()
+    _require(xg.data_ptr() % 16 != 0 and torch.equal(got[0], want[0])
+             and torch.equal(got[1], want[1]),
+             "[large_shapes] lstm_seq over an xg off 16 bytes equals the aligned call")
+    _phase("large_shapes", kernel="lstm_seq", card=card, part="xg_off_16_bytes",
+           shape=f"T={T} B={Bq} H={H} bf16", xg_offset_bytes=xg.data_ptr() % 16, bit_equal=True)
+    return records
+
+
+def _grid_logits(torch, dev, model, table, num_words: int, batch: int, seed: int):
+    """One forward of ``model`` over ``batch`` random questions on the rows
+    of ``table`` through the kernels, then the plain path: (logits, plain
+    logits, launch counts, design counts)."""
+    from vqa_tpu_torch.engine import steps
+
+    rng = np.random.default_rng(seed)
+    lengths = rng.integers(3, 14, batch)
+    questions = rng.integers(1, num_words, (batch, 13)) * (np.arange(13) < lengths[:, None])
+    b = {"question": torch.from_numpy(questions).to(dev),
+         "image_index": rng.integers(0, table.shape[0], batch)}
+    with torch.inference_mode():
+        _reset_counts()
+        logits = model(steps._resolve_visual(b, table), b["question"]).float()
+        torch.cuda.synchronize()
+        counts, designs = _read_counts(), _read_design_counts()
+        with _plain_ops(torch):
+            plain = model(steps._resolve_visual(b, table), b["question"]).float()
+        torch.cuda.synchronize()
+    return logits, plain, counts, designs
+
+
+def _large_path(torch, dev, card: str) -> tuple:
+    """[large_shapes], the path: import, extract at --size 1792, the eval
+    CLI over the table (CoR and MutanAtt, kernels and plain), the forward
+    holds; returns (launch counts, design counts) of the kernel runs."""
+    import dataclasses
+    import io
+
+    from vqa_tpu_torch.cli import train as train_cli
+    from vqa_tpu_torch.cli.extract import extract
+    from vqa_tpu_torch.config import load_options
+    from vqa_tpu_torch.datasets import factory as data_factory
+    from vqa_tpu_torch.datasets.features import FeatureStore
+    from vqa_tpu_torch.datasets.interim import image_name
+    from vqa_tpu_torch.models import convnets
+    from vqa_tpu_torch.models.factory import factory as model_factory
+    from vqa_tpu_torch.weights import export_params, random_params
+
+    launches, designs = dict.fromkeys(_counters(), 0), {}
+
+    def add(counts, by_design):
+        for k, c in counts.items():
+            launches[k] += c
+        for k, d in by_design.items():
+            for name, c in d.items():
+                designs.setdefault(k, dict.fromkeys(d, 0))[name] += c
+
+    names = [image_name("val2014", i) for i in range(LARGE_IMAGES)]
+    pixels = np.random.default_rng(5).integers(
+        0, 256, (LARGE_IMAGES, LARGE_SIZE, LARGE_SIZE, 3), dtype=np.uint8)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_large_") as tmp:
+        npz, _ = _extract_import(torch, tmp)
+        resnet = convnets.factory(EXTRACT_ARCH, torch.bfloat16)
+        with np.load(npz) as flat:
+            convnets.load_variables(resnet, flat)
+        resnet.to(dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        got_names, feats = extract(resnet, names, _normalized(pixels), "att", EXTRACT_BATCH, dev)
+        extract_s = time.perf_counter() - t
+        extract_peak = torch.cuda.max_memory_allocated() / 2**30
+        del resnet, pixels
+        torch.cuda.empty_cache()
+        _require(got_names == names and feats.shape == (LARGE_IMAGES, LARGE_GRID, DIM)
+                 and bool(np.isfinite(feats).all()),
+                 f"[large_shapes] the extract function at --size {LARGE_SIZE} gives "
+                 f"{LARGE_IMAGES} finite rows [{LARGE_GRID}, {DIM}]: {feats.shape}")
+        _phase("large_shapes", part="extract", card=card, arch=EXTRACT_ARCH, size=LARGE_SIZE,
+               images=LARGE_IMAGES, batch=EXTRACT_BATCH, regions=LARGE_GRID,
+               extract_s=round(extract_s, 3),
+               images_per_s=round(LARGE_IMAGES / extract_s, 2),
+               table_gb_bf16=round(feats.size * 2 / 2**30, 3), peak_mem_gb=round(extract_peak, 3),
+               features_std=round(float(feats.std()), 5))
+
+        _write_raw_vqa2(os.path.join(tmp, "vqa2", "raw"), np.random.default_rng(0),
+                        n_images=LARGE_IMAGES, n_train=LARGE_TRAIN_QUESTIONS,
+                        n_val=LARGE_VAL_QUESTIONS)
+        data = [f"vqa.dir={tmp}/vqa2", f"coco.dir={tmp}/coco", f"coco.arch={EXTRACT_ARCH}"]
+        table = torch.from_numpy(feats).to(dev, torch.bfloat16)
+        lines = {}
+        for arch, (name, arch_kernels) in LARGE_EVAL.items():
+            yaml = os.path.join(_REPO, "options", "vqa2", f"{name}.yaml")
+            opt = load_options(yaml, data)
+            data_factory.place_store(opt.coco.dir, opt.coco.arch, opt.coco.mode,
+                                     FeatureStore.in_memory(names, feats))
+            val_set = data_factory.factory("val", opt)
+            _require(val_set.feature_shape == (LARGE_GRID, DIM),
+                     f"[large_shapes] {arch} reads the {LARGE_GRID}-region table: "
+                     f"{val_set.feature_shape}")
+            model = model_factory(dataclasses.asdict(opt.model), val_set.num_words,
+                                  val_set.num_answers, dtype=torch.bfloat16, device=dev,
+                                  dim_v=DIM)
+            random_params(model, seed=0)
+            weights = os.path.join(tmp, f"params_{name}.npz")
+            np.savez(weights, **export_params(model))
+            # one forward over the grid, held on its logits against the plain path
+            logits, plain, counts, by_design = _grid_logits(torch, dev, model, table,
+                                                            val_set.num_words, LARGE_BATCH, 3)
+            err = (logits - plain).abs().max().item()
+            _require({k for k, c in counts.items() if c} == set(arch_kernels)
+                     and bool(torch.isfinite(logits).all()) and err <= LOGITS_ATOL,
+                     f"[large_shapes] {arch} over {LARGE_GRID} regions: exactly {arch_kernels} "
+                     f"launched ({counts}), finite logits within {LOGITS_ATOL} of the plain "
+                     f"path's: {err}")
+            if arch == "CoR":
+                _require(by_design["relation_attend"]["split"] == counts["relation_attend"] > 0,
+                         f"[large_shapes] every relation_attend call over {LARGE_GRID} regions "
+                         f"ran the split design: {by_design['relation_attend']}")
+            add(counts, by_design)
+            forward = dict(logits_max_abs_err=round(err, 5), tol=LOGITS_ATOL,
+                           logits_std=round(plain.std().item(), 5))
+            del model, logits, plain
+            torch.cuda.empty_cache()
+            argv = ["--path_opt", yaml, "-e", "--split", "val"]
+            for o in data + [f"model.pretrained_params={weights}", "engine.device_features=true",
+                             f"optim.eval_batch_size={LARGE_BATCH}",
+                             "engine.features_dtype=bfloat16", "engine.dtype=bfloat16"]:
+                argv += ["--opt", o]
+            runs = {}
+            for label, plain_path in (("kernels", False), ("plain", True)):
+                logs = os.path.join(tmp, "logs", f"{name}_{label}")
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+                _reset_counts()
+                t = time.perf_counter()
+                with contextlib.redirect_stdout(io.StringIO()), \
+                        (_plain_ops(torch) if plain_path else contextlib.nullcontext()):
+                    rc = train_cli.main(argv + ["--dir_logs", logs])
+                wall = time.perf_counter() - t
+                counts, by_design = _read_counts(), _read_design_counts()
+                _require(rc == 0, f"[large_shapes] eval CLI over the {LARGE_GRID}-region table "
+                                  f"({arch}, {label}) returned {rc}")
+                with open(os.path.join(logs, "metrics.jsonl")) as f:
+                    metrics = [json.loads(line) for line in f][-1]
+                with open(os.path.join(logs, "results",
+                                       "vqa_OpenEnded_val_epoch0_results.json")) as f:
+                    results = {r["question_id"]: r["answer"] for r in json.load(f)}
+                runs[label] = dict(counts=counts, designs=by_design, metrics=metrics,
+                                   results=results, wall=wall,
+                                   peak_gb=torch.cuda.max_memory_allocated() / 2**30)
+            split = val_set.split
+            for label, run in runs.items():
+                want = set() if label == "plain" else set(arch_kernels)
+                _require({k for k, c in run["counts"].items() if c} == want,
+                         f"[large_shapes] eval CLI ({arch}, {label}) launched exactly "
+                         f"{sorted(want)}: {run['counts']}")
+                _require(len(run["results"]) == len(split)
+                         and set(run["results"]) == set(split.question_ids.tolist()),
+                         f"[large_shapes] eval CLI ({arch}, {label}): one results row per val "
+                         f"question")
+            kern = runs["kernels"]
+            if arch == "CoR":
+                _require(kern["designs"]["relation_attend"]["split"]
+                         == kern["counts"]["relation_attend"] > 0,
+                         f"[large_shapes] the eval CLI's relation_attend calls ran the split "
+                         f"design: {kern['designs']['relation_attend']}")
+            agree = float(np.mean([kern["results"][q] == a
+                                   for q, a in runs["plain"]["results"].items()]))
+            _require(agree >= PRED_AGREE_FLOOR, f"[large_shapes] eval CLI ({arch}): answers agree "
+                     f"with the plain run's on {agree} >= {PRED_AGREE_FLOOR}")
+            add(kern["counts"], kern["designs"])
+            lines[arch] = dict(
+                **forward, pred_agree_plain=round(agree, 5), floor=PRED_AGREE_FLOOR,
+                **{f"{label}_{key}": value for label, run in runs.items()
+                   for key, value in (("qa_per_sec", round(run["metrics"]["qa_per_sec"], 2)),
+                                      ("eval_time", round(run["metrics"]["eval_time"], 4)),
+                                      ("cli_s", round(run["wall"], 3)),
+                                      ("peak_mem_gb", round(run["peak_gb"], 3)))},
+                launches={k: c for k, c in kern["counts"].items() if c},
+                designs={k: {d: c for d, c in v.items() if c}
+                         for k, v in kern["designs"].items() if any(v.values())})
+            _phase("large_shapes", part="eval_cli", card=card, arch=arch, yaml=f"{name}.yaml",
+                   regions=LARGE_GRID, questions=len(split), batch=LARGE_BATCH, dtype="bfloat16",
+                   **lines[arch])
+            data_factory.drop_stores(f"{tmp}/coco")
+
+        # CoR in float32 (cor.yaml as written) over 8 rows of the table, and
+        # MutanAtt with 24 glimpses (glimpse_head's split design) in bf16,
+        # one forward each held against the plain path
+        opt = load_options(os.path.join(_REPO, "options", "vqa2", "cor.yaml"), data)
+        cor32 = model_factory(dataclasses.asdict(opt.model), 1000, 2000, dtype=torch.float32,
+                              device=dev, dim_v=DIM)
+        random_params(cor32, seed=0)
+        table32 = table[:8].float()
+        logits, plain, counts, by_design = _grid_logits(torch, dev, cor32, table32, 1000,
+                                                        LARGE_F32_BATCH, 4)
+        err = _rel_err(logits, plain)
+        _require(by_design["relation_attend"]["split"] == counts["relation_attend"] > 0
+                 and err <= F32_LOGITS_REL,
+                 f"[large_shapes] CoR float32 over {LARGE_GRID} regions: the split design "
+                 f"({by_design['relation_attend']}), logits within {F32_LOGITS_REL} of the plain "
+                 f"float32 path's max-abs: {err}")
+        add(counts, by_design)
+        _phase("large_shapes", part="forward", card=card, arch="CoR", dtype="float32",
+               regions=LARGE_GRID, batch=LARGE_F32_BATCH, logits_rel_err=f"{err:.3e}",
+               tol=F32_LOGITS_REL,
+               launches={k: c for k, c in counts.items() if c})
+        del cor32, table32, logits, plain
+        opt = load_options(os.path.join(_REPO, "options", "vqa2", "mutan_att.yaml"),
+                           data + [f"model.attention.nb_glimpses={LARGE_GLIMPSES}"])
+        many = model_factory(dataclasses.asdict(opt.model), 1000, 2000, dtype=torch.bfloat16,
+                             device=dev, dim_v=DIM)
+        random_params(many, seed=0)
+        logits, plain, counts, by_design = _grid_logits(torch, dev, many, table, 1000,
+                                                        LARGE_BATCH, 5)
+        err = (logits - plain).abs().max().item()
+        _require(by_design["glimpse_head"]["split"] == counts["glimpse_head"] > 0
+                 and err <= LOGITS_ATOL,
+                 f"[large_shapes] MutanAtt with {LARGE_GLIMPSES} glimpses over {LARGE_GRID} "
+                 f"regions: glimpse_head's split design ({by_design['glimpse_head']}), logits "
+                 f"within {LOGITS_ATOL} of the plain path's: {err}")
+        add(counts, by_design)
+        _phase("large_shapes", part="forward", card=card, arch="MutanAtt",
+               glimpses=LARGE_GLIMPSES, dtype="bfloat16", regions=LARGE_GRID, batch=LARGE_BATCH,
+               logits_max_abs_err=round(err, 5), tol=LOGITS_ATOL,
+               launches={k: c for k, c in counts.items() if c})
+        del many, table, feats
+        torch.cuda.empty_cache()
+    return launches, designs
+
+
+def _large_shapes_phase(torch, dev, card: str, kernels: dict) -> dict:
+    """[large_shapes] (the docstring's phase 17): the new designs against
+    their plain versions, then the path over the 1792-pixel grid; each
+    design's record goes into its kernel's, under "designs", with the
+    launches the path counted (0 for a design no model path reaches: the
+    glimpse_attend split and mfb_pool's designs past 48 KB). Returns the
+    path's launch counts."""
+    t0 = time.perf_counter()
+    records = _large_kernels(torch, dev, card)
+    launches, designs = _large_path(torch, dev, card)
+    for rec in records:
+        name, design = rec.pop("name").split("/")
+        by_shape = kernels[name].setdefault("designs", {}).setdefault(design, {
+            "route": "cuda", "source": SOURCES[name][0], "replaces": SOURCES[name][1],
+            "launches": designs.get(name, {}).get(design, 0), "by_shape": {}})
+        by_shape["by_shape"][rec["shape"]] = {
+            k: (round(x, 6) if isinstance(x, float) else x) for k, x in rec.items()
+            if k != "shape"}
+    for name, by_design in kernels.items():
+        for design, rec in by_design.get("designs", {}).items():
+            first = next(iter(rec["by_shape"].values()))  # the flagship shape: the first held
+            rec.update({k: first[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                              "bound_by", "library_ms")})
+    _phase("large_shapes", part="total", card=card, wall_s=round(time.perf_counter() - t0, 2),
+           launches={k: c for k, c in launches.items() if c},
+           designs={k: {d: c for d, c in v.items() if c} for k, v in designs.items()})
+    return launches
+
+
 # -------------------------------------------------------------- parallel
 
 # [parallel]: data parallelism across processes (vqa_tpu_torch/parallel/),
@@ -5976,7 +6497,7 @@ def _multicard_main(torch, t_start: float) -> int:
 # --only multicard runs the device phase and [multicard] alone
 PHASES = ("device", "kernels", "f32_kernels", "eval", "serve", "grid", "f32_path", "eval_cli",
           "data", "train_ops", "train", "train_cli", "export", "parallel", "fixture_matrix",
-          "extract")
+          "extract", "large_shapes")
 ONLY = {"multicard": ("device", "multicard")}
 
 
@@ -6125,6 +6646,10 @@ def main(argv=None) -> int:
     # 11. a ResNet-152 checkpoint through the import tool, the extract CLI's
     # function over 1024 images, and the eval CLI over the table it gave
     for name, c in _extract_phase(torch, dev, card, kernels).items():
+        launches[name] += c
+    # 17. the designs for every shape the JAX package computes, and the eval
+    # CLI over the 3136-region grid of a 1792-pixel extract
+    for name, c in _large_shapes_phase(torch, dev, card, kernels).items():
         launches[name] += c
     for name, by_shape in train_ops.items():
         kernels[name]["train_fwd_bwd_ms"] = {k: round(t["fwd_bwd_ms"], 4)

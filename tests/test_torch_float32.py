@@ -355,9 +355,20 @@ def test_glimpse_plan_takes_float32(B, R, M, G):
 
 
 def test_glimpse_plan_float32_refuses_only_past_shared_memory():
+    """w past shared memory is read from L2; alpha [R, G] past it takes the
+    split design (R=30,000 with G=2: the regions in chunks merged by their
+    log-sum-exp, at least the two that fit and here the 33 that fill 264
+    blocks at B=8); only a limit below one region of one glimpse group, or
+    another element size, refuses."""
     assert not glimpse_plan(8, 196, 80_000, 2, 2048, elem=4)["staged"]  # w read from L2
-    with pytest.raises(ValueError, match="float32"):
-        glimpse_plan(8, 30_000, 0, 2, 1024, elem=4)
+    split = glimpse_plan(8, 30_000, 0, 2, 1024, elem=4)
+    assert (split["copy"], split["groups"], split["chunks"], split["chunk"]) == \
+        ("split", 2, 33, 910)
+    assert split["smem_bytes"] == 910 * 2 * 4 <= attention.SMEM_LIMIT
+    assert split["scratch_bytes"] == 8 * 2 * 33 * (1024 + 2) * 4
+    assert glimpse_plan(1024, 30_000, 0, 2, 1024, elem=4)["chunks"] == 2
+    with pytest.raises(ValueError, match="shared memory"):
+        glimpse_plan(8, 30_000, 0, 2, 1024, elem=4, smem_limit=4)
     with pytest.raises(ValueError, match="4-byte"):
         glimpse_plan(8, 36, 510, 2, 2048, elem=8)
 
@@ -395,9 +406,11 @@ def test_relation_plan_takes_float32(B, N):
 def test_relation_plan_float32_takes_the_wide_design_past_n_256(N, stages, design):
     """The tiled design keeps the most stages that fit, up to N = 256 (its
     softmax keeps a row in registers); past it float32 takes the wide
-    design, FP32 FMA, whose 16 rows of pg and 16 x N scores fit; a forced
-    tiled design there, or any design past the wide one's shared memory,
-    is refused."""
+    design, FP32 FMA, whose 16 rows of pg and 16 x N scores fit, and the
+    split design where those scores do not (here a limit with room for
+    half of them: r's rows in two or three chunks); a forced tiled design
+    there, or a limit below the split design's 16 rows of pg and one row's
+    scores, is refused."""
     plan = relation_plan(8, N, 1024, elem=4)
     assert (plan["design"], plan["stages"]) == (design, stages)
     assert plan["smem_bytes"] <= relation.SMEM_LIMIT
@@ -405,6 +418,10 @@ def test_relation_plan_float32_takes_the_wide_design_past_n_256(N, stages, desig
         assert plan["smem_bytes"] == 16 * 1024 * 4 + N * 16 * 4 and plan["threads"] == 256
         with pytest.raises(ValueError, match="takes N <= 256"):
             relation_plan(8, N, 1024, elem=4, design="tiled")
+        limit = 16 * 1024 * 4 + (N // 2) * 16 * 4
+        split = relation_plan(8, N, 1024, elem=4, smem_limit=limit)
+        assert (split["design"], split["chunks"]) == ("split", -(-N // (N // 2)))
+        assert split["smem_bytes"] <= limit
     with pytest.raises(ValueError, match="shared memory"):
         relation_plan(8, N, 1024, elem=4, smem_limit=60_000)
 

@@ -20,7 +20,7 @@ torch.set_num_threads(1)
 # the phases a run with no argument has run, in order, since [parallel]
 ONE_CARD_PHASES = ("device", "kernels", "f32_kernels", "eval", "serve", "grid", "f32_path",
                    "eval_cli", "data", "train_ops", "train", "train_cli", "export", "parallel",
-                   "fixture_matrix", "extract")
+                   "fixture_matrix", "extract", "large_shapes")
 
 
 @pytest.fixture

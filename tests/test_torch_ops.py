@@ -309,10 +309,21 @@ def test_glimpse_plan_at_the_concat_and_mlb_shapes(M, G):
 
 
 def test_glimpse_plan_refuses_only_past_shared_memory():
+    """alpha [R, G] past shared memory takes the split design (R=196 with
+    G=512: alpha alone is 196 x 512 floats; every region in one block, the
+    glimpses in groups small enough to fill 264 blocks at B=8, the two
+    largest groups that fit at B=1024), as does a card too small for the
+    ring; only a limit below one region of one glimpse group refuses."""
+    big = glimpse_plan(8, 196, 510, 512, 2048)
+    assert (big["copy"], big["groups"], big["chunks"], big["ctas"]) == ("split", 16, 1, 256)
+    assert big["smem_bytes"] == 196 * 16 * 4
+    eval_batch = glimpse_plan(1024, 196, 510, 512, 2048)
+    assert (eval_batch["groups"], eval_batch["chunks"]) == (256, 1)
+    assert eval_batch["smem_bytes"] == 196 * 256 * 4 <= GLIMPSE_SMEM_LIMIT
+    small = glimpse_plan(8, 36, 510, 2, 2048, smem_limit=1024)
+    assert small["copy"] == "split" and small["smem_bytes"] <= 1024
     with pytest.raises(ValueError, match="shared memory"):
-        glimpse_plan(8, 196, 510, 512, 2048)  # alpha alone: 196 x 512 floats
-    with pytest.raises(ValueError, match="shared memory"):
-        glimpse_plan(8, 36, 510, 2, 2048, smem_limit=1024)
+        glimpse_plan(8, 36, 510, 2, 2048, smem_limit=4)  # one region of 2 glimpses: 8 bytes
     with pytest.raises(ValueError, match="B, R, G, D >= 1"):
         glimpse_plan(8, 36, 510, 0, 2048)
     assert glimpse_plan(8, 36, 510, 2, 2048, smem_limit=8192)["smem_bytes"] <= 8192

@@ -51,8 +51,9 @@ def extract(model: convnets.ResNet, names: Sequence[str], images: Iterable[np.nd
             ) -> Tuple[List[str], np.ndarray]:
     """Run ``model`` over ``images`` (normalized float32 [size, size, 3]
     arrays, one for each of ``names``, drawn one batch at a time) on
-    ``device``; returns the names and the features [N, 196, 2048] ('att')
-    or [N, 2048] ('noatt') in float32. The last batch is padded with zero
+    ``device``; returns the names and the features [N, (size / 32)^2, 2048]
+    ('att': 196 regions at 448 pixels, 3136 at 1792) or [N, 2048] ('noatt')
+    in float32. The last batch is padded with zero
     images to ``batch``, as the JAX CLI keeps one compiled shape."""
     images, n, feats = iter(images), len(names), []
     with torch.inference_mode():

@@ -27,7 +27,9 @@
 // bound it: cut variants (vqa_tpu_torch/tools/glimpse_probe.py --cuts) show
 // the v bytes costing less than the math around them (PERF.md, Findings).
 //
-// Two designs, ops/attention.py::glimpse_plan choosing by shape:
+// Three designs, ops/attention.py::glimpse_plan choosing by shape (the
+// third, "split", for alpha [R, G] past shared memory, in either type: see
+// glimpse_split_kernel):
 //
 // The ring (glimpse_kernel, mode bulk): v's bytes move first.
 //   - A row's D columns are split over a cluster of `split` CTAs (2 at
@@ -51,8 +53,8 @@
 //     groups; more items than threads take several passes. 8-byte stores.
 //   - D % 8 != 0 or an unaligned pointer takes the generic path (mode
 //     plain): the same kernel with plain copies into one stage.
-//   Shared memory is opted in up to what the card allows; a plan refuses
-//   only what alpha [R, G] and one region of a CTA's columns cannot fit.
+//   Shared memory is opted in up to what the card allows; where alpha [R, G]
+//   and one region of a CTA's columns cannot fit, the split design runs.
 //   It runs glimpse_attend, glimpse_head at the serving batch, G > 4 and the
 //   196-region grid.
 //
@@ -64,7 +66,8 @@
 // vqa_glimpse_attend_f32): the Pallas kernels computed in their input's
 // dtype, so in float32 nothing is rounded: logits, softmax, alpha and the
 // weighted sum in fp32, each output stored as it is. One design for every
-// shape, the parent's plan: one 256-thread block a batch row; w in fp32
+// shape whose alpha [R, G] fits (past it, the split design below), the
+// parent's plan: one 256-thread block a batch row; w in fp32
 // shared memory where it fits beside alpha (else read from device memory
 // through L1); the logits one warp a region, glimpses in groups of 4; the
 // softmax one warp a glimpse; the weighted sum a thread 4 columns (16-byte
@@ -77,6 +80,8 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+
+#include "lse_merge.cuh"
 
 namespace {
 
@@ -770,6 +775,187 @@ glimpse_f32_kernel(const float* __restrict__ joint, const float* __restrict__ w,
 
 
 
+// ---------------------------------------------------------------- split
+
+// The split design (both types; the entry vqa_glimpse_split): for the
+// shapes whose alpha [R, G] does not fit in a block's shared memory (bf16
+// with one region of the ring beside it; float32 alone), e.g. R=196 with
+// G=512, or R past ~14,500 with 4 glimpses. A block owns (batch row, group
+// of `gc` glimpses, chunk of `chunk` regions) and holds only alpha [chunk,
+// gc] in fp32:
+//   - the logits of its regions and glimpses, one warp a region, lanes over
+//     joint, glimpses in groups of 4, w read from device memory (glimpse_head,
+//     which writes each logit once, so logits_out is exact), or the given
+//     logits (glimpse_attend);
+//   - the softmax over its regions, one warp a glimpse;
+//   - the weighted sum, a thread 4 columns (16-byte float32 or 8-byte bf16
+//     loads of v from device memory; one column where D % 4 != 0 or a
+//     pointer is off 16 bytes) for a group of 4 glimpses.
+// With one chunk (every region in the block) alpha is exact and rounded to
+// v's type before the weighted sum, as the other designs do. With several,
+// each block writes its chunk's unnormalised fp32 partial [B G, C, D] and
+// each glimpse's (max, sum of exp) [B G, C, 2], and lse_merge.cuh's kernel
+// merges them (alpha unrounded there). What bounds it: v, read once a group
+// of 4 glimpses, and at G=512 the logits' 51 M multiply-adds a row on the
+// CUDA cores; nothing on the tensor cores (a simple design for shapes no
+// YAML reaches).
+
+__device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float round_to(bf16*, float x) {
+  return __bfloat162float(__float2bfloat16(x));
+}
+__device__ __forceinline__ float round_to(float*, float x) { return x; }
+__device__ __forceinline__ void put(bf16* p, float x) { *p = __float2bfloat16(x); }
+__device__ __forceinline__ void put(float* p, float x) { *p = x; }
+
+__device__ __forceinline__ void load4v(const bf16* p, float (&x)[4]) { load_cols<4>(p, x); }
+__device__ __forceinline__ void load4v(const float* p, float (&x)[4]) {
+  const float4 q = *reinterpret_cast<const float4*>(p);
+  x[0] = q.x;
+  x[1] = q.y;
+  x[2] = q.z;
+  x[3] = q.w;
+}
+
+template <typename T>
+struct SplitParams {
+  const T* joint;      // [B, R, M] (glimpse_head)
+  const T* w;          // [M, G]
+  const T* bias;       // [G]
+  const T* logits_in;  // [B, R, G] (glimpse_attend)
+  const T* v;          // [B, R, D]
+  T* out;              // [B, G, D]
+  T* logits_out;       // [B, R, G] (glimpse_head)
+  float* part;         // [B G, chunks, D] (chunks > 1)
+  float* stats;        // [B G, chunks, 2] (chunks > 1)
+  int B, R, M, G, D;
+  int gc;     // glimpses a block
+  int chunk;  // regions a block
+};
+
+template <typename T, bool kLogitsGiven, bool kVec>
+__global__ void __launch_bounds__(kThreads) glimpse_split_kernel(const SplitParams<T> p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* alpha = reinterpret_cast<float*>(smem);  // [chunk, gc]: logits, then alpha
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int R = p.R, G = p.G, D = p.D, M = p.M, gc = p.gc;
+  const int n_chunks = ceil_div(R, p.chunk), n_groups = ceil_div(G, gc);
+  const int c = static_cast<int>(blockIdx.x % n_chunks);
+  const int grp = static_cast<int>((blockIdx.x / n_chunks) % n_groups);
+  const int64_t b = blockIdx.x / (static_cast<int64_t>(n_chunks) * n_groups);
+  const int g0 = grp * gc, ng = min(gc, G - g0);
+  const int r0 = c * p.chunk, nr = min(p.chunk, R - r0);
+
+  if (kLogitsGiven) {
+    const T* lb = p.logits_in + (b * R + r0) * G + g0;
+    for (int i = tid; i < nr * ng; i += kThreads) {
+      alpha[(i / ng) * gc + i % ng] = to_f(lb[static_cast<int64_t>(i / ng) * G + i % ng]);
+    }
+  } else {
+    for (int rr = warp; rr < nr; rr += kWarps) {
+      const T* jr = p.joint + (b * R + r0 + rr) * M;
+      T* lo = p.logits_out + (b * R + r0 + rr) * G + g0;
+      for (int q0 = 0; q0 < ng; q0 += kGroup) {
+        float acc[kGroup] = {0.f, 0.f, 0.f, 0.f};
+        for (int m = lane; m < M; m += 32) {
+          const float x = to_f(jr[m]);
+          const T* w0 = p.w + static_cast<int64_t>(m) * G + g0 + q0;
+#pragma unroll
+          for (int g = 0; g < kGroup; ++g) {
+            if (q0 + g < ng) acc[g] += x * to_f(w0[g]);
+          }
+        }
+#pragma unroll
+        for (int g = 0; g < kGroup; ++g) {
+          if (q0 + g < ng) {
+            const float l = warp_sum(acc[g]) + to_f(p.bias[g0 + q0 + g]);
+            if (lane == 0) {
+              alpha[rr * gc + q0 + g] = l;
+              put(lo + q0 + g, l);
+            }
+          }
+        }
+      }
+    }
+  }
+  __syncthreads();
+
+  // softmax over this block's regions, one warp a glimpse: exact (and
+  // rounded to T) with one chunk; else unnormalised, with (max, sum)
+  const float neg_inf = __int_as_float(0xff800000);
+  for (int g = warp; g < ng; g += kWarps) {
+    float* a = alpha + g;
+    float mx = neg_inf;
+    for (int rr = lane; rr < nr; rr += 32) mx = fmaxf(mx, a[rr * gc]);
+    mx = warp_max(mx);
+    float sum = 0.f;
+    for (int rr = lane; rr < nr; rr += 32) sum += expf(a[rr * gc] - mx);
+    sum = warp_sum(sum);
+    if (n_chunks == 1) {
+      const float inv = 1.f / sum;
+      for (int rr = lane; rr < nr; rr += 32) {
+        a[rr * gc] = round_to(p.out, expf(a[rr * gc] - mx) * inv);
+      }
+    } else {
+      for (int rr = lane; rr < nr; rr += 32) a[rr * gc] = expf(a[rr * gc] - mx);
+      if (lane == 0) {
+        *reinterpret_cast<float2*>(p.stats + ((b * G + g0 + g) * n_chunks + c) * 2) =
+            make_float2(mx, sum);
+      }
+    }
+  }
+  __syncthreads();
+
+  // the weighted sum: an item is W columns for a group of kGroup glimpses
+  constexpr int W = kVec ? 4 : 1;
+  const int n_packs = D / W;
+  const int n_items = ceil_div(ng, kGroup) * n_packs;
+  const T* vb = p.v + (b * R + r0) * D;
+  for (int item = tid; item < n_items; item += kThreads) {
+    const int q0 = (item / n_packs) * kGroup;
+    const int col = (item % n_packs) * W;
+    float acc[kGroup][W];
+#pragma unroll
+    for (int g = 0; g < kGroup; ++g)
+#pragma unroll
+      for (int e = 0; e < W; ++e) acc[g][e] = 0.f;
+#pragma unroll 4
+    for (int rr = 0; rr < nr; ++rr) {
+      float x[W];
+      if constexpr (kVec) {
+        load4v(vb + static_cast<int64_t>(rr) * D + col, x);
+      } else {
+        x[0] = to_f(vb[static_cast<int64_t>(rr) * D + col]);
+      }
+#pragma unroll
+      for (int g = 0; g < kGroup; ++g) {
+        if (q0 + g < ng) {
+          const float a = alpha[rr * gc + q0 + g];
+#pragma unroll
+          for (int e = 0; e < W; ++e) acc[g][e] += a * x[e];
+        }
+      }
+    }
+#pragma unroll
+    for (int g = 0; g < kGroup; ++g) {
+      const int gg = g0 + q0 + g;
+      if (q0 + g < ng) {
+        if (n_chunks == 1) {
+          T* o = p.out + (b * G + gg) * D + col;
+#pragma unroll
+          for (int e = 0; e < W; ++e) put(o + e, acc[g][e]);
+        } else {
+          float* o = p.part + ((b * G + gg) * n_chunks + c) * D + col;
+#pragma unroll
+          for (int e = 0; e < W; ++e) o[e] = acc[g][e];
+        }
+      }
+    }
+  }
+}
+
+
 // the shared memory a block may opt into on the current card, asked once a
 // device (launches of a few microseconds feel a host call each)
 int smem_optin(size_t* bytes) {
@@ -883,6 +1069,58 @@ cudaError_t launch_f32(const float* joint, const float* w, const float* bias,
   return cudaGetLastError();
 }
 
+// the split design's shared memory: alpha [chunk, gc] (fp32)
+inline size_t split_smem(int chunk, int gc) { return static_cast<size_t>(chunk) * gc * 4; }
+
+template <typename T>
+cudaError_t launch_split(const SplitParams<T>& p, int chunks, cudaStream_t s) {
+  if (p.B <= 0) return cudaSuccess;
+  const bool given = p.logits_in != nullptr;
+  if (p.R < 1 || p.G < 1 || p.D < 1 || p.M < (given ? 0 : 1) || p.gc < 1 || p.gc > p.G ||
+      chunks < 1 || chunks > p.R || chunks > lse::kMaxMergeChunks)
+    return cudaErrorInvalidValue;
+  if (p.chunk != ceil_div(p.R, chunks) || ceil_div(p.R, p.chunk) != chunks)
+    return cudaErrorInvalidValue;
+  if (chunks > 1 && (p.part == nullptr || p.stats == nullptr)) return cudaErrorInvalidValue;
+  const long long ctas =
+      static_cast<long long>(p.B) * ceil_div(p.G, p.gc) * static_cast<long long>(chunks);
+  if (ctas >= (1LL << 31)) return cudaErrorInvalidValue;
+  const size_t smem = split_smem(p.chunk, p.gc);
+  size_t optin = 0;
+  cudaError_t err = static_cast<cudaError_t>(smem_optin(&optin));
+  if (err != cudaSuccess) return err;
+  if (smem > optin) return cudaErrorInvalidValue;
+  const uintptr_t ptrs = reinterpret_cast<uintptr_t>(p.v) | reinterpret_cast<uintptr_t>(p.out) |
+                         reinterpret_cast<uintptr_t>(p.part);
+  const bool vec = p.D % 4 == 0 && ptrs % 16 == 0;
+  auto kernel = given ? (vec ? glimpse_split_kernel<T, true, true>
+                             : glimpse_split_kernel<T, true, false>)
+                      : (vec ? glimpse_split_kernel<T, false, true>
+                             : glimpse_split_kernel<T, false, false>);
+  if (smem > 48 * 1024) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  kernel<<<static_cast<unsigned>(ctas), kThreads, smem, s>>>(p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || chunks == 1) return err;
+  return lse::merge<T>(p.part, p.stats, p.out, static_cast<int64_t>(p.B) * p.G, chunks, p.D, s);
+}
+
+template <typename T>
+int split_entry(const void* joint, const void* w, const void* bias, const void* logits_in,
+                const void* v, void* out, void* logits_out, void* part, void* stats, int B, int R,
+                int M, int G, int D, int gc, int chunks, cudaStream_t s) {
+  const SplitParams<T> p{static_cast<const T*>(joint), static_cast<const T*>(w),
+                         static_cast<const T*>(bias), static_cast<const T*>(logits_in),
+                         static_cast<const T*>(v), static_cast<T*>(out),
+                         static_cast<T*>(logits_out), static_cast<float*>(part),
+                         static_cast<float*>(stats), B, R, M, G, D, gc,
+                         chunks >= 1 ? ceil_div(R, chunks) : 0};
+  return static_cast<int>(launch_split<T>(p, chunks, s));
+}
+
 }  // namespace
 
 // glimpse_head on `stream`, with the schedule ops/attention.py::glimpse_plan
@@ -934,6 +1172,28 @@ extern "C" int vqa_glimpse_attend_f32(const void* logits, const void* v, void* o
   return static_cast<int>(launch_f32<true>(
       nullptr, nullptr, nullptr, static_cast<const float*>(logits), static_cast<const float*>(v),
       static_cast<float*>(out), nullptr, B, R, 0, G, D, 0, static_cast<cudaStream_t>(stream)));
+}
+
+// The split design (ops/attention.py::glimpse_plan, copy "split"), in bf16
+// (`elem` 2) or float32 (`elem` 4) on `stream`: glimpse_head where
+// `logits_in` is null (joint, w, bias given; logits written), else
+// glimpse_attend (joint, w, bias and logits_out unused). `gc` glimpses and
+// ceil(R / chunks) regions a block; with chunks > 1, part [B G, chunks, D]
+// and stats [B G, chunks, 2] (fp32 scratch the caller allocates) take the
+// chunks' partials, merged into out by lse_merge.cuh. Returns the first
+// failing launch's cudaError_t, or 0.
+extern "C" int vqa_glimpse_split(const void* joint, const void* w, const void* bias,
+                                 const void* logits_in, const void* v, void* out,
+                                 void* logits_out, void* part, void* stats, int B, int R, int M,
+                                 int G, int D, int gc, int chunks, int elem, void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  if (elem == 2)
+    return split_entry<bf16>(joint, w, bias, logits_in, v, out, logits_out, part, stats, B, R, M,
+                             G, D, gc, chunks, s);
+  if (elem == 4)
+    return split_entry<float>(joint, w, bias, logits_in, v, out, logits_out, part, stats, B, R,
+                              M, G, D, gc, chunks, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // The shared memory a block of this card may opt into (bytes), into *bytes.

@@ -8,7 +8,8 @@
 // Replaces vqa_tpu/ops/mfb_pool.py::_mfb_pool_pallas (_pallas_fwd, _kernel).
 // It follows the Pallas kernel's numerics: the pool, the roots and the norm
 // in fp32, the output rounded once to z's dtype (bf16; float32 stores the
-// fp32 values as they are). The element type is a template parameter: one
+// fp32 values as they are), but for the float32 entry's pool, summed in
+// fp64 and rounded once (see Acc). The element type is a template parameter: one
 // entry a dtype (vqa_mfb_pool, vqa_mfb_pool_f32), the same kernel.
 //
 // What bounds it on the H100: memory. At the MFB attention call (B=1024
@@ -18,7 +19,12 @@
 // twice the bytes: ~0.26 ms.
 //
 // What the design does about it: one 128-thread block per row, so any row
-// count works and the whole reduction stays in the block. Threads stride over
+// count works and the whole reduction stays in the block. Two designs by m
+// (ops/mfb_pool.py::mfb_plan): "shared" keeps the roots in shared memory,
+// opted in past the default 48 KB up to what a block may (m <= ~58,000);
+// "global", past that, keeps them in the output row (rounded to its type:
+// exact in float32, one more bf16 rounding, ~2^-9 of a value of ~m^-1/2, in
+// bf16) and scales them in a second sweep over that row. Threads stride over
 // the m outputs 8 at a time with 16-byte loads (two in float32) of each of
 // the k strided slices (m % 8 == 0 and 16-byte-aligned bases; scalar loads
 // otherwise), so every input byte is read once, coalesced. The signed roots
@@ -31,6 +37,7 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 namespace {
 
@@ -94,10 +101,18 @@ __device__ __forceinline__ float signed_sqrt(float p) {
   return s * sqrtf(fabsf(p) + 1e-12f);
 }
 
-template <typename T, bool kVec>
+// the pool's accumulator: fp32 for bf16 inputs (as the Pallas kernel);
+// fp64 for float32 ones, so that a pooled value near 0, where the signed
+// square root is ill-conditioned, is the float32 rounding of the exact sum.
+// Summed in fp32, 37 rows of m = 70,000 (k=5) came 1.05e-4 of the max-abs
+// from float64, the plain float32 version 9.4e-6 (NVIDIA H100 80GB HBM3)
+template <typename T>
+using Acc = std::conditional_t<std::is_same_v<T, float>, double, float>;
+
+template <typename T, bool kVec, bool kRootsInOut>
 __global__ void __launch_bounds__(kThreads)
 mfb_pool_kernel(const T* __restrict__ z, T* __restrict__ out, int k, int m) {
-  extern __shared__ float ss_s[];  // [m] signed roots
+  extern __shared__ float ss_s[];  // [m] signed roots (the shared design)
   __shared__ float part_s[kWarps];
   const int64_t row = blockIdx.x;
   const T* zr = z + row * k * static_cast<int64_t>(m);
@@ -106,26 +121,33 @@ mfb_pool_kernel(const T* __restrict__ z, T* __restrict__ out, int k, int m) {
   float sq = 0.f;
   if (kVec) {
     for (int d = threadIdx.x * 8; d < m; d += kThreads * 8) {
-      float acc[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+      Acc<T> acc[8] = {0, 0, 0, 0, 0, 0, 0, 0};
       for (int j = 0; j < k; ++j) {
         float x[8];
         load8(zr + static_cast<int64_t>(j) * m + d, x);
 #pragma unroll
         for (int e = 0; e < 8; ++e) acc[e] += x[e];
       }
+      float y[8];
 #pragma unroll
       for (int e = 0; e < 8; ++e) {
-        const float s = signed_sqrt(acc[e]);
-        ss_s[d + e] = s;
+        const float s = signed_sqrt(static_cast<float>(acc[e]));
+        if (!kRootsInOut) ss_s[d + e] = s;
+        y[e] = s;
         sq += s * s;
       }
+      if (kRootsInOut) store8(orow + d, y);
     }
   } else {
     for (int d = threadIdx.x; d < m; d += kThreads) {
-      float acc = 0.f;
+      Acc<T> acc = 0;
       for (int j = 0; j < k; ++j) acc += to_float(zr[static_cast<int64_t>(j) * m + d]);
-      const float s = signed_sqrt(acc);
-      ss_s[d] = s;
+      const float s = signed_sqrt(static_cast<float>(acc));
+      if (kRootsInOut) {
+        store1(orow + d, s);
+      } else {
+        ss_s[d] = s;
+      }
       sq += s * s;
     }
   }
@@ -138,48 +160,73 @@ mfb_pool_kernel(const T* __restrict__ z, T* __restrict__ out, int k, int m) {
   for (int w = 0; w < kWarps; ++w) total += part_s[w];
   const float scale = rsqrtf(total + 1e-12f);
 
-  // each thread scales the values it wrote itself: no barrier needed on ss_s
+  // each thread scales the values it wrote itself (in shared memory, or in
+  // its output row): no barrier needed
   if (kVec) {
     for (int d = threadIdx.x * 8; d < m; d += kThreads * 8) {
       float y[8];
+      if (kRootsInOut) {
+        load8(orow + d, y);
+      } else {
 #pragma unroll
-      for (int e = 0; e < 8; ++e) y[e] = ss_s[d + e] * scale;
+        for (int e = 0; e < 8; ++e) y[e] = ss_s[d + e];
+      }
+#pragma unroll
+      for (int e = 0; e < 8; ++e) y[e] *= scale;
       store8(orow + d, y);
     }
   } else {
-    for (int d = threadIdx.x; d < m; d += kThreads) store1(orow + d, ss_s[d] * scale);
+    for (int d = threadIdx.x; d < m; d += kThreads) {
+      store1(orow + d, (kRootsInOut ? to_float(orow[d]) : ss_s[d]) * scale);
+    }
   }
 }
 
-template <typename T>
+// the shared design keeps the m roots in shared memory (opted in past the
+// default 48 KB); kRootsInOut, past what a block may opt into, in the
+// output row
+template <typename T, bool kRootsInOut>
 int launch(const void* z, void* out, int64_t n, int k, int m, void* stream) {
   if (n <= 0 || m <= 0) return 0;
-  if (k < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (k < 1 || n >= (1LL << 31)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t smem = static_cast<size_t>(m) * sizeof(float);
+  const size_t smem = kRootsInOut ? 0 : static_cast<size_t>(m) * sizeof(float);
   const bool vec = m % 8 == 0 &&
                    (reinterpret_cast<uintptr_t>(z) | reinterpret_cast<uintptr_t>(out)) % 16 == 0;
   const T* zp = static_cast<const T*>(z);
   T* op = static_cast<T*>(out);
   const unsigned grid = static_cast<unsigned>(n);
-  if (vec) {
-    mfb_pool_kernel<T, true><<<grid, kThreads, smem, s>>>(zp, op, k, m);
-  } else {
-    mfb_pool_kernel<T, false><<<grid, kThreads, smem, s>>>(zp, op, k, m);
+  auto kernel = vec ? mfb_pool_kernel<T, true, kRootsInOut> : mfb_pool_kernel<T, false, kRootsInOut>;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
   }
+  kernel<<<grid, kThreads, smem, s>>>(zp, op, k, m);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// One block per row on `stream`, z and out bf16. Needs m floats of shared
-// memory (at most 48 KB, checked by the Python wrapper). Returns the
-// launch's cudaError_t, or 0.
+// One block per row on `stream`, z and out bf16, the roots in m floats of
+// shared memory (opted in past 48 KB; the wrapper's plan keeps m within
+// what a block may opt into). Returns the launch's cudaError_t, or 0.
 extern "C" int vqa_mfb_pool(const void* z, void* out, int64_t n, int k, int m, void* stream) {
-  return launch<bf16>(z, out, n, k, m, stream);
+  return launch<bf16, false>(z, out, n, k, m, stream);
 }
 
 // The same with z and out float32.
 extern "C" int vqa_mfb_pool_f32(const void* z, void* out, int64_t n, int k, int m, void* stream) {
-  return launch<float>(z, out, n, k, m, stream);
+  return launch<float, false>(z, out, n, k, m, stream);
+}
+
+// The global design, for m past the shared memory a block may opt into: the
+// signed roots wait in the output row in device memory (rounded to its type)
+// and a second sweep scales them by the row's norm. `elem` 2: bf16, 4:
+// float32. Returns the launch's cudaError_t, or 0.
+extern "C" int vqa_mfb_pool_global(const void* z, void* out, int64_t n, int k, int m, int elem,
+                                   void* stream) {
+  if (elem == 2) return launch<bf16, true>(z, out, n, k, m, stream);
+  if (elem == 4) return launch<float, true>(z, out, n, k, m, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

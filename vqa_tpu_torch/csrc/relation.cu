@@ -55,6 +55,17 @@
 // "wide": the parent's N > 64 kernel, kept for N past the tiled design's
 // shared memory (below).
 //
+// "split": the wide design over chunks of r's rows, for N past the wide
+// design's shared memory (bf16 N > ~3100, float32 N > ~2600 at D=1024, e.g.
+// the 56 x 56 grid of a 1792-pixel extract). A block owns (element, 16
+// rows of i, one chunk of r's rows): its shared memory holds pg's 16 rows
+// and s^T [chunk, 16], whatever N. It writes the chunk's unnormalised fp32
+// partial output and each row's (max, sum of exp) to scratch, and
+// lse_merge.cuh's kernel merges the chunks by their log-sum-exp. What
+// bounds it: the products on the CUDA cores, as the wide design's (at
+// N=3136, B=64, D=1024: 2.58 TFLOP, 39 ms at the 67 TFLOP/s FP32 peak),
+// then the scratch, C x 4 bytes an output element written and read again.
+//
 // D % 8 != 0, or a pointer off 16 bytes, takes the same designs with plain
 // copies and plain stores (the element design one CTA an element; the tiled
 // producer warp swizzles by hand).
@@ -94,7 +105,8 @@
 //     second one's has come); the output transposed into the stages' idle pg
 //     boxes and TMA-stored.
 // Past N = 256 (or a stage past the shared memory), the wide design above,
-// FP32 FMA on the CUDA cores. ops/relation.py::relation_plan with 4-byte
+// FP32 FMA on the CUDA cores; past the wide design's shared memory, the
+// split one. ops/relation.py::relation_plan with 4-byte
 // elements chooses the design and its stages; this entry runs what it is
 // given, and refuses a schedule the design cannot run.
 
@@ -104,18 +116,20 @@
 
 #include <cstdint>
 
+#include "lse_merge.cuh"
+
 namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kWarps = 8;  // the wide design's warps
+constexpr int kWarps = 8;  // the wide and split designs' warps
 constexpr int kThreads = 32 * kWarps;
 constexpr int kEW = 16;             // element design: warps a CTA (512 beat 256 threads)
 constexpr int kMaxN = 64;           // element design: s at most 4 x 16 rows, 8 x 8 columns
 constexpr int kMaxKt = kMaxN / 16;  // its k-steps over j in the weighted sum
 constexpr int kMaxSplit = 8;        // the portable cluster size
 constexpr int kMinCols = 64;        // columns a split CTA keeps
-constexpr int kDesignElement = 0, kDesignTiled = 1, kDesignWide = 2;
+constexpr int kDesignElement = 0, kDesignTiled = 1, kDesignWide = 2, kDesignSplit = 3;
 constexpr int kTileRows = 64;  // tiled design: rows of i a CTA
 template <typename T>
 constexpr int kChunk = 128 / sizeof(T);  // columns a stage: one 128-byte swizzled row
@@ -1218,8 +1232,10 @@ relation_tiled_kernel(const __grid_constant__ CUtensorMap pg_map,
 // fp32 (lanes over D, 16-byte loads of r[j] from L2, a shuffle reduction)
 // into s^T [N, 16]; the softmax a warp a row in place; the weighted sum
 // streams r again, each thread owning 4 columns of the 16 output rows. Its
-// only limit is shared memory: 32 D + 64 N bytes. Simple and slow (4.8% of
-// its bound at N=196), for shapes nothing else takes.
+// only limit is shared memory: 32 D + 64 N bytes (bf16). Simple and slow
+// (4.8% of its bound at N=196), for shapes nothing else takes. kSplit: the
+// split design (the file's head), the same steps over one chunk of r's
+// rows, its partials unnormalised into scratch for lse_merge.cuh.
 
 constexpr int kWideRows = 16;  // rows of i a block of the wide design owns
 
@@ -1272,28 +1288,38 @@ __device__ __forceinline__ void load4(const float* p, float (&x)[4]) {
 }
 
 
+// 16 rows of pg and s^T [rows, 16] (fp32): rows = N in the wide design,
+// the chunk in the split one
 template <typename T>
-size_t wide_smem(int N, int D) {
+size_t wide_smem(int rows, int D) {
   return align16(static_cast<size_t>(kWideRows) * D * sizeof(T)) +
-         static_cast<size_t>(N) * kWideRows * sizeof(float);
+         static_cast<size_t>(rows) * kWideRows * sizeof(float);
 }
 
-template <typename T, bool kVec>
+template <typename T, bool kVec, bool kSplit>
 __global__ void __launch_bounds__(kThreads)
 relation_wide_kernel(const T* __restrict__ pg, const T* __restrict__ r,
-                      T* __restrict__ out, int N, int D) {
+                      T* __restrict__ out, float* __restrict__ part, float* __restrict__ stats,
+                      int N, int D, int chunk) {
   extern __shared__ __align__(16) unsigned char smem[];
   T* pg_s = reinterpret_cast<T*>(smem);  // [16, D], zero rows past the tile
-  float* a_s =
+  float* a_s =  // s^T [chunk, 16]
       reinterpret_cast<float*>(smem + align16(static_cast<size_t>(kWideRows) * D * sizeof(T)));
   const int n_tiles = (N + kWideRows - 1) / kWideRows;
-  const int64_t b = blockIdx.x / n_tiles;
-  const int i0 = (blockIdx.x % n_tiles) * kWideRows;
+  // the split design: chunk c of r's rows, [j0, j0 + nj); the wide one: all N
+  const int n_chunks = kSplit ? ceil_div(N, chunk) : 1;
+  const int c = kSplit ? static_cast<int>(blockIdx.x % n_chunks) : 0;
+  const int64_t tile = kSplit ? blockIdx.x / n_chunks : blockIdx.x;
+  const int64_t b = tile / n_tiles;
+  const int i0 = static_cast<int>(tile % n_tiles) * kWideRows;
   const int ni = min(kWideRows, N - i0);
+  const int j0 = c * chunk;
+  const int nj = kSplit ? min(chunk, N - j0) : N;
   const int64_t nd = static_cast<int64_t>(N) * D;
   const T* pgb = pg + b * nd + static_cast<int64_t>(i0) * D;
-  const T* rb = r + b * nd;
+  const T* rb = r + b * nd + static_cast<int64_t>(j0) * D;
   T* ob = out + b * nd + static_cast<int64_t>(i0) * D;
+  const int64_t row0 = b * N + i0;  // the split design's first row of part and stats
   const int tid = threadIdx.x;
   const int lane = tid % 32;
   const int warp = tid / 32;
@@ -1302,10 +1328,10 @@ relation_wide_kernel(const T* __restrict__ pg, const T* __restrict__ r,
     constexpr int kPer = 16 / sizeof(T);  // elements of a 16-byte piece
     const int n_col = D / kPer;
     for (int i = tid; i < kWideRows * n_col; i += kThreads) {
-      const int row = i / n_col, c = (i % n_col) * kPer;
+      const int row = i / n_col, col = (i % n_col) * kPer;
       uint4 x = make_uint4(0u, 0u, 0u, 0u);
-      if (row < ni) x = *reinterpret_cast<const uint4*>(pgb + static_cast<int64_t>(row) * D + c);
-      *reinterpret_cast<uint4*>(pg_s + row * D + c) = x;
+      if (row < ni) x = *reinterpret_cast<const uint4*>(pgb + static_cast<int64_t>(row) * D + col);
+      *reinterpret_cast<uint4*>(pg_s + row * D + col) = x;
     }
   } else {
     for (int i = tid; i < kWideRows * D; i += kThreads) {
@@ -1316,7 +1342,7 @@ relation_wide_kernel(const T* __restrict__ pg, const T* __restrict__ r,
   __syncthreads();
 
   // s^T[j, i] = <pg_i, r_j>, one warp per column j, all 16 rows at once
-  for (int j = warp; j < N; j += kWarps) {
+  for (int j = warp; j < nj; j += kWarps) {
     const T* rj = rb + static_cast<int64_t>(j) * D;
     float acc[kWideRows] = {};
     if (kVec) {
@@ -1349,28 +1375,35 @@ relation_wide_kernel(const T* __restrict__ pg, const T* __restrict__ r,
   }
   __syncthreads();
 
-  // alpha = softmax_j(s / sqrt(D)) in fp32, one warp per row, in place
+  // alpha = softmax_j(s / sqrt(D)) in fp32, one warp per row, in place; the
+  // split design keeps exp(s / sqrt(D) - m_c) unnormalised and writes the
+  // chunk's (m_c, l_c) for the merge
   const float scale = rsqrtf(static_cast<float>(D));
   const float neg_inf = __int_as_float(0xff800000);
   for (int i = warp; i < kWideRows; i += kWarps) {
     float mx = neg_inf;
-    for (int j = lane; j < N; j += 32) mx = fmaxf(mx, a_s[j * kWideRows + i] * scale);
+    for (int j = lane; j < nj; j += 32) mx = fmaxf(mx, a_s[j * kWideRows + i] * scale);
     mx = warp_max(mx);
     float sum = 0.f;
-    for (int j = lane; j < N; j += 32) sum += expf(a_s[j * kWideRows + i] * scale - mx);
-    const float inv = 1.f / warp_sum(sum);
-    for (int j = lane; j < N; j += 32) {
+    for (int j = lane; j < nj; j += 32) sum += expf(a_s[j * kWideRows + i] * scale - mx);
+    sum = warp_sum(sum);
+    const float inv = kSplit ? 1.f : 1.f / sum;
+    for (int j = lane; j < nj; j += 32) {
       a_s[j * kWideRows + i] = expf(a_s[j * kWideRows + i] * scale - mx) * inv;
+    }
+    if (kSplit && lane == 0 && i < ni) {
+      *reinterpret_cast<float2*>(stats + ((row0 + i) * n_chunks + c) * 2) = make_float2(mx, sum);
     }
   }
   __syncthreads();
 
-  // out[i, d..d+W) = sum_j alpha[i, j] * r[j, d..d+W) for the 16 rows
+  // out[i, d..d+W) = sum_j alpha[i, j] * r[j, d..d+W) for the 16 rows (the
+  // split design: the chunk's partial, fp32, into part)
   constexpr int W = kVec ? 4 : 1;
   for (int d = tid * W; d < D; d += kThreads * W) {
     float acc[kWideRows][W] = {};
 #pragma unroll 4
-    for (int j = 0; j < N; ++j) {
+    for (int j = 0; j < nj; ++j) {
       float x[W];
       if constexpr (kVec) {
         load4(rb + static_cast<int64_t>(j) * D + d, x);
@@ -1393,9 +1426,18 @@ relation_wide_kernel(const T* __restrict__ pg, const T* __restrict__ r,
 #pragma unroll
     for (int i = 0; i < kWideRows; ++i) {
       if (i < ni) {
+        if constexpr (kSplit) {
+          float* p = part + ((row0 + i) * n_chunks + c) * D + d;
+          if constexpr (kVec) {
+            *reinterpret_cast<float4*>(p) = make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+          } else {
+            p[0] = acc[i][0];
+          }
+        } else {
 #pragma unroll
-        for (int e = 0; e < W; ++e) {
-          ob[static_cast<int64_t>(i) * D + d + e] = from_float<T>(acc[i][e]);
+          for (int e = 0; e < W; ++e) {
+            ob[static_cast<int64_t>(i) * D + d + e] = from_float<T>(acc[i][e]);
+          }
         }
       }
     }
@@ -1499,6 +1541,15 @@ cudaError_t geometry(int B, int N, int D, int design, int split, int stages, boo
           static_cast<long long>(elem == 2 ? wide_smem<bf16>(N, D) : wide_smem<float>(N, D))};
     return cudaSuccess;
   }
+  if (design == kDesignSplit) {  // `split`: the chunks of r's rows
+    if (split < 1 || split > N || split > lse::kMaxMergeChunks) return cudaErrorInvalidValue;
+    const int chunk = ceil_div(N, split);
+    if (ceil_div(N, chunk) != split) return cudaErrorInvalidValue;
+    *g = {static_cast<long long>(B) * ceil_div(N, kWideRows) * split, 1, kThreads,
+          static_cast<long long>(elem == 2 ? wide_smem<bf16>(chunk, D)
+                                           : wide_smem<float>(chunk, D))};
+    return cudaSuccess;
+  }
   return cudaErrorInvalidValue;
 }
 
@@ -1534,14 +1585,40 @@ cudaError_t launch_tiled(const T* pg, const T* r, T* out, int B, int N, int D, i
 template <typename T>
 cudaError_t launch_wide(const T* pg, const T* r, T* out, int N, int D, bool vec,
                         cudaLaunchConfig_t& cfg) {
-  auto kernel = vec ? relation_wide_kernel<T, true> : relation_wide_kernel<T, false>;
+  auto kernel = vec ? relation_wide_kernel<T, true, false> : relation_wide_kernel<T, false, false>;
   const cudaError_t err = opt_in(kernel, static_cast<long long>(cfg.dynamicSmemBytes));
   if (err != cudaSuccess) return err;
-  return cudaLaunchKernelEx(&cfg, kernel, pg, r, out, N, D);
+  return cudaLaunchKernelEx(&cfg, kernel, pg, r, out, static_cast<float*>(nullptr),
+                            static_cast<float*>(nullptr), N, D, N);
+}
+
+// the split design: the chunks' partials into part and stats, then the merge
+template <typename T>
+int launch_split(const void* pg, const void* r, void* out, void* part, void* stats, int B, int N,
+                 int D, int chunks, cudaStream_t s) {
+  const bool vec = vec_of(pg, r, part, D);
+  Geometry geo;
+  cudaError_t err = geometry(B, N, D, kDesignSplit, chunks, 1, vec, sizeof(T), &geo);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (geo.ctas >= (1LL << 31)) return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = vec ? relation_wide_kernel<T, true, true> : relation_wide_kernel<T, false, true>;
+  err = opt_in(kernel, geo.smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  auto* op = static_cast<T*>(out);
+  auto* pp = static_cast<float*>(part);
+  auto* sp = static_cast<float*>(stats);
+  kernel<<<static_cast<unsigned>(geo.ctas), static_cast<unsigned>(geo.threads),
+           static_cast<size_t>(geo.smem), s>>>(static_cast<const T*>(pg),
+                                                 static_cast<const T*>(r), op, pp, sp, N, D,
+                                                 ceil_div(N, chunks));
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(lse::merge<T>(pp, sp, op, static_cast<int64_t>(B) * N, chunks, D, s));
 }
 
 int launch(const void* pg, const void* r, void* out, int B, int N, int D, int design, int split,
            int stages, cudaStream_t s) {
+  if (design == kDesignSplit) return static_cast<int>(cudaErrorInvalidValue);  // its own entry
   const bool vec = vec_of(pg, r, out, D);
   Geometry geo;
   cudaError_t err = geometry(B, N, D, design, split, stages, vec, 2, &geo);
@@ -1578,6 +1655,7 @@ int launch(const void* pg, const void* r, void* out, int B, int N, int D, int de
 // the float32 entry: the tiled or the wide design on float32 operands
 int launch_f32(const void* pg, const void* r, void* out, int B, int N, int D, int design,
                int stages, cudaStream_t s) {
+  if (design != kDesignTiled && design != kDesignWide) return static_cast<int>(cudaErrorInvalidValue);
   const bool vec = vec_of(pg, r, out, D);
   Geometry geo;
   cudaError_t err = geometry(B, N, D, design, 1, stages, vec, 4, &geo);
@@ -1599,7 +1677,8 @@ int launch_f32(const void* pg, const void* r, void* out, int B, int N, int D, in
 
 }  // namespace
 
-// One launch of `design` (0: element, 1: tiled, 2: wide) with `split` CTAs
+// One launch of `design` (0: element, 1: tiled, 2: wide; 3, split, has its
+// own entry below) with `split` CTAs
 // an element (element) or `stages` ring stages (tiled), as
 // ops/relation.py::relation_plan gives them, on `stream`. Returns the
 // launch's cudaError_t, or 0.
@@ -1619,7 +1698,23 @@ extern "C" int vqa_relation_attend_f32(const void* pg, const void* r, void* out,
   return launch_f32(pg, r, out, B, N, D, design, stages, static_cast<cudaStream_t>(stream));
 }
 
+// relation_attend by the split design (3), in bf16 (`elem` 2) or float32
+// (`elem` 4) on `stream`: `chunks` chunks of r's rows, each chunk's fp32
+// partial output into part [B N, chunks, D] and its (max, sum of exp) into
+// stats [B N, chunks, 2] (scratch the caller allocates), then their merge
+// into out. Returns the first failing launch's cudaError_t, or 0.
+extern "C" int vqa_relation_attend_split(const void* pg, const void* r, void* out, void* part,
+                                         void* stats, int B, int N, int D, int chunks, int elem,
+                                         void* stream) {
+  if (B <= 0 || N <= 0 || D <= 0) return 0;
+  auto s = static_cast<cudaStream_t>(stream);
+  if (elem == 2) return launch_split<bf16>(pg, r, out, part, stats, B, N, D, chunks, s);
+  if (elem == 4) return launch_split<float>(pg, r, out, part, stats, B, N, D, chunks, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 // What vqa_relation_attend (`elem` 2) or vqa_relation_attend_f32 (`elem` 4)
+// (or vqa_relation_attend_split, `design` 3 with `split` its chunks)
 // launches for this schedule (its own reckoning): geometry[0] the CTAs, [1]
 // the cluster size, [2] the threads of a CTA, [3] its shared memory. Returns
 // a cudaError_t.

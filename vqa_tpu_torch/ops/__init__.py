@@ -26,6 +26,12 @@ and counts the launch (also inside a loaded program), and its fake
 implementation gives the output shapes and dtypes alone. The gathers run
 before the forward and stay plain Python wrappers.
 
+Every shape the JAX package computes has a design on the card: past the
+shared memory of the others, ``relation_attend`` and the glimpse kernels
+split the softmax axis into chunks merged by their log-sum-exp
+(``csrc/lse_merge.cuh``; ``lse_merge`` below is its plain version) and
+``mfb_pool`` keeps its roots in the output row.
+
 Under autograd each kernel but the gathers is a ``torch.autograd.Function``:
 its kernel's forward, and a plain backward, as the JAX package's vjps are
 jnp. Most take the grads of their plain version on the saved inputs
@@ -38,6 +44,13 @@ import torch
 # own entry (bf16, and float32 computed in fp32 with no rounding between
 # steps); a wrapper refuses any other
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)
+
+# the shared memory a Hopper block may opt into: the plans' default limit (a
+# wrapper passes the card's own, _build.smem_optin, at its call)
+SMEM_LIMIT = 232_448
+# csrc/lse_merge.cuh's kMaxMergeChunks: the chunks one merge takes (its
+# weights in default shared memory)
+MAX_MERGE_CHUNKS = 48 * 1024 // 4
 
 NAMESPACE = "vqa_tpu_torch"
 # the namespace of the registered ops; each op module defines its op on it
@@ -72,3 +85,13 @@ def recompute_grads(ctx, reference, cotangents):
                                          allow_unused=True))
     out = [next(grads) if x.requires_grad else None for x in inputs]
     return tuple(out + [None] * (len(ctx.needs_input_grad) - len(out)))
+
+
+def lse_merge(part: torch.Tensor, m: torch.Tensor, l: torch.Tensor) -> torch.Tensor:
+    """The merge of softmax-weighted sums taken over C chunks of the softmax
+    axis (csrc/lse_merge.cuh, in plain PyTorch): ``part`` [..., C, D] each
+    chunk's ``sum_j exp(s_j - m_c) x_j``, ``m`` [..., C] its max of s and
+    ``l`` [..., C] its ``sum_j exp(s_j - m_c)``; gives [..., D] =
+    ``sum_c e^(m_c - m) part_c / sum_c e^(m_c - m) l_c``, m the max of m_c."""
+    w = torch.exp(m - m.amax(-1, keepdim=True))
+    return (w.unsqueeze(-1) * part).sum(-2) / (w * l).sum(-1, keepdim=True)

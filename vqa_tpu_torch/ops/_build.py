@@ -50,11 +50,14 @@ _SIGNATURES = {
     "vqa_glimpse_attend": [*[_PTR] * 3, *[_INT] * 8, _PTR],
     "vqa_glimpse_head_f32": [*[_PTR] * 6, *[_INT] * 6, _PTR],
     "vqa_glimpse_attend_f32": [*[_PTR] * 3, *[_INT] * 4, _PTR],
+    "vqa_glimpse_split": [*[_PTR] * 9, *[_INT] * 8, _PTR],
     "vqa_smem_optin": [_PTR],
     "vqa_mfb_pool": [_PTR, _PTR, _I64, _INT, _INT, _PTR],
     "vqa_mfb_pool_f32": [_PTR, _PTR, _I64, _INT, _INT, _PTR],
+    "vqa_mfb_pool_global": [_PTR, _PTR, _I64, _INT, _INT, _INT, _PTR],
     "vqa_relation_attend": [_PTR, _PTR, _PTR, *[_INT] * 6, _PTR],
     "vqa_relation_attend_f32": [_PTR, _PTR, _PTR, *[_INT] * 5, _PTR],
+    "vqa_relation_attend_split": [*[_PTR] * 5, *[_INT] * 5, _PTR],
     "vqa_relation_geometry": [*[_INT] * 8, _PTR],
 }
 
@@ -69,7 +72,8 @@ def _stale() -> bool:
     if not os.path.exists(_SO):
         return True
     built = os.path.getmtime(_SO)
-    return any(os.path.getmtime(src) > built for src in _sources())
+    headers = glob.glob(os.path.join(_CSRC, "*.cuh"))
+    return any(os.path.getmtime(src) > built for src in _sources() + headers)
 
 
 def _nvcc() -> str:

@@ -29,10 +29,10 @@ import functools
 
 import torch
 
-from vqa_tpu_torch.ops import KERNEL_DTYPES, _build, recompute_grads, register
+from vqa_tpu_torch.ops import (KERNEL_DTYPES, MAX_MERGE_CHUNKS, SMEM_LIMIT, _build, lse_merge,
+                               recompute_grads, register)
 
 SMS = 132               # streaming multiprocessors of an H100 SXM
-SMEM_LIMIT = 232_448    # shared memory a Hopper block may opt into
 # csrc/glimpse_head.cu's constants, and the plan's targets
 _GROUP = 4              # glimpses a thread accumulates at once
 _MAX_SPLIT = 8          # the portable cluster size
@@ -44,6 +44,7 @@ _RING = 4                     # this many stages
 _JOINT_BYTES = 32 * 1024      # w and a CTA's joint slice staged in shared memory up to this
 _TX_LIMIT = (1 << 20) - 1     # bytes one mbarrier phase can await
 _COPY = {"plain": 0, "bulk": 1, "parent": 2}  # csrc/glimpse_head.cu's kMode*
+DESIGNS = (*_COPY, "f32", "split")            # every plan's "copy"
 _PARENT_MAX_G = 4             # accumulators a thread of the parent kernel keeps
 
 
@@ -69,14 +70,53 @@ def _smem_bytes(R: int, M: int, G: int, dc: int, split: int, chunk: int, stages:
             + _align16(regions * dc * 2))
 
 
-def _f32_plan(B: int, R: int, M: int, G: int, smem_limit: int) -> dict:
-    """The float32 entries' one design: a block a row, alpha [R, G] in
-    shared memory and w [M, G] beside it where both fit."""
+def _split_plan(B: int, R: int, G: int, D: int, smem_limit: int, sms: int = SMS) -> dict:
+    """The split design (either type): a block a (batch row, group of
+    ``groups`` glimpses, chunk of the regions), holding alpha [chunk,
+    groups] in fp32. Every region in one chunk where alpha [R, min(G, 4)]
+    fits, the glimpses in groups (multiples of 4) small enough that the
+    blocks fill twice the ``sms`` SMs, where that many fit; past that,
+    groups of 4 glimpses and the regions in chunks, as many as fill the
+    SMs twice (up to chunks of 256 regions) and at least the fewest that
+    fit, their partials merged by their log-sum-exp (fp32 scratch [B G,
+    chunks, D] and [B G, chunks, 2]). Raises ValueError where even one
+    region of one group cannot fit."""
+    floats, target = smem_limit // 4, 2 * sms
+    if R * min(G, _GROUP) <= floats:  # every region in one block
+        most = G if G <= _GROUP else min(G, floats // R // _GROUP * _GROUP)
+        groups = min(most, max(_GROUP, _ceil(_ceil(B * G, target), _GROUP) * _GROUP))
+    else:
+        groups = min(G, _GROUP)
+    n_groups = _ceil(G, groups)
+    groups = min(G, _ceil(_ceil(G, n_groups), _GROUP) * _GROUP)  # the same groups, evened
+    if groups > floats:
+        raise ValueError(f"glimpse kernels: {groups} glimpses of one region need "
+                         f"{4 * groups} bytes of shared memory, over the {smem_limit} a "
+                         f"block may opt into")
+    chunks = _ceil(R, floats // groups)
+    if chunks > 1:  # the regions split anyway: enough chunks to fill the SMs
+        chunks = max(chunks, min(_ceil(target, B * n_groups), _ceil(R, 256)))
+    chunk = _ceil(R, chunks)
+    chunks = _ceil(R, chunk)  # the same chunks, evened
+    if chunks > MAX_MERGE_CHUNKS:
+        raise ValueError(f"glimpse kernels: {R} regions need {chunks} chunks, over the "
+                         f"{MAX_MERGE_CHUNKS} one merge takes")
+    return {"copy": "split", "split": 1, "chunk": chunk, "stages": 1, "staged": False,
+            "resident": False, "groups": groups, "chunks": chunks,
+            "smem_bytes": chunk * groups * 4, "ctas": B * n_groups * chunks,
+            "scratch_bytes": B * G * chunks * (D + 2) * 4 if chunks > 1 else 0,
+            "design": "split: a block a (row, group of glimpses, chunk of regions), alpha "
+                      "[chunk, group] in shared memory, v and w from device memory, chunks "
+                      "merged by their log-sum-exp"}
+
+
+def _f32_plan(B: int, R: int, M: int, G: int, D: int, smem_limit: int, sms: int) -> dict:
+    """The float32 entries' design where alpha [R, G] fits: a block a row,
+    alpha in shared memory and w [M, G] beside it where both fit; past it,
+    the split design."""
     alpha, w = R * G * 4, M * G * 4
     if alpha > smem_limit:
-        raise ValueError(f"glimpse kernels (float32): R={R}, G={G} need {alpha} bytes of shared "
-                         f"memory (alpha [R, G] in fp32), over the {smem_limit} a block may "
-                         f"opt into")
+        return _split_plan(B, R, G, D, smem_limit, sms)
     staged = M > 0 and alpha + w <= smem_limit
     return {"copy": "f32", "split": 1, "chunk": R, "stages": 1, "staged": staged,
             "resident": False, "smem_bytes": alpha + (w if staged else 0), "ctas": B,
@@ -93,8 +133,8 @@ def glimpse_plan(B: int, R: int, M: int, G: int, D: int, vec: bool = True,
     columns of v, in elements of ``elem`` bytes: 2 (bf16) takes the
     designs below; 4 (float32) the float32 entries' one design (a block a
     row, ``copy`` "f32", ``staged``: w in shared memory beside alpha), at
-    any R and G whose alpha [R, G] fits. For bf16, ``copy`` names the
-    design:
+    any R and G whose alpha [R, G] fits; past it, the split design. For
+    bf16, ``copy`` names the design:
 
     - "parent": the one-block-a-row kernel the file held before the ring,
       where it measured fastest on the card (PERF.md, Findings):
@@ -109,18 +149,25 @@ def glimpse_plan(B: int, R: int, M: int, G: int, D: int, vec: bool = True,
       stage (~16 KB), ``stages`` stages: all of a CTA's v at once
       (``resident``) up to 96 KB, else 4 stages refilled as they drain;
     - "plain" (``vec=False``: D % 8 != 0, or a pointer off 16 bytes): the
-      ring's generic path, one CTA a row, one stage of plain copies.
+      ring's generic path, one CTA a row, one stage of plain copies;
+    - "split" (either type), where alpha [R, G] and one region of the ring
+      (float32: alpha alone) exceed ``smem_limit``, e.g. R=196 with G=512:
+      a block a (row, group of ``groups`` glimpses, chunk of the regions),
+      alpha [chunk, groups] in shared memory, v read from device memory; the
+      regions split into ``chunks`` only past alpha [R, 4] (R > ~14,500),
+      those chunks merged by their log-sum-exp.
 
-    ``copy`` and ``split`` may be forced, to probe other schedules. Raises
-    ValueError, naming the limit, where even one region a stage exceeds
-    ``smem_limit`` (the shared memory a block may opt into on the card).
+    ``copy`` ("parent", "bulk", "plain") and ``split`` may be forced, to
+    probe other schedules. Raises ValueError, naming the limit, where even
+    one region of one glimpse group exceeds ``smem_limit`` (the shared
+    memory a block may opt into on the card).
     Cached: the wrappers ask for it at every call; the dict is shared, not
     to be changed."""
     if min(B, R, G, D) < 1 or M < 0:
         raise ValueError(f"glimpse kernels need B, R, G, D >= 1 and M >= 0, got B={B}, R={R}, "
                          f"M={M}, G={G}, D={D}")
     if elem == 4:
-        return _f32_plan(B, R, M, G, smem_limit)
+        return _f32_plan(B, R, M, G, D, smem_limit, sms)
     if elem != 2:
         raise ValueError(f"glimpse kernels take 2-byte (bf16) or 4-byte (float32) elements, "
                          f"got {elem}")
@@ -160,15 +207,10 @@ def glimpse_plan(B: int, R: int, M: int, G: int, D: int, vec: bool = True,
             stages -= 1
         elif chunk > 1:
             chunk = _ceil(chunk, 2)
-        else:
-            raise ValueError(
-                f"glimpse kernels: R={R}, G={G}, D={D} need "
-                f"{_smem_bytes(R, M, G, dc, split, 1, 1, False)} bytes of shared memory "
-                f"(alpha [R, G] in fp32 and one region of {dc} columns), over the {smem_limit} "
-                f"a block may opt into")
-    if chunk * dc * 2 > _TX_LIMIT:
-        raise ValueError(f"glimpse kernels: a stage of {chunk * dc * 2} bytes exceeds the "
-                         f"{_TX_LIMIT} bytes an mbarrier phase can await")
+        else:  # alpha [R, G] and one region of the ring do not fit
+            return _split_plan(B, R, G, D, smem_limit, sms)
+    if chunk * dc * 2 > _TX_LIMIT:  # a stage past what one mbarrier phase can await
+        return _split_plan(B, R, G, D, smem_limit, sms)
     return {"copy": "bulk" if vec else "plain", "split": split, "chunk": chunk,
             "stages": stages, "staged": staged, "resident": stages >= _ceil(R, chunk),
             "smem_bytes": _smem_bytes(R, M, G, dc, split, chunk, stages, staged),
@@ -185,11 +227,56 @@ def glimpse_attend_reference(logits: torch.Tensor, v: torch.Tensor) -> torch.Ten
     return torch.einsum("brg,brd->bgd", torch.softmax(logits, dim=1), v)
 
 
+def glimpse_attend_split_model(logits: torch.Tensor, v: torch.Tensor,
+                               chunks: int) -> torch.Tensor:
+    """The split design's arithmetic in plain PyTorch, to hold the
+    split-and-merge against the reference: the regions in ``chunks``
+    chunks of ceil(R / chunks), each chunk's unnormalised weighted sum with
+    its max and sum of exp a glimpse, merged by ``lse_merge`` (alpha
+    unrounded, as the kernel's merge takes it)."""
+    R = logits.shape[1]
+    chunk = -(-R // chunks)
+    parts, ms, ls = [], [], []
+    for r0 in range(0, R, chunk):
+        lc = logits[:, r0:r0 + chunk]                      # [B, c, G]
+        m = lc.amax(1)                                     # [B, G]
+        p = torch.exp(lc - m.unsqueeze(1))
+        parts.append(torch.einsum("brg,brd->bgd", p, v[:, r0:r0 + chunk]))
+        ms.append(m)
+        ls.append(p.sum(1))
+    return lse_merge(torch.stack(parts, -2), torch.stack(ms, -1), torch.stack(ls, -1))
+
+
+def _launch_split(joint, w, b, logits_in, v, attended, logits_out, plan: dict) -> None:
+    """One call of the split design's entry (glimpse_head where ``joint``
+    is given, else glimpse_attend on ``logits_in``), its scratch allocated
+    here where the regions are split."""
+    B, R, _ = v.shape
+    G, D = attended.shape[1], attended.shape[2]
+    chunks = plan["chunks"]
+    part = stats = None
+    if chunks > 1:
+        part = torch.empty(B * G * chunks * D, dtype=torch.float32, device=v.device)
+        stats = torch.empty(B * G * chunks * 2, dtype=torch.float32, device=v.device)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    err = _build.library().vqa_glimpse_split(
+        ptr(joint), ptr(w), ptr(b), ptr(logits_in), v.data_ptr(), attended.data_ptr(),
+        ptr(logits_out), ptr(part), ptr(stats), B, R, 0 if joint is None else joint.shape[2], G,
+        D, plan["groups"], chunks, v.dtype.itemsize, _build.current_stream(v.device))
+    _build.check(err, "glimpse_head" if joint is not None else "glimpse_attend")
+
+
 def launch_glimpse_attend(logits: torch.Tensor, v: torch.Tensor, attended: torch.Tensor,
                           plan: dict) -> None:
     """One launch of the logits-given entry with ``plan``'s schedule (the
-    float32 entry for a float32 plan)."""
+    float32 entry for a float32 plan; the split design's own entry)."""
     B, R, G = logits.shape
+    if plan["copy"] == "split":
+        _launch_split(None, None, None, logits, v, attended, None, plan)
+        return
     if plan["copy"] == "f32":
         err = _build.library().vqa_glimpse_attend_f32(
             logits.data_ptr(), v.data_ptr(), attended.data_ptr(), B, R, G, v.shape[2],
@@ -241,6 +328,7 @@ def _glimpse_attend_cuda(logits: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
                         smem_limit=_build.smem_optin(dev.index or 0), elem=dt.itemsize)
     launch_glimpse_attend(logits, v, attended, plan)
     glimpse_attend.launches += 1
+    glimpse_attend.design_launches[plan["copy"]] += 1
     return attended
 
 
@@ -249,6 +337,7 @@ def _glimpse_attend_fake(logits: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
 
 
 glimpse_attend.launches = 0
+glimpse_attend.design_launches = dict.fromkeys(DESIGNS, 0)  # the launches by design
 _GLIMPSE_ATTEND_OP = register("glimpse_attend(Tensor logits, Tensor v) -> Tensor",
                               glimpse_attend_reference, _glimpse_attend_cuda,
                               _glimpse_attend_fake)
@@ -262,8 +351,11 @@ def glimpse_head_reference(joint: torch.Tensor, w: torch.Tensor, b: torch.Tensor
 
 def launch_glimpse_head(joint, w, b, v, attended, logits, plan: dict) -> None:
     """One launch of glimpse_head with ``plan``'s schedule (the float32
-    entry for a float32 plan)."""
+    entry for a float32 plan; the split design's own entry)."""
     B, R, M = joint.shape
+    if plan["copy"] == "split":
+        _launch_split(joint, w, b, None, v, attended, logits, plan)
+        return
     if plan["copy"] == "f32":
         err = _build.library().vqa_glimpse_head_f32(
             joint.data_ptr(), w.data_ptr(), b.data_ptr(), v.data_ptr(), attended.data_ptr(),
@@ -323,6 +415,7 @@ def _glimpse_head_cuda(joint: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                         smem_limit=_build.smem_optin(dev.index or 0), elem=dt.itemsize)
     launch_glimpse_head(joint, w, b, v, attended, logits, plan)
     glimpse_head.launches += 1
+    glimpse_head.design_launches[plan["copy"]] += 1
     return attended, logits
 
 
@@ -334,6 +427,7 @@ def _glimpse_head_fake(joint: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 
 
 glimpse_head.launches = 0
+glimpse_head.design_launches = dict.fromkeys(DESIGNS, 0)
 _GLIMPSE_HEAD_OP = register("glimpse_head(Tensor joint, Tensor w, Tensor b, Tensor v) -> "
                             "(Tensor, Tensor)",
                             glimpse_head_reference, _glimpse_head_cuda, _glimpse_head_fake)

@@ -41,13 +41,12 @@ import math
 
 import torch
 
-from vqa_tpu_torch.ops import KERNEL_DTYPES, _build, recompute_grads, register
+from vqa_tpu_torch.ops import KERNEL_DTYPES, SMEM_LIMIT, _build, recompute_grads, register
 
 RNN_BWD = ("bigmatmul", "native")  # engine.rnn_bwd
 
 
 SMS = 132  # streaming multiprocessors of an H100 SXM
-SMEM_LIMIT = 232_448  # shared memory one block may use on Hopper
 # csrc/lstm.cu's constants, for lstm_plan's reckoning; the cuda test
 # test_lstm_plan_matches_the_card holds the plan to what the kernel launches
 _STAGES = {2: 4, 1: 5}  # by warpgroups, as csrc/lstm.cu instantiates them
@@ -361,9 +360,8 @@ def _lstm_seq_cuda(xg: torch.Tensor, mask: torch.Tensor, wh: torch.Tensor):
         xp, wp = pad_odd_hidden(xg, wh)
         h_last, seq = _lstm_seq_cuda(xp, mask, wp)
         return h_last[:, :H].contiguous(), seq[..., :H].contiguous()
-    if xg.data_ptr() % 16:
-        raise ValueError("lstm_seq reads xg in 16-byte chunks: its storage must start on 16 "
-                         "bytes")
+    if xg.data_ptr() % 16:  # the kernel reads xg in 16-byte chunks: an aligned copy
+        xg = torch.empty_like(xg, memory_format=torch.contiguous_format).copy_(xg)
     if dt == torch.float32:
         return _lstm_seq_f32(xg, mask, wh)
     plan = lstm_plan(B, H)

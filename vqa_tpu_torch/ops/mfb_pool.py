@@ -11,8 +11,8 @@ projection that feeds it (``vqa_tpu/ops/mfb_pool.py:24-29``).
 The forward is the registered op ``torch.ops.vqa_tpu_torch.mfb_pool``: on
 CUDA tensors it launches the hand-written kernel in ``csrc/mfb_pool.cu``
 (one block per row, any row count; bf16 or float32, each dtype its own
-entry of the same kernel, the output in z's dtype); on CPU tensors it takes
-the plain version.
+entry of the same kernel, the output in z's dtype; any m, by the design
+``mfb_plan`` gives); on CPU tensors it takes the plain version.
 
 Where ``z`` asks for grads, the call is a ``torch.autograd.Function``: the
 same forward, and a backward by autograd through ``mfb_pool_reference`` on
@@ -28,9 +28,7 @@ from __future__ import annotations
 
 import torch
 
-from vqa_tpu_torch.ops import KERNEL_DTYPES, _build, recompute_grads, register
-
-_SMEM_LIMIT = 48 * 1024  # m fp32 roots per block, default dynamic shared memory
+from vqa_tpu_torch.ops import KERNEL_DTYPES, SMEM_LIMIT, _build, recompute_grads, register
 
 
 def mfb_pool_reference(z: torch.Tensor, k: int) -> torch.Tensor:
@@ -66,24 +64,37 @@ def _mfb_pool_forward(z: torch.Tensor, k: int) -> torch.Tensor:
     return _MFB_POOL_OP(z, k)
 
 
+def mfb_plan(m: int, smem_limit: int = SMEM_LIMIT) -> dict:
+    """The design ``csrc/mfb_pool.cu`` runs for rows of m outputs: "shared"
+    (the m fp32 signed roots in shared memory, opted in past the default 48
+    KB) where they fit within ``smem_limit``, else "global" (the roots in
+    the output row, scaled by the row's norm in a second sweep over it)."""
+    if m < 1:
+        raise ValueError(f"mfb_pool needs m >= 1, got {m}")
+    if m * 4 <= smem_limit:
+        return {"design": "shared", "smem_bytes": m * 4}
+    return {"design": "global", "smem_bytes": 0}
+
+
 def _mfb_pool_cuda(z: torch.Tensor, k: int) -> torch.Tensor:
-    """The op's CUDA implementation: check the operands, launch, count."""
+    """The op's CUDA implementation: check the operands, plan, launch, count."""
     m = z.shape[-1] // k
-    if m * 4 > _SMEM_LIMIT:
-        raise ValueError(f"m={m} exceeds the kernel's shared memory")
     lead = tuple(z.shape[:-1])
     _build.require("z", z, z.device, KERNEL_DTYPES, lead + (k * m,))
     out = torch.empty(lead + (m,), dtype=z.dtype, device=z.device)
     if out.numel() == 0:
         return out
-    lib = _build.library()
-    entry = lib.vqa_mfb_pool_f32 if z.dtype == torch.float32 else lib.vqa_mfb_pool
-    err = entry(
-        z.data_ptr(), out.data_ptr(), out.numel() // m, k, m,
-        _build.current_stream(z.device),
-    )
+    plan = mfb_plan(m, _build.smem_optin(z.device.index or 0))
+    lib, stream = _build.library(), _build.current_stream(z.device)
+    if plan["design"] == "global":
+        err = lib.vqa_mfb_pool_global(z.data_ptr(), out.data_ptr(), out.numel() // m, k, m,
+                                      z.dtype.itemsize, stream)
+    else:
+        entry = lib.vqa_mfb_pool_f32 if z.dtype == torch.float32 else lib.vqa_mfb_pool
+        err = entry(z.data_ptr(), out.data_ptr(), out.numel() // m, k, m, stream)
     _build.check(err, "mfb_pool")
     mfb_pool.launches += 1
+    mfb_pool.design_launches[plan["design"]] += 1
     return out
 
 
@@ -92,5 +103,6 @@ def _mfb_pool_fake(z: torch.Tensor, k: int) -> torch.Tensor:
 
 
 mfb_pool.launches = 0
+mfb_pool.design_launches = {"shared": 0, "global": 0}  # the launches by design
 _MFB_POOL_OP = register("mfb_pool(Tensor z, int k) -> Tensor", mfb_pool_reference, _mfb_pool_cuda,
                         _mfb_pool_fake)

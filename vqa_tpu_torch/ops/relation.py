@@ -28,9 +28,9 @@ import functools
 
 import torch
 
-from vqa_tpu_torch.ops import KERNEL_DTYPES, _build, recompute_grads, register
+from vqa_tpu_torch.ops import (KERNEL_DTYPES, MAX_MERGE_CHUNKS, SMEM_LIMIT, _build, lse_merge,
+                               recompute_grads, register)
 
-SMEM_LIMIT = 232_448    # shared memory a Hopper block may opt into
 MAX_N = 64              # the element design: s at most 4 x 16 rows, 8 x 8 columns
 MAX_F32_TILED_N = 256   # float32's tiled design: its softmax keeps a row in registers
 _ELEMENT_N = 48         # its N by default: at N=64 the tiled design measured faster
@@ -42,8 +42,8 @@ _TILE_ROWS = 64         # rows of i a CTA of the tiled design owns
 _ROW_BYTES = 128        # a tiled stage's rows: one 128-byte swizzled row (64 bf16, 32 float32)
 _BOX_ROWS = 256         # rows one TMA box may hold
 _MAX_STAGES = 4
-_WIDE_ROWS = 16         # rows of i a block of the wide design owns
-_DESIGNS = {"element": 0, "tiled": 1, "wide": 2}  # csrc/relation.cu's kDesign*
+_WIDE_ROWS = 16         # rows of i a block of the wide (and split) design owns
+_DESIGNS = {"element": 0, "tiled": 1, "wide": 2, "split": 3}  # csrc/relation.cu's kDesign*
 _GEOMETRY = ("ctas", "cluster", "threads", "smem_bytes")
 
 
@@ -88,19 +88,45 @@ def _tiled_smem(N: int, stages: int, elem: int = 2) -> int:
 
 def _wide_smem(N: int, D: int, elem: int = 2) -> int:
     """csrc/relation.cu's wide_smem: 16 rows of pg (``elem``-byte
-    elements), s^T [N, 16] (fp32)."""
+    elements), s^T [N, 16] (fp32); the split design's with N its chunk."""
     return _round_up(_WIDE_ROWS * D * elem, 16) + N * _WIDE_ROWS * 4
 
 
 def _wide_plan(B: int, N: int, D: int, smem_limit: int, elem: int = 2) -> dict:
+    """The wide design where its s^T [N, 16] fits, else the split one."""
     smem = _wide_smem(N, D, elem)
     if smem > smem_limit:
-        raise ValueError(f"relation_attend: N={N}, D={D} need {smem} bytes of shared "
-                         f"memory (16 rows of pg and 16 x N scores), over the {smem_limit} "
-                         f"a block may opt into")
+        return _split_plan(B, N, D, smem_limit, elem)
     return {"design": "wide", "split": 1, "stages": 1, "rows": _WIDE_ROWS,
             "smem_bytes": smem, "ctas": B * _ceil(N, _WIDE_ROWS), "cluster": 1,
             "threads": 256}
+
+
+def _split_plan(B: int, N: int, D: int, smem_limit: int, elem: int = 2,
+                chunks: int | None = None) -> dict:
+    """The split design: the wide design over ``chunks`` chunks of r's rows
+    (the fewest whose s^T [chunk, 16] fits beside pg's 16 rows, or as
+    forced), merged by their log-sum-exp; fp32 scratch of the chunks'
+    partial outputs [B N, chunks, D] and their (max, sum) [B N, chunks, 2].
+    Raises ValueError where even a chunk of one row does not fit."""
+    room = (smem_limit - _wide_smem(0, D, elem)) // (_WIDE_ROWS * 4)  # rows a chunk may hold
+    if room < 1:
+        raise ValueError(f"relation_attend: D={D} needs {_wide_smem(1, D, elem)} bytes of "
+                         f"shared memory (16 rows of pg and the scores of one row of r), over "
+                         f"the {smem_limit} a block may opt into")
+    if chunks is None:
+        chunks = _ceil(N, room)
+    if not 1 <= chunks <= min(N, MAX_MERGE_CHUNKS):
+        raise ValueError(f"relation_attend: the split design takes 1 to min(N, {MAX_MERGE_CHUNKS}) "
+                         f"chunks, got {chunks} at N={N}")
+    chunk = _ceil(N, chunks)
+    if _ceil(N, chunk) != chunks or chunk > room:
+        raise ValueError(f"relation_attend: {chunks} chunks of N={N} rows do not split evenly "
+                         f"or exceed the {room} rows a chunk's scores may hold")
+    return {"design": "split", "split": 1, "stages": 1, "rows": _WIDE_ROWS,
+            "chunks": chunks, "chunk": chunk, "smem_bytes": _wide_smem(chunk, D, elem),
+            "ctas": B * _ceil(N, _WIDE_ROWS) * chunks, "cluster": 1, "threads": 256,
+            "scratch_bytes": B * N * chunks * (D + 2) * 4}
 
 
 def _tiled_plan(B: int, N: int, smem_limit: int, elem: int = 2) -> dict:
@@ -112,18 +138,22 @@ def _tiled_plan(B: int, N: int, smem_limit: int, elem: int = 2) -> dict:
             "cluster": 1, "threads": 544}
 
 
-def _f32_plan(B: int, N: int, D: int, smem_limit: int, design: str | None) -> dict:
+def _f32_plan(B: int, N: int, D: int, smem_limit: int, design: str | None,
+              split: int | None) -> dict:
     """float32's plan: "tiled" up to N = 256 (its softmax keeps a row in
     registers) where a stage fits, both products in 3xTF32 on the tensor
-    cores; "wide" (FP32 FMA on the CUDA cores) past that, or where forced."""
+    cores; "wide" (FP32 FMA on the CUDA cores) past that, or where forced;
+    "split" past the wide design's shared memory, or where forced."""
     fits = N <= MAX_F32_TILED_N and _tiled_smem(N, 1, elem=4) <= smem_limit
     if design is None:
         design = "tiled" if fits else "wide"
     if design == "wide":
         return _wide_plan(B, N, D, smem_limit, elem=4)
+    if design == "split":
+        return _split_plan(B, N, D, smem_limit, 4, split)
     if design != "tiled":
         raise ValueError(f"relation_attend (float32) has no {design!r} design: it runs the "
-                         f"tiled one, or the wide one")
+                         f"tiled one, the wide one or the split one")
     if not fits:
         raise ValueError(f"relation_attend (float32): the tiled design takes N <= "
                          f"{MAX_F32_TILED_N} and a stage in shared memory: N={N} needs "
@@ -160,19 +190,25 @@ def relation_plan(B: int, N: int, D: int, vec: bool = True, smem_limit: int = SM
     - "wide" (the tiled design's s and one stage over ``smem_limit``: N
       past ~570 at D=1024): the parent's N > 64 kernel, one block an
       element and 16 rows, the scores on the CUDA cores (slow; for shapes
-      nothing else takes).
+      nothing else takes);
+    - "split" (the wide design's s^T [N, 16] over ``smem_limit``: N past
+      ~3100 at D=1024, ~2600 in float32): the wide design over ``chunks``
+      chunks of r's rows, each block's shared memory independent of N, the
+      chunks' fp32 partials merged by their log-sum-exp (a second kernel).
 
     ``vec=False`` (D % 8 != 0, or a pointer off 16 bytes) takes the same
     designs with plain copies (the element design one CTA an element).
-    ``design`` (either type) and ``split`` (bf16) may be forced, to probe
-    other schedules.
-    Raises ValueError, naming the limit, where even the wide design exceeds
-    ``smem_limit`` (the shared memory a block may opt into). Cached: the
-    wrapper asks at every call; the dict is shared, not to be changed."""
+    ``design`` (either type) and ``split`` (bf16's element design; the
+    split design's chunks, in either type) may be forced, to probe other
+    schedules.
+    Raises ValueError, naming the limit, where even one chunk of the split
+    design exceeds ``smem_limit`` (the shared memory a block may opt into).
+    Cached: the wrapper asks at every call; the dict is shared, not to be
+    changed."""
     if min(B, N, D) < 1:
         raise ValueError(f"relation_attend needs B, N, D >= 1, got B={B}, N={N}, D={D}")
     if elem == 4:
-        return _f32_plan(B, N, D, smem_limit, design)
+        return _f32_plan(B, N, D, smem_limit, design, split)
     if elem != 2:
         raise ValueError(f"relation_attend takes 2-byte (bf16) or 4-byte (float32) elements, "
                          f"got {elem}")
@@ -208,6 +244,8 @@ def relation_plan(B: int, N: int, D: int, vec: bool = True, smem_limit: int = SM
         design = "wide"
     if design == "wide":
         return _wide_plan(B, N, D, smem_limit)
+    if design == "split":
+        return _split_plan(B, N, D, smem_limit, 2, split)
     if design != "tiled":
         raise ValueError(f"relation_attend: no design {design!r}")
     return _tiled_plan(B, N, smem_limit)
@@ -222,11 +260,40 @@ def relation_attend_reference(pg: torch.Tensor, r: torch.Tensor) -> torch.Tensor
     return torch.einsum("bnm,bmd->bnd", torch.softmax(s, dim=-1), r)
 
 
+def relation_attend_split_model(pg: torch.Tensor, r: torch.Tensor, chunks: int) -> torch.Tensor:
+    """The split design's arithmetic in plain PyTorch, to hold the
+    split-and-merge against the reference: ``chunks`` chunks of r's rows
+    (ceil(N / chunks) each), each chunk's unnormalised weighted sum with its
+    max and sum of exp, merged by ``lse_merge``."""
+    N = pg.shape[1]
+    chunk = _ceil(N, chunks)
+    s = torch.einsum("bnd,bmd->bnm", pg, r) * pg.shape[-1] ** -0.5
+    parts, ms, ls = [], [], []
+    for j0 in range(0, N, chunk):
+        sc = s[..., j0:j0 + chunk]
+        m = sc.amax(-1)
+        p = torch.exp(sc - m.unsqueeze(-1))
+        parts.append(torch.einsum("bnm,bmd->bnd", p, r[:, j0:j0 + chunk]))
+        ms.append(m)
+        ls.append(p.sum(-1))
+    return lse_merge(torch.stack(parts, -2), torch.stack(ms, -1), torch.stack(ls, -1))
+
+
 def launch_relation_attend(pg: torch.Tensor, r: torch.Tensor, out: torch.Tensor,
                            plan: dict) -> None:
     """One launch with ``plan``'s schedule (float32 operands through the
-    float32 entry)."""
+    float32 entry; the split design, in either type, through its own entry,
+    with its scratch allocated here)."""
     B, N, D = pg.shape
+    if plan["design"] == "split":
+        chunks = plan["chunks"]
+        part = torch.empty(B * N * chunks * D, dtype=torch.float32, device=pg.device)
+        stats = torch.empty(B * N * chunks * 2, dtype=torch.float32, device=pg.device)
+        err = _build.library().vqa_relation_attend_split(
+            pg.data_ptr(), r.data_ptr(), out.data_ptr(), part.data_ptr(), stats.data_ptr(),
+            B, N, D, chunks, pg.dtype.itemsize, _build.current_stream(pg.device))
+        _build.check(err, "relation_attend")
+        return
     if pg.dtype == torch.float32:
         err = _build.library().vqa_relation_attend_f32(
             pg.data_ptr(), r.data_ptr(), out.data_ptr(), B, N, D, _DESIGNS[plan["design"]],
@@ -243,11 +310,13 @@ def launch_geometry(B: int, N: int, D: int, plan: dict, vec: bool, device_index:
                     elem: int = 2) -> dict:
     """What csrc/relation.cu launches for ``plan`` at this shape in
     ``elem``-byte elements (its own reckoning): the CTAs, the cluster size,
-    the threads and the shared memory of a CTA."""
+    the threads and the shared memory of a CTA (the split design's first
+    kernel: its merge runs one 256-thread block a row)."""
     geometry = (ctypes.c_longlong * len(_GEOMETRY))()
+    split = plan["chunks"] if plan["design"] == "split" else plan["split"]
     with torch.cuda.device(device_index):
         _build.check(_build.library().vqa_relation_geometry(
-            B, N, D, _DESIGNS[plan["design"]], plan["split"], plan["stages"], int(vec), elem,
+            B, N, D, _DESIGNS[plan["design"]], split, plan["stages"], int(vec), elem,
             geometry), "relation_attend geometry")
     return dict(zip(_GEOMETRY, geometry))
 
@@ -288,6 +357,7 @@ def _relation_attend_cuda(pg: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
                          smem_limit=_build.smem_optin(dev.index or 0), elem=dt.itemsize)
     launch_relation_attend(pg, r, out, plan)
     relation_attend.launches += 1
+    relation_attend.design_launches[plan["design"]] += 1
     return out
 
 
@@ -296,6 +366,7 @@ def _relation_attend_fake(pg: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
 
 
 relation_attend.launches = 0
+relation_attend.design_launches = dict.fromkeys(_DESIGNS, 0)  # the launches by design
 _RELATION_ATTEND_OP = register("relation_attend(Tensor pg, Tensor r) -> Tensor",
                                relation_attend_reference, _relation_attend_cuda,
                                _relation_attend_fake)
