@@ -313,11 +313,14 @@ Phases, each printing one line of what it found:
  17. large_shapes (after 11): the designs for the shapes past the other
      designs' shared memory, each against its plain version on the card in
      bf16 and float32 at B=2, timed in turns with it (CUDA events) beside
-     its bound: relation_attend's split design
-     (r's rows in chunks merged by their log-sum-exp) at N=3136 and 4096,
-     D=1024 (and SDPA; at N=2048 the wide design timed against the split
-     one); glimpse_head's and glimpse_attend's split design at R=196,
-     G=512 (glimpse groups) and R=16,384, G=4 (region chunks), M=510,
+     its bound: relation_attend's tc design (csrc/relation_tc.cu, the
+     default past the tiled design) and its split design (forced: r's rows
+     in chunks merged by their log-sum-exp) at N=3136 and 4096 and at the
+     path's [B, 3136, 1024], D=1024, each bit-equal across two calls, timed
+     in turns with each other, the plain version and SDPA (at N=2048 the
+     tc, the wide and the split design timed against each other);
+     glimpse_head's and glimpse_attend's split design at R=196, G=512
+     (glimpse groups) and R=16,384, G=4 (region chunks), M=510,
      D=2048, the attend logits masked past a row's middle and one row
      whole; mfb_pool at m=20,000 (opted-in shared memory) and 70,000 (the
      roots in the output row), k=5; lstm_seq over an xg off 16 bytes
@@ -327,7 +330,7 @@ Phases, each printing one line of what it found:
      the full width of cor.yaml and mutan_att.yaml (bf16, eval batch 64)
      over a synthetic raw VQA v2 set of 301 val questions on those images,
      through the kernels and the plain path: exactly each arch's kernels
-     launched, every CoR relation_attend call the split design, one
+     launched, every CoR relation_attend call the tc design, one
      results row per question, answers agreeing on 0.9; one forward of
      each at batch 64 with logits within 0.05 of the plain path's; CoR in
      float32 (16 questions over 8 rows) within 1e-4 of the plain float32
@@ -1328,7 +1331,7 @@ def _check_f32_kernels(torch, dev, rng, kernels) -> None:
                 tol="float64 hold: max(1e-5, twice the plain float32's own error)")
 
     # relation_attend: the tiled design, both products in 3xTF32 on wgmma,
-    # at N <= 256; the wide one (FP32 FMA) past it (N=450); two calls
+    # at N <= 256; the tc one (two wgmma kernels) past it (N=450); two calls
     # bit-equal; SDPA beside it
     worst, timing = 0.0, {}
     for B, N, D, offset in ((BATCH, REGIONS, 1024, 0), (SERVE_BATCH, GRID, 1024, 0),
@@ -3079,7 +3082,7 @@ TRACE_KERNELS = {
     "glimpse_attend": ("glimpse_kernel", "glimpse_parent_kernel", "glimpse_f32_kernel"),
     "mfb_pool": ("mfb_pool_kernel",),
     "relation_attend": ("relation_element_kernel", "relation_tiled_kernel",
-                        "relation_wide_kernel"),
+                        "relation_wide_kernel", "tc_scores_kernel", "tc_sum_kernel"),
 }
 
 
@@ -4440,7 +4443,7 @@ def _extract_phase(torch, dev, card: str, kernels: dict) -> dict:
 # (every shape the JAX package computes), each against its plain version on
 # the card in both dtypes, timed; then the path that needs one: the extract
 # CLI's function at --size 1792 (a 56 x 56 grid, N = R = 3136) and the eval
-# CLI over that table, CoR (each relation core call the split design) and
+# CLI over that table, CoR (each relation core call the tc design) and
 # MutanAtt, at a batch that fits; and one forward each, held on its logits
 # against the plain path, of CoR in bf16 and float32 and of MutanAtt with
 # 24 glimpses (model.attention.nb_glimpses, past alpha [3136, 18] in
@@ -4460,8 +4463,10 @@ LARGE_F32_BATCH = 16                     # the CoR float32 forward's batch
 # global design twice, its roots waiting in the bf16 output row: 0.8%),
 # and its fp32 sums in another order add far less
 BF16_LARGE_REL = 0.01
-LARGE_RELATION_N = (LARGE_GRID, 4096)    # D=1024: the split design (r's rows in chunks)
-LARGE_RELATION_WIDE_N = 2048             # the wide design's, timed against the split one
+LARGE_RELATION_N = (LARGE_GRID, 4096)    # D=1024: the tc design, and the split one forced
+LARGE_RELATION_WIDE_N = 2048             # the tc, the wide and the split design timed together
+# each design's source, where it is not its kernel's SOURCES entry
+DESIGN_SOURCES = {("relation_attend", "tc"): "vqa_tpu_torch/csrc/relation_tc.cu"}
 LARGE_GLIMPSE = ((196, 512), (16_384, 4))  # (R, G) at M=510, D=2048: glimpse groups; chunks
 LARGE_MFB = ((64, 5, 20_000), (64, 5, 70_000))  # (n, k, m): opted-in shared memory; global
 LARGE_GLIMPSES = 24
@@ -4499,18 +4504,29 @@ def _large_err(torch, got, want, dtype, tol_bf16, tol_f32=F32_REL):
     return _rel_err(got, want), tol_f32
 
 
+def _turns(torch, fns, iters: int) -> list:
+    """The median CUDA-event time of each of ``fns``, timed in the order
+    given and then reversed, each the median of its two turns."""
+    times = [[] for _ in fns]
+    order = list(range(len(fns)))
+    for k in order + order[::-1]:
+        times[k].append(_median_ms(torch, fns[k], iters=iters, warmup=1))
+    return [statistics.median(t) for t in times]
+
+
 def _large_kernels(torch, dev, card: str) -> list:
     """[large_shapes], kernels: each new design against its plain version on
     the card, in bf16 and float32, timed in turns with it (CUDA events),
     beside its bound; returns their records."""
     import torch.nn.functional as F
 
-    from vqa_tpu_torch.ops import lstm
+    from vqa_tpu_torch.ops import lstm, relation
     from vqa_tpu_torch.ops.attention import (glimpse_attend, glimpse_attend_reference,
                                              glimpse_head, glimpse_head_reference, glimpse_plan)
     from vqa_tpu_torch.ops.mfb_pool import mfb_plan, mfb_pool, mfb_pool_reference
-    from vqa_tpu_torch.ops.relation import (launch_relation_attend, relation_attend,
-                                            relation_attend_reference, relation_plan)
+    from vqa_tpu_torch.ops.relation import (launch_geometry, launch_relation_attend,
+                                            relation_attend, relation_attend_reference,
+                                            relation_plan)
 
     def timed(kernel, plain, iters=5):
         return _in_turns(torch, lambda t, fn: _median_ms(t, fn, iters=iters, warmup=1),
@@ -4521,41 +4537,72 @@ def _large_kernels(torch, dev, card: str) -> list:
     for dtype in (torch.bfloat16, torch.float32):
         elem, tag = dtype.itemsize, "bf16" if dtype == torch.bfloat16 else "float32"
         path_b = LARGE_BATCH if elem == 2 else LARGE_F32_BATCH  # the path's batch this type
-        # relation_attend: the split design at N = 3136 and 4096, and at the
-        # path's [B, 3136, 1024]
+        # relation_attend: the tc design (the default) and the split one
+        # (forced) at N = 3136 and 4096, and at the path's [B, 3136, 1024]
         relation_shapes = [(LARGE_KERNEL_B, N) for N in LARGE_RELATION_N] + [(path_b, LARGE_GRID)]
+        relation_records = []
         for B, N in relation_shapes:
             pg = torch.tanh(torch.randn(B, N, D, device=dev)).to(dtype)
             r = torch.tanh(torch.randn(B, N, D, device=dev)).to(dtype)
-            plan = relation_plan(B, N, D, elem=elem)
-            out = relation_attend(pg, r)
-            again = relation_attend(pg, r)
+            plans = {"tc": relation_plan(B, N, D, elem=elem),
+                     "split": relation_plan(B, N, D, elem=elem, design="split")}
             want = relation_attend_reference(pg.float(), r.float())
+            # two calls of each: the wrapper's (tc), the forced plan's (split)
+            outs = {"tc": (relation_attend(pg, r), relation_attend(pg, r)),
+                    "split": (torch.empty_like(pg), torch.empty_like(pg))}
+            for o in outs["split"]:
+                launch_relation_attend(pg, r, o, plans["split"])
             torch.cuda.synchronize()
-            err, tol = _large_err(torch, out, want, dtype, RELATION_ATOL)
-            _require(plan["design"] == "split" and err <= tol and torch.equal(out, again),
-                     f"[large_shapes] relation_attend {(B, N, D)} {tag}: the split design "
-                     f"({plan['design']}), err {err} <= {tol}, bit-equal across two calls")
-            ms, plain = timed(lambda: relation_attend(pg, r),
-                              lambda: relation_attend_reference(pg, r))
-            library = _median_ms(torch, lambda: F.scaled_dot_product_attention(pg, r, r),
-                                 iters=5, warmup=1)
+            # the entry's own reckoning of its two launches against the plan's
+            geometry = launch_geometry(B, N, D, plans["tc"], True, dev.index or 0, elem=elem)
+            _require(geometry == {k: plans["tc"][k] for k in geometry},
+                     f"[large_shapes] relation_attend {(B, N, D)} {tag}: the tc entry launches "
+                     f"the plan's geometry ({geometry} vs {plans['tc']})")
+            held = {}
+            for design, plan in plans.items():
+                err, tol = _large_err(torch, outs[design][0], want, dtype, RELATION_ATOL)
+                held[design] = err
+                _require(plan["design"] == design and err <= tol
+                         and torch.equal(outs[design][0], outs[design][1]),
+                         f"[large_shapes] relation_attend {(B, N, D)} {tag}: the {design} design "
+                         f"({plan['design']}), err {err} <= {tol}, bit-equal across two calls")
+            tc_ms, split_ms, plain, library = _turns(
+                torch, [lambda: relation_attend(pg, r),
+                        lambda: launch_relation_attend(pg, r, outs["split"][0], plans["split"]),
+                        lambda: relation_attend_reference(pg, r),
+                        lambda: F.scaled_dot_product_attention(pg, r, r)], iters=5)
             bound = (_bound(2 * 3 * B * N * D, 2.0 * 2 * B * N * N * D) if elem == 2
                      else _relation_f32_bounds(B, N, D)[0])
             fp32_fma = _bound(elem * 3 * B * N * D, 2.0 * 2 * B * N * N * D, PEAK_FP32)[0]
-            rec = _large_record("relation_attend", "split", err, tol, ms, plain, bound, library,
-                                f"B={B} N={N} D={D} {tag}", chunks=plan.get("chunks"),
-                                bound_fp32_fma_ms=fp32_fma, bit_equal=True)
-            records.append(rec)
-            _phase("large_shapes", kernel="relation_attend", card=card,
-                   **{k: (round(x, 6) if isinstance(x, float) else x) for k, x in rec.items()})
-            del pg, r, out, again, want
-        # the wide design against the split one where both fit (N = 2048)
+            shape = f"B={B} N={N} D={D} {tag}"
+            # the tc design's two launches apart, over one scratch (the
+            # scores' launch, timed first, leaves it for the weighted sum's)
+            scratch, tc_out = relation.tc_scratch(pg, plans["tc"]), torch.empty_like(pg)
+            scores_ms, sum_ms = _turns(
+                torch, [lambda w=w: relation._launch_tc(pg, r, tc_out, plans["tc"], (w,), scratch)
+                        for w in (0, 1)], iters=5)
+            for design, ms, other in (("tc", tc_ms, dict(split_ms=split_ms)),
+                                      ("split", split_ms, dict(tc_ms=tc_ms))):
+                plan = plans[design]
+                extra = (dict(chunks=plan["chunks"]) if design == "split" else
+                         dict(slices=plan["slices"], scratch_bytes=plan["scratch_bytes"],
+                              scores_ms=scores_ms, sum_ms=sum_ms))
+                rec = _large_record("relation_attend", design, held[design], tol, ms, plain, bound,
+                                    library, shape, bound_fp32_fma_ms=fp32_fma, bit_equal=True,
+                                    vs_sdpa=ms / library, **other, **extra)
+                records.append(rec)
+                relation_records.append(rec)
+                _phase("large_shapes", kernel="relation_attend", card=card,
+                       **{k: (round(x, 6) if isinstance(x, float) else x) for k, x in rec.items()})
+            del pg, r, outs, want, scratch, tc_out
+        # the tc design against the wide one (and the split one) where the
+        # wide one fits (N = 2048)
         B, N = LARGE_KERNEL_B, LARGE_RELATION_WIDE_N
         pg = torch.tanh(torch.randn(B, N, D, device=dev)).to(dtype)
         r = torch.tanh(torch.randn(B, N, D, device=dev)).to(dtype)
         want = relation_attend_reference(pg.float(), r.float())
-        outs, plans = {}, {"wide": relation_plan(B, N, D, elem=elem),
+        outs, plans = {}, {"tc": relation_plan(B, N, D, elem=elem),
+                           "wide": relation_plan(B, N, D, elem=elem, design="wide"),
                            "split": relation_plan(B, N, D, elem=elem, design="split", split=2)}
         for design, plan in plans.items():
             outs[design] = torch.empty_like(pg)
@@ -4563,19 +4610,24 @@ def _large_kernels(torch, dev, card: str) -> list:
         torch.cuda.synchronize()
         errs = {d: _large_err(torch, o, want, dtype, RELATION_ATOL)[0] for d, o in outs.items()}
         tol = _large_err(torch, want, want, dtype, RELATION_ATOL)[1]
-        _require(plans["wide"]["design"] == "wide" and max(errs.values()) <= tol,
-                 f"[large_shapes] relation_attend N={N} {tag}: the wide and the split design "
-                 f"within {tol}: {errs}")
-        split_ms, wide_ms = timed(lambda: launch_relation_attend(pg, r, outs["split"],
-                                                                 plans["split"]),
-                                  lambda: launch_relation_attend(pg, r, outs["wide"],
-                                                                 plans["wide"]))
-        _phase("large_shapes", kernel="relation_attend", card=card, part="wide_vs_split",
-               shape=f"B={B} N={N} D={D} {tag}", wide_ms=round(wide_ms, 4),
-               split_ms=round(split_ms, 4), split_chunks=2, wide_err=round(errs["wide"], 8),
-               split_err=round(errs["split"], 8), tol=tol)
-        for rec in records[-len(relation_shapes):]:  # this type's relation records
-            rec[f"wide_vs_split_n{N}"] = dict(wide_ms=wide_ms, split_ms=split_ms)
+        _require({d: p["design"] for d, p in plans.items()} == {d: d for d in plans}
+                 and max(errs.values()) <= tol,
+                 f"[large_shapes] relation_attend N={N} {tag}: the tc, the wide and the split "
+                 f"design within {tol}: {errs}")
+        tc_ms, wide_ms, split_ms = _turns(
+            torch, [lambda d=d: launch_relation_attend(pg, r, outs[d], plans[d])
+                    for d in ("tc", "wide", "split")], iters=5)
+        bound = (_bound(2 * 3 * B * N * D, 2.0 * 2 * B * N * N * D) if elem == 2
+                 else _relation_f32_bounds(B, N, D)[0])
+        _phase("large_shapes", kernel="relation_attend", card=card, part="tc_vs_wide_vs_split",
+               shape=f"B={B} N={N} D={D} {tag}", tc_ms=round(tc_ms, 4), wide_ms=round(wide_ms, 4),
+               split_ms=round(split_ms, 4), split_chunks=2, tc_err=round(errs["tc"], 8),
+               wide_err=round(errs["wide"], 8), split_err=round(errs["split"], 8), tol=tol,
+               bound_ms=round(bound[0], 6), bound_by=bound[1],
+               tc_pct_of_bound=round(100 * bound[0] / tc_ms, 3))
+        for rec in relation_records:  # this type's relation records
+            rec[f"tc_vs_wide_n{N}"] = dict(tc_ms=tc_ms, wide_ms=wide_ms, split_ms=split_ms,
+                                           bound_ms=bound[0])
         del pg, r, outs, want
 
         # glimpse_head and glimpse_attend: glimpse groups (R=196, G=512),
@@ -4784,9 +4836,9 @@ def _large_path(torch, dev, card: str) -> tuple:
                      f"launched ({counts}), finite logits within {LOGITS_ATOL} of the plain "
                      f"path's: {err}")
             if arch == "CoR":
-                _require(by_design["relation_attend"]["split"] == counts["relation_attend"] > 0,
+                _require(by_design["relation_attend"]["tc"] == counts["relation_attend"] > 0,
                          f"[large_shapes] every relation_attend call over {LARGE_GRID} regions "
-                         f"ran the split design: {by_design['relation_attend']}")
+                         f"ran the tc design: {by_design['relation_attend']}")
             add(counts, by_design)
             forward = dict(logits_max_abs_err=round(err, 5), tol=LOGITS_ATOL,
                            logits_std=round(plain.std().item(), 5))
@@ -4831,9 +4883,9 @@ def _large_path(torch, dev, card: str) -> tuple:
                          f"question")
             kern = runs["kernels"]
             if arch == "CoR":
-                _require(kern["designs"]["relation_attend"]["split"]
+                _require(kern["designs"]["relation_attend"]["tc"]
                          == kern["counts"]["relation_attend"] > 0,
-                         f"[large_shapes] the eval CLI's relation_attend calls ran the split "
+                         f"[large_shapes] the eval CLI's relation_attend calls ran the tc "
                          f"design: {kern['designs']['relation_attend']}")
             agree = float(np.mean([kern["results"][q] == a
                                    for q, a in runs["plain"]["results"].items()]))
@@ -4866,9 +4918,9 @@ def _large_path(torch, dev, card: str) -> tuple:
         logits, plain, counts, by_design = _grid_logits(torch, dev, cor32, table32, 1000,
                                                         LARGE_F32_BATCH, 4)
         err = _rel_err(logits, plain)
-        _require(by_design["relation_attend"]["split"] == counts["relation_attend"] > 0
+        _require(by_design["relation_attend"]["tc"] == counts["relation_attend"] > 0
                  and err <= F32_LOGITS_REL,
-                 f"[large_shapes] CoR float32 over {LARGE_GRID} regions: the split design "
+                 f"[large_shapes] CoR float32 over {LARGE_GRID} regions: the tc design "
                  f"({by_design['relation_attend']}), logits within {F32_LOGITS_REL} of the plain "
                  f"float32 path's max-abs: {err}")
         add(counts, by_design)
@@ -4913,7 +4965,8 @@ def _large_shapes_phase(torch, dev, card: str, kernels: dict) -> dict:
     for rec in records:
         name, design = rec.pop("name").split("/")
         by_shape = kernels[name].setdefault("designs", {}).setdefault(design, {
-            "route": "cuda", "source": SOURCES[name][0], "replaces": SOURCES[name][1],
+            "route": "cuda", "source": DESIGN_SOURCES.get((name, design), SOURCES[name][0]),
+            "replaces": SOURCES[name][1],
             "launches": designs.get(name, {}).get(design, 0), "by_shape": {}})
         by_shape["by_shape"][rec["shape"]] = {
             k: (round(x, 6) if isinstance(x, float) else x) for k, x in rec.items()

@@ -405,13 +405,14 @@ def test_relation_plan_takes_float32(B, N):
                                              (784, 1, "wide")])
 def test_relation_plan_float32_takes_the_wide_design_past_n_256(N, stages, design):
     """The tiled design keeps the most stages that fit, up to N = 256 (its
-    softmax keeps a row in registers); past it float32 takes the wide
-    design, FP32 FMA, whose 16 rows of pg and 16 x N scores fit, and the
+    softmax keeps a row in registers); past it float32 takes the tc design
+    by default (tests/test_torch_relation_tc.py) and the wide design where
+    forced, FP32 FMA, whose 16 rows of pg and 16 x N scores fit, and the
     split design where those scores do not (here a limit with room for
     half of them: r's rows in two or three chunks); a forced tiled design
     there, or a limit below the split design's 16 rows of pg and one row's
     scores, is refused."""
-    plan = relation_plan(8, N, 1024, elem=4)
+    plan = relation_plan(8, N, 1024, elem=4, design="wide" if design == "wide" else None)
     assert (plan["design"], plan["stages"]) == (design, stages)
     assert plan["smem_bytes"] <= relation.SMEM_LIMIT
     if design == "wide":
@@ -626,7 +627,7 @@ def test_mfb_pool_float32_kernel_matches_plain(cuda_device, n, k, m):
                                    (3, 65, 40), (2, 256, 64), (2, 600, 64)])
 def test_relation_attend_float32_kernel_matches_plain(cuda_device, B, N, D):
     """Within 1e-5 of the plain output's max-abs, two calls bit-equal (N=256:
-    the tiled design's largest; N=600: the wide one)."""
+    the tiled design's largest; N=600: the tc one)."""
     pg = torch.tanh(torch.randn(B, N, D, device=cuda_device))
     r = torch.tanh(torch.randn(B, N, D, device=cuda_device))
     got = relation_attend(pg, r)
@@ -671,4 +672,7 @@ def test_relation_plan_float32_matches_the_card(cuda_device, B, N, D, vec, desig
     plan = relation_plan(B, N, D, vec=vec, smem_limit=_build.smem_optin(cuda_device.index or 0),
                          design=design, elem=4)
     geometry = relation.launch_geometry(B, N, D, plan, vec, cuda_device.index or 0, elem=4)
-    assert geometry == {k: plan[k] for k in ("ctas", "cluster", "threads", "smem_bytes")}
+    want = {k: plan[k] for k in ("ctas", "cluster", "threads", "smem_bytes")}
+    if plan["design"] == "tc":  # and its second launch, the weighted sum
+        want["weighted"] = plan["weighted"]
+    assert geometry == want

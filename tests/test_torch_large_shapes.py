@@ -1,9 +1,11 @@
 """Every shape the JAX package computes, on the port's kernels: the designs
 for the shapes past the others' shared memory.
 
-- ``relation_attend``'s split design (r's rows in chunks, merged by their
-  log-sum-exp) past the wide design's s^T [N, 16]: N=3136, the grid of a
-  1792-pixel extract, and past it;
+- ``relation_attend``'s tc design (two wgmma kernels: the scores into
+  fp32 scratch, then the weighted sum) at every N past the tiled design,
+  N=3136 (the grid of a 1792-pixel extract) among them, and its split
+  design (r's rows in chunks, merged by their log-sum-exp) where the tc
+  design cannot run (no TMA) or where forced;
 - the glimpse kernels' split design past alpha [R, G] in shared memory:
   glimpse groups (R=196 with G=512), and region chunks merged by their
   log-sum-exp (R=16,384 with G=4);
@@ -40,7 +42,8 @@ from vqa_tpu_torch.ops.attention import (glimpse_attend, glimpse_attend_referenc
 from vqa_tpu_torch.ops.lstm import lstm_seq_reference
 from vqa_tpu_torch.ops.mfb_pool import mfb_plan, mfb_pool_reference
 from vqa_tpu_torch.ops.relation import (relation_attend, relation_attend_reference,
-                                        relation_attend_split_model, relation_plan)
+                                        relation_attend_split_model, relation_plan,
+                                        tc_scores_model, tc_sum_model)
 
 torch.set_num_threads(1)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -78,14 +81,22 @@ def _assert_near(got, want, atol):
 
 @pytest.mark.parametrize("elem", [2, 4])
 @pytest.mark.parametrize("N,design,chunks", [(2048, "wide", None), (GRID, "split", 2),
-                                             (4096, "split", 2), (8192, "split", None)])
+                                             (4096, "split", 2), (8192, "split", None),
+                                             (2048, "tc", None), (GRID, "tc", None),
+                                             (4096, "tc", None), (8192, "tc", None)])
 def test_relation_plan_takes_every_n(N, design, chunks, elem):
-    """D=1024: the wide design while its scores fit (N=2048), the split
-    design past it, with the fewest chunks whose 16 x chunk scores fit
-    beside pg's 16 rows (N=8192: 3 in bf16, 4 in float32)."""
-    plan = relation_plan(64, N, 1024, elem=elem)
+    """D=1024: by default the tc design at every N (both kernels' shared
+    memory independent of N, the scratch in slices of the batch under its
+    budget). Forced: the wide design while its scores fit (N=2048), the
+    split design past it, with the fewest chunks whose 16 x chunk scores
+    fit beside pg's 16 rows (N=8192: 3 in bf16, 4 in float32)."""
+    plan = relation_plan(64, N, 1024, elem=elem, design=None if design == "tc" else design)
     assert plan["design"] == design
     assert plan["smem_bytes"] <= SMEM
+    if design == "tc":
+        assert plan["weighted"]["smem_bytes"] <= SMEM
+        assert plan["scratch_bytes"] <= relation.TC_SCRATCH_BUDGET
+        assert plan["slice"] * plan["slices"] >= 64 > plan["slice"] * (plan["slices"] - 1)
     if design == "split":
         want = chunks or (3 if elem == 2 else 4)
         chunk = -(-N // want)
@@ -216,6 +227,23 @@ class _SplitLibrary:
         _view(stats, (B * N * chunks * 2,)).zero_()
         return 0
 
+    def vqa_relation_attend_tc(self, pg, r, out, s, stats, B, N, D, elem, which, stream):
+        dt = torch.bfloat16 if elem == 2 else torch.float32
+        tile = relation._TC[elem]["tile"]
+        self.calls.append(("relation_tc", B, which))
+        # launch 0 leaves the scores and their tile statistics in the
+        # wrapper's scratch; launch 1 reads them from there
+        s_view = _view(s, (B, N, -(-N // 4) * 4))[..., :N]
+        stats_view = _view(stats, (B, N, -(-N // tile), 2))
+        rr = _view(r, (B, N, D), dt).float()
+        if which == 0:
+            got_s, got_stats = tc_scores_model(_view(pg, (B, N, D), dt).float(), rr, tile)
+            s_view.copy_(got_s)
+            stats_view.copy_(got_stats)
+        else:
+            _view(out, (B, N, D), dt).copy_(tc_sum_model(s_view, stats_view, rr))
+        return 0
+
     def vqa_relation_attend_f32(self, pg, r, out, B, N, D, design, stages, stream):
         self.calls.append(("relation_f32", design))
         _view(out, (B, N, D)).copy_(relation_attend_reference(_view(pg, (B, N, D)),
@@ -287,16 +315,44 @@ def split_dispatch(monkeypatch):
     return lib
 
 
+def _off_16_bytes(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of ``t`` whose storage starts one element past 16
+    bytes (no TMA: the wrapper plans with vec=False)."""
+    base = torch.empty(t.numel() + 1, dtype=t.dtype)[1:]
+    off = base.view(t.shape).copy_(t)
+    assert off.data_ptr() % 16 and off.is_contiguous()
+    return off
+
+
 @pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-6), (torch.bfloat16, RELATION_ATOL)])
 def test_relation_attend_dispatches_the_split_design(split_dispatch, dtype, atol):
-    """N=3136 at D=1024 takes the split entry with its plan's two chunks;
-    the launch is counted under the design."""
+    """N=3136 at D=1024 with r off 16 bytes (no TMA, so not the tc design)
+    takes the split entry with its plan's two chunks; the launch is counted
+    under the design."""
     g = torch.Generator().manual_seed(0)
     pg, r = (torch.tanh(torch.randn(1, GRID, 1024, generator=g)).to(dtype) for _ in range(2))
+    r = _off_16_bytes(r)
     before = relation_attend.design_launches["split"]
     got = relation_attend(pg, r)
     assert split_dispatch.calls == [("relation_split", 2)]
     assert relation_attend.design_launches["split"] == before + 1
+    want = relation_attend_reference(pg.float(), r.float())
+    assert (got.float() - want).abs().max().item() <= atol
+    _assert_near(got, want, atol)
+
+
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-6), (torch.bfloat16, RELATION_ATOL)])
+def test_relation_attend_dispatches_the_tc_design(split_dispatch, dtype, atol):
+    """N=3136 at D=1024, operands on 16 bytes: the wrapper takes the tc
+    entry, its two launches for the batch (one slice, the scores' scratch
+    handed from the first to the second), and counts the call under the
+    design; the output is the plain version's."""
+    g = torch.Generator().manual_seed(5)
+    pg, r = (torch.tanh(torch.randn(1, GRID, 1024, generator=g)).to(dtype) for _ in range(2))
+    before = relation_attend.design_launches["tc"]
+    got = relation_attend(pg, r)
+    assert split_dispatch.calls == [("relation_tc", 1, 0), ("relation_tc", 1, 1)]
+    assert relation_attend.design_launches["tc"] == before + 1
     want = relation_attend_reference(pg.float(), r.float())
     assert (got.float() - want).abs().max().item() <= atol
     _assert_near(got, want, atol)
@@ -374,9 +430,10 @@ _TINY = {
 }
 
 
-def _grid_models(name, num_words=30, num_answers=11, dim_v=14, B=3):
-    """A tiny model of ``name``.yaml in flax and in the port with the same
-    non-zero params, and its inputs over 3136 regions."""
+def _grid_models(name, num_words=30, num_answers=11, dim_v=14, B=3, extra=()):
+    """A tiny model of ``name``.yaml (``extra`` overrides after the tiny
+    widths) in flax and in the port with the same non-zero params, and its
+    inputs over 3136 regions."""
     import jax
     import jax.numpy as jnp
 
@@ -386,7 +443,8 @@ def _grid_models(name, num_words=30, num_answers=11, dim_v=14, B=3):
     from vqa_tpu_torch.models import factory as port_factory
     from vqa_tpu_torch.weights import load_params
 
-    opt = load_options(os.path.join(REPO, "options", "vqa2", f"{name}.yaml"), _TINY[name])
+    opt = load_options(os.path.join(REPO, "options", "vqa2", f"{name}.yaml"),
+                       _TINY[name] + list(extra))
     jax_model = jax_factory(opt.model, num_words, num_answers)
     rng = np.random.default_rng(7)
     visual = rng.standard_normal((B, GRID, dim_v)).astype(np.float32)
@@ -427,6 +485,21 @@ def test_cor_over_the_grid_through_the_split_dispatch_matches_jax(split_dispatch
     assert len(splits) == 3 and all(chunks == 3 for _, chunks in splits)
 
 
+def test_cor_over_the_grid_through_the_tc_dispatch_matches_jax(split_dispatch):
+    """CoR with its fusion 16 wide (D % 8 == 0: TMA can load it) over the
+    grid, every kernel call through its CUDA implementation: each of the
+    three relation core calls takes the tc entry, the batch in one slice,
+    and the logits stay within 1e-4 of JAX's."""
+    port, visual, tokens, want = _grid_models("cor", extra=["model.fusion.dim_h=16"])
+    before = relation_attend.design_launches["tc"]
+    with torch.inference_mode():
+        got = port(torch.from_numpy(visual), torch.from_numpy(tokens))
+    np.testing.assert_allclose(got.numpy(), want, **LOGITS_TOL)
+    assert [c for c in split_dispatch.calls if c[0].startswith("relation")] == \
+        [("relation_tc", 3, 0), ("relation_tc", 3, 1)] * 3
+    assert relation_attend.design_launches["tc"] == before + 3
+
+
 # ------------------------------------------------------ on the card only
 
 
@@ -447,8 +520,11 @@ def _rel(got, want) -> float:
 @pytest.mark.parametrize("B,N", [(2, GRID), (2, 4096), (64, GRID)])  # (64, GRID): CoR's eval
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_relation_split_on_the_card_matches_plain(cuda_device, B, N, dtype):
+    """r off 16 bytes: the wrapper takes the split design (the tc design
+    needs TMA), counted under it."""
     pg = torch.tanh(torch.randn(B, N, 1024, device=cuda_device)).to(dtype)
-    r = torch.tanh(torch.randn(B, N, 1024, device=cuda_device)).to(dtype)
+    r = torch.empty(B * N * 1024 + 1, device=cuda_device, dtype=dtype)[1:].view(B, N, 1024)
+    r.copy_(torch.tanh(torch.randn(B, N, 1024, device=cuda_device)))
     before = relation_attend.design_launches["split"]
     got = relation_attend(pg, r)
     want = relation_attend_reference(pg.float(), r.float())

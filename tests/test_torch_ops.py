@@ -340,19 +340,24 @@ def test_glimpse_plan_refuses_only_past_shared_memory():
     (1024, 65, 1024, 232_448, True, "tiled", 1),
     (1024, 196, 1024, 232_448, True, "tiled", 1),    # the extract CLI's grid
     (8, 64, 4000, 232_448, True, "tiled", 1),        # r past an element CTA even split
-    (8, 784, 1024, 232_448, True, "wide", 1),        # the grid of a 896-pixel image
+    (8, 784, 1024, 232_448, True, "tc", 1),          # the grid of a 896-pixel image
+    (8, 784, 1024, 232_448, False, "wide", 1),       # the same with no TMA
 ])
 def test_relation_entry_by_shape(B, N, D, smem_limit, vec, design, split):
     """relation_plan: N <= 48 takes the element design, D split over a CTA
     pair where two fit on an SM (else the fewest CTAs that fit), anything
-    else the tiled design (the wide one past its shared memory); only
-    shared memory refuses a shape."""
+    else the tiled design (past its shared memory the tc one, two wgmma
+    kernels, or with no TMA the wide one); only shared memory refuses a
+    shape."""
     plan = relation_plan(B, N, D, vec=vec, smem_limit=smem_limit)
     assert (plan["design"], plan["split"]) == (design, split)
     assert plan["smem_bytes"] <= smem_limit
     if design == "element":
         assert plan["ctas"] == B * split and plan["cluster"] == split
         assert split == 1 or (D // split) % 16 == 0
+    elif design == "tc":  # the scores' launch: a CTA 128 rows x a column tile of s
+        assert plan["ctas"] == B * -(-N // plan["rows"]) * plan["tiles"] and plan["stages"] == 4
+        assert plan["weighted"]["ctas"] == B * -(-N // plan["rows"]) * -(-D // plan["tile"])
     else:
         assert plan["ctas"] == B * -(-N // plan["rows"]) and 1 <= plan["stages"] <= 4
     with pytest.raises(ValueError, match="shared memory"):
@@ -965,7 +970,7 @@ def test_relation_attend_kernel_matches_plain(cuda_device, B, N, D):
     """fp32 scores and softmax, alpha as two bf16 halves, output rounded to
     bf16 (0.01, as chip_smoke.py's RELATION_ATOL). N = 65, 100, 196, 300
     take the tiled design (N=300: two boxes of r, two passes of the
-    scores), N=600 the wide one, D=33 the plain copies, D=40 a zero-padded
+    scores), N=600 the tc one, D=33 the plain copies, D=40 a zero-padded
     k-step."""
     pg = torch.tanh(torch.randn(B, N, D, device=cuda_device)).bfloat16()
     r = torch.tanh(torch.randn(B, N, D, device=cuda_device)).bfloat16()
@@ -1002,8 +1007,11 @@ def test_relation_plan_matches_the_card(cuda_device, B, N, D, vec):
     plan = relation_plan(B, N, D, vec=vec,
                          smem_limit=_build.smem_optin(cuda_device.index or 0))
     geometry = relation_geometry(B, N, D, plan, vec, cuda_device.index or 0)
-    assert geometry == {"ctas": plan["ctas"], "cluster": plan["cluster"],
-                        "threads": plan["threads"], "smem_bytes": plan["smem_bytes"]}
+    want = {"ctas": plan["ctas"], "cluster": plan["cluster"], "threads": plan["threads"],
+            "smem_bytes": plan["smem_bytes"]}
+    if plan["design"] == "tc":  # and its second launch, the weighted sum
+        want["weighted"] = plan["weighted"]
+    assert geometry == want
 
 
 # the archs' shapes of each registered op: (inputs' shapes, non-tensor args)

@@ -477,10 +477,15 @@ def test_dynamic_batcher_coalesces_concurrent_requests():
 
 def test_dynamic_batcher_times_out_and_drops_the_abandoned_request():
     """A wedged forward answers its waiting clients with TimeoutError, and a
-    request that timed out in the queue never reaches the device."""
+    request that timed out in the queue never reaches the device. The
+    clients' timeout (5 s) leaves the worker ample time to take A into its
+    forward even on a loaded host (at 0.3 s A could time out in the queue
+    first and be dropped unrun); A's forward is then held on ``gate`` until
+    both A and B have timed out, so the order of events does not hang on
+    the host's speed."""
     gate = threading.Event()
     svc = _EchoService(gate)
-    dyn = DynamicBatcher(svc, max_wait_ms=1, request_timeout_s=0.3)
+    dyn = DynamicBatcher(svc, max_wait_ms=1, request_timeout_s=5.0)
     first = threading.Thread(target=lambda: pytest.raises(
         TimeoutError, dyn.answer_batch, ["A"], ["img"], topk=1), daemon=True)
     first.start()

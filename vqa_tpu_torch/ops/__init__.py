@@ -12,6 +12,7 @@ version on a CPU tensor, and counts its kernel launches in
   attention.glimpse_attend    csrc/glimpse_head.cu  <- vqa_tpu/ops/attention.py
   mfb_pool.mfb_pool           csrc/mfb_pool.cu      <- vqa_tpu/ops/mfb_pool.py
   relation.relation_attend    csrc/relation.cu      <- vqa_tpu/ops/relation.py
+                              csrc/relation_tc.cu   (past the tiled design's shared memory)
 
 ``gru.gru_seq`` (<- vqa_tpu/ops/gru.py) is plain PyTorch on every device:
 the JAX package computes the GRU recurrence outside any Pallas kernel.
@@ -27,10 +28,11 @@ implementation gives the output shapes and dtypes alone. The gathers run
 before the forward and stay plain Python wrappers.
 
 Every shape the JAX package computes has a design on the card: past the
-shared memory of the others, ``relation_attend`` and the glimpse kernels
-split the softmax axis into chunks merged by their log-sum-exp
-(``csrc/lse_merge.cuh``; ``lse_merge`` below is its plain version) and
-``mfb_pool`` keeps its roots in the output row.
+shared memory of the others, ``relation_attend`` runs two wgmma kernels
+over fp32 scratch (its "tc" design; the "split" one where TMA cannot load
+the operands), the glimpse kernels split the softmax axis into chunks
+merged by their log-sum-exp (``csrc/lse_merge.cuh``; ``lse_merge`` below
+is its plain version) and ``mfb_pool`` keeps its roots in the output row.
 
 Under autograd each kernel but the gathers is a ``torch.autograd.Function``:
 its kernel's forward, and a plain backward, as the JAX package's vjps are

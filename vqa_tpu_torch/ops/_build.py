@@ -59,6 +59,8 @@ _SIGNATURES = {
     "vqa_relation_attend_f32": [_PTR, _PTR, _PTR, *[_INT] * 5, _PTR],
     "vqa_relation_attend_split": [*[_PTR] * 5, *[_INT] * 5, _PTR],
     "vqa_relation_geometry": [*[_INT] * 8, _PTR],
+    "vqa_relation_attend_tc": [*[_PTR] * 5, *[_INT] * 5, _PTR],
+    "vqa_relation_tc_geometry": [*[_INT] * 5, _PTR],
 }
 
 _lib: Optional[ctypes.CDLL] = None

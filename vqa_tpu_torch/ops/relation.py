@@ -8,7 +8,9 @@ relation_attend(pg [B, N, D], r [B, N, D]) -> absorbed [B, N, D]
 
 The forward is the registered op ``torch.ops.vqa_tpu_torch.relation_attend``:
 on CUDA tensors it launches the hand-written kernel in
-``csrc/relation.cu`` with the schedule ``relation_plan`` gives: bf16 in and
+``csrc/relation.cu`` (past the tiled design's shared memory, the two
+kernels of ``csrc/relation_tc.cu``) with the schedule ``relation_plan``
+gives: bf16 in and
 out (fp32 scores and softmax; alpha kept to ~2^-16 through the second
 product as two bf16 halves), or float32 in and out through its float32
 entry (the tiled design with both products in 3xTF32 on the tensor cores,
@@ -45,6 +47,15 @@ _MAX_STAGES = 4
 _WIDE_ROWS = 16         # rows of i a block of the wide (and split) design owns
 _DESIGNS = {"element": 0, "tiled": 1, "wide": 2, "split": 3}  # csrc/relation.cu's kDesign*
 _GEOMETRY = ("ctas", "cluster", "threads", "smem_bytes")
+# csrc/relation_tc.cu's constants: rows of i a CTA of either kernel, its
+# threads (two consumer warpgroups and a producer warp); by element size the
+# scores' column tile (the tile statistics'), the weighted sum's columns of
+# d a CTA, the elements of a stage's 128-byte rows, the two rings' stages
+_TC_ROWS = 128
+_TC_THREADS = 288
+_TC = {2: dict(tile=256, cols=256, k=64, score_stages=4, sum_stages=3),
+       4: dict(tile=128, cols=128, k=32, score_stages=4, sum_stages=4)}
+TC_SCRATCH_BUDGET = 4 << 30  # bytes of s and its tile statistics a call of "tc" may hold
 
 
 def _ceil(a: int, b: int) -> int:
@@ -129,6 +140,60 @@ def _split_plan(B: int, N: int, D: int, smem_limit: int, elem: int = 2,
             "scratch_bytes": B * N * chunks * (D + 2) * 4}
 
 
+def _tc_smem(elem: int) -> tuple:
+    """csrc/relation_tc.cu's Layout: the scores' and the weighted sum's
+    shared memory. Each: 1 KB to align the ring, the ring (scores: pg's
+    128-row box and r's tile-row box of 128-byte rows, float32 also r's lo
+    half; weighted sum: r's k x cols tile and the scratch's 128 x k fp32
+    tile, float32 also alpha's lo half) with 16 bytes of barriers a stage;
+    the weighted sum also (m, 1 / l) of its 128 rows."""
+    t = _TC[elem]
+    score = _TC_ROWS * _ROW_BYTES + t["tile"] * _ROW_BYTES * (2 if elem == 4 else 1)
+    s_tile = _TC_ROWS * t["k"] * 4
+    weighted = t["k"] * t["cols"] * elem + s_tile * (2 if elem == 4 else 1)
+    return (1024 + t["score_stages"] * (score + 16),
+            1024 + t["sum_stages"] * (weighted + 16) + 2 * _TC_ROWS * 4)
+
+
+def _tc_plan(B: int, N: int, D: int, vec: bool, smem_limit: int, elem: int,
+             budget: int = TC_SCRATCH_BUDGET):
+    """The "tc" design, or None where it cannot run: D % 8 != 0 or a
+    pointer off 16 bytes (no TMA), either kernel's shared memory past
+    ``smem_limit``, or one element's scratch past ``budget``. Two launches
+    a slice of ``slice`` elements: the scores ([slice, N, ld] fp32, ld = N
+    rounded up to 4, and the tile statistics [slice, N, tiles, 2]), then the
+    weighted sum; the slices as even as the budget lets them be."""
+    t = _TC[elem]
+    score_smem, sum_smem = _tc_smem(elem)
+    if not vec or max(score_smem, sum_smem) > smem_limit:
+        return None
+    ld, tiles = _round_up(N, 4), _ceil(N, t["tile"])
+    per_element = N * (ld + 2 * tiles) * 4
+    most = budget // per_element
+    if most < 1:
+        return None
+    slices = _ceil(B, most)
+    bs = _ceil(B, slices)
+    row_tiles = _ceil(N, _TC_ROWS)
+    return {"design": "tc", "split": 1, "stages": t["score_stages"], "rows": _TC_ROWS,
+            "tile": t["tile"], "smem_bytes": score_smem, "ctas": bs * row_tiles * tiles,
+            "cluster": 1, "threads": _TC_THREADS,
+            "weighted": {"ctas": bs * row_tiles * _ceil(D, t["cols"]), "cluster": 1,
+                         "threads": _TC_THREADS, "smem_bytes": sum_smem},
+            "slice": bs, "slices": slices, "ld": ld, "tiles": tiles,
+            "scratch_bytes": bs * per_element}
+
+
+def _forced_tc(B: int, N: int, D: int, vec: bool, smem_limit: int, elem: int) -> dict:
+    plan = _tc_plan(B, N, D, vec, smem_limit, elem)
+    if plan is None:
+        raise ValueError(f"relation_attend: the tc design needs D % 8 == 0, operands on 16 "
+                         f"bytes, {max(_tc_smem(elem))} bytes of shared memory (a block may opt "
+                         f"into {smem_limit}) and one element's scratch within "
+                         f"{TC_SCRATCH_BUDGET} bytes (N={N}, D={D})")
+    return plan
+
+
 def _tiled_plan(B: int, N: int, smem_limit: int, elem: int = 2) -> dict:
     stages = _MAX_STAGES
     while _tiled_smem(N, stages, elem) > smem_limit:
@@ -138,22 +203,32 @@ def _tiled_plan(B: int, N: int, smem_limit: int, elem: int = 2) -> dict:
             "cluster": 1, "threads": 544}
 
 
-def _f32_plan(B: int, N: int, D: int, smem_limit: int, design: str | None,
+def _f32_plan(B: int, N: int, D: int, vec: bool, smem_limit: int, design: str | None,
               split: int | None) -> dict:
     """float32's plan: "tiled" up to N = 256 (its softmax keeps a row in
     registers) where a stage fits, both products in 3xTF32 on the tensor
-    cores; "wide" (FP32 FMA on the CUDA cores) past that, or where forced;
-    "split" past the wide design's shared memory, or where forced."""
+    cores; "tc" past that (both products in 3xTF32 on wgmma, two kernels);
+    "wide" (FP32 FMA on the CUDA cores) where "tc" cannot run (vec=False),
+    or where forced; "split" past the wide design's shared memory, or where
+    forced."""
     fits = N <= MAX_F32_TILED_N and _tiled_smem(N, 1, elem=4) <= smem_limit
     if design is None:
-        design = "tiled" if fits else "wide"
+        if fits:
+            design = "tiled"
+        else:
+            tc = _tc_plan(B, N, D, vec, smem_limit, 4)
+            if tc is not None:
+                return tc
+            design = "wide"
+    if design == "tc":
+        return _forced_tc(B, N, D, vec, smem_limit, 4)
     if design == "wide":
         return _wide_plan(B, N, D, smem_limit, elem=4)
     if design == "split":
         return _split_plan(B, N, D, smem_limit, 4, split)
     if design != "tiled":
         raise ValueError(f"relation_attend (float32) has no {design!r} design: it runs the "
-                         f"tiled one, the wide one or the split one")
+                         f"tiled one, the tc one, the wide one or the split one")
     if not fits:
         raise ValueError(f"relation_attend (float32): the tiled design takes N <= "
                          f"{MAX_F32_TILED_N} and a stage in shared memory: N={N} needs "
@@ -187,17 +262,23 @@ def relation_plan(B: int, N: int, D: int, vec: bool = True, smem_limit: int = SM
       element and 64 rows of i, fed by TMA through a ring of ``stages``
       stages of 128-byte rows (pg's tile and all of r for the scores, then
       r again for the weighted sum), s [64, N] kept in shared memory;
-    - "wide" (the tiled design's s and one stage over ``smem_limit``: N
-      past ~570 at D=1024): the parent's N > 64 kernel, one block an
-      element and 16 rows, the scores on the CUDA cores (slow; for shapes
-      nothing else takes);
+    - "tc" (the tiled design's s and one stage over ``smem_limit``: N
+      past ~570 at D=1024; in float32 past N = 256): two kernels of
+      csrc/relation_tc.cu, the scores on wgmma into fp32 scratch with each
+      row's (max, sum of exp) a column tile, then the weighted sum on
+      wgmma from alpha = exp(s - m) / l; the batch in slices whose scratch
+      fits ``TC_SCRATCH_BUDGET`` (one slice at CoR's [64, 3136, 1024]);
+    - "wide" (where "tc" cannot run: ``vec=False``, or one element's
+      scratch past the budget; or forced): the parent's N > 64 kernel,
+      one block an element and 16 rows, the scores on the CUDA cores;
     - "split" (the wide design's s^T [N, 16] over ``smem_limit``: N past
       ~3100 at D=1024, ~2600 in float32): the wide design over ``chunks``
       chunks of r's rows, each block's shared memory independent of N, the
       chunks' fp32 partials merged by their log-sum-exp (a second kernel).
 
     ``vec=False`` (D % 8 != 0, or a pointer off 16 bytes) takes the same
-    designs with plain copies (the element design one CTA an element).
+    designs with plain copies (the element design one CTA an element),
+    and "wide" / "split" where "tc" would run (TMA needs both).
     ``design`` (either type) and ``split`` (bf16's element design; the
     split design's chunks, in either type) may be forced, to probe other
     schedules.
@@ -208,7 +289,7 @@ def relation_plan(B: int, N: int, D: int, vec: bool = True, smem_limit: int = SM
     if min(B, N, D) < 1:
         raise ValueError(f"relation_attend needs B, N, D >= 1, got B={B}, N={N}, D={D}")
     if elem == 4:
-        return _f32_plan(B, N, D, smem_limit, design, split)
+        return _f32_plan(B, N, D, vec, smem_limit, design, split)
     if elem != 2:
         raise ValueError(f"relation_attend takes 2-byte (bf16) or 4-byte (float32) elements, "
                          f"got {elem}")
@@ -241,7 +322,12 @@ def relation_plan(B: int, N: int, D: int, vec: bool = True, smem_limit: int = SM
         return {"design": design, "split": split, "stages": 1, "rows": N, "smem_bytes": smem,
                 "ctas": B * split, "cluster": split, "threads": 512}
     if design == "tiled" and _tiled_smem(N, 1) > smem_limit:
+        tc = _tc_plan(B, N, D, vec, smem_limit, 2)
+        if tc is not None:
+            return tc
         design = "wide"
+    if design == "tc":
+        return _forced_tc(B, N, D, vec, smem_limit, 2)
     if design == "wide":
         return _wide_plan(B, N, D, smem_limit)
     if design == "split":
@@ -279,12 +365,72 @@ def relation_attend_split_model(pg: torch.Tensor, r: torch.Tensor, chunks: int) 
     return lse_merge(torch.stack(parts, -2), torch.stack(ms, -1), torch.stack(ls, -1))
 
 
+def tc_scores_model(pg: torch.Tensor, r: torch.Tensor, tile: int) -> tuple:
+    """The tc design's first launch in plain PyTorch: the scores
+    s = pg r^T / sqrt(D) [B, N, N] and each row's (max, sum of exp) over
+    each ``tile`` columns of s, stats [B, N, tiles, 2]."""
+    s = torch.einsum("bnd,bmd->bnm", pg, r) * pg.shape[-1] ** -0.5
+    tiles = s.split(tile, dim=-1)
+    m = torch.stack([sc.amax(-1) for sc in tiles], -1)
+    l = torch.stack([torch.exp(sc - mc.unsqueeze(-1)).sum(-1)
+                     for sc, mc in zip(tiles, m.unbind(-1))], -1)
+    return s, torch.stack([m, l], -1)
+
+
+def tc_sum_model(s: torch.Tensor, stats: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
+    """The tc design's second launch in plain PyTorch: each row's tile
+    statistics merged, m = max_c m_c and l = sum_c l_c e^(m_c - m), then
+    out = (exp(s - m) / l) r."""
+    mc, lc = stats.unbind(-1)
+    m = mc.amax(-1, keepdim=True)
+    l = (lc * torch.exp(mc - m)).sum(-1, keepdim=True)
+    return torch.einsum("bnm,bmd->bnd", torch.exp(s - m) / l, r)
+
+
+def relation_attend_tc_model(pg: torch.Tensor, r: torch.Tensor, tile: int) -> torch.Tensor:
+    """The tc design's arithmetic in plain PyTorch, to hold it against the
+    reference: its two launches' models, column tiles of ``tile``."""
+    return tc_sum_model(*tc_scores_model(pg, r, tile), r)
+
+
+def tc_scratch(pg: torch.Tensor, plan: dict) -> tuple:
+    """The tc design's scratch for a slice of ``plan["slice"]`` elements on
+    ``pg``'s device: s [slice, N, ld] and the tile statistics
+    [slice, N, tiles, 2], fp32, flat."""
+    N = pg.shape[1]
+    return (torch.empty(plan["slice"] * N * plan["ld"], dtype=torch.float32, device=pg.device),
+            torch.empty(plan["slice"] * N * plan["tiles"] * 2, dtype=torch.float32,
+                        device=pg.device))
+
+
+def _launch_tc(pg: torch.Tensor, r: torch.Tensor, out: torch.Tensor, plan: dict,
+               launches: tuple = (0, 1), scratch: tuple | None = None) -> None:
+    """The tc design's ``launches`` (0 the scores, 1 the weighted sum) a
+    slice of ``plan["slice"]`` elements at a time, over ``scratch`` (one
+    allocated here if None)."""
+    B, N, D = pg.shape
+    s, stats = tc_scratch(pg, plan) if scratch is None else scratch
+    step = N * D * pg.dtype.itemsize
+    lib, stream = _build.library(), _build.current_stream(pg.device)
+    for b0 in range(0, B, plan["slice"]):
+        n = min(plan["slice"], B - b0)
+        for which in launches:
+            err = lib.vqa_relation_attend_tc(
+                pg.data_ptr() + b0 * step, r.data_ptr() + b0 * step, out.data_ptr() + b0 * step,
+                s.data_ptr(), stats.data_ptr(), n, N, D, pg.dtype.itemsize, which, stream)
+            _build.check(err, "relation_attend")
+
+
 def launch_relation_attend(pg: torch.Tensor, r: torch.Tensor, out: torch.Tensor,
                            plan: dict) -> None:
     """One launch with ``plan``'s schedule (float32 operands through the
     float32 entry; the split design, in either type, through its own entry,
-    with its scratch allocated here)."""
+    with its scratch allocated here; the tc design through its own, a call
+    a slice)."""
     B, N, D = pg.shape
+    if plan["design"] == "tc":
+        _launch_tc(pg, r, out, plan)
+        return
     if plan["design"] == "split":
         chunks = plan["chunks"]
         part = torch.empty(B * N * chunks * D, dtype=torch.float32, device=pg.device)
@@ -311,8 +457,18 @@ def launch_geometry(B: int, N: int, D: int, plan: dict, vec: bool, device_index:
     """What csrc/relation.cu launches for ``plan`` at this shape in
     ``elem``-byte elements (its own reckoning): the CTAs, the cluster size,
     the threads and the shared memory of a CTA (the split design's first
-    kernel: its merge runs one 256-thread block a row)."""
+    kernel: its merge runs one 256-thread block a row; the tc design's
+    scores kernel, and its weighted sum's under "weighted", a slice of
+    ``plan["slice"]`` elements)."""
     geometry = (ctypes.c_longlong * len(_GEOMETRY))()
+    if plan["design"] == "tc":
+        launches = []
+        with torch.cuda.device(device_index):
+            for launch in (0, 1):
+                _build.check(_build.library().vqa_relation_tc_geometry(
+                    plan["slice"], N, D, launch, elem, geometry), "relation_attend geometry")
+                launches.append(dict(zip(_GEOMETRY, geometry)))
+        return {**launches[0], "weighted": launches[1]}
     split = plan["chunks"] if plan["design"] == "split" else plan["split"]
     with torch.cuda.device(device_index):
         _build.check(_build.library().vqa_relation_geometry(
@@ -366,7 +522,7 @@ def _relation_attend_fake(pg: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
 
 
 relation_attend.launches = 0
-relation_attend.design_launches = dict.fromkeys(_DESIGNS, 0)  # the launches by design
+relation_attend.design_launches = dict.fromkeys([*_DESIGNS, "tc"], 0)  # the launches by design
 _RELATION_ATTEND_OP = register("relation_attend(Tensor pg, Tensor r) -> Tensor",
                                relation_attend_reference, _relation_attend_cuda,
                                _relation_attend_fake)
