@@ -319,10 +319,18 @@ Phases, each printing one line of what it found:
      path's [B, 3136, 1024], D=1024, each bit-equal across two calls, timed
      in turns with each other, the plain version and SDPA (at N=2048 the
      tc, the wide and the split design timed against each other);
-     glimpse_head's and glimpse_attend's split design at R=196, G=512
-     (glimpse groups) and R=16,384, G=4 (region chunks), M=510,
-     D=2048, the attend logits masked past a row's middle and one row
-     whole; mfb_pool at m=20,000 (opted-in shared memory) and 70,000 (the
+     glimpse_head's and glimpse_attend's designs at R=196, G=512 (glimpse
+     groups), R=16,384, G=4 (region chunks) and the path's B=64, R=3136,
+     G=24, M=510, D=2048, the attend logits masked past a row's middle and
+     one row whole: in bf16 the tc design (csrc/glimpse_tc.cu, the
+     default) and the split one (forced), each bit-equal across two calls,
+     timed in turns with each other, the plain version and SDPA (held
+     against plain first), the tc design's two launches timed apart, the
+     host's time to enqueue a call and its launches, and its entry's
+     geometry held against the plan's; the tc design also at two odd bf16
+     shapes (M=77 and 509: the logits kernel's 2-byte joint loads; D=200
+     and 136), held and not timed; in float32 the split design beside plain
+     and SDPA; mfb_pool at m=20,000 (opted-in shared memory) and 70,000 (the
      roots in the output row), k=5; lstm_seq over an xg off 16 bytes
      bit-equal to the aligned call. Then the path: phase 11's ResNet-152
      checkpoint through the import tool, the extract CLI's function over
@@ -335,7 +343,7 @@ Phases, each printing one line of what it found:
      each at batch 64 with logits within 0.05 of the plain path's; CoR in
      float32 (16 questions over 8 rows) within 1e-4 of the plain float32
      path's max-abs; MutanAtt with 24 glimpses (alpha [3136, 24] past
-     shared memory: glimpse_head's split design) within 0.05. Each design's
+     shared memory: every glimpse_head call the tc design) within 0.05. Each design's
      record goes into its kernel's in the kernels line, under "designs";
  16. multicard, with --only multicard alone, on a host of four cards (fewer:
      exit 1 before any phase; a run with no argument prints that it did not
@@ -3078,8 +3086,12 @@ TRACE_KERNELS = {
     "gather_rows": ("gather_rows_kernel",),
     "gather_rows_dequant": ("gather_dequant_kernel", "gather_dequant_any"),
     "lstm_seq": ("lstm_seq_kernel", "lstm_f32_kernel"),
-    "glimpse_head": ("glimpse_kernel", "glimpse_parent_kernel", "glimpse_f32_kernel"),
-    "glimpse_attend": ("glimpse_kernel", "glimpse_parent_kernel", "glimpse_f32_kernel"),
+    "glimpse_head": ("glimpse_kernel", "glimpse_parent_kernel", "glimpse_f32_kernel",
+                     "glimpse_split_kernel", "merge_kernel", "glimpse_tc_logits_kernel",
+                     "glimpse_tc_sum_kernel", "glimpse_tc_merge_kernel"),
+    "glimpse_attend": ("glimpse_kernel", "glimpse_parent_kernel", "glimpse_f32_kernel",
+                       "glimpse_split_kernel", "merge_kernel", "glimpse_tc_logits_kernel",
+                       "glimpse_tc_sum_kernel", "glimpse_tc_merge_kernel"),
     "mfb_pool": ("mfb_pool_kernel",),
     "relation_attend": ("relation_element_kernel", "relation_tiled_kernel",
                         "relation_wide_kernel", "tc_scores_kernel", "tc_sum_kernel"),
@@ -4447,7 +4459,7 @@ def _extract_phase(torch, dev, card: str, kernels: dict) -> dict:
 # MutanAtt, at a batch that fits; and one forward each, held on its logits
 # against the plain path, of CoR in bf16 and float32 and of MutanAtt with
 # 24 glimpses (model.attention.nb_glimpses, past alpha [3136, 18] in
-# shared memory: glimpse_head's split design)
+# shared memory: glimpse_head's tc design)
 LARGE_SIZE = 1792
 LARGE_GRID = (LARGE_SIZE // 32) ** 2  # 3136 regions
 LARGE_IMAGES = 64
@@ -4466,8 +4478,13 @@ BF16_LARGE_REL = 0.01
 LARGE_RELATION_N = (LARGE_GRID, 4096)    # D=1024: the tc design, and the split one forced
 LARGE_RELATION_WIDE_N = 2048             # the tc, the wide and the split design timed together
 # each design's source, where it is not its kernel's SOURCES entry
-DESIGN_SOURCES = {("relation_attend", "tc"): "vqa_tpu_torch/csrc/relation_tc.cu"}
+DESIGN_SOURCES = {("relation_attend", "tc"): "vqa_tpu_torch/csrc/relation_tc.cu",
+                  ("glimpse_head", "tc"): "vqa_tpu_torch/csrc/glimpse_tc.cu",
+                  ("glimpse_attend", "tc"): "vqa_tpu_torch/csrc/glimpse_tc.cu"}
 LARGE_GLIMPSE = ((196, 512), (16_384, 4))  # (R, G) at M=510, D=2048: glimpse groups; chunks
+# (B, R, M, G, D), bf16, held and not timed: the tc design's logits kernel
+# with 2-byte joint loads (M odd), D past its last 128-column block
+LARGE_GLIMPSE_ODD = ((2, LARGE_GRID, 77, 24, 200), (2, 16_384, 509, 4, 136))
 LARGE_MFB = ((64, 5, 20_000), (64, 5, 70_000))  # (n, k, m): opted-in shared memory; global
 LARGE_GLIMPSES = 24
 LARGE_EVAL = {"CoR": ("cor", ("gather_rows", "lstm_seq", "relation_attend")),
@@ -4504,6 +4521,21 @@ def _large_err(torch, got, want, dtype, tol_bf16, tol_f32=F32_REL):
     return _rel_err(got, want), tol_f32
 
 
+def _enqueue_ms(torch, fn, iters: int = 20) -> float:
+    """Median host-clock time to enqueue ``fn`` (the queue drained before
+    each call, no sync inside the span): what the host spends on the call,
+    its launches included, whatever the card does meanwhile."""
+    fn()
+    times = []
+    for _ in range(iters):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t) * 1e3)
+    torch.cuda.synchronize()
+    return statistics.median(times)
+
+
 def _turns(torch, fns, iters: int) -> list:
     """The median CUDA-event time of each of ``fns``, timed in the order
     given and then reversed, each the median of its two turns."""
@@ -4514,6 +4546,60 @@ def _turns(torch, fns, iters: int) -> list:
     return [statistics.median(t) for t in times]
 
 
+def _glimpse_tc_geometry(torch, attention, dev, B, R, M, G, D, head_plan, attend_plan):
+    """The tc plans' copy of csrc/glimpse_tc.cu's layout held against the
+    entry's own reckoning: both launches' CTAs, threads and shared memory."""
+    keys = ("ctas", "threads", "smem_bytes")
+    for m, plan in ((M, head_plan), (0, attend_plan)):
+        geo = attention.tc_launch_geometry(B, R, m, G, D, plan, dev.index or 0)
+        planned = ({k: plan["logits"][k] for k in keys}, {k: plan[k] for k in keys})
+        _require(({k: geo[k] for k in keys}, geo["weighted"]) == planned,
+                 f"[large_shapes] glimpse tc {(B, R, m, G, D)}: the entry's geometry "
+                 f"{geo} is the plan's {planned}")
+
+
+def _glimpse_tc_odd(torch, attention, dev, card: str, B, R, M, G, D) -> None:
+    """[large_shapes]: the tc design at a bf16 shape of LARGE_GLIMPSE_ODD
+    through the wrappers, held against plain (a row masked past its middle
+    and one whole), finite, bit-equal across two calls; not timed."""
+    from vqa_tpu_torch.ops.attention import (glimpse_attend, glimpse_attend_reference,
+                                             glimpse_head, glimpse_head_reference, glimpse_plan)
+
+    dtype = torch.bfloat16
+    joint = torch.tanh(torch.randn(B, R, M, device=dev)).to(dtype)
+    w = (torch.randn(M, G, device=dev) / M ** 0.5).to(dtype)
+    b = (0.1 * torch.randn(G, device=dev)).to(dtype)
+    v = torch.randn(B, R, D, device=dev).to(dtype)
+    plans = (glimpse_plan(B, R, M, G, D), glimpse_plan(B, R, 0, G, D))
+    _require(plans[0]["copy"] == plans[1]["copy"] == "tc",
+             f"[large_shapes] glimpse {(B, R, M, G, D)} bf16: the tc design, got "
+             f"{[p['copy'] for p in plans]}")
+    _glimpse_tc_geometry(torch, attention, dev, B, R, M, G, D, *plans)
+    before = (glimpse_head.design_launches["tc"], glimpse_attend.design_launches["tc"])
+    (att, logits), (att2, logits2) = glimpse_head(joint, w, b, v), glimpse_head(joint, w, b, v)
+    masked = logits.clone()
+    masked[0, R // 2:] = torch.finfo(dtype).min
+    masked[1] = torch.finfo(dtype).min
+    got, again = glimpse_attend(masked, v), glimpse_attend(masked, v)
+    ref_att, ref_logits = glimpse_head_reference(joint.float(), w.float(), b.float(), v.float())
+    want = glimpse_attend_reference(masked.float(), v.float())
+    torch.cuda.synchronize()
+    errs = {"head": _large_err(torch, att, ref_att, dtype, GLIMPSE_ATOL),
+            "logits": _large_err(torch, logits, ref_logits, dtype, GLIMPSE_ATOL),
+            "attend": _large_err(torch, got, want, dtype, GLIMPSE_ATOL)}
+    launched = (glimpse_head.design_launches["tc"] - before[0],
+                glimpse_attend.design_launches["tc"] - before[1])
+    _require(all(e <= t for e, t in errs.values()) and launched == (2, 2)
+             and bool(torch.isfinite(got).all()) and torch.equal(got, again)
+             and torch.equal(att, att2) and torch.equal(logits, logits2),
+             f"[large_shapes] glimpse tc {(B, R, M, G, D)} bf16: (err, tol) {errs}, tc launches "
+             f"{launched} == (2, 2), finite, bit-equal across two calls")
+    _phase("large_shapes", kernel="glimpse_head", card=card, part="tc_odd_shape",
+           shape=f"B={B} R={R} M={M} G={G} D={D} bf16", chunks=plans[0]["chunks"],
+           **{f"{k}_err": round(e, 8) for k, (e, _) in errs.items()},
+           **{f"{k}_tol": round(t, 8) for k, (_, t) in errs.items()}, bit_equal=True)
+
+
 def _large_kernels(torch, dev, card: str) -> list:
     """[large_shapes], kernels: each new design against its plain version on
     the card, in bf16 and float32, timed in turns with it (CUDA events),
@@ -4521,8 +4607,10 @@ def _large_kernels(torch, dev, card: str) -> list:
     import torch.nn.functional as F
 
     from vqa_tpu_torch.ops import lstm, relation
+    from vqa_tpu_torch.ops import attention
     from vqa_tpu_torch.ops.attention import (glimpse_attend, glimpse_attend_reference,
-                                             glimpse_head, glimpse_head_reference, glimpse_plan)
+                                             glimpse_head, glimpse_head_reference, glimpse_plan,
+                                             launch_glimpse_attend, launch_glimpse_head)
     from vqa_tpu_torch.ops.mfb_pool import mfb_plan, mfb_pool, mfb_pool_reference
     from vqa_tpu_torch.ops.relation import (launch_geometry, launch_relation_attend,
                                             relation_attend, relation_attend_reference,
@@ -4631,8 +4719,10 @@ def _large_kernels(torch, dev, card: str) -> list:
         del pg, r, outs, want
 
         # glimpse_head and glimpse_attend: glimpse groups (R=196, G=512),
-        # region chunks merged by their log-sum-exp (R=16,384, G=4), and the
-        # path's MutanAtt with LARGE_GLIMPSES glimpses over the grid
+        # region chunks (R=16,384, G=4), and the path's MutanAtt with
+        # LARGE_GLIMPSES glimpses over the grid; bf16 the tc design (the
+        # default) and the split one forced beside it, float32 the split
+        # design; each timed in turns with plain and SDPA
         M, Dv = 510, DIM
         glimpse_shapes = ([(LARGE_KERNEL_B, R, G) for R, G in LARGE_GLIMPSE]
                           + [(path_b, LARGE_GRID, LARGE_GLIMPSES)])
@@ -4641,50 +4731,150 @@ def _large_kernels(torch, dev, card: str) -> list:
             w = (torch.randn(M, G, device=dev) / M ** 0.5).to(dtype)
             b = (0.1 * torch.randn(G, device=dev)).to(dtype)
             v = torch.randn(B, R, Dv, device=dev).to(dtype)
+            default = "tc" if elem == 2 else "split"
             plan = glimpse_plan(B, R, M, G, Dv, elem=elem)
             att, logits = glimpse_head(joint, w, b, v)
             masked = logits.clone()
             masked[0, R // 2:] = torch.finfo(dtype).min  # MFB's padding, and a row masked whole
             masked[1] = torch.finfo(dtype).min
-            got = glimpse_attend(masked, v)
-            again = glimpse_attend(masked, v)
+            outs = {default: (att, logits, glimpse_attend(masked, v), glimpse_attend(masked, v))}
+            plans = {default: (plan, glimpse_plan(B, R, 0, G, Dv, elem=elem))}
+            if elem == 2:  # the split design forced beside tc, on the same logits
+                plans["split"] = (glimpse_plan(B, R, M, G, Dv, copy="split"),
+                                  glimpse_plan(B, R, 0, G, Dv, copy="split"))
+                split_out = [torch.empty_like(att), torch.empty_like(logits),
+                             torch.empty_like(att), torch.empty_like(att)]
+                launch_glimpse_head(joint, w, b, v, split_out[0], split_out[1], plans["split"][0])
+                for o in split_out[2:]:
+                    launch_glimpse_attend(masked, v, o, plans["split"][1])
+                outs["split"] = tuple(split_out)
             ref_att, ref_logits = glimpse_head_reference(joint.float(), w.float(), b.float(),
                                                          v.float())
             want = glimpse_attend_reference(masked.float(), v.float())
+            # the SDPA yardstick, held against plain before its time: the
+            # attended output alone (the bias is constant along R, so it
+            # drops out of the softmax); glimpse_attend with zero q and k and
+            # the logits as the mask
+            q = w.t().unsqueeze(0).expand(B, G, M)
+            zq = torch.zeros(B, G, 8, device=dev, dtype=dtype)
+            zk = torch.zeros(B, R, 8, device=dev, dtype=dtype)
+            mask = masked.transpose(1, 2)
+
+            def sdpa_head():
+                return F.scaled_dot_product_attention(q, joint, v, scale=1.0)
+
+            def sdpa_attend():
+                return F.scaled_dot_product_attention(zq, zk, v, attn_mask=mask)
+
+            sdpa_errs = (_large_err(torch, sdpa_head(), ref_att, dtype, GLIMPSE_ATOL),
+                         _large_err(torch, sdpa_attend(), want, dtype, GLIMPSE_ATOL))
             torch.cuda.synchronize()
-            head_err, head_tol = _large_err(torch, att, ref_att, dtype, GLIMPSE_ATOL)
-            logits_err, logits_tol = _large_err(torch, logits, ref_logits, dtype, GLIMPSE_ATOL)
-            att_err, tol = _large_err(torch, got, want, dtype, GLIMPSE_ATOL)
-            _require(plan["copy"] == "split" and head_err <= head_tol
-                     and logits_err <= logits_tol and att_err <= tol
-                     and bool(torch.isfinite(got).all()) and torch.equal(got, again),
-                     f"[large_shapes] glimpse kernels {(B, R, M, G, Dv)} {tag}: the split design "
-                     f"({plan['copy']}), head attended err {head_err} <= {head_tol}, logits err "
-                     f"{logits_err} <= {logits_tol}, attend err {att_err} <= {tol}, bit-equal "
-                     f"across two calls")
-            groups, chunks = plan.get("groups", G), plan.get("chunks", 1)
-            shape = (f"B={B} R={R} M={M} G={G} D={Dv} {tag}: {-(-G // groups)} glimpse "
-                     f"group(s) of {groups}, {chunks} region chunk(s)")
-            ms, plain = timed(lambda: glimpse_head(joint, w, b, v),
-                              lambda: glimpse_head_reference(joint, w, b, v))
-            rec = _large_record("glimpse_head", "split", head_err, head_tol, ms, plain,
-                                _glimpse_head_bound(B, R, M, G, Dv, elem), None, shape,
-                                logits_err=logits_err, logits_tol=logits_tol, groups=groups,
-                                chunks=chunks)
-            records.append(rec)
-            _phase("large_shapes", kernel="glimpse_head", card=card,
-                   **{k: (round(x, 6) if isinstance(x, float) else x) for k, x in rec.items()})
-            ms, plain = timed(lambda: glimpse_attend(masked, v),
-                              lambda: glimpse_attend_reference(masked, v))
-            bound = _bound(elem * (B * R * G + B * R * Dv + B * G * Dv), 2.0 * B * R * G * Dv,
-                           PEAK_BF16 if elem == 2 else PEAK_FP32)
-            rec = _large_record("glimpse_attend", "split", att_err, tol, ms, plain, bound, None,
-                                shape + ", a row masked past its middle and one whole",
-                                groups=groups, chunks=chunks)
-            records.append(rec)
-            _phase("large_shapes", kernel="glimpse_attend", card=card,
-                   **{k: (round(x, 6) if isinstance(x, float) else x) for k, x in rec.items()})
-            del joint, w, b, v, att, logits, masked, got, again, ref_att, ref_logits, want
+            _require(all(e <= t for e, t in sdpa_errs),
+                     f"[large_shapes] SDPA at the glimpse shape {(B, R, M, G, Dv)} {tag} within "
+                     f"the plain version's bound (head, attend): {sdpa_errs}")
+            held = {}
+            for design, (d_att, d_logits, got, again) in outs.items():
+                head_err, head_tol = _large_err(torch, d_att, ref_att, dtype, GLIMPSE_ATOL)
+                logits_err, logits_tol = _large_err(torch, d_logits, ref_logits, dtype,
+                                                    GLIMPSE_ATOL)
+                att_err, tol = _large_err(torch, got, want, dtype, GLIMPSE_ATOL)
+                held[design] = (head_err, head_tol, logits_err, logits_tol, att_err, tol)
+                _require(plans[design][0]["copy"] == plans[design][1]["copy"] == design
+                         and head_err <= head_tol and logits_err <= logits_tol and att_err <= tol
+                         and bool(torch.isfinite(got).all()) and torch.equal(got, again),
+                         f"[large_shapes] glimpse kernels {(B, R, M, G, Dv)} {tag}: the {design} "
+                         f"design ({plans[design][0]['copy']}), head attended err {head_err} <= "
+                         f"{head_tol}, logits err {logits_err} <= {logits_tol}, attend err "
+                         f"{att_err} <= {tol}, bit-equal across two calls")
+            if elem == 2:  # the tc head bit-equal across two calls too
+                again_att, again_logits = glimpse_head(joint, w, b, v)
+                _require(torch.equal(att, again_att) and torch.equal(logits, again_logits),
+                         f"[large_shapes] glimpse_head {(B, R, M, G, Dv)} tc: two calls bit-equal")
+            designs = list(outs)
+            head_fns = {"tc": lambda: glimpse_head(joint, w, b, v),
+                        "split": (lambda: glimpse_head(joint, w, b, v)) if elem == 4 else
+                        (lambda: launch_glimpse_head(joint, w, b, v, split_out[0], split_out[1],
+                                                     plans["split"][0]))}
+            attend_fns = {"tc": lambda: glimpse_attend(masked, v),
+                          "split": (lambda: glimpse_attend(masked, v)) if elem == 4 else
+                          (lambda: launch_glimpse_attend(masked, v, split_out[2],
+                                                         plans["split"][1]))}
+            *head_ms, head_plain, head_sdpa = _turns(
+                torch, [head_fns[d] for d in designs]
+                + [lambda: glimpse_head_reference(joint, w, b, v), sdpa_head], iters=5)
+            *attend_ms, attend_plain, attend_sdpa = _turns(
+                torch, [attend_fns[d] for d in designs]
+                + [lambda: glimpse_attend_reference(masked, v), sdpa_attend], iters=5)
+            head_bound = _glimpse_head_bound(B, R, M, G, Dv, elem)
+            attend_bound = _bound(elem * (B * R * G + B * R * Dv + B * G * Dv),
+                                  2.0 * B * R * G * Dv, PEAK_BF16 if elem == 2 else PEAK_FP32)
+            launches, attend_launches = {}, {}
+            if elem == 2:  # the tc design's two launches apart, over one scratch, and the
+                # host's time to enqueue a call and its two launches
+                tc_plan, tc_attend = plans["tc"]
+                _glimpse_tc_geometry(torch, attention, dev, B, R, M, G, Dv, tc_plan, tc_attend)
+                scratch = attention.tc_scratch(B, R, G, Dv, dev, tc_plan)
+                launches = dict(zip(("logits_ms", "sum_ms"), _turns(
+                    torch, [lambda w_=w_: attention._launch_tc(joint, w, b, None, v, att, logits,
+                                                              tc_plan, (w_,), scratch)
+                            for w_ in (0, 1)], iters=5)))
+                attend_out = torch.empty_like(att)
+                attend_scratch = attention.tc_scratch(B, R, G, Dv, dev, tc_attend)
+                attend_launches = dict(zip(("logits_ms", "sum_ms"), _turns(
+                    torch, [lambda w_=w_: attention._launch_tc(None, None, None, masked, v,
+                                                              attend_out, None, tc_attend,
+                                                              (w_,), attend_scratch)
+                            for w_ in (0, 1)], iters=5)))
+                launches.update(
+                    call_host_ms=_enqueue_ms(torch, head_fns["tc"]),
+                    launch_host_ms=_enqueue_ms(torch, lambda: attention._launch_tc(
+                        joint, w, b, None, v, att, logits, tc_plan, (0, 1), scratch)))
+                attend_launches.update(call_host_ms=_enqueue_ms(torch, attend_fns["tc"]))
+                del scratch, attend_scratch, attend_out
+            for k, design in enumerate(designs):
+                p_head = plans[design][0]
+                head_err, head_tol, logits_err, logits_tol, att_err, tol = held[design]
+                if design == "tc":
+                    groups, chunks = p_head["groups"], p_head["chunks"]
+                    shape = (f"B={B} R={R} M={M} G={G} D={Dv} {tag}: {-(-G // groups)} glimpse "
+                             f"group(s) of {groups} (wgmma N), {chunks} region chunk(s)")
+                    extra = dict(rows=p_head["rows"], scratch_bytes=p_head["scratch_bytes"],
+                                 **launches)
+                else:
+                    groups, chunks = p_head["groups"], p_head["chunks"]
+                    shape = (f"B={B} R={R} M={M} G={G} D={Dv} {tag}: {-(-G // groups)} glimpse "
+                             f"group(s) of {groups}, {chunks} region chunk(s)")
+                    extra = dict(forced=elem == 2)
+                others = {f"{d}_ms": head_ms[j] for j, d in enumerate(designs) if d != design}
+                rec = _large_record("glimpse_head", design, head_err, head_tol, head_ms[k],
+                                    head_plain, head_bound, head_sdpa, shape,
+                                    logits_err=logits_err, logits_tol=logits_tol, groups=groups,
+                                    chunks=chunks, bit_equal=True,
+                                    vs_sdpa=head_ms[k] / head_sdpa,
+                                    library="SDPA(q=w^T, k=joint, v, scale=1): attended only",
+                                    **others, **extra)
+                records.append(rec)
+                _phase("large_shapes", kernel="glimpse_head", card=card,
+                       **{k_: (round(x, 6) if isinstance(x, float) else x)
+                          for k_, x in rec.items()})
+                others = {f"{d}_ms": attend_ms[j] for j, d in enumerate(designs) if d != design}
+                rec = _large_record("glimpse_attend", design, att_err, tol, attend_ms[k],
+                                    attend_plain, attend_bound, attend_sdpa,
+                                    shape + ", a row masked past its middle and one whole",
+                                    groups=groups, chunks=chunks, bit_equal=True,
+                                    vs_sdpa=attend_ms[k] / attend_sdpa,
+                                    library="SDPA(q=0, k=0, v, attn_mask=logits^T)", **others,
+                                    **(attend_launches if design == "tc" else {}))
+                records.append(rec)
+                _phase("large_shapes", kernel="glimpse_attend", card=card,
+                       **{k_: (round(x, 6) if isinstance(x, float) else x)
+                          for k_, x in rec.items()})
+            del joint, w, b, v, att, logits, masked, outs, ref_att, ref_logits, want, q, zq, zk
+            if elem == 2:
+                del split_out
+        if elem == 2:
+            for shape in LARGE_GLIMPSE_ODD:
+                _glimpse_tc_odd(torch, attention, dev, card, *shape)
 
         # mfb_pool: the roots in opted-in shared memory (m = 20,000), and in
         # the output row past it (m = 70,000)
@@ -4908,7 +5098,7 @@ def _large_path(torch, dev, card: str) -> tuple:
             data_factory.drop_stores(f"{tmp}/coco")
 
         # CoR in float32 (cor.yaml as written) over 8 rows of the table, and
-        # MutanAtt with 24 glimpses (glimpse_head's split design) in bf16,
+        # MutanAtt with 24 glimpses (glimpse_head's tc design) in bf16,
         # one forward each held against the plain path
         opt = load_options(os.path.join(_REPO, "options", "vqa2", "cor.yaml"), data)
         cor32 = model_factory(dataclasses.asdict(opt.model), 1000, 2000, dtype=torch.float32,
@@ -4937,11 +5127,11 @@ def _large_path(torch, dev, card: str) -> tuple:
         logits, plain, counts, by_design = _grid_logits(torch, dev, many, table, 1000,
                                                         LARGE_BATCH, 5)
         err = (logits - plain).abs().max().item()
-        _require(by_design["glimpse_head"]["split"] == counts["glimpse_head"] > 0
+        _require(by_design["glimpse_head"]["tc"] == counts["glimpse_head"] > 0
                  and err <= LOGITS_ATOL,
                  f"[large_shapes] MutanAtt with {LARGE_GLIMPSES} glimpses over {LARGE_GRID} "
-                 f"regions: glimpse_head's split design ({by_design['glimpse_head']}), logits "
-                 f"within {LOGITS_ATOL} of the plain path's: {err}")
+                 f"regions: every glimpse_head call the tc design ({by_design['glimpse_head']}), "
+                 f"logits within {LOGITS_ATOL} of the plain path's: {err}")
         add(counts, by_design)
         _phase("large_shapes", part="forward", card=card, arch="MutanAtt",
                glimpses=LARGE_GLIMPSES, dtype="bfloat16", regions=LARGE_GRID, batch=LARGE_BATCH,
@@ -4956,9 +5146,10 @@ def _large_shapes_phase(torch, dev, card: str, kernels: dict) -> dict:
     """[large_shapes] (the docstring's phase 17): the new designs against
     their plain versions, then the path over the 1792-pixel grid; each
     design's record goes into its kernel's, under "designs", with the
-    launches the path counted (0 for a design no model path reaches: the
-    glimpse_attend split and mfb_pool's designs past 48 KB). Returns the
-    path's launch counts."""
+    launches the path counted (0 for a design no model path reaches:
+    glimpse_attend's tc and split designs, glimpse_head's split one, forced
+    in bf16, and mfb_pool's designs past 48 KB). Returns the path's launch
+    counts."""
     t0 = time.perf_counter()
     records = _large_kernels(torch, dev, card)
     launches, designs = _large_path(torch, dev, card)

@@ -6,9 +6,11 @@ for the shapes past the others' shared memory.
   N=3136 (the grid of a 1792-pixel extract) among them, and its split
   design (r's rows in chunks, merged by their log-sum-exp) where the tc
   design cannot run (no TMA) or where forced;
-- the glimpse kernels' split design past alpha [R, G] in shared memory:
-  glimpse groups (R=196 with G=512), and region chunks merged by their
-  log-sum-exp (R=16,384 with G=4);
+- the glimpse kernels past alpha [R, G] in shared memory: in bf16 the tc
+  design (csrc/glimpse_tc.cu, tests/test_torch_glimpse_tc.py), and the
+  split design in float32, without TMA and where forced: glimpse groups
+  (R=196 with G=512), and region chunks merged by their log-sum-exp
+  (R=16,384 with G=4);
 - ``mfb_pool``'s shared memory opted in past 48 KB, and its global design
   (the roots in the output row) past what a block may opt into;
 - ``lstm_seq`` on an ``xg`` whose storage is off 16 bytes (an aligned copy).
@@ -38,7 +40,9 @@ import torch
 from vqa_tpu_torch.ops import _build, attention, lse_merge, lstm, mfb_pool, relation
 from vqa_tpu_torch.ops.attention import (glimpse_attend, glimpse_attend_reference,
                                          glimpse_attend_split_model, glimpse_head,
-                                         glimpse_head_reference, glimpse_plan)
+                                         glimpse_head_reference, glimpse_plan,
+                                         glimpse_tc_logits_model, glimpse_tc_stats_model,
+                                         glimpse_tc_sum_model)
 from vqa_tpu_torch.ops.lstm import lstm_seq_reference
 from vqa_tpu_torch.ops.mfb_pool import mfb_plan, mfb_pool_reference
 from vqa_tpu_torch.ops.relation import (relation_attend, relation_attend_reference,
@@ -133,17 +137,20 @@ def test_relation_plan_refuses_only_past_one_chunk():
 ])
 def test_glimpse_plan_takes_every_region_and_glimpse_count(B, R, G, groups, chunks, M, elem):
     """glimpse_head (M=510) and glimpse_attend (M=0): past alpha [R, G] in
-    shared memory the split design, every region in one block while alpha
-    [R, 4] fits (R=196 with G=512: the glimpses in groups of a multiple of
-    4, as small as fill twice the 132 SMs, as large as fit); past that
-    (R=16,384 with G=4: alpha [R, 4] is 256 KB) the regions in chunks, at
-    least the two that fit, as many as fill the SMs twice down to 256
-    regions a chunk."""
+    shared memory the split design (in bf16 the tc design, the split one
+    where forced), every region in one block while alpha [R, 4] fits
+    (R=196 with G=512: the glimpses in groups of a multiple of 4, as small
+    as fill twice the 132 SMs, as large as fit); past that (R=16,384 with
+    G=4: alpha [R, 4] is 256 KB) the regions in chunks, at least the two
+    that fit, as many as fill the SMs twice down to 256 regions a chunk."""
     plan = glimpse_plan(B, R, M, G, 2048, elem=elem)
     assert plan["smem_bytes"] <= SMEM
     if groups is None:
         assert plan["copy"] == ("f32" if elem == 4 else "bulk")
         return
+    if elem == 2:  # bf16 takes the tc design (tests/test_torch_glimpse_tc.py)
+        assert plan["copy"] == "tc"
+        plan = glimpse_plan(B, R, M, G, 2048, elem=elem, copy="split")
     assert (plan["copy"], plan["groups"], plan["chunks"]) == ("split", groups, chunks)
     assert plan["chunk"] == -(-R // chunks)
     assert plan["smem_bytes"] == plan["chunk"] * groups * 4
@@ -268,6 +275,39 @@ class _SplitLibrary:
         _view(out, (B, G, D), dt).copy_(glimpse_attend_split_model(logits, vv, chunks))
         return 0
 
+    def vqa_glimpse_tc(self, joint, w, bias, logits_in, v, out, logits_out, lg, stats, part, B,
+                       R, M, G, D, n, rows, ln, stages, chunks, slots, launches, stream):
+        dt = torch.bfloat16
+        groups, rpad, rtiles = -(-G // n), -(-R // 64) * 64, -(-R // rows)
+        assert (part is None) == (chunks == 1) and n % ln == 0 and launches in (1, 2, 3)
+        # launch 0 leaves the fp32 logits [B, groups, rpad, n] and their tile
+        # statistics [B, groups n, rtiles, 2] in the wrapper's scratch (the
+        # columns past G zero); launch 1 reads them from there
+        lg_view = _view(lg, (B, groups, rpad, n))
+        stats_view = _view(stats, (B, groups * n, rtiles, 2))
+        for which in (0, 1):
+            if not launches >> which & 1:
+                continue
+            self.calls.append(("glimpse_tc", "attend" if logits_in else "head", which, n, chunks))
+            if which == 0:
+                if logits_in:
+                    logits = _view(logits_in, (B, R, G), dt).float()
+                else:
+                    logits = glimpse_tc_logits_model(_view(joint, (B, R, M), dt),
+                                                     _view(w, (M, G), dt), _view(bias, (G,), dt))
+                    _view(logits_out, (B, R, G), dt).copy_(logits)
+                padded = torch.nn.functional.pad(logits, (0, groups * n - G))
+                lg_view[:, :, :R].copy_(padded.view(B, R, groups, n).transpose(1, 2))
+                stats_view.copy_(glimpse_tc_stats_model(padded, rows))
+            else:
+                logits = lg_view[:, :, :R].transpose(1, 2).reshape(B, R, groups * n)[..., :G]
+                got = glimpse_tc_sum_model(logits, stats_view[:, :G], _view(v, (B, R, D), dt),
+                                           chunks)
+                _view(out, (B, G, D), dt).copy_(got)
+                if part is not None:
+                    _view(part, (chunks * B * G * D,)).zero_()  # the scratch is the wrapper's
+        return 0
+
     def vqa_glimpse_head_f32(self, joint, w, bias, v, out, logits, B, R, M, G, D, staged,
                              stream):
         self.calls.append(("glimpse_f32", "head"))
@@ -358,23 +398,17 @@ def test_relation_attend_dispatches_the_tc_design(split_dispatch, dtype, atol):
     _assert_near(got, want, atol)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("R,G,groups,chunks", [(196, 512, 4, 1), (16_384, 4, 4, 64)])
-def test_glimpse_kernels_dispatch_the_split_design(split_dispatch, dtype, R, G, groups, chunks):
-    """glimpse_head and glimpse_attend past alpha [R, G] in shared memory
-    take the split entry with the plan's groups and chunks at B=1 (scratch
-    only where the regions are split); their outputs are the plain
-    version's."""
-    g = torch.Generator().manual_seed(1)
+def _glimpse_inputs(dtype, R, G, seed=1):
+    g = torch.Generator().manual_seed(seed)
     B, M, D = 1, 24, 16
     joint = torch.tanh(torch.randn(B, R, M, generator=g)).to(dtype)
     w = (torch.randn(M, G, generator=g) / M ** 0.5).to(dtype)
     b = torch.randn(G, generator=g).to(dtype)
     v = torch.randn(B, R, D, generator=g).to(dtype)
-    att, logits = glimpse_head(joint, w, b, v)
-    got = glimpse_attend(logits, v)
-    assert split_dispatch.calls == [("glimpse_split", "head", groups, chunks),
-                                    ("glimpse_split", "attend", groups, chunks)]
+    return joint, w, b, v
+
+
+def _assert_glimpse_outputs(dtype, joint, w, b, v, att, logits, got):
     ref_att, ref_logits = glimpse_head_reference(*(x.float() for x in (joint, w, b, v)))
     tol = 1e-5 if dtype == torch.float32 else GLIMPSE_ATOL
     assert (logits.float() - ref_logits).abs().max().item() <= tol
@@ -383,6 +417,72 @@ def test_glimpse_kernels_dispatch_the_split_design(split_dispatch, dtype, R, G, 
     for out, want in ((logits, ref_logits), (att, ref_att),
                       (got, glimpse_attend_reference(logits.float(), v.float()))):
         _assert_near(out, want, GLIMPSE_ATOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("R,G,groups,chunks,tc_n,tc_chunks", [(196, 512, 4, 1, 128, 4),
+                                                              (16_384, 4, 4, 64, 8, 256)])
+def test_glimpse_kernels_dispatch_the_split_design(split_dispatch, dtype, R, G, groups, chunks,
+                                                   tc_n, tc_chunks):
+    """glimpse_head and glimpse_attend past alpha [R, G] in shared memory
+    at B=1: float32 takes the split entry with the plan's groups and chunks
+    (scratch only where the regions are split); bf16 the tc entry, its two
+    launches a call (the logits' scratch handed from the first to the
+    second; glimpses in groups of the plan's wgmma width, the regions in
+    chunks of 64, one a CTA at B=1), each call counted under its design;
+    the outputs are the plain version's."""
+    joint, w, b, v = _glimpse_inputs(dtype, R, G)
+    design = "split" if dtype == torch.float32 else "tc"
+    before = glimpse_head.design_launches[design], glimpse_attend.design_launches[design]
+    att, logits = glimpse_head(joint, w, b, v)
+    got = glimpse_attend(logits, v)
+    if dtype == torch.float32:
+        assert split_dispatch.calls == [("glimpse_split", "head", groups, chunks),
+                                        ("glimpse_split", "attend", groups, chunks)]
+    else:
+        assert split_dispatch.calls == [("glimpse_tc", entry, which, tc_n, tc_chunks)
+                                        for entry in ("head", "attend") for which in (0, 1)]
+    assert (glimpse_head.design_launches[design], glimpse_attend.design_launches[design]) == \
+        (before[0] + 1, before[1] + 1)
+    _assert_glimpse_outputs(dtype, joint, w, b, v, att, logits, got)
+
+
+@pytest.mark.parametrize("R,G,groups,chunks", [(196, 512, 4, 1), (16_384, 4, 4, 64)])
+def test_glimpse_kernels_dispatch_the_split_design_in_bf16_without_tma(split_dispatch, R, G,
+                                                                       groups, chunks):
+    """bf16 with v off 16 bytes (no TMA, so not the tc design) takes the
+    split entry with the plan's groups and chunks, counted under it; the
+    outputs are the plain version's."""
+    joint, w, b, v = _glimpse_inputs(torch.bfloat16, R, G)
+    v = _off_16_bytes(v)
+    before = glimpse_head.design_launches["split"], glimpse_attend.design_launches["split"]
+    att, logits = glimpse_head(joint, w, b, v)
+    got = glimpse_attend(logits, v)
+    assert split_dispatch.calls == [("glimpse_split", "head", groups, chunks),
+                                    ("glimpse_split", "attend", groups, chunks)]
+    assert (glimpse_head.design_launches["split"], glimpse_attend.design_launches["split"]) == \
+        (before[0] + 1, before[1] + 1)
+    _assert_glimpse_outputs(torch.bfloat16, joint, w, b, v, att, logits, got)
+
+
+@pytest.mark.parametrize("R,G,groups,chunks", [(196, 512, 4, 1), (16_384, 4, 4, 64)])
+def test_glimpse_kernels_run_the_forced_split_design_in_bf16(split_dispatch, R, G, groups,
+                                                             chunks):
+    """bf16 on 16 bytes with the split design forced (copy="split", as
+    chip_smoke.py times it beside tc): the launch functions take the split
+    entry with its plan's groups and chunks."""
+    joint, w, b, v = _glimpse_inputs(torch.bfloat16, R, G)
+    B, _, M = joint.shape
+    D = v.shape[2]
+    att = torch.empty(B, G, D, dtype=torch.bfloat16)
+    logits = torch.empty(B, R, G, dtype=torch.bfloat16)
+    attention.launch_glimpse_head(joint, w, b, v, att, logits,
+                                  glimpse_plan(B, R, M, G, D, copy="split"))
+    got = torch.empty_like(att)
+    attention.launch_glimpse_attend(logits, v, got, glimpse_plan(B, R, 0, G, D, copy="split"))
+    assert split_dispatch.calls == [("glimpse_split", "head", groups, chunks),
+                                    ("glimpse_split", "attend", groups, chunks)]
+    _assert_glimpse_outputs(torch.bfloat16, joint, w, b, v, att, logits, got)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -309,15 +309,17 @@ def test_glimpse_plan_at_the_concat_and_mlb_shapes(M, G):
 
 
 def test_glimpse_plan_refuses_only_past_shared_memory():
-    """alpha [R, G] past shared memory takes the split design (R=196 with
-    G=512: alpha alone is 196 x 512 floats; every region in one block, the
-    glimpses in groups small enough to fill 264 blocks at B=8, the two
-    largest groups that fit at B=1024), as does a card too small for the
-    ring; only a limit below one region of one glimpse group refuses."""
-    big = glimpse_plan(8, 196, 510, 512, 2048)
+    """alpha [R, G] past shared memory takes the split design where forced
+    (by default in bf16 the tc design; R=196 with G=512: alpha alone is 196
+    x 512 floats; every region in one block, the glimpses in groups small
+    enough to fill 264 blocks at B=8, the two largest groups that fit at
+    B=1024), as does a card too small for the ring; only a limit below one
+    region of one glimpse group refuses."""
+    assert glimpse_plan(8, 196, 510, 512, 2048)["copy"] == "tc"
+    big = glimpse_plan(8, 196, 510, 512, 2048, copy="split")
     assert (big["copy"], big["groups"], big["chunks"], big["ctas"]) == ("split", 16, 1, 256)
     assert big["smem_bytes"] == 196 * 16 * 4
-    eval_batch = glimpse_plan(1024, 196, 510, 512, 2048)
+    eval_batch = glimpse_plan(1024, 196, 510, 512, 2048, copy="split")
     assert (eval_batch["groups"], eval_batch["chunks"]) == (256, 1)
     assert eval_batch["smem_bytes"] == 196 * 256 * 4 <= GLIMPSE_SMEM_LIMIT
     small = glimpse_plan(8, 36, 510, 2, 2048, smem_limit=1024)

@@ -51,6 +51,8 @@ _SIGNATURES = {
     "vqa_glimpse_head_f32": [*[_PTR] * 6, *[_INT] * 6, _PTR],
     "vqa_glimpse_attend_f32": [*[_PTR] * 3, *[_INT] * 4, _PTR],
     "vqa_glimpse_split": [*[_PTR] * 9, *[_INT] * 8, _PTR],
+    "vqa_glimpse_tc": [*[_PTR] * 10, *[_INT] * 12, _PTR],
+    "vqa_glimpse_tc_geometry": [*[_INT] * 12, _PTR],
     "vqa_smem_optin": [_PTR],
     "vqa_mfb_pool": [_PTR, _PTR, _I64, _INT, _INT, _PTR],
     "vqa_mfb_pool_f32": [_PTR, _PTR, _I64, _INT, _INT, _PTR],

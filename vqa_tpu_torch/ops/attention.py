@@ -10,9 +10,11 @@ Both forwards are registered ops (``torch.ops.vqa_tpu_torch.glimpse_head``
 and ``.glimpse_attend``): on CUDA tensors they launch the hand-written
 kernel in ``csrc/glimpse_head.cu`` (glimpse_attend is its logits-given
 entry) with the schedule ``glimpse_plan`` gives: bf16 operands through the
-bf16 designs, float32 operands through the float32 entries (nothing
-rounded, as the Pallas kernels compute in their input's dtype); on CPU
-tensors they take the plain version. Each wrapper counts its own launches.
+bf16 designs (past alpha [R, G] in shared memory, the two wgmma kernels of
+``csrc/glimpse_tc.cu``), float32 operands through the float32 entries
+(nothing rounded, as the Pallas kernels compute in their input's dtype); on
+CPU tensors they take the plain version. Each wrapper counts its own
+launches, and its calls by design in ``design_launches``.
 
 Where an input asks for grads, each call is a ``torch.autograd.Function``:
 the same forward, and a backward by autograd through the plain version on
@@ -25,6 +27,7 @@ uniform weights and finite grads.
 
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import torch
@@ -44,8 +47,17 @@ _RING = 4                     # this many stages
 _JOINT_BYTES = 32 * 1024      # w and a CTA's joint slice staged in shared memory up to this
 _TX_LIMIT = (1 << 20) - 1     # bytes one mbarrier phase can await
 _COPY = {"plain": 0, "bulk": 1, "parent": 2}  # csrc/glimpse_head.cu's kMode*
-DESIGNS = (*_COPY, "f32", "split")            # every plan's "copy"
+DESIGNS = (*_COPY, "f32", "split", "tc")      # every plan's "copy"
 _PARENT_MAX_G = 4             # accumulators a thread of the parent kernel keeps
+# csrc/glimpse_tc.cu's constants: the weighted sum's glimpse widths (wgmma's
+# N), its regions a stage, columns a CTA and v's box (64 regions x 128
+# bytes); the logits kernel's region tiles and threads
+_TC_N = (8, 16, 24, 32, 64, 128)
+_TC_STAGE = 64
+_TC_COLS = 128
+_TC_VBOX = 64 * 128
+_TC_ROWS = (64, 32, 16)
+_TC_LOGIT_THREADS = 256
 
 
 def _ceil(a: int, b: int) -> int:
@@ -110,6 +122,84 @@ def _split_plan(B: int, R: int, G: int, D: int, smem_limit: int, sms: int = SMS)
                       "merged by their log-sum-exp"}
 
 
+def _tc_logits_smem(rows: int, ln: int, M: int) -> int:
+    """csrc/glimpse_tc.cu's logits_layout().total: the barrier, the bias,
+    the statistics' partials (a pair a thread), the K parts' products [128,
+    ln] fp32, and for glimpse_head (M > 0) w^T [ln, M rounded up to 16, + 8]
+    bf16 and the joint tile with its lead."""
+    s = 16 + _align16(ln * 4) + _TC_LOGIT_THREADS * 8 + 128 * ln * 4
+    if M:
+        s += ln * (_ceil(M, 16) * 16 + 8) * 2 + _align16(rows * M * 2 + 32)
+    return s
+
+
+def _tc_sum_smem(n: int, stages: int) -> int:
+    """csrc/glimpse_tc.cu's SumLayout<n>::total: (m, l) of n glimpses and the
+    ring's barriers, 1 KB to align the ring, and each stage's v boxes,
+    alpha^T [n, 64] bf16 and fp32 logits [64, n]."""
+    stage = 2 * _TC_VBOX + n * 128 + _TC_STAGE * n * 4
+    return _align16(8 * n + 16 * stages) + 1024 + stages * stage
+
+
+def _tc_plan(B: int, R: int, M: int, G: int, D: int, smem_limit: int, sms: int) -> dict | None:
+    """The "tc" design (bf16, v loadable by TMA), or None where its shared
+    memory does not fit ``smem_limit``. ``groups``: the glimpses a group
+    (the weighted sum's wgmma N: G rounded up to one of ``_TC_N``; groups of
+    128 past it); ``ln`` and ``rows``: the logits kernel's tiles of
+    glimpses (up to 64) and regions (64), fewer where joint's rows are
+    wide, its CTAs each walking tiles (``logits``);
+    the weighted sum a CTA a (row, group, 128 columns of d, chunk of the
+    regions) over ``stages`` stages of 64 regions (the most up to 4 that
+    leave two CTAs on an SM, where three do), the regions in ``chunks`` only
+    where those CTAs leave SMs idle. Scratch (``scratch_bytes``): the fp32
+    logits [B, groups, R rounded up to 64, n], the tile statistics [B,
+    groups n, ceil(R / rows), 2] and, with chunks, the partials [chunks, B,
+    G, D]."""
+    n = next((w for w in _TC_N if w >= G), _TC_N[-1])
+    n_groups = _ceil(G, n)
+    # the most glimpses, then the most regions, a logits CTA holds (joint is
+    # read once a tile of ln glimpses)
+    tiles = [(ln, rows) for ln in (64, 32, 24, 16, 8) if ln <= n and n % ln == 0
+             for rows in _TC_ROWS if _tc_logits_smem(rows, ln, M) <= smem_limit]
+    fits = [st for st in (4, 3, 2) if _tc_sum_smem(n, st) <= smem_limit]
+    if not tiles or not fits:
+        return None
+    ln, rows = tiles[0]
+
+    def two(smem: int) -> bool:  # two CTAs on an SM (each also holds 1 KB)
+        return 2 * (smem + 1024) <= smem_limit + 1024
+
+    stages = next((st for st in fits if st >= 3 and two(_tc_sum_smem(n, st))), fits[0])
+    smem = _tc_sum_smem(n, stages)
+    fill = (2 if two(smem) else 1) * sms
+    n_rt = _ceil(R, _TC_STAGE)
+    ctas = B * n_groups * _ceil(D, _TC_COLS)
+    chunks = min(n_rt, _ceil(fill, ctas)) if ctas < fill else 1
+    chunk_stages = _ceil(n_rt, chunks)
+    chunks = _ceil(n_rt, chunk_stages)  # the same chunks, evened
+    rtiles, n_gt = _ceil(R, rows), n_groups * n // ln
+    slots = max(1, min(B * rtiles, _ceil(2 * sms, n_gt)))
+    return {"copy": "tc", "split": 1, "chunk": chunk_stages * _TC_STAGE, "stages": stages,
+            "groups": n, "rows": rows, "ln": ln, "chunks": chunks,
+            "smem_bytes": smem, "ctas": ctas * chunks, "threads": 288,
+            "logits": {"ctas": n_gt * slots, "slots": slots, "threads": _TC_LOGIT_THREADS,
+                       "smem_bytes": _tc_logits_smem(rows, ln, M)},
+            "scratch_bytes": (B * n_groups * n_rt * _TC_STAGE * n * 4
+                              + B * n_groups * n * rtiles * 8
+                              + (chunks * B * G * D * 4 if chunks > 1 else 0)),
+            "design": "tc: the logits on mma.sync over bulk-copied joint tiles into fp32 scratch "
+                      "with each tile's (max, sum of exp), then the weighted sum on wgmma, v read "
+                      "once by TMA, alpha rounded once to bf16"}
+
+
+def _past_shared_memory(B: int, R: int, M: int, G: int, D: int, vec: bool, smem_limit: int,
+                        sms: int) -> dict:
+    """bf16 past alpha [R, G] in shared memory: the tc design where TMA can
+    load v and its shared memory fits, else the split design."""
+    tc = _tc_plan(B, R, M, G, D, smem_limit, sms) if vec else None
+    return tc if tc is not None else _split_plan(B, R, G, D, smem_limit, sms)
+
+
 def _f32_plan(B: int, R: int, M: int, G: int, D: int, smem_limit: int, sms: int) -> dict:
     """The float32 entries' design where alpha [R, G] fits: a block a row,
     alpha in shared memory and w [M, G] beside it where both fit; past it,
@@ -150,22 +240,29 @@ def glimpse_plan(B: int, R: int, M: int, G: int, D: int, vec: bool = True,
       (``resident``) up to 96 KB, else 4 stages refilled as they drain;
     - "plain" (``vec=False``: D % 8 != 0, or a pointer off 16 bytes): the
       ring's generic path, one CTA a row, one stage of plain copies;
-    - "split" (either type), where alpha [R, G] and one region of the ring
-      (float32: alpha alone) exceed ``smem_limit``, e.g. R=196 with G=512:
+    - "tc" (bf16, ``vec``), where alpha [R, G] and one region of the ring
+      exceed ``smem_limit`` (R=3136 with 24 glimpses, R=196 with G=512,
+      R=16,384): the two kernels of csrc/glimpse_tc.cu, the logits on
+      mma.sync into fp32 scratch with each tile's (max, sum of exp), then
+      the weighted sum on wgmma, v read once by TMA (``_tc_plan``);
+    - "split" (either type), there where "tc" cannot run (``vec=False``,
+      float32, or its shared memory past ``smem_limit``), or where forced:
       a block a (row, group of ``groups`` glimpses, chunk of the regions),
       alpha [chunk, groups] in shared memory, v read from device memory; the
       regions split into ``chunks`` only past alpha [R, 4] (R > ~14,500),
       those chunks merged by their log-sum-exp.
 
-    ``copy`` ("parent", "bulk", "plain") and ``split`` may be forced, to
-    probe other schedules. Raises ValueError, naming the limit, where even
-    one region of one glimpse group exceeds ``smem_limit`` (the shared
-    memory a block may opt into on the card).
+    ``copy`` ("parent", "bulk", "plain", and "split" in either type) and
+    ``split`` may be forced, to probe other schedules. Raises ValueError,
+    naming the limit, where even one region of one glimpse group exceeds
+    ``smem_limit`` (the shared memory a block may opt into on the card).
     Cached: the wrappers ask for it at every call; the dict is shared, not
     to be changed."""
     if min(B, R, G, D) < 1 or M < 0:
         raise ValueError(f"glimpse kernels need B, R, G, D >= 1 and M >= 0, got B={B}, R={R}, "
                          f"M={M}, G={G}, D={D}")
+    if copy == "split" and elem in (2, 4):
+        return _split_plan(B, R, G, D, smem_limit, sms)
     if elem == 4:
         return _f32_plan(B, R, M, G, D, smem_limit, sms)
     if elem != 2:
@@ -208,9 +305,9 @@ def glimpse_plan(B: int, R: int, M: int, G: int, D: int, vec: bool = True,
         elif chunk > 1:
             chunk = _ceil(chunk, 2)
         else:  # alpha [R, G] and one region of the ring do not fit
-            return _split_plan(B, R, G, D, smem_limit, sms)
+            return _past_shared_memory(B, R, M, G, D, vec, smem_limit, sms)
     if chunk * dc * 2 > _TX_LIMIT:  # a stage past what one mbarrier phase can await
-        return _split_plan(B, R, G, D, smem_limit, sms)
+        return _past_shared_memory(B, R, M, G, D, vec, smem_limit, sms)
     return {"copy": "bulk" if vec else "plain", "split": split, "chunk": chunk,
             "stages": stages, "staged": staged, "resident": stages >= _ceil(R, chunk),
             "smem_bytes": _smem_bytes(R, M, G, dc, split, chunk, stages, staged),
@@ -247,6 +344,121 @@ def glimpse_attend_split_model(logits: torch.Tensor, v: torch.Tensor,
     return lse_merge(torch.stack(parts, -2), torch.stack(ms, -1), torch.stack(ls, -1))
 
 
+def _acc(t: torch.Tensor) -> torch.Tensor:
+    """``t`` in its accumulation type: fp32 for bf16 and float32, else its own."""
+    return t.to(torch.promote_types(t.dtype, torch.float32))
+
+
+def glimpse_tc_logits_model(joint: torch.Tensor, w: torch.Tensor,
+                            b: torch.Tensor) -> torch.Tensor:
+    """The tc design's logits in plain PyTorch: joint·w + b in fp32 (the
+    Pallas kernel's dot, then the bias), unrounded."""
+    return _acc(joint) @ _acc(w) + _acc(b)
+
+
+def glimpse_tc_stats_model(logits: torch.Tensor, rows: int) -> torch.Tensor:
+    """Each (row, glimpse)'s (max, sum of exp) over each tile of ``rows``
+    regions of ``logits`` [B, R, G]: stats [B, G, tiles, 2] (the logits
+    kernel's, csrc/lse_merge.cuh's convention)."""
+    tiles = logits.split(rows, dim=1)
+    m = torch.stack([t.amax(1) for t in tiles], -1)
+    l = torch.stack([torch.exp(t - mt.unsqueeze(1)).sum(1)
+                     for t, mt in zip(tiles, m.unbind(-1))], -1)
+    return torch.stack([m, l], -1)
+
+
+def glimpse_tc_sum_model(logits: torch.Tensor, stats: torch.Tensor, v: torch.Tensor,
+                         chunks: int = 1) -> torch.Tensor:
+    """The tc design's weighted sum in plain PyTorch: each glimpse's tile
+    statistics merged in tile order (m = max_t m_t, l = sum_t l_t
+    e^(m_t - m)), alpha = exp(logits - m) / l rounded once to v's dtype,
+    the sum in fp32 over ``chunks`` chunks of whole 64-region stages, added
+    in chunk order, the output rounded once."""
+    mc, lc = stats.unbind(-1)
+    m = mc.amax(-1)
+    l = (lc * torch.exp(mc - m.unsqueeze(-1))).sum(-1)
+    alpha = _acc((torch.exp(logits - m.unsqueeze(1)) / l.unsqueeze(1)).to(v.dtype))
+    vv = _acc(v)
+    chunk = _ceil(_ceil(v.shape[1], _TC_STAGE), chunks) * _TC_STAGE
+    out = None
+    for r0 in range(0, v.shape[1], chunk):
+        part = torch.einsum("brg,brd->bgd", alpha[:, r0:r0 + chunk], vv[:, r0:r0 + chunk])
+        out = part if out is None else out + part
+    return out.to(v.dtype)
+
+
+def glimpse_tc_model(logits: torch.Tensor, v: torch.Tensor, rows: int = 64,
+                     chunks: int = 1) -> torch.Tensor:
+    """The tc design's arithmetic in plain PyTorch, to hold it against the
+    reference and the Pallas kernels: the logits (``logits`` in their
+    accumulation type: the fp32 logits glimpse_head computes, or those
+    given) in tiles of ``rows`` regions with their statistics, then the
+    weighted sum (``glimpse_tc_sum_model``)."""
+    logits = _acc(logits)
+    return glimpse_tc_sum_model(logits, glimpse_tc_stats_model(logits, rows), v, chunks)
+
+
+def _tc_scratch_sizes(B: int, R: int, G: int, D: int, plan: dict) -> tuple:
+    """The floats of the tc design's three scratch arrays: the logits [B,
+    groups, R rounded up to 64, n], the tile statistics [B, groups n,
+    ceil(R / rows), 2] and, with chunks, the partials [chunks, B, G, D]
+    (else 0). Each is a multiple of 16 floats (the logits' rows are whole
+    64-region stages, n a multiple of 8), so each starts on 16 bytes."""
+    n, chunks = plan["groups"], plan["chunks"]
+    n_groups = _ceil(G, n)
+    return (B * n_groups * _ceil(R, _TC_STAGE) * _TC_STAGE * n,
+            B * n_groups * n * _ceil(R, plan["rows"]) * 2,
+            chunks * B * G * D if chunks > 1 else 0)
+
+
+def tc_scratch(B: int, R: int, G: int, D: int, device, plan: dict) -> torch.Tensor:
+    """The tc design's fp32 scratch on ``device``: one allocation holding
+    the arrays of ``_tc_scratch_sizes`` one after another."""
+    return torch.empty(sum(_tc_scratch_sizes(B, R, G, D, plan)), dtype=torch.float32,
+                       device=device)
+
+
+def tc_launch_geometry(B: int, R: int, M: int, G: int, D: int, plan: dict,
+                       device_index: int) -> dict:
+    """What csrc/glimpse_tc.cu launches for the tc ``plan`` at this shape
+    (M = 0: glimpse_attend), by its own reckoning: the logits kernel's CTAs,
+    threads and shared memory, and the weighted sum's under "weighted"."""
+    geometry = (ctypes.c_longlong * 3)()
+    launches = []
+    with torch.cuda.device(device_index):
+        for which in (0, 1):
+            _build.check(_build.library().vqa_glimpse_tc_geometry(
+                B, R, M, G, D, plan["groups"], plan["rows"], plan["ln"], plan["stages"],
+                plan["chunks"], plan["logits"]["slots"], which, geometry), "glimpse tc geometry")
+            launches.append(dict(zip(("ctas", "threads", "smem_bytes"), geometry)))
+    return {**launches[0], "weighted": launches[1]}
+
+
+def _launch_tc(joint, w, b, logits_in, v, attended, logits_out, plan: dict,
+               launches: tuple = (0, 1), scratch: torch.Tensor | None = None) -> None:
+    """The tc design's ``launches`` (0 the logits, 1 the weighted sum), in
+    one call of its entry, for glimpse_head where ``joint`` is given, else
+    glimpse_attend on ``logits_in``, over ``scratch`` (``tc_scratch``'s;
+    allocated here if None)."""
+    B, R, D = v.shape
+    G = attended.shape[1]
+    n_lg, n_stats, n_part = _tc_scratch_sizes(B, R, G, D, plan)
+    if scratch is None:
+        scratch = torch.empty(n_lg + n_stats + n_part, dtype=torch.float32, device=v.device)
+    lg = scratch.data_ptr()
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    err = _build.library().vqa_glimpse_tc(
+        ptr(joint), ptr(w), ptr(b), ptr(logits_in), v.data_ptr(), attended.data_ptr(),
+        ptr(logits_out), lg, lg + 4 * n_lg, lg + 4 * (n_lg + n_stats) if n_part else None, B, R,
+        0 if joint is None else joint.shape[2], G, D, plan["groups"], plan["rows"], plan["ln"],
+        plan["stages"], plan["chunks"], plan["logits"]["slots"], sum(1 << k for k in launches),
+        _build.current_stream(v.device))
+    _build.check(err, "glimpse_head" if joint is not None else "glimpse_attend")
+
+
 def _launch_split(joint, w, b, logits_in, v, attended, logits_out, plan: dict) -> None:
     """One call of the split design's entry (glimpse_head where ``joint``
     is given, else glimpse_attend on ``logits_in``), its scratch allocated
@@ -272,8 +484,12 @@ def _launch_split(joint, w, b, logits_in, v, attended, logits_out, plan: dict) -
 def launch_glimpse_attend(logits: torch.Tensor, v: torch.Tensor, attended: torch.Tensor,
                           plan: dict) -> None:
     """One launch of the logits-given entry with ``plan``'s schedule (the
-    float32 entry for a float32 plan; the split design's own entry)."""
+    float32 entry for a float32 plan; the split and the tc design each
+    through its own entry)."""
     B, R, G = logits.shape
+    if plan["copy"] == "tc":
+        _launch_tc(None, None, None, logits, v, attended, None, plan)
+        return
     if plan["copy"] == "split":
         _launch_split(None, None, None, logits, v, attended, None, plan)
         return
@@ -351,8 +567,12 @@ def glimpse_head_reference(joint: torch.Tensor, w: torch.Tensor, b: torch.Tensor
 
 def launch_glimpse_head(joint, w, b, v, attended, logits, plan: dict) -> None:
     """One launch of glimpse_head with ``plan``'s schedule (the float32
-    entry for a float32 plan; the split design's own entry)."""
+    entry for a float32 plan; the split and the tc design each through its
+    own entry)."""
     B, R, M = joint.shape
+    if plan["copy"] == "tc":
+        _launch_tc(joint, w, b, None, v, attended, logits, plan)
+        return
     if plan["copy"] == "split":
         _launch_split(joint, w, b, None, v, attended, logits, plan)
         return
