@@ -21,6 +21,7 @@ import json
 import os
 import subprocess
 import sys
+import threading
 
 import numpy as np
 import pytest
@@ -293,6 +294,20 @@ def test_cli_profile_dir_writes_a_trace(run, tmp_path, train):
     assert {"aten::mm", "aten::tanh"} & names, sorted(n for n in names if n)[:20]
     assert any("Backward" in n for n in names if n) == train
     assert os.path.exists(os.path.join(logs, "results", "vqa_OpenEnded_val_epoch0_results.json"))
+
+
+def test_cli_profile_dir_trace_holds_the_eval_spans(run, tmp_path):
+    """The -e --profile_dir trace holds the eval epoch's spans
+    (vqa_tpu_torch/utils/spans.py), on the main thread."""
+    trace = str(tmp_path / "trace")
+    assert port_cli.main(_argv(run, str(tmp_path / "logs")) + ["--profile_dir", trace]) == 0
+    (name,) = os.listdir(trace)
+    with open(os.path.join(trace, name)) as f:
+        events = json.load(f)["traceEvents"]
+    spans = {e["name"]: e["tid"] for e in events if e.get("cat") == "user_annotation"}
+    for span in ("vqa_tpu_torch.loader.take", "vqa_tpu_torch.eval.step",
+                 "vqa_tpu_torch.eval.readback", "vqa_tpu_torch.eval.results"):
+        assert spans.get(span) == threading.main_thread().native_id, (span, sorted(spans))
 
 
 def _eval_rows(run, model, opt):

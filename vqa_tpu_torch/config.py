@@ -158,7 +158,7 @@ class EngineOptions:
     seed: int = 1337
     dtype: str = "float32"             # compute dtype: 'float32' | 'bfloat16'
     donate: bool = True
-    profile_dir: Optional[str] = None  # jax.profiler trace dir (SURVEY.md section 5.1)
+    profile_dir: Optional[str] = None  # torch.profiler trace dir (cli/train.py)
     nan_check: bool = False            # jax.debug_nans-style guard (section 5.2)
     pallas: str = "auto"               # 'auto' | 'on' | 'off' — fused-kernel layer
     # JAX PRNG implementation for dropout streams: 'rbg' (XLA RngBitGenerator,

@@ -20,6 +20,7 @@ from typing import Callable, Dict, Iterator, Optional
 import numpy as np
 
 from vqa_tpu_torch.datasets.vqa2 import VQA2Dataset
+from vqa_tpu_torch.utils.spans import span
 
 
 def normalize_buckets(buckets, maxlength: int) -> tuple:
@@ -188,10 +189,29 @@ class BatchIterator:
             yield self._truncate(batch)
 
     def epoch(self, epoch: int = 0) -> Iterator:
-        """Iterate one epoch, with background assembly/transfer."""
+        """Iterate one epoch, with background assembly/transfer. Each batch's
+        take on the consuming thread is the span ``vqa_tpu_torch.loader.take``
+        (``utils/spans.py``), closed before the batch is handed out; the take
+        that finds the epoch's end is no batch's and has none."""
+        takes = self.steps_per_epoch()
+
+        def take(get):
+            nonlocal takes
+            takes -= 1
+            if takes < 0:
+                return get()
+            with span("vqa_tpu_torch.loader.take"):
+                return get()
+
         if self.prefetch <= 0:
-            for batch in self._batches(epoch):
-                yield self.transform(batch) if self.transform else batch
+            batches = self._batches(epoch)
+
+            def assemble():
+                batch = next(batches, None)
+                return self.transform(batch) if batch is not None and self.transform else batch
+
+            while (item := take(assemble)) is not None:
+                yield item
             return
 
         q: queue.Queue = queue.Queue(maxsize=self.prefetch)
@@ -219,10 +239,7 @@ class BatchIterator:
         t = threading.Thread(target=producer, daemon=True)
         t.start()
         try:
-            while True:
-                item = q.get()
-                if item is sentinel:
-                    break
+            while (item := take(q.get)) is not sentinel:
                 yield item
         finally:
             # consumer may abandon the generator early (break/exception):

@@ -39,6 +39,7 @@ import torch
 from vqa_tpu_torch.engine.logger import Experiment
 from vqa_tpu_torch.engine.meters import MeterBank
 from vqa_tpu_torch.parallel.mesh import local_rows
+from vqa_tpu_torch.utils.spans import span
 
 # the batch keys the step reads on the card. ``image_index`` is not among
 # them: the gather range-checks it on the host and carries it in the
@@ -223,7 +224,10 @@ def _eval_loop(
     batch would leave the card idle while the host reads each result. Over a
     distributed ``mesh`` the loader's transform hands this rank its slice of
     each batch and the readback gathers every rank's; ``qa_per_sec`` counts
-    the global batch's questions."""
+    the global batch's questions. Under a profiler each batch's dispatch is
+    the span ``vqa_tpu_torch.eval.step``, the readback
+    ``vqa_tpu_torch.eval.readback`` and the results rows
+    ``vqa_tpu_torch.eval.results`` (``utils/spans.py``)."""
     total = {"n": 0, "n_labeled": 0, "correct1": 0, "correct5": 0}
     results: List[Dict[str, Any]] = []
     outs: List[Dict[str, torch.Tensor]] = []
@@ -231,25 +235,28 @@ def _eval_loop(
     t0 = time.perf_counter()
     for batch in loader.epoch(epoch):
         device_batch, question_ids, valid_host = _split_batch(batch)
-        outs.append(eval_step(model, device_batch, features))
+        with span("vqa_tpu_torch.eval.step"):
+            outs.append(eval_step(model, device_batch, features))
         metas.append((question_ids, valid_host))
     if not outs:
         return {"n": 0, "eval_time": 0.0, "qa_per_sec": 0.0}, []
-    stacked = _readback_stacked(outs, mesh)
+    with span("vqa_tpu_torch.eval.readback"):
+        stacked = _readback_stacked(outs, mesh)
     n_seen = 0
-    for i, (question_ids, valid_host) in enumerate(metas):
-        pred = stacked["pred"][i]
-        if valid_host is not None:
-            pred = pred[valid_host]
-            question_ids = question_ids[valid_host]
-        for qid, aid in zip(question_ids.tolist(), pred.tolist()):
-            results.append({"question_id": qid, "answer": aid_to_ans[aid]})
-        total["n"] += int(stacked["n"][i])
-        if "correct1" in stacked:
-            total["n_labeled"] += int(stacked["n_labeled"][i])
-            total["correct1"] += int(stacked["correct1"][i])
-            total["correct5"] += int(stacked["correct5"][i])
-        n_seen += len(pred)
+    with span("vqa_tpu_torch.eval.results"):
+        for i, (question_ids, valid_host) in enumerate(metas):
+            pred = stacked["pred"][i]
+            if valid_host is not None:
+                pred = pred[valid_host]
+                question_ids = question_ids[valid_host]
+            for qid, aid in zip(question_ids.tolist(), pred.tolist()):
+                results.append({"question_id": qid, "answer": aid_to_ans[aid]})
+            total["n"] += int(stacked["n"][i])
+            if "correct1" in stacked:
+                total["n_labeled"] += int(stacked["n_labeled"][i])
+                total["correct1"] += int(stacked["correct1"][i])
+                total["correct5"] += int(stacked["correct5"][i])
+            n_seen += len(pred)
     wall = time.perf_counter() - t0
     metrics = {
         "n": total["n"],
